@@ -1,0 +1,63 @@
+"""Block-paged KV-cache pool: host-side page accounting for the engine (a
+copy of ``repro/serve/kvpool.py``, which is numpy-only; the port keeps its
+own).
+
+A free-list allocator with per-page refcounts over ``n_pages`` pages of
+``page_tokens`` cache rows each (sharing a page between slots, and so
+``retain``, comes with the prefix trie). Page id i addresses the same physical
+page in every layer's pool tensor, so one page table (n_slots,
+max_len // page_tokens) translates a slot's positions for the whole stack.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+
+
+class KVPool:
+    """Refcounted free-list allocator over ``n_pages`` KV pages."""
+
+    def __init__(self, n_pages: int, page_tokens: int):
+        if n_pages <= 0:
+            raise ValueError(f"n_pages must be positive: {n_pages}")
+        if page_tokens <= 0:
+            raise ValueError(f"page_tokens must be positive: {page_tokens}")
+        self.n_pages = n_pages
+        self.page_tokens = page_tokens
+        self.refcounts = np.zeros((n_pages,), np.int64)
+        # LIFO free list: a just-freed page is reused first
+        self._free: List[int] = list(range(n_pages - 1, -1, -1))
+
+    def alloc(self) -> Optional[int]:
+        """Take a free page (refcount 1), or None when the pool is empty."""
+        if not self._free:
+            return None
+        pid = self._free.pop()
+        assert self.refcounts[pid] == 0, f"free page {pid} had references"
+        self.refcounts[pid] = 1
+        return pid
+
+    def release(self, pid: int) -> None:
+        """Drop one reference; the page returns to the free list at zero."""
+        if self.refcounts[pid] <= 0:
+            raise ValueError(f"release of unreferenced page {pid}")
+        self.refcounts[pid] -= 1
+        if self.refcounts[pid] == 0:
+            self._free.append(pid)
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return self.n_pages - len(self._free)
+
+    def check(self) -> None:
+        """Refcounts never negative; free list and referenced pages exactly
+        partition the pool."""
+        assert np.all(self.refcounts >= 0)
+        assert len(set(self._free)) == len(self._free)
+        assert int(np.sum(self.refcounts > 0)) + len(self._free) == self.n_pages
+        assert all(self.refcounts[p] == 0 for p in self._free)

@@ -1,0 +1,80 @@
+"""Token sampling: greedy / temperature / top-k (port of
+``repro/serve/sampling.py``).
+
+Greedy is ``argmax`` and matches the reference token for token. A
+stochastic row draws its Gumbel noise from a ``torch.Generator`` seeded
+from (its request's key stream, token index), so a request's tokens never
+depend on its batch neighbours or on scheduling. JAX's threefry PRNG is
+not ported: stochastic tokens are reproducible within the port, not equal
+to the reference's.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    temperature: Optional[float] = None  # None -> engine default; 0 -> greedy
+    top_k: Optional[int] = None          # None -> engine default; 0 -> off
+    max_tokens: int = 64
+    eos_id: int = -1                     # -1 -> never stops on a token
+    seed: Optional[int] = None           # explicit per-request stream seed
+
+    def resolve(self, default_temperature: float,
+                default_top_k: Optional[int]) -> "ResolvedSampling":
+        """Fill ``None`` sentinels from the engine defaults (explicit falsy
+        values like 0.0 / 0 are kept)."""
+        t = self.temperature if self.temperature is not None else default_temperature
+        k = self.top_k if self.top_k is not None else default_top_k
+        return ResolvedSampling(
+            temperature=float(t), top_k=int(k) if k is not None else 0,
+            eos_id=int(self.eos_id),
+            seed=int(self.seed) if self.seed is not None else None)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResolvedSampling:
+    temperature: float
+    top_k: int
+    eos_id: int
+    seed: Optional[int] = None
+
+
+def row_seed(stream: Tuple[int, ...], t: int) -> int:
+    """Generator seed for token ``t`` of the request key stream ``stream``:
+    (engine seed, rid), or (explicit request seed,)."""
+    state = np.random.SeedSequence([*stream, t]).generate_state(1, np.uint64)
+    return int(state[0]) & (2**63 - 1)
+
+
+def sample_logits_batch(logits: torch.Tensor, temperature: Sequence[float],
+                        top_k: Sequence[int], seeds: Sequence[Optional[int]]
+                        ) -> torch.Tensor:
+    """logits (B, V) -> token ids (B,) int64 on logits' device.
+
+    Row i is greedy when temperature[i] <= 0; otherwise it samples
+    softmax(logits / T) restricted to the top_k[i] largest logits (0 or >= V
+    restricts nothing) with the Gumbel-max trick, drawing its noise from a
+    generator seeded with seeds[i] alone."""
+    lf = logits.float()
+    out = lf.argmax(dim=-1)
+    v = lf.shape[-1]
+    for i, t in enumerate(temperature):
+        if t <= 0.0:
+            continue
+        row = lf[i] / t
+        k = int(top_k[i])
+        if 0 < k < v:
+            kth = torch.topk(row, k).values[-1]
+            row = torch.where(row < kth, float("-inf"), row)
+        gen = torch.Generator(device=lf.device)
+        gen.manual_seed(seeds[i])
+        u = torch.rand(v, generator=gen, device=lf.device)
+        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+        out[i] = (row + gumbel).argmax()
+    return out
