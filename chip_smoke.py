@@ -4,25 +4,38 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases (any failure raises and exits non-zero; no phase is skipped):
-  1. print the card's name and power limit, build kernels B1/B2 from
+  1. print the card's name and power limit, build kernels B1-B4 from
      ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
   2. kernel vs plain version on the card at the (K, r) pairs of the
-     full-width granite-8b path, bf16 and f32: B1 at m in {1, 4, 32}, B2 at
-     m in {33, 128, 512}; each call compared at rtol=1e-4,
+     full-width granite-8b path. B1 at m in {1, 4, 32} and B2 at m in
+     {33, 128, 512}, bf16 and f32, each compared at rtol=1e-4,
      atol=1e-4*max|u_ref| (x*±1 is exact in f32, so only the summation
-     order differs) and timed beside the plain version, ``torch.matmul`` on
-     the pre-unpacked ±1 tile (a yardstick the port never calls) and the
-     data-sheet bound;
+     order differs). B3 (xnor) and B4 (int8) at m in {1, 4, 32} on
+     quantized random activations, plus an n_in = 80 case whose tile comes
+     from ``pack_bits`` (pad bits): their int32 accumulators must be
+     exactly equal. Each is timed beside the plain version, the library
+     yardstick (``torch.matmul`` in bf16 on pre-unpacked operands, which
+     the port never calls) and the data-sheet bound;
   3. serve granite-8b at its published width through the user entry points
      (masters from a seed -> export -> BatchedEngine): 8 requests, prompts
      of 3-100 tokens, 16 greedy tokens each, 4 slots, 32-token chunks,
-     16-token pages; asserts that both kernels' launch counters rose on
-     this path alone; then traces three decode-only ticks with
-     torch.profiler (device busy time vs the tick's wall time, top kernels);
+     16-token pages, first with ``compute_path`` "float", then "xnor", then
+     "int8" on the same exported weights. Every launch counter is set to 0
+     just before each run and read just after it; each run asserts that its
+     decode kernel took every m <= 32 projection and that the kernels of the
+     other paths were not launched; then three decode-only ticks of each
+     path are traced with torch.profiler (device busy time vs the tick's
+     wall time, top kernels);
   4. the same exported weights at full width, 2 layers, f32: one extend and
      one decode_step on the card (kernels) against the CPU model (plain
-     versions), logits at rtol=atol=1e-3 (attention softmax and norms also
-     reorder sums).
+     versions), float logits at rtol=atol=1e-3 (attention softmax and norms
+     also reorder sums). The integer paths are held at the layer level:
+     ``tiled_dense_infer`` at every full-width shape, m = 4, card against
+     CPU, with equal quantized operands and int32 accumulators and outputs
+     at rtol=1e-5 (the f32 scale mean|x| is a reordered sum). Over a whole
+     model a reordered f32 sum upstream can flip one activation's sign or
+     int8 rounding, so the integer paths' model-level max|d logit| is
+     printed and only checked to be finite.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the JSON status line.
@@ -46,12 +59,18 @@ SHAPES = (("q/o", 4096, 512, 2), ("k/v", 4096, 128, 2),
           ("lm_head", 4096, 6144, 0))
 B1_MS = (1, 4, 32)
 B2_MS = (33, 128, 512)
+INT_MS = (1, 4, 32)
 N_SLOTS, CHUNK = 4, 32
 RTOL = 1e-4
+INT_RTOL = 1e-5
 # Data-sheet peaks (dense): memory bytes/s, bf16 tensor-core flop/s, f32
-# (non-tensor) flop/s; picked by the name nvidia-smi reports.
-PEAKS = {"SXM": (3.35e12, 989e12, 67e12), "PCIe": (2.0e12, 756e12, 51e12),
-         "NVL": (3.9e12, 835e12, 60e12)}
+# (non-tensor) flop/s, int8 tensor-core op/s; picked by the name nvidia-smi
+# reports.
+PEAKS = {"SXM": (3.35e12, 989e12, 67e12, 1979e12),
+         "PCIe": (2.0e12, 756e12, 51e12, 1513e12),
+         "NVL": (3.9e12, 835e12, 60e12, 1671e12)}
+# compute path -> the kernel that runs its m <= 32 projections
+PATH_KERNEL = {"float": "B1", "xnor": "B3", "int8": "B4"}
 
 
 def fail(msg: str) -> None:
@@ -71,6 +90,19 @@ def peaks(card: str):
         if key in card:
             return PEAKS[key]
     return PEAKS["SXM"]
+
+
+def kernels():
+    """{"B1".."B4": wrapper}: the wrappers whose ``launches`` count."""
+    from repro_torch.kernels.tiled_matmul import tiled_matmul_unique
+    from repro_torch.kernels.tiled_matvec import tiled_matvec_unique
+    from repro_torch.kernels.tiled_xnor import (
+        tiled_int8_matvec_unique,
+        tiled_xnor_matvec_unique,
+    )
+
+    return {"B1": tiled_matvec_unique, "B2": tiled_matmul_unique,
+            "B3": tiled_xnor_matvec_unique, "B4": tiled_int8_matvec_unique}
 
 
 def time_ms(fn, iters: int = 20, reps: int = 5) -> float:
@@ -129,20 +161,90 @@ def check_kernel(kernel, plain, x, packed, bw, peak):
         bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops)
 
 
+def int_operands(path: str, m: int, n_in: int, r: int, gen):
+    """(quantized activations as the kernel takes them, tile words, ±1 bf16
+    activations for the library yardstick) from random card tensors; the
+    tile is ``pack_bits`` of a random sign matrix, so pad bits are 0."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.packing import pack_bits, unpack_bits
+    from repro_torch.kernels.tiled_xnor import quantize_int8, quantize_sign
+
+    x = torch.randn((m, n_in), generator=gen, device="cuda").to(torch.bfloat16)
+    packed = pack_bits(torch.randn((r, n_in), generator=gen, device="cuda"))
+    k = packed.shape[1] * 32
+    if path == "xnor":
+        a, _ = quantize_sign(x, n_in)
+        lib_x = F.pad(unpack_bits(a, n_in, dtype=torch.bfloat16), (0, k - n_in))
+    else:
+        q, _ = quantize_int8(x, n_in)
+        a = F.pad(q, (0, k - n_in))
+        lib_x = a.to(torch.bfloat16)
+    return a, packed, lib_x
+
+
+def check_int_kernel(path: str, m: int, n_in: int, r: int, gen, bw, int_peak,
+                     timed: bool = True):
+    """B3 (``path`` "xnor") or B4 ("int8") once against its plain version on
+    the same card inputs: the int32 accumulators must be equal. Then, if
+    ``timed``, time both and the library yardstick."""
+    import torch
+
+    from repro_torch.kernels.tiled_matmul import unpack_rows
+    from repro_torch.kernels.tiled_xnor import (
+        int8_matvec_packed,
+        xnor_matvec_words,
+    )
+
+    a, packed, lib_x = int_operands(path, m, n_in, r, gen)
+    if path == "xnor":
+        kernel = kernels()["B3"]
+        run = lambda: kernel(a, packed, n_in=n_in)
+        plain = lambda: xnor_matvec_words(a, packed, n_in=n_in)
+    else:
+        kernel = kernels()["B4"]
+        run = lambda: kernel(a, packed)
+        plain = lambda: int8_matvec_packed(a, packed, n_in=a.shape[1])
+    before = kernel.launches
+    got = run()
+    torch.cuda.synchronize()
+    if kernel.launches != before + 1:
+        fail(f"{kernel.__name__} did not count its launch")
+    want = plain()
+    err = float((got.long() - want.long()).abs().max())
+    if got.dtype != torch.int32 or not torch.equal(got, want):
+        fail(f"{kernel.__name__} m={m} n_in={n_in} r={r}: int32 accumulator "
+             f"differs from the plain version (max|err| {err})")
+    res = dict(err=err, scale=float(want.abs().max()))
+    if not timed:
+        return res
+    words = packed.shape[1]
+    nbytes = a.numel() * a.element_size() + packed.numel() * 4 + m * r * 4
+    ops = 2.0 * m * r * (words if path == "xnor" else n_in)
+    t_bytes, t_ops = 1e3 * nbytes / bw, 1e3 * ops / int_peak
+    dense = unpack_rows(packed).to(torch.bfloat16)
+    res.update(ms=time_ms(run), plain_ms=time_ms(plain),
+               library_ms=time_ms(lambda: torch.matmul(lib_x, dense.T)),
+               bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops)
+    return res
+
+
 def phase_kernels(card: str):
     """Phase 2. Returns {(kernel, m, dtype, shape): measurements}."""
     import torch
 
-    from repro_torch.kernels.tiled_matmul import tiled_matmul_plain, tiled_matmul_unique
-    from repro_torch.kernels.tiled_matvec import tiled_matvec_plain, tiled_matvec_unique
+    from repro_torch.kernels.tiled_matmul import tiled_matmul_plain
+    from repro_torch.kernels.tiled_matvec import tiled_matvec_plain
 
-    bw, bf16_peak, f32_peak = peaks(card)
+    bw, bf16_peak, f32_peak, int_peak = peaks(card)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    ks = kernels()
     results = {}
     for kname, kernel, plain, ms in (
-            ("B1", tiled_matvec_unique, tiled_matvec_plain, B1_MS),
-            ("B2", tiled_matmul_unique, tiled_matmul_plain, B2_MS)):
+            ("B1", ks["B1"], tiled_matvec_plain, B1_MS),
+            ("B2", ks["B2"], tiled_matmul_plain, B2_MS)):
         for name, k, r, _ in SHAPES:
             packed = torch.randint(0, 2**32, (r, k // 32), generator=gen,
                                    device="cuda", dtype=torch.int64).to(torch.int32)
@@ -157,31 +259,97 @@ def phase_kernels(card: str):
                           f"plain {res['plain_ms']:.4f}ms library "
                           f"{res['library_ms']:.4f}ms bound {res['bound_ms']:.4f}ms",
                           flush=True)
+    for kname, path in (("B3", "xnor"), ("B4", "int8")):
+        for m in INT_MS:     # pad bits: n_in = 80 against a pack_bits tile
+            check_int_kernel(path, m, 80, 24, gen, bw, int_peak, timed=False)
+        for name, k, r, _ in SHAPES:
+            for m in INT_MS:
+                res = check_int_kernel(path, m, k, r, gen, bw, int_peak)
+                results[(kname, m, "int", name)] = res
+                print(f"{kname} {name:8s} K={k:5d} r={r:4d} m={m:3d} {path:8s} "
+                      f"exact (max|acc|={res['scale']:.0f}) kernel "
+                      f"{res['ms']:.4f}ms plain {res['plain_ms']:.4f}ms library "
+                      f"{res['library_ms']:.4f}ms bound {res['bound_ms']:.4f}ms",
+                      flush=True)
+        print(f"{kname} n_in=80 r=24 (pad bits) m in {INT_MS}: exact", flush=True)
     return results
 
 
-def tick_totals(results, kname: str, m: int, n_layers: int, with_head: bool):
+def tick_totals(results, kname: str, m: int, n_layers: int, with_head: bool,
+                dtype: str = "bfloat16"):
     """Sum the per-shape measurements over the calls of one engine tick."""
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                bytes_ms=0.0, ops_ms=0.0)
     for name, _, _, per_layer in SHAPES:
         n = per_layer * n_layers + (1 if name == "lm_head" and with_head else 0)
-        res = results[(kname, m, "bfloat16", name)]
+        res = results[(kname, m, dtype, name)]
         for key in tot:
             tot[key] += n * res[key]
     return tot
 
 
-def phase_serve(cfg):
-    """Phase 3: granite-8b at published width through the entry points."""
+def serve_run(cfg, s_model, sp, path: str):
+    """Drive 8 requests through a BatchedEngine under ``path``: every launch
+    counter is 0 just before the run and read just after it. Asserts that
+    the path's decode kernel took every m <= 32 projection, B2 every
+    extend, and no other kernel ran. Returns the counts."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels.tiled_matmul import tiled_matmul_unique
-    from repro_torch.kernels.tiled_matvec import tiled_matvec_unique
-    from repro_torch.launch.serve import build_serving, drain, latency_report, synthetic_prompts
+    from repro_torch.launch.serve import drain, latency_report, synthetic_prompts
     from repro_torch.serve.engine import BatchedEngine, ServeConfig
     from repro_torch.serve.sampling import SamplingParams
+
+    eng = BatchedEngine(s_model, sp, ServeConfig(
+        n_slots=N_SLOTS, max_len=128, chunk_tokens=CHUNK, page_tokens=16,
+        compute_path=path))
+    rng = np.random.default_rng(0)
+    reqs = [eng.submit(p, SamplingParams(max_tokens=16))
+            for p in synthetic_prompts(rng, 8, cfg.vocab, 3, 101)]
+    ks = kernels()
+    for fn in ks.values():
+        fn.launches = 0
+    ticks, dt, tick_ends = drain(eng, reqs)
+    counts = {name: fn.launches for name, fn in ks.items()}
+    st = eng.stats()
+    tok = sum(len(r.output) for r in reqs)
+    if not all(r.done and len(r.output) == 16 for r in reqs):
+        fail(f"{path}: not every request finished with 16 tokens")
+    if not all(0 <= t < cfg.vocab for r in reqs for t in r.output):
+        fail(f"{path}: a sampled token is outside the vocabulary")
+    if st["decode_ticks"] == 0 or st["extend_ticks"] == 0:
+        fail(f"{path}: the run had {st['decode_ticks']} decode and "
+             f"{st['extend_ticks']} extend ticks; both must run")
+    own = PATH_KERNEL[path]
+    need = (7 * cfg.n_layers + 1) * st["decode_ticks"] + st["extend_ticks"]
+    others = [k for k in ("B1", "B3", "B4") if k != own]
+    if (counts[own] != need or counts["B2"] < st["extend_ticks"]
+            or any(counts[k] for k in others)):
+        fail(f"{path}: launch counters {counts}; need {own} = {need}, B2 >= "
+             f"{st['extend_ticks']}, {others} = 0: the main path did not go "
+             f"through the kernels")
+    ttfts, itls = latency_report(reqs, tick_ends)
+    torch.cuda.synchronize()
+    print(f"serve [{path}]: {len(reqs)} requests, {tok} tokens in {ticks} ticks "
+          f"({st['extend_ticks']} extend, {st['decode_ticks']} decode), {dt:.3f}s, "
+          f"{tok / dt:.1f} tok/s | TTFT mean {1e3 * np.mean(ttfts):.1f}ms max "
+          f"{1e3 * np.max(ttfts):.1f}ms | ITL mean {1e3 * np.mean(itls):.2f}ms max "
+          f"{1e3 * np.max(itls):.2f}ms | extend tick {st['extend_ms_mean']:.2f}ms "
+          f"decode tick {st['decode_ms_mean']:.2f}ms | launches "
+          + " ".join(f"{k}={v}" for k, v in counts.items()), flush=True)
+    print(f"serve [{path}]: first requests' tokens {[r.output for r in reqs[:2]]}")
+    profile_decode(s_model, sp, cfg, st["decode_ms_mean"], path)
+    return counts
+
+
+def phase_serve(cfg):
+    """Phase 3: granite-8b at published width through the entry points,
+    under each compute path on one export of the weights."""
+    import torch
+
+    from repro_torch.configs import build_model
+    from repro_torch.launch.serve import build_serving
+    from repro_torch.nn.context import SERVE, ModelContext
     from repro_torch.serve.weights import serving_bytes
 
     t0 = time.perf_counter()
@@ -192,42 +360,20 @@ def phase_serve(cfg):
           f"{cfg.n_kv} d_ff={cfg.d_ff} vocab={cfg.vocab} p={cfg.tbn.p} bf16: masters "
           f"{master_b / 1e9:.2f}GB -> shipped {ship_b / 1e9:.3f}GB in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    eng = BatchedEngine(s_model, sp, ServeConfig(
-        n_slots=N_SLOTS, max_len=128, chunk_tokens=CHUNK, page_tokens=16))
-    rng = np.random.default_rng(0)
-    reqs = [eng.submit(p, SamplingParams(max_tokens=16))
-            for p in synthetic_prompts(rng, 8, cfg.vocab, 3, 101)]
-    tiled_matvec_unique.launches = 0
-    tiled_matmul_unique.launches = 0
-    ticks, dt, tick_ends = drain(eng, reqs)
-    b1, b2 = tiled_matvec_unique.launches, tiled_matmul_unique.launches
-    st = eng.stats()
-    tok = sum(len(r.output) for r in reqs)
-    if not all(r.done and len(r.output) == 16 for r in reqs):
-        fail("not every request finished with 16 tokens")
-    if not all(0 <= t < cfg.vocab for r in reqs for t in r.output):
-        fail("a sampled token is outside the vocabulary")
-    need_b1 = (7 * cfg.n_layers + 1) * st["decode_ticks"] + st["extend_ticks"]
-    if st["decode_ticks"] == 0 or st["extend_ticks"] == 0:
-        fail(f"the run had {st['decode_ticks']} decode and {st['extend_ticks']} "
-             f"extend ticks; both paths must run")
-    if b1 < need_b1 or b2 < st["extend_ticks"]:
-        fail(f"launch counters B1={b1} (need >= {need_b1}), B2={b2} (need >= "
-             f"{st['extend_ticks']}): the main path did not go through the kernels")
-    ttfts, itls = latency_report(reqs, tick_ends)
-    print(f"serve: {len(reqs)} requests, {tok} tokens in {ticks} ticks "
-          f"({st['extend_ticks']} extend, {st['decode_ticks']} decode), {dt:.3f}s, "
-          f"{tok / dt:.1f} tok/s | TTFT mean {1e3 * np.mean(ttfts):.1f}ms max "
-          f"{1e3 * np.max(ttfts):.1f}ms | ITL mean {1e3 * np.mean(itls):.2f}ms max "
-          f"{1e3 * np.max(itls):.2f}ms | extend tick {st['extend_ms_mean']:.2f}ms "
-          f"decode tick {st['decode_ms_mean']:.2f}ms | launches B1={b1} B2={b2}",
-          flush=True)
-    print(f"serve: first requests' tokens {[r.output for r in reqs[:2]]}")
-    profile_decode(s_model, sp, cfg, st["decode_ms_mean"])
-    return sp, {"B1": b1, "B2": b2}
+    launches = {}
+    for path in PATH_KERNEL:
+        if path != "float":
+            s_model = build_model(cfg, ModelContext(
+                policy=cfg.tbn, mode=SERVE, compute_dtype=torch.bfloat16,
+                device="cuda", compute_path=path))
+        counts = serve_run(cfg, s_model, sp, path)
+        launches[PATH_KERNEL[path]] = counts[PATH_KERNEL[path]]
+        if path == "float":
+            launches["B2"] = counts["B2"]
+    return sp, launches
 
 
-def profile_decode(s_model, sp, cfg, tick_ms: float, n_ticks: int = 3):
+def profile_decode(s_model, sp, cfg, tick_ms: float, path: str, n_ticks: int = 3):
     """Trace ``n_ticks`` decode-only ticks with torch.profiler: device busy
     time per tick (sum of kernel durations; one stream, so no overlap) beside
     the unprofiled decode tick of the serve run, and the top kernels."""
@@ -240,7 +386,8 @@ def profile_decode(s_model, sp, cfg, tick_ms: float, n_ticks: int = 3):
     from repro_torch.serve.sampling import SamplingParams
 
     eng = BatchedEngine(s_model, sp, ServeConfig(
-        n_slots=N_SLOTS, max_len=128, chunk_tokens=CHUNK, page_tokens=16))
+        n_slots=N_SLOTS, max_len=128, chunk_tokens=CHUNK, page_tokens=16,
+        compute_path=path))
     rng = np.random.default_rng(2)
     for _ in range(N_SLOTS):   # 4 x 8 prompt tokens: one extend tick
         eng.submit(rng.integers(0, cfg.vocab, size=8),
@@ -254,21 +401,68 @@ def profile_decode(s_model, sp, cfg, tick_ms: float, n_ticks: int = 3):
         torch.cuda.synchronize()
     if eng.stats()["extend_ticks"] != 1:
         fail("the profiled ticks were not decode-only")
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n_ticks
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / n_ticks
     by_name = {}
-    for e in kernels:
+    for e in events:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
-    if not kernels:
-        print("profile: the profiler recorded no device events (device time "
-              "not measured)")
+    if not events:
+        print(f"profile [{path}]: the profiler recorded no device events "
+              f"(device time not measured)")
         return
-    print(f"profile: decode tick device busy {busy_ms:.3f} ms of "
+    print(f"profile [{path}]: decode tick device busy {busy_ms:.3f} ms of "
           f"{tick_ms:.2f} ms wall (serve run) -> device idle share "
-          f"{1 - busy_ms / tick_ms:.3f}; {len(kernels) / n_ticks:.0f} kernels/tick")
+          f"{1 - busy_ms / tick_ms:.3f}; {len(events) / n_ticks:.0f} kernels/tick")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
         print(f"  {t / n_ticks:8.3f} ms/tick {n // n_ticks:5d}x  {name[:90]}")
+
+
+def int_layers_card_vs_cpu(cfg):
+    """Integer paths at the layer level: ``tiled_dense_infer`` on the card
+    against the CPU at every full-width shape, m = 4 rows of f32."""
+    import torch
+
+    from repro_torch.core.packing import pack_bits
+    from repro_torch.core.tiling import plan_tiling
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import tiled_xnor as x8
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    p = cfg.tbn.p
+    for path in ("xnor", "int8"):
+        worst = 0.0
+        for name, k, r, _ in SHAPES:
+            spec = plan_tiling((p * r, k), p=p, min_size=1, alpha_mode="tile",
+                               alpha_source="W")
+            x = torch.randn((N_SLOTS, k), generator=gen, device="cuda")
+            rows = pack_bits(torch.randn((r, k), generator=gen, device="cuda"))
+            alpha = torch.rand((p,), generator=gen, device="cuda") + 0.1
+            quant = x8.quantize_sign if path == "xnor" else x8.quantize_int8
+            a_card, a_cpu = quant(x, k)[0], quant(x.cpu(), k)[0]
+            if not torch.equal(a_card.cpu(), a_cpu):
+                fail(f"{path} {name}: quantized activations differ card vs CPU")
+            if path == "xnor":
+                acc = x8.tiled_xnor_matvec_unique(a_card, rows, n_in=k).cpu()
+                want = x8.tiled_xnor_matvec_unique(a_cpu, rows.cpu(), n_in=k)
+            else:
+                acc = x8.tiled_int8_matvec_unique(a_card, rows).cpu()
+                want = x8.tiled_int8_matvec_unique(a_cpu, rows.cpu())
+            if not torch.equal(acc, want):
+                fail(f"{path} {name}: int32 accumulators differ card vs CPU")
+            got = ops.tiled_dense_infer(x, rows, alpha, spec,
+                                        compute_path=path).cpu()
+            ref = ops.tiled_dense_infer(x.cpu(), rows.cpu(), alpha.cpu(), spec,
+                                        compute_path=path)
+            err = float(((got - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+            worst = max(worst, err)
+            if not torch.allclose(got, ref, rtol=INT_RTOL, atol=0):
+                fail(f"{path} {name}: tiled_dense_infer card vs CPU max rel "
+                     f"err {err:.3e} over rtol {INT_RTOL}")
+        print(f"layer card vs CPU [{path}] (5 full-width shapes, m={N_SLOTS}, "
+              f"f32): quantized operands and int32 accumulators equal, outputs "
+              f"max rel err {worst:.2e} (rtol={INT_RTOL}) OK", flush=True)
 
 
 def phase_card_vs_cpu(cfg, sp):
@@ -280,37 +474,44 @@ def phase_card_vs_cpu(cfg, sp):
     from repro_torch.nn import module as mod
     from repro_torch.nn.context import SERVE, ModelContext
 
+    int_layers_card_vs_cpu(cfg)
     cfg2 = dataclasses.replace(cfg, n_layers=2)
     sp2 = dict(sp, seg0=mod.map_tree(lambda v: v[:2].contiguous(), sp["seg0"]))
     rng = np.random.default_rng(1)
     tokens = rng.integers(0, cfg.vocab, size=(2, 24))
     nxt = rng.integers(0, cfg.vocab, size=(2, 1))
-    out = {}
-    for dev in ("cuda", "cpu"):
-        model = build_model(cfg2, ModelContext(policy=cfg.tbn, mode=SERVE,
-                                               compute_dtype=torch.float32,
-                                               device=dev))
-        params = mod.map_tree(lambda v: v.to(dev), sp2)
-        caches = model.init_caches(8, 16, torch.float32)
-        ptab = torch.arange(8, dtype=torch.int32, device=dev).reshape(2, 4)
-        lengths = torch.zeros(2, dtype=torch.int32, device=dev)
-        n_new = torch.tensor([24, 17], dtype=torch.int32, device=dev)
-        with torch.no_grad():
-            le, caches, lengths = model.extend(
-                params, torch.from_numpy(tokens).to(dev), caches, lengths,
-                n_new, ptab)
-            ld, _, _ = model.decode_step(params, torch.from_numpy(nxt).to(dev),
-                                         caches, lengths, ptab)
-        out[dev] = (le.cpu(), ld.cpu())
-    errs = []
-    for name, a, b in zip(("extend", "decode"), out["cuda"], out["cpu"]):
-        if not torch.isfinite(a).all():
-            fail(f"card {name} logits are not finite")
-        errs.append(float((a - b).abs().max()))
-        if not torch.allclose(a, b, rtol=1e-3, atol=1e-3):
-            fail(f"card vs CPU {name} logits differ: max|diff| {errs[-1]:.3e}")
-    print(f"model card vs CPU (L=2, full width, f32): extend max|diff| "
-          f"{errs[0]:.2e}, decode max|diff| {errs[1]:.2e} (rtol=atol=1e-3) OK")
+    params = {dev: mod.map_tree(lambda v: v.to(dev), sp2) for dev in ("cuda", "cpu")}
+    for path in PATH_KERNEL:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            model = build_model(cfg2, ModelContext(policy=cfg.tbn, mode=SERVE,
+                                                   compute_dtype=torch.float32,
+                                                   device=dev, compute_path=path))
+            caches = model.init_caches(8, 16, torch.float32)
+            ptab = torch.arange(8, dtype=torch.int32, device=dev).reshape(2, 4)
+            lengths = torch.zeros(2, dtype=torch.int32, device=dev)
+            n_new = torch.tensor([24, 17], dtype=torch.int32, device=dev)
+            with torch.no_grad():
+                le, caches, lengths = model.extend(
+                    params[dev], torch.from_numpy(tokens).to(dev), caches,
+                    lengths, n_new, ptab)
+                ld, _, _ = model.decode_step(
+                    params[dev], torch.from_numpy(nxt).to(dev), caches,
+                    lengths, ptab)
+            out[dev] = (le.cpu(), ld.cpu())
+        errs = []
+        for name, a, b in zip(("extend", "decode"), out["cuda"], out["cpu"]):
+            if not torch.isfinite(a).all():
+                fail(f"card {name} logits [{path}] are not finite")
+            errs.append(float((a - b).abs().max()))
+            if path == "float" and not torch.allclose(a, b, rtol=1e-3, atol=1e-3):
+                fail(f"card vs CPU {name} logits differ: max|diff| {errs[-1]:.3e}")
+        verdict = ("(rtol=atol=1e-3) OK" if path == "float" else
+                   "(finite; not held to a tolerance: one flipped sign or "
+                   "int8 rounding upstream moves the logits)")
+        print(f"model card vs CPU [{path}] (L=2, full width, f32): extend "
+              f"max|diff| {errs[0]:.2e}, decode max|diff| {errs[1]:.2e} "
+              f"{verdict}", flush=True)
 
 
 def main() -> None:
@@ -344,12 +545,16 @@ def main() -> None:
     phase_card_vs_cpu(cfg, sp)
 
     entries = []
-    for kname, fname, m, head, replaces in (
-            ("B1", "tiled_matvec", N_SLOTS, True,
+    for kname, fname, m, head, dtype, replaces in (
+            ("B1", "tiled_matvec", N_SLOTS, True, "bfloat16",
              "src/repro/kernels/tiled_matvec.py:97"),
-            ("B2", "tiled_matmul", N_SLOTS * CHUNK, False,
-             "src/repro/kernels/tiled_matmul.py:69")):
-        tot = tick_totals(results, kname, m, cfg.n_layers, head)
+            ("B2", "tiled_matmul", N_SLOTS * CHUNK, False, "bfloat16",
+             "src/repro/kernels/tiled_matmul.py:69"),
+            ("B3", "tiled_xnor", N_SLOTS, True, "int",
+             "src/repro/kernels/tiled_xnor.py:147"),
+            ("B4", "tiled_int8", N_SLOTS, True, "int",
+             "src/repro/kernels/tiled_xnor.py:235")):
+        tot = tick_totals(results, kname, m, cfg.n_layers, head, dtype)
         entries.append({
             "name": fname, "route": "cuda",
             "source": f"src/repro_torch/csrc/{fname}.cu", "replaces": replaces,
@@ -361,7 +566,7 @@ def main() -> None:
             "bound_by": "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes",
             "library_ms": tot["library_ms"],
             "per": f"one {'decode' if head else 'extend'} tick at L={cfg.n_layers}, "
-                   f"m={m}, bf16",
+                   f"m={m}, {'bf16' if dtype == 'bfloat16' else 'bf16 activations quantized'}",
         })
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": entries}))

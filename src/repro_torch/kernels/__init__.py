@@ -8,3 +8,10 @@ from repro_torch.kernels.tiled_matvec import (
     tiled_matvec_plain,
     tiled_matvec_unique,
 )
+from repro_torch.kernels.tiled_xnor import (
+    COMPUTE_PATHS,
+    int8_matvec_packed,
+    tiled_int8_matvec_unique,
+    tiled_xnor_matvec_unique,
+    xnor_matvec_words,
+)

@@ -1,5 +1,5 @@
-"""Serving-time tiled dense layer (port of the float path of
-``repro/kernels/ops.py`` ``tiled_dense_infer``).
+"""Serving-time tiled dense layer (port of ``repro/kernels/ops.py``
+``tiled_dense_infer`` with its three compute paths).
 
 ``tiled_dense_infer`` computes y = x @ W_hat^T from the shipped (packed
 tile, alpha) form without materializing the dense weight: u = x @ T^T
@@ -7,14 +7,19 @@ against the r = n_out/p unique rows, then the p replicas are a
 broadcast-scale by alpha. The m-dispatch is the reference's
 ``_dense_unique_local``: m <= ``MATVEC_MAX_M`` (after flattening lead
 dims) goes to kernel B1 (``tiled_matvec_unique``), larger m to kernel B2
-(``tiled_matmul_unique``). Dispatch between kernel and plain version
-follows the tensor's device, inside the two wrappers.
+(``tiled_matmul_unique``). Under ``compute_path`` "xnor" or "int8" the
+m <= ``MATVEC_MAX_M`` batches quantize the activations and accumulate
+integers on the packed words instead (kernels B3 / B4,
+``kernels/tiled_xnor.py``); larger batches (prefill) keep the float path.
+Dispatch between kernel and plain version follows the tensor's device,
+inside the wrappers.
 
 Tile layouts: row-packed ``(r, ceil(n_in/32))`` (the shipped serve form)
 or flat ``(ceil(q/32),)``. A flat tile is the same bits as the rows only
 when 32 | n_in; on the kernel path anything else raises
 ``FlatTileLayoutError``. On CPU a flat tile takes the reference's
-``tiled_matmul_reference`` branch.
+``tiled_matmul_reference`` branch, whatever the compute path (the
+reference's ``use_pallas=False`` rule).
 """
 from __future__ import annotations
 
@@ -25,9 +30,13 @@ from repro_torch.core.packing import LANE_BITS, unpack_bits
 from repro_torch.core.tiling import TileSpec, tiled_matmul_reference
 from repro_torch.kernels.tiled_matmul import tiled_matmul_unique
 from repro_torch.kernels.tiled_matvec import MATVEC_MAX_M, tiled_matvec_unique
-
-COMPUTE_PATHS = ("float", "int8", "xnor")
-INT_PATH_ITEM = "ROADMAP.md queue A item 7 (integer decode paths)"
+from repro_torch.kernels.tiled_xnor import (
+    COMPUTE_PATHS,
+    quantize_int8,
+    quantize_sign,
+    tiled_int8_matvec_unique,
+    tiled_xnor_matvec_unique,
+)
 
 
 class FlatTileLayoutError(ValueError):
@@ -40,16 +49,34 @@ def check_compute_path(compute_path: str) -> None:
     if compute_path not in COMPUTE_PATHS:
         raise ValueError(f"unknown compute_path {compute_path!r}: expected "
                          f"one of {COMPUTE_PATHS}")
-    if compute_path != "float":
-        raise NotImplementedError(
-            f"compute_path {compute_path!r} is not ported yet: {INT_PATH_ITEM}")
 
 
-def _dense_unique_local(xm: torch.Tensor, packed_rows: torch.Tensor
-                        ) -> torch.Tensor:
-    """u = x @ T^T (m, r) float32 against a row-packed tile. x is padded
-    with zero columns to words*32 (pad bits unpack to -1 but only ever meet
-    those zero columns); m <= MATVEC_MAX_M takes B1, larger m takes B2."""
+def _dense_unique_int_local(xm: torch.Tensor, packed_rows: torch.Tensor,
+                            compute_path: str) -> torch.Tensor:
+    """Integer-domain u = scale * (Q(x) . T^T) (m, r) float32: sign-pack the
+    rows for "xnor" (B3), per-row int8 with zero pad columns for "int8"
+    (B4); the int32 accumulator is exact, only the scale is a float."""
+    n_in = xm.shape[1]
+    if compute_path == "xnor":
+        xq, scale = quantize_sign(xm, n_in)           # (m, words), (m, 1)
+        acc = tiled_xnor_matvec_unique(xq, packed_rows, n_in=n_in)
+    else:
+        q, scale = quantize_int8(xm, n_in)            # (m, n_in), (m, 1)
+        pad = packed_rows.shape[1] * LANE_BITS - n_in
+        acc = tiled_int8_matvec_unique(F.pad(q, (0, pad)) if pad else q,
+                                       packed_rows)
+    return scale * acc.float()
+
+
+def _dense_unique_local(xm: torch.Tensor, packed_rows: torch.Tensor,
+                        compute_path: str = "float") -> torch.Tensor:
+    """u = x @ T^T (m, r) float32 against a row-packed tile. m <=
+    MATVEC_MAX_M takes the integer path when ``compute_path`` asks for one,
+    else B1; larger m takes B2. For the float kernels x is padded with zero
+    columns to words*32 (pad bits unpack to -1 but only ever meet those
+    zero columns)."""
+    if compute_path != "float" and xm.shape[0] <= MATVEC_MAX_M:
+        return _dense_unique_int_local(xm, packed_rows, compute_path)
     words = packed_rows.shape[1]
     pad = words * LANE_BITS - xm.shape[1]
     xp = F.pad(xm, (0, pad)) if pad else xm.contiguous()
@@ -75,7 +102,10 @@ def tiled_dense_infer(x: torch.Tensor, packed: torch.Tensor,
 
     x (..., n_in); packed int32, row-packed (r, ceil(n_in/32)) or flat
     (ceil(q/32),); alpha (n_alpha,). Weight logical shape spec.shape ==
-    (n_out, n_in), aligned tiling. Returns (..., n_out) in x's dtype."""
+    (n_out, n_in), aligned tiling. ``compute_path`` is "float" (the
+    byte-parity reference), "int8" or "xnor"; the integer paths quantize
+    the activations of decode-sized batches, so their outputs approximate
+    the float path's. Returns (..., n_out) in x's dtype."""
     check_compute_path(compute_path)
     n_out, n_in = spec.shape[0], spec.n // spec.shape[0]
     r = spec.rows_per_tile
@@ -94,5 +124,6 @@ def tiled_dense_infer(x: torch.Tensor, packed: torch.Tensor,
                 f"row-packed (r, ceil(n_in/32)) serve form for the kernel "
                 f"path.")
         packed = packed.reshape(r, n_in // LANE_BITS)
-    y3 = _replicate_dense_out(_dense_unique_local(xm, packed), alpha, spec)
+    y3 = _replicate_dense_out(_dense_unique_local(xm, packed, compute_path),
+                              alpha, spec)
     return y3.reshape(*lead, n_out).to(x.dtype)

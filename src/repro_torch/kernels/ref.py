@@ -1,5 +1,5 @@
-"""Plain-torch oracles for the tiled kernels (port of the matmul/matvec
-oracles of ``repro/kernels/ref.py``)."""
+"""Plain-torch oracles for the tiled kernels (port of the matmul, matvec,
+xnor and int8 oracles of ``repro/kernels/ref.py``)."""
 from __future__ import annotations
 
 import torch
@@ -22,3 +22,26 @@ def tiled_matvec_unique_ref(x: torch.Tensor, packed_rows: torch.Tensor, *,
     pad columns zero), packed_rows (r, ceil(n_in/32)) -> (M, r) float32."""
     t = unpack_bits(packed_rows, n_in, dtype=torch.float32)
     return x[:, :n_in].float() @ t.T
+
+
+def _pm1_dot(a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(m, n) x (r, n) integers -> (m, r) int32 by an int64 elementwise
+    product and sum (torch has no integer matmul on every device)."""
+    return (a.long()[:, None, :] * t.long()[None, :, :]).sum(-1).to(torch.int32)
+
+
+def tiled_xnor_matvec_ref(packed_x: torch.Tensor, packed_rows: torch.Tensor,
+                          *, n_in: int) -> torch.Tensor:
+    """Integer-exact oracle for the XNOR decode matvec: both operands
+    unpacked to ±1 over their first n_in bits, then an integer dot ->
+    (m, r) int32. Independent of the SWAR popcount of the plain version."""
+    return _pm1_dot(unpack_bits(packed_x, n_in, dtype=torch.int64),
+                    unpack_bits(packed_rows, n_in, dtype=torch.int64))
+
+
+def tiled_int8_matvec_ref(q: torch.Tensor, packed_rows: torch.Tensor, *,
+                          n_in: int) -> torch.Tensor:
+    """Integer-exact oracle for the int8 x binary decode matvec: q (m,
+    k >= n_in) int8 against the rows unpacked to ±1 -> (m, r) int32."""
+    return _pm1_dot(q[:, :n_in], unpack_bits(packed_rows, n_in,
+                                             dtype=torch.int64))

@@ -44,9 +44,10 @@ def check_operands(x: torch.Tensor, packed: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: x on {x.device}, packed on {packed.device}")
 
 
-def cuda_args(x: torch.Tensor, packed: torch.Tensor, what: str):
-    """Validate the CUDA-side preconditions and allocate the f32 output;
-    returns (out, stream handle)."""
+def cuda_args(x: torch.Tensor, packed: torch.Tensor, what: str,
+              out_dtype: torch.dtype = torch.float32):
+    """Validate the CUDA-side preconditions and allocate the (m, r) output
+    of ``out_dtype``; returns (out, stream handle)."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {x.device}")
     if x.device.index not in (None, torch.cuda.current_device()):
@@ -54,7 +55,7 @@ def cuda_args(x: torch.Tensor, packed: torch.Tensor, what: str):
                          f"device is {torch.cuda.current_device()}")
     if x.data_ptr() % 16 or packed.data_ptr() % 4:
         raise ValueError(f"{what}: x must be 16-byte aligned")
-    out = torch.empty((x.shape[0], packed.shape[0]), dtype=torch.float32,
+    out = torch.empty((x.shape[0], packed.shape[0]), dtype=out_dtype,
                       device=x.device)
     return out, torch.cuda.current_stream(x.device).cuda_stream
 

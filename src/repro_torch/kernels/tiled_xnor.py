@@ -1,0 +1,184 @@
+"""Kernels B3 and B4: integer-domain decode matvec on packed tile words.
+
+Port of ``repro/kernels/tiled_xnor.py``. The float kernels (B1/B2) unpack
+every tile word to ±1 and multiply floats; these two paths quantize the
+activations too and accumulate integers directly against the packed
+``(r, ceil(n_in/32))`` tile words (``ops.tiled_dense_infer`` routes decode
+batches, m <= ``MATVEC_MAX_M``, here when ``compute_path`` is not "float"):
+
+* ``xnor`` (B3, replaces ``tiled_xnor.py:147`` ``tiled_xnor_matvec_unique``;
+  CUDA source ``csrc/tiled_xnor.cu``) — sign-pack the activations in the
+  tile's word layout and compute ``acc = n_in - 2 * sum_w popcount(x_w XOR
+  t_w)``. Pad bits are 0 on both operands, so they never contribute.
+* ``int8`` (B4, replaces ``tiled_xnor.py:235`` ``tiled_int8_matvec_unique``;
+  CUDA source ``csrc/tiled_int8.cu``) — per-row symmetric int8 activations
+  against the ±1 tile with int8 x int8 -> int32 dot products. Pad columns
+  of q are zero, so pad bits never contribute.
+
+Both return the exact int32 accumulator; ``ops`` applies the activation
+scale and the alpha broadcast. The quantizers are plain PyTorch, as the
+reference computes them outside Pallas. Each wrapper launches its kernel
+for CUDA tensors and runs its plain version only for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.packing import LANE_BITS, pack_bits, unpack_bits
+from repro_torch.kernels import _build
+from repro_torch.kernels.tiled_matmul import cuda_args
+from repro_torch.kernels.tiled_matvec import MATVEC_MAX_M
+
+COMPUTE_PATHS = ("float", "int8", "xnor")
+
+
+# --------------------------------------------------------------------------
+# Activation quantization
+# --------------------------------------------------------------------------
+def quantize_sign(x: torch.Tensor, n_in: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sign-binarize activation rows: x (m, k >= n_in) -> (packed (m,
+    ceil(n_in/32)) int32, scale (m, 1) f32). Bit j of word w is
+    ``x[:, 32w + j] > 0`` (the tile's little-endian layout, pad bits 0);
+    ``scale = mean|x_row|``. x is cast to f32 first, as the reference does."""
+    xv = x[:, :n_in].float()
+    scale = xv.abs().mean(dim=1, keepdim=True)
+    return pack_bits(xv > 0), scale
+
+
+def quantize_int8(x: torch.Tensor, n_in: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8: x (m, k >= n_in) -> (q (m, n_in) int8 in
+    [-127, 127], scale (m, 1) f32) with x ~= q * scale; an all-zero row gets
+    scale 1. ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    xv = x[:, :n_in].float()
+    amax = xv.abs().amax(dim=1, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xv / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def popcount32(v: torch.Tensor) -> torch.Tensor:
+    """SWAR popcount of each 32-bit word -> int32 counts. torch's ``>>`` on
+    int32 is arithmetic, so the steps run in int64 on the word's unsigned
+    value (``& 0xFFFFFFFF``), where every shift brings in zeros."""
+    v = v.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    v = (v + (v >> 8) + (v >> 16) + (v >> 24)) & 0x3F
+    return v.to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Plain versions (the structured twins of the reference)
+# --------------------------------------------------------------------------
+def xnor_matvec_words(packed_x: torch.Tensor, packed_rows: torch.Tensor, *,
+                      n_in: int) -> torch.Tensor:
+    """The plain PyTorch version of B3: (m, W) x (r, W) int32 words ->
+    (m, r) int32 ``n_in - 2 * sum_w popcount(x XOR t)``."""
+    xo = torch.bitwise_xor(packed_x[:, None, :], packed_rows[None, :, :])
+    return (n_in - 2 * popcount32(xo).sum(dim=-1)).to(torch.int32)
+
+
+def int8_matvec_packed(q: torch.Tensor, packed_rows: torch.Tensor, *,
+                       n_in: int) -> torch.Tensor:
+    """The plain PyTorch version of B4: q (m, >= n_in) int8 against the
+    {0, 1} tile bits, folded to the ±1 dot as ``2 * (q @ bits^T) -
+    rowsum(q)`` -> (m, r) int32. torch has no integer matmul on CUDA, so the
+    product runs in float64, exact here: every partial sum is an integer of
+    magnitude at most 127 * n_in, far below 2**53."""
+    bits = (unpack_bits(packed_rows, n_in, dtype=torch.float64) + 1) / 2
+    qv = q[:, :n_in].double()
+    s1 = qv @ bits.T
+    return (2 * s1 - qv.sum(dim=1, keepdim=True)).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
+def _check(a: torch.Tensor, packed: torch.Tensor, dtype: torch.dtype,
+           cols: int, what: str) -> None:
+    """Operand contract shared by B3 and B4: a (m <= MATVEC_MAX_M, cols) of
+    ``dtype``, packed (r, words) int32, both 2-D, contiguous, one device."""
+    if a.dtype != dtype or packed.dtype != torch.int32:
+        raise TypeError(f"{what}: expected {dtype} activations and int32 "
+                        f"words, got {a.dtype} and {packed.dtype}")
+    if a.ndim != 2 or packed.ndim != 2:
+        raise ValueError(f"{what}: operands must be 2-D, got "
+                         f"{tuple(a.shape)} and {tuple(packed.shape)}")
+    if a.shape[1] != cols:
+        raise ValueError(f"{what}: activations have {a.shape[1]} columns, "
+                         f"packed rows of {packed.shape[1]} words need {cols}")
+    if a.shape[0] < 1 or packed.shape[0] < 1 or packed.shape[1] < 1:
+        raise ValueError(f"{what}: empty operand {tuple(a.shape)} / "
+                         f"{tuple(packed.shape)}")
+    if a.shape[0] > MATVEC_MAX_M:
+        raise ValueError(f"{what}: m={a.shape[0]} exceeds "
+                         f"MATVEC_MAX_M={MATVEC_MAX_M}")
+    if not (a.is_contiguous() and packed.is_contiguous()):
+        raise ValueError(f"{what}: operands must be contiguous")
+    if a.device != packed.device:
+        raise ValueError(f"{what}: operands on {a.device} and {packed.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(name: str, symbol: str, n_ints: int):
+    """(library, bound launch function): three pointers, ``n_ints`` ints
+    and the stream; built and loaded on first use."""
+    lib = _build.load(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def tiled_xnor_matvec_unique(packed_x: torch.Tensor, packed_rows: torch.Tensor,
+                             *, n_in: int) -> torch.Tensor:
+    """acc = sign(x) . T^T in the integer domain: packed_x (m <= 32, W)
+    int32 sign-packed activations, packed_rows (r, W) int32, pad bits 0 on
+    both -> (m, r) int32. Launches kernel B3 for CUDA tensors; CPU tensors
+    take the plain version."""
+    what = "tiled_xnor_matvec_unique"
+    words = packed_rows.shape[1] if packed_rows.ndim == 2 else 0
+    _check(packed_x, packed_rows, torch.int32, words, what)
+    if not 0 < n_in <= words * LANE_BITS:
+        raise ValueError(f"{what}: n_in={n_in} outside the {words} words")
+    if packed_x.device.type == "cpu":
+        return xnor_matvec_words(packed_x, packed_rows, n_in=n_in)
+    out, stream = cuda_args(packed_x, packed_rows, what, torch.int32)
+    lib, launch = _launcher("tiled_xnor", "tbn_tiled_xnor", 4)
+    err = launch(packed_x.data_ptr(), packed_rows.data_ptr(), out.data_ptr(),
+                 packed_x.shape[0], packed_rows.shape[0], words, n_in, stream)
+    _build.check(lib, err, what)
+    tiled_xnor_matvec_unique.launches += 1
+    return out
+
+
+def tiled_int8_matvec_unique(q: torch.Tensor, packed_rows: torch.Tensor
+                             ) -> torch.Tensor:
+    """acc = q . T^T with int8 activations and ±1 weights: q (m <= 32, W*32)
+    int8 with zero pad columns, packed_rows (r, W) int32 -> (m, r) int32.
+    Launches kernel B4 for CUDA tensors; CPU tensors take the plain
+    version."""
+    what = "tiled_int8_matvec_unique"
+    words = packed_rows.shape[1] if packed_rows.ndim == 2 else 0
+    _check(q, packed_rows, torch.int8, words * LANE_BITS, what)
+    if q.device.type == "cpu":
+        return int8_matvec_packed(q, packed_rows, n_in=q.shape[1])
+    out, stream = cuda_args(q, packed_rows, what, torch.int32)
+    lib, launch = _launcher("tiled_int8", "tbn_tiled_int8", 3)
+    err = launch(q.data_ptr(), packed_rows.data_ptr(), out.data_ptr(),
+                 q.shape[0], packed_rows.shape[0], words, stream)
+    _build.check(lib, err, what)
+    tiled_int8_matvec_unique.launches += 1
+    return out
+
+
+tiled_xnor_matvec_unique.launches = 0
+tiled_int8_matvec_unique.launches = 0

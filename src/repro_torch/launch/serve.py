@@ -6,7 +6,8 @@ of the synthetic-batch mode of ``repro/launch/serve.py``).
 
 runs on the GPU (kernels B1/B2); ``--device cpu`` runs the plain PyTorch
 versions on the host instead (there is no silent fallback: without a card
-and without ``--device cpu`` the CLI raises).
+and without ``--device cpu`` the CLI raises). ``--compute-path xnor`` or
+``int8`` serves the decode ticks through the integer kernels B3 / B4.
 
 Flow: init the TRAIN masters on the device, export the SERVE form (packed
 tile rows + alpha), stand up the ``BatchedEngine`` and drain a batch of
@@ -24,6 +25,7 @@ import torch
 
 from repro_torch.configs import ArchConfig, build_model, get_config
 from repro_torch.device import resolve_device
+from repro_torch.kernels.tiled_xnor import COMPUTE_PATHS
 from repro_torch.nn.context import SERVE, TRAIN, ModelContext
 from repro_torch.serve.engine import BatchedEngine, ServeConfig
 from repro_torch.serve.sampling import SamplingParams
@@ -37,13 +39,15 @@ def device_label(device: torch.device) -> str:
 
 
 def build_serving(cfg: ArchConfig, *, device, seed: int,
-                  compute_dtype=torch.bfloat16):
+                  compute_dtype=torch.bfloat16, compute_path: str = "float"):
     """Random TRAIN masters from ``seed`` -> (SERVE model, SERVE params,
-    master bytes). The masters are freed before returning."""
+    master bytes). The SERVE model applies its dense layers through
+    ``compute_path``. The masters are freed before returning."""
     t_model = build_model(cfg, ModelContext(
         policy=cfg.tbn, mode=TRAIN, compute_dtype=compute_dtype, device=device))
     s_model = build_model(cfg, ModelContext(
-        policy=cfg.tbn, mode=SERVE, compute_dtype=compute_dtype, device=device))
+        policy=cfg.tbn, mode=SERVE, compute_dtype=compute_dtype, device=device,
+        compute_path=compute_path))
     masters = t_model.init(seed)
     master_b = serving_bytes(masters)
     with torch.no_grad():
@@ -98,6 +102,14 @@ def main(argv=None):
                          "(clamped to --max-len)")
     ap.add_argument("--page-tokens", type=int, default=16,
                     help="attention KV pool page size (must divide --max-len)")
+    ap.add_argument("--compute-path", default="float",
+                    choices=COMPUTE_PATHS,
+                    help="dense serve compute: float (byte-parity "
+                         "reference), int8 (quantized activations, integer "
+                         "MACs) or xnor (sign-binarized activations, "
+                         "XNOR+popcount on the packed tile words); the "
+                         "integer paths apply to decode ticks and outputs "
+                         "are approximate vs float")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
@@ -113,7 +125,12 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    s_model, sp, master_b = build_serving(cfg, device=device, seed=args.seed)
+    s_model, sp, master_b = build_serving(cfg, device=device, seed=args.seed,
+                                          compute_path=args.compute_path)
+    if args.compute_path != "float":
+        print(f"compute path: {args.compute_path} (decode ticks quantize "
+              f"activations and accumulate on the packed tile words; "
+              f"outputs are approximate vs --compute-path float)")
     ship_b = serving_bytes(sp)
     print(f"arch={cfg.name} TBN p={cfg.tbn.p}: masters {master_b / 1e6:.2f}MB "
           f"-> shipped {ship_b / 1e6:.2f}MB ({master_b / ship_b:.1f}x smaller)")
@@ -122,7 +139,7 @@ def main(argv=None):
         n_slots=args.slots, max_len=args.max_len,
         chunk_tokens=min(args.chunk_tokens, args.max_len),
         temperature=args.temperature, top_k=args.top_k, seed=args.seed,
-        page_tokens=args.page_tokens))
+        page_tokens=args.page_tokens, compute_path=args.compute_path))
     rng = np.random.default_rng(args.seed)
     reqs = [eng.submit(p, SamplingParams(max_tokens=args.max_tokens))
             for p in synthetic_prompts(rng, args.requests, cfg.vocab)]

@@ -11,7 +11,7 @@ prefill fused into the decode tick (port of the core tick of
   ``chunk_tokens`` goes to prefilling slots in admission order, the head
   always getting at least one), then one extend call (m = n_slots *
   chunk_tokens rows -> kernel B2) and one decode call (m = n_slots rows ->
-  kernel B1).
+  kernel B1, or B3 / B4 under ``compute_path`` "xnor" / "int8").
 * The page table is host state; it rides into each call as an int32
   tensor. Logits stay on the device; only the sampled token ids come back.
 
@@ -30,6 +30,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.ops import check_compute_path
 from repro_torch.nn import module as mod
 from repro_torch.serve.kvpool import KVPool
 from repro_torch.serve.sampling import SamplingParams, row_seed, sample_logits_batch
@@ -59,6 +60,9 @@ class ServeConfig:
     top_k: Optional[int] = None
     seed: int = 0
     page_tokens: int = 16               # KV pool: n_slots * max_len / page_tokens pages
+    compute_path: str = "float"         # dense serve compute: "float" |
+    # "int8" | "xnor" (kernels/tiled_xnor.py); the model must be built with
+    # the same ModelContext.compute_path (the engine checks)
 
     def __post_init__(self):
         if self.n_slots < 1:
@@ -71,6 +75,7 @@ class ServeConfig:
         if self.page_tokens <= 0 or self.max_len % self.page_tokens:
             raise ValueError(f"page_tokens {self.page_tokens} must be positive "
                              f"and divide max_len {self.max_len}")
+        check_compute_path(self.compute_path)
 
 
 class BatchedEngine:
@@ -84,6 +89,10 @@ class BatchedEngine:
             if leaf.device.type != self.device.type:
                 raise ValueError(f"param {'/'.join(path)} is on {leaf.device}, "
                                  f"the model runs on {self.device}")
+        if model.ctx.compute_path != cfg.compute_path:
+            raise ValueError(f"ServeConfig.compute_path {cfg.compute_path!r} "
+                             f"but the model was built with "
+                             f"{model.ctx.compute_path!r}")
         self.params = params
         self.cfg = cfg
         self._queue: collections.deque = collections.deque()
@@ -314,13 +323,15 @@ class BatchedEngine:
         self.steps += 1
 
     def stats(self) -> Dict[str, object]:
-        """Ticks, tokens, admissions, pool pages, and the mean wall time of
-        the extend and decode phases (host clock; each phase ends by copying
-        its sampled tokens to the host, so it includes the device work)."""
+        """Ticks, tokens, admissions, pool pages, the compute path, and the
+        mean wall time of the extend and decode phases (host clock; each
+        phase ends by copying its sampled tokens to the host, so it includes
+        the device work)."""
         s = dict(self._stats)
         s["ticks"] = self.steps
         s["pool_pages"] = self.pool.n_pages
         s["pages_in_use"] = self.pool.used_pages
+        s["compute_path"] = self.cfg.compute_path
         for phase in ("extend", "decode"):
             n = s[f"{phase}_ticks"]
             s[f"{phase}_ms_mean"] = 1e3 * self._phase_s[phase] / n if n else 0.0

@@ -174,13 +174,9 @@ def test_matvec_refuses_large_m():
                             torch.zeros((4, 1), dtype=torch.int32))
 
 
-@pytest.mark.parametrize("path", ["int8", "xnor"])
-def test_integer_compute_paths_not_ported(path):
+def test_unknown_compute_path_rejected():
     x, rows, _, alpha, _, spec_t = _case(1, 2, 64, r=8)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ops.tiled_dense_infer(torch.from_numpy(x), torch.from_numpy(rows),
-                              torch.from_numpy(alpha), spec_t, compute_path=path)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="compute_path"):
         ops.tiled_dense_infer(torch.from_numpy(x), torch.from_numpy(rows),
                               torch.from_numpy(alpha), spec_t, compute_path="fp8")
 
