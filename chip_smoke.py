@@ -4,18 +4,25 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases (any failure raises and exits non-zero; no phase is skipped):
-  1. print the card's name and power limit, build kernels B1-B4 from
+  1. print the card's name and power limit, build kernels B1-B5 from
      ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
   2. kernel vs plain version on the card at the (K, r) pairs of the
      full-width granite-8b path. B1 at m in {1, 4, 32} and B2 at m in
-     {33, 128, 512}, bf16 and f32, each compared at rtol=1e-4,
-     atol=1e-4*max|u_ref| (x*±1 is exact in f32, so only the summation
+     {33, 128, 512}, bf16 and f32, and B2 in bf16 at m = 2048 (the
+     fused train step's B*S; its per-step total is printed), each
+     compared at rtol=1e-4, atol=1e-4*max|u_ref| (x*±1 is exact in f32,
+     so only the summation
      order differs). B3 (xnor) and B4 (int8) at m in {1, 4, 32} on
      quantized random activations, plus an n_in = 80 case whose tile comes
      from ``pack_bits`` (pad bits): their int32 accumulators must be
      exactly equal. Each is timed beside the plain version, the library
      yardstick (``torch.matmul`` in bf16 on pre-unpacked operands, which
-     the port never calls) and the data-sheet bound;
+     the port never calls) and the data-sheet bound. B5 (tile
+     construction) at the five full-width (p, q) shapes of granite-8b's
+     tiled layers, f32 masters, alpha from W and from a separate A, plus a
+     q = 500 case through ``ops.tile_construct`` (padding): packed words
+     ``torch.equal`` to the plain version, alpha at rtol 1e-5, timed beside
+     the plain version and the bound (no single PyTorch call computes B5);
   3. serve granite-8b at its published width through the user entry points
      (masters from a seed -> export -> BatchedEngine): 8 requests, prompts
      of 3-100 tokens, 16 greedy tokens each, 4 slots, 32-token chunks,
@@ -35,7 +42,26 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      at rtol=1e-5 (the f32 scale mean|x| is a reordered sum). Over a whole
      model a reordered f32 sum upstream can flip one activation's sign or
      int8 rounding, so the integer paths' model-level max|d logit| is
-     printed and only checked to be finite.
+     printed and only checked to be finite;
+  5. train granite-8b at published width, 4 layers (n_layers 36 -> 4: the
+     masters, gradients and AdamW moments of all 36 do not fit one card),
+     through ``launch.train.build_training`` as the CLI wires it but with
+     ``ModelContext(fused_train=True)``: f32 masters from seed 0, bf16
+     compute, batch 4 x 512, AdamW(cosine(3e-4, 2, 8), wd 0.1), clip 1.0,
+     checkpoints every 3 steps in a temp dir. Six steps; then the step-6
+     checkpoint is dropped and a second RecoveryManager resumes from step 3
+     to 6. Losses and grad norms finite, no restart in either run, replayed
+     losses within rtol 1e-3 of the first run's (the embedding backward's
+     atomics reorder f32 sums), and the launch counters: B5 = B2 = steps *
+     (14 L + 1), B1 = B3 = B4 = 0. Then the steady step time and a
+     torch.profiler trace of one step;
+  6. the training CLI on the card (unfused default path): ``python -m
+     repro_torch.launch.train --arch granite-8b --reduced --steps 3`` must
+     exit 0 with "done: 3 steps";
+  7. full width, 2 layers, f32, batch 1 x 64: fused ``train_forward`` and
+     backward on the card (kernels) against the CPU (plain versions) on the
+     same masters: the B5 words of every layer equal, the loss within rtol
+     1e-4, every gradient leaf within rtol 1e-3, atol 1e-3 * max|g|.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the JSON status line.
@@ -43,9 +69,15 @@ last line is the JSON status line.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
+import os
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -71,6 +103,14 @@ PEAKS = {"SXM": (3.35e12, 989e12, 67e12, 1979e12),
          "NVL": (3.9e12, 835e12, 60e12, 1671e12)}
 # compute path -> the kernel that runs its m <= 32 projections
 PATH_KERNEL = {"float": "B1", "xnor": "B3", "int8": "B4"}
+# (name, p, q, tiled Dense of that shape per layer) of every B5 call of a
+# full-width granite-8b layer (p = 8, q = n_out * n_in / 8); the LM head
+# is one more call per forward pass
+B5_SHAPES = (("q/o", 8, 4096 * 4096 // 8, 2), ("k/v", 8, 1024 * 4096 // 8, 2),
+             ("gate/up/down", 8, 14336 * 4096 // 8, 3),
+             ("head", 8, 49152 * 4096 // 8, 0))
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 512
+TRAIN_STEPS, RESUME_FROM, REPLAY_RTOL = 6, 3, 1e-3
 
 
 def fail(msg: str) -> None:
@@ -93,7 +133,8 @@ def peaks(card: str):
 
 
 def kernels():
-    """{"B1".."B4": wrapper}: the wrappers whose ``launches`` count."""
+    """{"B1".."B5": wrapper}: the wrappers whose ``launches`` count."""
+    from repro_torch.kernels.tile_construct import tile_construct_kernel
     from repro_torch.kernels.tiled_matmul import tiled_matmul_unique
     from repro_torch.kernels.tiled_matvec import tiled_matvec_unique
     from repro_torch.kernels.tiled_xnor import (
@@ -102,7 +143,17 @@ def kernels():
     )
 
     return {"B1": tiled_matvec_unique, "B2": tiled_matmul_unique,
-            "B3": tiled_xnor_matvec_unique, "B4": tiled_int8_matvec_unique}
+            "B3": tiled_xnor_matvec_unique, "B4": tiled_int8_matvec_unique,
+            "B5": tile_construct_kernel}
+
+
+def zero_counters():
+    for fn in kernels().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {name: fn.launches for name, fn in kernels().items()}
 
 
 def time_ms(fn, iters: int = 20, reps: int = 5) -> float:
@@ -242,13 +293,18 @@ def phase_kernels(card: str):
     gen.manual_seed(0)
     ks = kernels()
     results = {}
-    for kname, kernel, plain, ms in (
-            ("B1", ks["B1"], tiled_matvec_plain, B1_MS),
-            ("B2", ks["B2"], tiled_matmul_plain, B2_MS)):
+    both = ((torch.bfloat16, bf16_peak), (torch.float32, f32_peak))
+    for kname, kernel, plain, ms, dtypes in (
+            ("B1", ks["B1"], tiled_matvec_plain, B1_MS, both),
+            ("B2", ks["B2"], tiled_matmul_plain, B2_MS, both),
+            # the fused train path's forward: bf16, m = B*S (split_k picks
+            # other split counts there than at the extend shapes)
+            ("B2", ks["B2"], tiled_matmul_plain, (TRAIN_BATCH * TRAIN_SEQ,),
+             both[:1])):
         for name, k, r, _ in SHAPES:
             packed = torch.randint(0, 2**32, (r, k // 32), generator=gen,
                                    device="cuda", dtype=torch.int64).to(torch.int32)
-            for dtype, peak in ((torch.bfloat16, bf16_peak), (torch.float32, f32_peak)):
+            for dtype, peak in dtypes:
                 for m in ms:
                     x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
                     res = check_kernel(kernel, plain, x, packed, bw, peak)
@@ -259,6 +315,14 @@ def phase_kernels(card: str):
                           f"plain {res['plain_ms']:.4f}ms library "
                           f"{res['library_ms']:.4f}ms bound {res['bound_ms']:.4f}ms",
                           flush=True)
+    step = {key: sum((2 * per * TRAIN_LAYERS + (name == "lm_head"))
+                     * results[("B2", TRAIN_BATCH * TRAIN_SEQ, "bfloat16", name)][key]
+                     for name, _, _, per in SHAPES)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"B2 per fused train step at L={TRAIN_LAYERS}, m={TRAIN_BATCH * TRAIN_SEQ}, "
+          f"bf16 ({2 * 7 * TRAIN_LAYERS + 1} calls): kernel {step['ms']:.3f}ms plain "
+          f"{step['plain_ms']:.3f}ms library {step['library_ms']:.3f}ms bound "
+          f"{step['bound_ms']:.3f}ms", flush=True)
     for kname, path in (("B3", "xnor"), ("B4", "int8")):
         for m in INT_MS:     # pad bits: n_in = 80 against a pack_bits tile
             check_int_kernel(path, m, 80, 24, gen, bw, int_peak, timed=False)
@@ -306,11 +370,9 @@ def serve_run(cfg, s_model, sp, path: str):
     rng = np.random.default_rng(0)
     reqs = [eng.submit(p, SamplingParams(max_tokens=16))
             for p in synthetic_prompts(rng, 8, cfg.vocab, 3, 101)]
-    ks = kernels()
-    for fn in ks.values():
-        fn.launches = 0
+    zero_counters()
     ticks, dt, tick_ends = drain(eng, reqs)
-    counts = {name: fn.launches for name, fn in ks.items()}
+    counts = read_counters()
     st = eng.stats()
     tok = sum(len(r.output) for r in reqs)
     if not all(r.done and len(r.output) == 16 for r in reqs):
@@ -322,7 +384,7 @@ def serve_run(cfg, s_model, sp, path: str):
              f"{st['extend_ticks']} extend ticks; both must run")
     own = PATH_KERNEL[path]
     need = (7 * cfg.n_layers + 1) * st["decode_ticks"] + st["extend_ticks"]
-    others = [k for k in ("B1", "B3", "B4") if k != own]
+    others = [k for k in ("B1", "B3", "B4", "B5") if k != own]
     if (counts[own] != need or counts["B2"] < st["extend_ticks"]
             or any(counts[k] for k in others)):
         fail(f"{path}: launch counters {counts}; need {own} = {need}, B2 >= "
@@ -373,13 +435,24 @@ def phase_serve(cfg):
     return sp, launches
 
 
+def device_time_by_name(prof):
+    """(device events, {kernel name: (ms, count)}) of a finished profile."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in events:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    return events, by_name
+
+
 def profile_decode(s_model, sp, cfg, tick_ms: float, path: str, n_ticks: int = 3):
     """Trace ``n_ticks`` decode-only ticks with torch.profiler: device busy
     time per tick (sum of kernel durations; one stream, so no overlap) beside
     the unprofiled decode tick of the serve run, and the top kernels."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import BatchedEngine, ServeConfig
@@ -401,12 +474,8 @@ def profile_decode(s_model, sp, cfg, tick_ms: float, path: str, n_ticks: int = 3
         torch.cuda.synchronize()
     if eng.stats()["extend_ticks"] != 1:
         fail("the profiled ticks were not decode-only")
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / n_ticks
-    by_name = {}
-    for e in events:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    events, by_name = device_time_by_name(prof)
+    busy_ms = sum(t for t, _ in by_name.values()) / n_ticks
     if not events:
         print(f"profile [{path}]: the profiler recorded no device events "
               f"(device time not measured)")
@@ -514,6 +583,291 @@ def phase_card_vs_cpu(cfg, sp):
               f"{verdict}", flush=True)
 
 
+def b5_per_step(n_layers: int):
+    """{shape name: B5 calls per train step}: each tiled Dense runs once in
+    the forward and once more in the remat recompute of its block's
+    backward; the LM head is not under remat."""
+    return {name: (1 if name == "head" else 2 * per * n_layers)
+            for name, _, _, per in B5_SHAPES}
+
+
+def phase_b5(card: str):
+    """Phase 2, B5: kernel vs plain at the full-width shapes. Returns
+    {(shape, source): measurements}."""
+    import torch
+
+    from repro_torch.core.tiling import plan_tiling
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.tile_construct import tile_construct_plain
+
+    bw = peaks(card)[0]
+    kernel = kernels()["B5"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    results = {}
+    for name, p, q, _ in B5_SHAPES:
+        w = torch.randn((p, q), generator=gen, device="cuda")
+        for source in ("W", "A"):
+            a = torch.randn((p, q), generator=gen, device="cuda") if source == "A" else None
+            before = kernel.launches
+            got = kernel(w, a)
+            torch.cuda.synchronize()
+            if kernel.launches != before + 1:
+                fail("tile_construct_kernel did not count its launch")
+            want = tile_construct_plain(w, a)
+            if got[0].dtype != torch.int32 or not torch.equal(got[0], want[0]):
+                n_bad = int((got[0] != want[0]).sum())
+                fail(f"B5 {name} p={p} q={q} alpha from {source}: {n_bad} packed "
+                     f"words differ from the plain version")
+            err = float((got[1] - want[1]).abs().max())
+            if not torch.allclose(got[1], want[1], rtol=1e-5, atol=0):
+                fail(f"B5 {name} alpha from {source}: max|err| {err:.3e} over rtol 1e-5")
+            nbytes = p * q * 4 * (2 if a is not None else 1) + q // 8 + p * 4
+            res = dict(err=err, ms=time_ms(lambda: kernel(w, a)),
+                       plain_ms=time_ms(lambda: tile_construct_plain(w, a)),
+                       bound_ms=1e3 * nbytes / bw)
+            results[(name, source)] = res
+            print(f"B5 {name:12s} p={p} q={q:9d} alpha from {source}: words equal, "
+                  f"alpha max|err|={err:.2e} kernel {res['ms']:.4f}ms plain "
+                  f"{res['plain_ms']:.4f}ms bound {res['bound_ms']:.4f}ms "
+                  f"({nbytes / 1e6 / res['ms']:.0f} GB/s)", flush=True)
+            del a
+        del w
+    for source in ("W", "A"):        # q = 500: padded to 512 by ops.tile_construct
+        spec = plan_tiling((40, 50), p=4, min_size=1, alpha_source=source)
+        w = torch.randn((40, 50), generator=gen, device="cuda")
+        a = torch.randn((40, 50), generator=gen, device="cuda")
+        got = ops.tile_construct(w, spec, a=a)
+        want = ops.tile_construct(w.cpu(), spec, a=a.cpu())
+        if not torch.equal(got[0].cpu(), want[0]) or not torch.allclose(
+                got[1].cpu(), want[1], rtol=1e-5, atol=0):
+            fail(f"B5 q=500 (padded) alpha from {source}: card differs from CPU")
+    print("B5 q=500 (padded to 512) alpha from W and A: card == CPU", flush=True)
+    torch.cuda.empty_cache()
+    return results
+
+
+def profile_train_step(step_fn, state, batch, label: str):
+    """One traced train step: device busy time (sum of kernel durations;
+    one stream) against its wall time, the top kernels and B5's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        float(met["loss"])
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events, by_name = device_time_by_name(prof)
+    if not events:
+        print(f"profile [{label}]: the profiler recorded no device events "
+              f"(device time not measured)")
+        return state, None
+    busy = sum(t for t, _ in by_name.values())
+    b5 = sum(t for k, (t, _) in by_name.items()
+             if "construct_kernel" in k or "alpha_kernel" in k)
+    b2 = sum(t for k, (t, _) in by_name.items()
+             if "matmul_bf16_kernel" in k or "matmul_f32_kernel" in k
+             or "sum_splits_kernel" in k)
+    print(f"profile [{label}]: step device busy {busy:.1f} ms of {wall_ms:.1f} ms "
+          f"wall (profiled) -> device idle share {1 - busy / wall_ms:.3f}; "
+          f"{len(events)} device ops; B5 {b5:.2f} ms ({b5 / busy:.3f} of busy), "
+          f"B2 {b2:.2f} ms ({b2 / busy:.3f})", flush=True)
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"  {t:9.3f} ms {n:6d}x  {name[:90]}")
+    return state, dict(busy_ms=busy, wall_ms=wall_ms, b5_ms=b5, b2_ms=b2)
+
+
+def train_run(cfg, ctx, ckpt_dir: str, label: str):
+    """One RecoveryManager run to TRAIN_STEPS through the CLI's wiring.
+    Every counter is 0 just before it and read just after it. Returns
+    (Training, final state, {step: (loss, grad_norm)}, counts, step ends)."""
+    import torch
+
+    from repro_torch.launch.train import build_training
+
+    tr = build_training(cfg, ctx, seed=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                        lr=3e-4, warmup=2, total_steps=8, grad_accum=1,
+                        ckpt_dir=ckpt_dir, ckpt_every=RESUME_FROM)
+    log, ends = {}, {}
+
+    def hooks(step, state, metrics):
+        log[step] = (float(metrics["loss"]), float(metrics["grad_norm"]))
+        ends[step] = time.perf_counter()
+
+    zero_counters()
+    final = tr.recovery.run(tr.step_fn, TRAIN_STEPS, hooks=hooks)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    if tr.recovery.restarts != 0:
+        fail(f"train [{label}]: {tr.recovery.restarts} restarts (a restart can "
+             f"hide a kernel fault)")
+    if not all(math.isfinite(x) for v in log.values() for x in v):
+        fail(f"train [{label}]: a loss or grad norm is not finite: {log}")
+    return tr, final, log, counts, ends
+
+
+def phase_train_fused(cfg):
+    """Phase 5: fused training at full width, TRAIN_LAYERS layers, with a
+    checkpoint resume. Returns the measurements for the summary."""
+    import torch
+
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.nn.context import TRAIN, ModelContext
+
+    cfg4 = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    ctx = ModelContext(policy=cfg.tbn, mode=TRAIN, compute_dtype=torch.bfloat16,
+                       device="cuda", fused_train=True)
+    L = TRAIN_LAYERS
+    # per forward pass one launch per tiled Dense (7 L + 1: q, k, v, o,
+    # gate, up, down per layer, and the LM head); the backward's remat
+    # recomputes each block's forward once more (7 L); the head is not
+    # under remat, and tbn_dense_train's own backward runs no kernel
+    per_step = 2 * 7 * L + 1
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        t0 = time.perf_counter()
+        tr, final, log1, counts1, ends = train_run(cfg4, ctx, tmp, "run 1")
+        t_run1 = time.perf_counter() - t0
+        want = TRAIN_STEPS * per_step
+        if (counts1["B5"] != want or counts1["B2"] != want
+                or any(counts1[k] for k in ("B1", "B3", "B4"))):
+            fail(f"train [run 1]: launch counters {counts1}; need B5 = B2 = "
+                 f"{TRAIN_STEPS} * (14 L + 1) = {want}, B1 = B3 = B4 = 0")
+        print(f"train [fused, L={L}, full width, bf16, B*S={TRAIN_BATCH}x{TRAIN_SEQ}] "
+              f"run 1: {TRAIN_STEPS} steps in {t_run1:.1f}s (with set-up and 2 "
+              f"checkpoints); losses " + " ".join(f"{v[0]:.4f}" for v in log1.values())
+              + " | grad norms " + " ".join(f"{v[1]:.3f}" for v in log1.values())
+              + " | launches " + " ".join(f"{k}={v}" for k, v in counts1.items()),
+              flush=True)
+
+        # steady step time, off the recovery loop (counters already read)
+        state = final
+        times = []
+        for i in range(3):
+            batch = lm_batch(0, TRAIN_STEPS + i, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, met = tr.step_fn(state, batch)
+            float(met["loss"])
+            times.append(time.perf_counter() - t)
+        step_ms = 1e3 * statistics.median(times)
+        tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"train [fused]: step wall {step_ms:.1f} ms (median of "
+              + ", ".join(f"{1e3 * t:.1f}" for t in times) + f" ms), {tok_s:.0f} "
+              f"tokens/s, peak device memory {peak_gb:.1f} GB", flush=True)
+        batch = lm_batch(0, TRAIN_STEPS + 3, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab)
+        state, prof = profile_train_step(tr.step_fn, state, batch, "fused train step")
+        del state, final, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        shutil.rmtree(Path(tmp) / f"step_{TRAIN_STEPS:08d}")
+        tr2, final2, log2, counts2, _ = train_run(cfg4, ctx, tmp, "resume")
+        want2 = (TRAIN_STEPS - RESUME_FROM) * per_step
+        if sorted(log2) != list(range(RESUME_FROM + 1, TRAIN_STEPS + 1)):
+            fail(f"train [resume]: ran steps {sorted(log2)}, expected "
+                 f"{RESUME_FROM + 1}..{TRAIN_STEPS} from the step-{RESUME_FROM} checkpoint")
+        if (counts2["B5"] != want2 or counts2["B2"] != want2
+                or any(counts2[k] for k in ("B1", "B3", "B4"))):
+            fail(f"train [resume]: launch counters {counts2}; need B5 = B2 = {want2}")
+        worst = 0.0
+        for s_, (loss2, _) in log2.items():
+            rel = abs(loss2 - log1[s_][0]) / abs(log1[s_][0])
+            worst = max(worst, rel)
+            if rel > REPLAY_RTOL:
+                fail(f"train [resume]: step {s_} loss {loss2} vs {log1[s_][0]} in run 1")
+        print(f"train [resume from step {RESUME_FROM}]: steps {sorted(log2)} losses "
+              + " ".join(f"{log2[k][0]:.4f}" for k in sorted(log2))
+              + f", max rel diff to run 1 {worst:.2e} (rtol {REPLAY_RTOL}); restarts "
+              f"0 and 0; launches " + " ".join(f"{k}={v}" for k, v in counts2.items()),
+              flush=True)
+        del final2, tr2
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(launches=counts1["B5"], step_ms=step_ms, tok_s=tok_s, prof=prof,
+                per_step=per_step)
+
+
+def phase_train_cli():
+    """Phase 6: the training CLI, unfused default path, on the card."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", "granite-8b",
+             "--reduced", "--steps", "3", "--ckpt-dir", tmp],
+            capture_output=True, text=True, timeout=600, env=env, cwd=str(ROOT))
+        dt = time.perf_counter() - t0
+    if out.returncode != 0 or "done: 3 steps" not in out.stdout:
+        fail(f"train CLI exit {out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    lines = out.stdout.strip().splitlines()
+    print(f"train CLI (--reduced --steps 3, card, unfused) exit 0 in {dt:.1f}s: "
+          f"{lines[0]} | {lines[-2]}", flush=True)
+
+
+def phase_train_card_vs_cpu(cfg):
+    """Phase 7: full width, 2 layers, f32, fused: card against CPU."""
+    import torch
+
+    from repro_torch.configs import build_model
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.nn import module as mod
+    from repro_torch.nn.context import TRAIN, ModelContext
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    models = {dev: build_model(cfg2, ModelContext(
+        policy=cfg.tbn, mode=TRAIN, compute_dtype=torch.float32, device=dev,
+        fused_train=True)) for dev in ("cuda", "cpu")}
+    params = {"cuda": models["cuda"].init(0)}
+    params["cpu"] = mod.map_tree(lambda v: v.cpu(), params["cuda"])
+    n_words = 0
+    for path, w in mod.walk(params["cuda"]):
+        if path[-1] != "w":
+            continue
+        spec = cfg.tbn.spec_for(tuple(w.shape[-2:]),
+                                kind="head" if path[0] == "head" else "dense")
+        w_cpu = mod.get_path(params["cpu"], path)
+        for j in range(w.shape[0] if w.ndim == 3 else 1):
+            wl, wl_cpu = (w[j], w_cpu[j]) if w.ndim == 3 else (w, w_cpu)
+            got, want = ops.tile_construct(wl, spec), ops.tile_construct(wl_cpu, spec)
+            if not torch.equal(got[0].cpu(), want[0]):
+                fail(f"train card vs CPU: B5 words of {'/'.join(path)}[{j}] differ")
+            n_words += got[0].numel()
+    batch = lm_batch(0, 0, 1, 64, cfg.vocab)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        paths, leaves = zip(*mod.walk(params[dev]))
+        for v in leaves:
+            v.requires_grad_(True)
+        t0 = time.perf_counter()
+        loss, _ = models[dev].train_forward(params[dev], batch)
+        grads = torch.autograd.grad(loss, leaves)
+        out[dev] = (float(loss.detach()), [g.cpu() for g in grads])
+        print(f"train card vs CPU: {dev} forward+backward {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        del grads, loss
+    rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    if not rel <= 1e-4:
+        fail(f"train card vs CPU: loss {out['cuda'][0]} vs {out['cpu'][0]}")
+    worst = 0.0
+    for path, g, g_cpu in zip(paths, out["cuda"][1], out["cpu"][1]):
+        scale = float(g_cpu.abs().max())
+        if not torch.isfinite(g).all() or not torch.allclose(
+                g, g_cpu, rtol=1e-3, atol=1e-3 * scale):
+            fail(f"train card vs CPU: gradient {'/'.join(path)} max|diff| "
+                 f"{float((g - g_cpu).abs().max()):.3e} (max|g| {scale:.3e})")
+        worst = max(worst, float((g - g_cpu).abs().max()) / max(scale, 1e-30))
+    print(f"train card vs CPU (fused, L=2, full width, f32, 1x64): B5 words of all "
+          f"tiled layers equal ({n_words} words), loss rel diff {rel:.2e} (rtol 1e-4), "
+          f"{len(paths)} gradient leaves max|diff|/max|g| {worst:.2e} (rtol 1e-3) OK",
+          flush=True)
+    del params, models, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     try:
         import torch
@@ -540,9 +894,16 @@ def main() -> None:
                 print(f"  {name}: {line.strip()}")
 
     results = phase_kernels(card)
+    b5 = phase_b5(card)
     cfg = get_config("granite-8b")
     sp, launches = phase_serve(cfg)
     phase_card_vs_cpu(cfg, sp)
+    del sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train_fused(cfg)
+    phase_train_cli()
+    phase_train_card_vs_cpu(cfg)
 
     entries = []
     for kname, fname, m, head, dtype, replaces in (
@@ -568,6 +929,20 @@ def main() -> None:
             "per": f"one {'decode' if head else 'extend'} tick at L={cfg.n_layers}, "
                    f"m={m}, {'bf16' if dtype == 'bfloat16' else 'bf16 activations quantized'}",
         })
+    per_step = b5_per_step(TRAIN_LAYERS)
+    b5_tot = {key: sum(n * b5[(name, "W")][key] for name, n in per_step.items())
+              for key in ("ms", "plain_ms", "bound_ms")}
+    entries.append({
+        "name": "tile_construct", "route": "cuda",
+        "source": "src/repro_torch/csrc/tile_construct.cu",
+        "replaces": "src/repro/kernels/tile_construct.py:48",
+        "launches": train["launches"],
+        "max_abs_err": max(v["err"] for v in b5.values()),
+        "ms": b5_tot["ms"], "plain_ms": b5_tot["plain_ms"],
+        "bound_ms": b5_tot["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "per": f"one train step at L={TRAIN_LAYERS}, B·S={TRAIN_BATCH * TRAIN_SEQ} "
+               f"({train['per_step']} calls, f32 masters, alpha from W)",
+    })
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Architecture config schema (port of the dense-family fields of
-``repro/configs/base.py``). Families other than ``dense`` and the fields
+"""Architecture config schema (port of the dense-family and training
+fields of ``repro/configs/base.py``). Families other than ``dense`` and the fields
 only they read (MoE, SSM, hybrid pattern, enc-dec, sharding recipes) come
 with the slices that port those families."""
 from __future__ import annotations
@@ -35,6 +35,9 @@ class ArchConfig:
         )
     )
     kv_dtype: str = "bf16"         # "int8" KV waits for a later slice
+    remat: str = "full"            # training: full | none ("dots" not ported)
+    attn_chunk: int = 1024         # chunked-attention query block
+    grad_accum: int = 1            # microbatches per training step
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests (the reference's
@@ -51,4 +54,5 @@ class ArchConfig:
             vocab=min(self.vocab, 512),
             window=None if self.window is None else min(self.window, 8),
             tbn=dataclasses.replace(self.tbn, min_size=1024),
+            attn_chunk=64,
         )

@@ -14,7 +14,8 @@ from repro_torch.core.tiling import (
 )
 
 FP32 = "fp32"      # standard full-precision layers
-TBN = "tbn"        # tiled binary (sub-bit); "bwnn" is 1 bit per weight
+BWNN = "bwnn"      # binary weights, 1 bit per weight (XNOR-Net style)
+TBN = "tbn"        # tiled binary (sub-bit)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +60,10 @@ class TBNPolicy:
 
 def fp32_policy() -> TBNPolicy:
     return TBNPolicy(mode=FP32, p=1)
+
+
+def bwnn_policy(alpha_mode: AlphaMode = "layer") -> TBNPolicy:
+    return TBNPolicy(mode=BWNN, p=1, alpha_mode=alpha_mode)
 
 
 def tbn_policy(p: int = 4, **kw) -> TBNPolicy:

@@ -1,10 +1,11 @@
-"""Tile planning and the serve-side tile math (port of the serve subset of
-``repro/core/tiling.py``).
+"""Tile planning, the training-time construction with its straight-through
+estimator, and the serve-side tile math (port of ``repro/core/tiling.py``
+without the conv plan).
 
 A weight with N elements is compressed by p (N = p*q): reshape to (p, q),
 sum over p, take the sign -> one ±1 tile t of length q, scaled by alpha
-(one per layer, Eq. 7, or one per tile, Eq. 9). The straight-through
-estimator and the training-time construction wait for the training slice.
+(one per layer, Eq. 7, or one per tile, Eq. 9). The reference's
+``custom_vjp``s are ``torch.autograd.Function``s here.
 """
 from __future__ import annotations
 
@@ -91,6 +92,55 @@ def tile_vector(w: torch.Tensor, spec: TileSpec) -> torch.Tensor:
     return _sign_pm1(aggregate(w, spec))
 
 
+class _SteSign(torch.autograd.Function):
+    """sign with the straight-through gradient (identity)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _sign_pm1(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def _ste_sign(x: torch.Tensor) -> torch.Tensor:
+    return _SteSign.apply(x)
+
+
+def _construct_binary_impl(w: torch.Tensor, spec: TileSpec) -> torch.Tensor:
+    t = _ste_sign(aggregate(w, spec))
+    # Eq. 4-5: b = 1_p (x) t, reshaped back to the tensor shape.
+    return t[None, :].expand(spec.p, spec.q).reshape(spec.shape)
+
+
+class _ConstructBinaryIdentity(torch.autograd.Function):
+    """Paper Eq. 6: dy/dW ~= dy/dB, passed through the whole threshold /
+    tile / reshape pipeline unchanged, elementwise."""
+
+    @staticmethod
+    def forward(ctx, w, spec):
+        ctx.shape = spec.shape
+        return _construct_binary_impl(w, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.reshape(ctx.shape), None
+
+
+def construct_binary(w: torch.Tensor, spec: TileSpec) -> torch.Tensor:
+    """Full-shape ±1 tensor B from the master W, with the STE.
+
+    ``spec.ste == "identity"`` passes gradients through unchanged (the
+    paper's autograd module); ``"autodiff"`` applies the STE to the sign
+    only and differentiates the aggregation and tiling exactly."""
+    if tuple(w.shape) != spec.shape:
+        raise ValueError(f"weight shape {tuple(w.shape)} != spec shape {spec.shape}")
+    if spec.ste == "identity":
+        return _ConstructBinaryIdentity.apply(w, spec)
+    return _construct_binary_impl(w, spec)
+
+
 def compute_alpha(src: torch.Tensor, spec: TileSpec) -> torch.Tensor:
     """Eq. 7 / Eq. 9: (1,) for mode "layer", (p,) for mode "tile"; each
     alpha_i belongs to the i-th contiguous tile of the flattened tensor."""
@@ -103,6 +153,63 @@ def expand_alpha(alpha: torch.Tensor, spec: TileSpec) -> torch.Tensor:
     """Broadcast alpha scalars over the full tensor shape."""
     col = alpha.reshape(1, 1) if spec.alpha_mode == "layer" else alpha[:, None]
     return col.expand(spec.p, spec.q).reshape(spec.shape)
+
+
+def tiled_weight(w: torch.Tensor, spec: TileSpec, a: Optional[torch.Tensor] = None,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The effective training-time weight B_hat = alpha ⊙ B (full shape).
+    ``a`` must be given when ``spec.alpha_source == "A"``."""
+    b = construct_binary(w, spec)
+    src = a if spec.alpha_source == "A" else w
+    if src is None:
+        raise ValueError("alpha_source='A' requires the auxiliary tensor A")
+    bhat = b * expand_alpha(compute_alpha(src, spec), spec)
+    return bhat if dtype is None else bhat.to(dtype)
+
+
+class _ConstructRowsIdentity(torch.autograd.Function):
+    """Row-aligned binary construction by a sum over a real axis (no flat
+    reshape), bit-identical to ``construct_binary`` for p | n_out; leading
+    batch dims allowed. Backward: identity (Eq. 6)."""
+
+    @staticmethod
+    def forward(ctx, w, p):
+        *lead, rows, d = w.shape
+        r = rows // p
+        t = _sign_pm1(w.reshape(*lead, p, r, d).sum(dim=-3))
+        return t[..., None, :, :].expand(*lead, p, r, d).reshape(*lead, rows, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tiled_weight_rows(w: torch.Tensor, spec: TileSpec,
+                      a: Optional[torch.Tensor] = None,
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``tiled_weight`` for row-aligned specs via axis ops only; handles
+    leading batch dims."""
+    if not spec.aligned_rows:
+        raise ValueError("tiled_weight_rows needs row-aligned tiling")
+    *lead, rows, d = w.shape
+    p, r = spec.p, spec.rows_per_tile
+    b = _ConstructRowsIdentity.apply(w, p)
+    src = a if (spec.alpha_source == "A" and a is not None) else w
+    if spec.alpha_mode == "layer":
+        bhat = b * src.abs().mean(dim=(-1, -2), keepdim=True)
+    else:
+        alpha = src.reshape(*lead, p, r, d).abs().mean(dim=(-1, -2))   # (*lead, p)
+        bhat = (b.reshape(*lead, p, r, d) * alpha[..., None, None]).reshape(
+            *lead, rows, d)
+    return bhat if dtype is None else bhat.to(dtype)
+
+
+def export_tile(w: torch.Tensor, spec: TileSpec, a: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(tile t ±1 (q,), alpha (n_alpha,)): the stored representation."""
+    with torch.no_grad():
+        src = a if spec.alpha_source == "A" else w
+        return tile_vector(w, spec), compute_alpha(src, spec)
 
 
 def reconstruct_from_tile(t: torch.Tensor, alpha: torch.Tensor, spec: TileSpec,

@@ -1,6 +1,12 @@
 from repro_torch.kernels.ops import (
     FlatTileLayoutError,
+    tbn_dense_train,
+    tile_construct,
     tiled_dense_infer,
+)
+from repro_torch.kernels.tile_construct import (
+    tile_construct_kernel,
+    tile_construct_plain,
 )
 from repro_torch.kernels.tiled_matmul import tiled_matmul_plain, tiled_matmul_unique
 from repro_torch.kernels.tiled_matvec import (

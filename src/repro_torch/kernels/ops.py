@@ -1,5 +1,12 @@
-"""Serving-time tiled dense layer (port of ``repro/kernels/ops.py``
-``tiled_dense_infer`` with its three compute paths).
+"""Tiled dense layer ops (port of ``repro/kernels/ops.py``: the serving-time
+``tiled_dense_infer`` with its three compute paths, and the training-time
+``tile_construct`` / ``tbn_dense_train``).
+
+``tbn_dense_train`` is the fused training forward: ``tile_construct``
+(kernel B5) builds the packed tile and alpha from the masters, then
+``tiled_dense_infer`` applies it (B2 at m > 32, B1 below). Its backward
+is the gradient of the paper-faithful ``_train_ref_forward``, as in the
+reference; the reference has no backward kernel, so neither does the port.
 
 ``tiled_dense_infer`` computes y = x @ W_hat^T from the shipped (packed
 tile, alpha) form without materializing the dense weight: u = x @ T^T
@@ -23,11 +30,14 @@ reference's ``use_pallas=False`` rule).
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.packing import LANE_BITS, unpack_bits
-from repro_torch.core.tiling import TileSpec, tiled_matmul_reference
+from repro_torch.core.packing import LANE_BITS, packed_len, unpack_bits
+from repro_torch.core.tiling import TileSpec, tiled_matmul_reference, tiled_weight
+from repro_torch.kernels.tile_construct import tile_construct_kernel
 from repro_torch.kernels.tiled_matmul import tiled_matmul_unique
 from repro_torch.kernels.tiled_matvec import MATVEC_MAX_M, tiled_matvec_unique
 from repro_torch.kernels.tiled_xnor import (
@@ -127,3 +137,75 @@ def tiled_dense_infer(x: torch.Tensor, packed: torch.Tensor,
     y3 = _replicate_dense_out(_dense_unique_local(xm, packed, compute_path),
                               alpha, spec)
     return y3.reshape(*lead, n_out).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Construction and the fused training forward
+# --------------------------------------------------------------------------
+@torch.no_grad()
+def tile_construct(w: torch.Tensor, spec: TileSpec,
+                   a: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Master weight(s) -> (packed tile int32 (ceil(q/32),), alpha
+    (n_alpha,) float32), through kernel B5 on the card. Not differentiable:
+    the fused training path takes its gradient from ``_train_ref_forward``.
+
+    As in the reference's Pallas branch: the (p, q) view is padded with
+    zero columns to 32 | q (a zero column sum is bit 0, -1; |0| adds
+    nothing), the kernel's sum|A| / q_pad is rescaled by q_pad / q, and
+    layer-mode alpha is the mean of the per-tile alphas."""
+    src = a if spec.alpha_source == "A" else None
+    pad = (-spec.q) % LANE_BITS
+
+    def as_2d(v):    # a view of the layer's leaf unless q needs padding
+        v2 = v.reshape(spec.p, spec.q)
+        return F.pad(v2, (0, pad)) if pad else v2
+
+    w2d = as_2d(w)
+    a2d = None if src is None else as_2d(src)
+    q_pad = spec.q + pad
+    packed, alpha_t = tile_construct_kernel(w2d, a2d)
+    alpha_t = alpha_t * (q_pad / spec.q)
+    alpha = alpha_t.mean().reshape(1) if spec.alpha_mode == "layer" else alpha_t
+    return packed[:packed_len(spec.q)], alpha.float()
+
+
+def _train_ref_forward(x, w, a, spec: TileSpec) -> torch.Tensor:
+    """Paper-faithful reference: materialize B_hat, dense matmul."""
+    bhat = tiled_weight(w, spec, a=a, dtype=x.dtype)
+    n_out, n_in = spec.shape[0], spec.n // spec.shape[0]
+    return x @ bhat.reshape(n_out, n_in).T
+
+
+class _TbnDenseTrain(torch.autograd.Function):
+    """Forward through the kernels (B5, then B2/B1 on the flat tile);
+    backward is the exact gradient of ``_train_ref_forward``, which
+    recomputes B_hat instead of storing it."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, spec):
+        packed, alpha = tile_construct(w, spec, a=a)
+        ctx.spec = spec
+        ctx.save_for_backward(x, w, a)
+        return tiled_dense_infer(x, packed, alpha, spec).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, a = ctx.saved_tensors
+        with torch.enable_grad():
+            # separate leaves even when a is w: autograd then sums the two
+            # gradients into w, as the reference's VJP does
+            ins = [v.detach().requires_grad_(need)
+                   for v, need in zip((x, w, a), ctx.needs_input_grad[:3])]
+            y = _train_ref_forward(*ins, ctx.spec)
+            wanted = [v for v in ins if v.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, g, allow_unused=True))
+        return (*(next(grads) if v.requires_grad else None for v in ins), None)
+
+
+def tbn_dense_train(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                    spec: TileSpec) -> torch.Tensor:
+    """Training forward of a tiled dense layer via the fused kernels;
+    gradient == the reference forward's. ``a`` may be ``w`` (alpha_source
+    "W"): pass the same tensor."""
+    return _TbnDenseTrain.apply(x, w, a, spec)

@@ -1,10 +1,21 @@
-"""Plain-torch oracles for the tiled kernels (port of the matmul, matvec,
-xnor and int8 oracles of ``repro/kernels/ref.py``)."""
+"""Plain-torch oracles for the tiled kernels (port of the construction,
+matmul, matvec, xnor and int8 oracles of ``repro/kernels/ref.py``)."""
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.packing import unpack_bits
+from repro_torch.core.packing import pack_bits, unpack_bits
+
+
+def tile_construct_ref(w2d: torch.Tensor, a2d: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(p, q) master weight -> (packed tile int32 (ceil(q/32),), alpha (p,)).
+    alpha is per tile (Eq. 9); Eq. 7's layer alpha is its mean."""
+    t = torch.where(w2d.sum(dim=0) > 0, 1.0, -1.0)
+    src = w2d if a2d is None else a2d
+    return pack_bits(t), src.abs().mean(dim=1).float()
 
 
 def tiled_matmul_unique_ref(x: torch.Tensor, packed: torch.Tensor, *, r: int

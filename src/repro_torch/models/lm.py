@@ -1,5 +1,5 @@
-"""Decoder LM, dense family, serving entry points (port of the dense-family
-serve path of ``repro/models/lm.py``).
+"""Decoder LM, dense family: training and serving entry points (port of
+the dense-family paths of ``repro/models/lm.py``).
 
 The layer stack is one segment of ``n_layers`` identical blocks whose
 params are stacked on a leading layer axis (``seg0``), as in the
@@ -7,17 +7,19 @@ reference; a Python loop walks the layers in place of ``lax.scan``. The
 paged K/V pool of each segment is stacked the same way and updated in
 place, layer by layer, through views.
 
-Entry points: ``extend`` (chunked prefill of a (B, C) column block at
-per-slot offsets) and ``decode_step`` (one token per slot). Training,
-monolithic prefill, windowed rings, int8 KV and the other families wait
-for later slices.
+Entry points: ``train_forward`` (next-token cross-entropy; each block is
+checkpointed under ``cfg.remat == "full"``), ``extend`` (chunked prefill
+of a (B, C) column block at per-slot offsets) and ``decode_step`` (one
+token per slot). Monolithic prefill, windowed rings, int8 KV and the
+other families wait for later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn import module as mod
@@ -31,6 +33,9 @@ from repro_torch.nn.norms import LayerNorm, RMSNorm
 FAMILY_ITEM = "ROADMAP.md queue A item 10 (the other model families)"
 WINDOW_ITEM = "ROADMAP.md queue A item 10 (windowed rings, recurrent state)"
 INT8_KV_ITEM = "ROADMAP.md queue A item 7 (integer paths, int8 KV)"
+DOTS_REMAT_ITEM = "ROADMAP.md queue A item 8b (selective \"dots\" remat)"
+# _ce_sum chunks the batch when b % 32 == 0 and S * vocab reaches this
+CE_CHUNK_MIN_ELEMS = 2**26
 
 
 def _norm(cfg: ArchConfig, ctx: ModelContext, dim: int, name: str):
@@ -59,7 +64,7 @@ class Block:
             d, cfg.n_heads, cfg.n_kv, ctx, head_dim=cfg.head_dim,
             name=f"{self.name}.attn", qkv_bias=cfg.qkv_bias,
             qk_norm=cfg.qk_norm, rope=cfg.rope_theta > 0,
-            rope_theta=cfg.rope_theta or 10_000.0,
+            rope_theta=cfg.rope_theta or 10_000.0, q_chunk=cfg.attn_chunk,
         )
         self.norm2 = _norm(cfg, ctx, d, f"{self.name}.norm2")
         self.ffn = MLP(d, cfg.d_ff, ctx, name=f"{self.name}.mlp",
@@ -78,6 +83,12 @@ class Block:
 
     def _ffn(self, params, x):
         return x + self.ffn(params["ffn"], self.norm2(params["norm2"], x))
+
+    def __call__(self, params, x, *, positions=None):
+        """Training forward of one block: x (B, S, d) -> (B, S, d)."""
+        h = self.mixer(params["mixer"], self.norm1(params["norm1"], x),
+                       positions=positions)
+        return self._ffn(params, x + h)
 
     def decode_step(self, params, x, cache, *, lengths, page_table, active=None):
         h = self.norm1(params["norm1"], x)
@@ -141,6 +152,71 @@ class DecoderLM:
         if self.cfg.tie_embeddings:
             return self.embed.attend(params["embed"], h)
         return self.head(params["head"], h)
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def _remat_call(self, block, pl, x, positions):
+        if self.cfg.remat == "none":
+            return block(pl, x, positions=positions)
+        if self.cfg.remat == "dots":
+            raise NotImplementedError(
+                f"remat='dots' is not ported yet: {DOTS_REMAT_ITEM}")
+        if self.cfg.remat != "full":
+            raise ValueError(f"unknown remat {self.cfg.remat!r}")
+        return checkpoint(lambda h: block(pl, h, positions=positions), x,
+                          use_reentrant=False)
+
+    def backbone(self, params, x, *, positions=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Blocks, then the final norm -> (h, aux). The dense family has no
+        auxiliary loss (aux is 0). Each stacked leaf is unbound into its
+        layers, so the layers' gradients stack back into the leaf."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, seg in enumerate(self.segments):
+            layers = mod.map_tree(lambda v: v.unbind(0), params[f"seg{i}"])
+            for j in range(seg.n):
+                pl = mod.map_tree(lambda v, j=j: v[j], layers)
+                x = self._remat_call(seg.block, pl, x, positions)
+        return self.final_norm(params["final_norm"], x), aux
+
+    def train_forward(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Next-token CE loss. batch: tokens (B, S) [+ loss_mask (B, S)],
+        moved to the model's device here."""
+        tokens = batch["tokens"].to(self.device).long()
+        b, s = tokens.shape
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        x = self.embed(params["embed"], tokens)
+        h, aux = self.backbone(params, x, positions=positions)
+        # full-sequence logits; the shifted last position is masked out
+        targets = torch.roll(tokens, -1, dims=1)
+        valid = (torch.arange(s, device=self.device) < s - 1).float()[None, :]
+        mask = batch.get("loss_mask")
+        mask = valid if mask is None else mask.to(self.device).float() * valid
+        mask = mask.expand(b, s)
+        ce = self._ce_sum(params, h, targets, mask) / mask.sum().clamp_min(1.0)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+    def _ce_sum(self, params, h, targets, mask) -> torch.Tensor:
+        """Summed token NLL. Batch-chunked, each chunk checkpointed, when the
+        (B, S, V) f32 logits would be large: the backward then recomputes
+        one sub-batch's logits at a time."""
+        b = h.shape[0]
+        big = h.shape[1] * self.cfg.vocab >= CE_CHUNK_MIN_ELEMS
+        nb = b // 32 if (b % 32 == 0 and big) else 1
+        if nb <= 1:
+            return self._ce_sum_chunk(params, h, targets, mask)
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        for hc, tc, mc in zip(h.chunk(nb), targets.chunk(nb), mask.chunk(nb)):
+            tot = tot + checkpoint(self._ce_sum_chunk, params, hc, tc, mc,
+                                   use_reentrant=False)
+        return tot
+
+    def _ce_sum_chunk(self, params, h, targets, mask) -> torch.Tensor:
+        logits = self.logits(params, h).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        return ((logz - gold) * mask).sum()
 
     # ------------------------------------------------------------------
     # serving

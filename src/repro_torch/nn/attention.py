@@ -1,9 +1,11 @@
-"""Multi-head attention serve paths: GQA, RoPE, paged bf16/f32 KV pool
-(port of the serving half of ``repro/nn/attention.py``).
+"""Multi-head attention: GQA, RoPE, the training call (full or
+query-chunked) and the paged bf16/f32 KV pool of serving (port of the
+causal self-attention half of ``repro/nn/attention.py``).
 
 The softmax core is written in plain torch ops, as the reference writes it
-in jnp, so the parity tests compare like with like. The int8 KV path and
-the dense (unpaged) cache wait for later slices.
+in jnp, so the parity tests compare like with like. The int8 KV path, the
+dense (unpaged) cache, sliding windows and cross attention wait for later
+slices.
 
 Paged pool layout: a cache leaf is ``(n_pages + 1, page_tokens, K, hd)``.
 Pages 0..n_pages-1 are addressed through the engine's page table exactly
@@ -20,6 +22,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import module as mod
 from repro_torch.nn.context import ModelContext
@@ -98,6 +101,7 @@ class Attention:
     qk_norm: bool = False
     rope: bool = True
     rope_theta: float = 10_000.0
+    q_chunk: int = 1024                 # chunked training path query block
 
     def __post_init__(self):
         self.hd = self.head_dim or self.d_model // self.n_heads
@@ -139,6 +143,43 @@ class Attention:
     def _group(self, q):
         b, s = q.shape[:2]
         return q.reshape(b, s, self.n_kv, self.groups, self.hd)
+
+    def __call__(self, params: dict, x: torch.Tensor, *,
+                 positions: Optional[torch.Tensor] = None,
+                 chunked: Optional[bool] = None) -> torch.Tensor:
+        """Causal self-attention over x (B, S, d), as in training. Queries
+        are processed in chunks of ``q_chunk`` once S >= 4 * q_chunk."""
+        b, s, _ = x.shape
+        if positions is None:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+        q, k, v = self._qkv(params, x, positions)
+        scale = 1.0 / math.sqrt(self.hd)
+        if chunked is None:
+            chunked = s >= 4 * self.q_chunk
+        if chunked:
+            out = self._chunked(q, k, v, positions, scale)
+        else:
+            out = _attend_core(self._group(q), k, v,
+                               make_mask(positions, positions), scale)
+        return self.wo(params["wo"], out.reshape(b, s, self.n_heads * self.hd))
+
+    def _chunked(self, q, k, v, positions, scale):
+        """A loop over query chunks; score memory is (chunk, T) per step.
+        Each chunk is checkpointed, so the backward recomputes one chunk's
+        scores at a time instead of keeping all of them."""
+        s = q.shape[1]
+        c = min(self.q_chunk, s)
+        while s % c:
+            c -= 1
+        qg = self._group(q)
+
+        def step(qi, qpi):
+            return _attend_core(qi, k, v, make_mask(qpi, positions), scale)
+
+        return torch.cat([
+            checkpoint(step, qg[:, i:i + c], positions[:, i:i + c],
+                       use_reentrant=False)
+            for i in range(0, s, c)], dim=1)
 
     def _attend_paged(self, params, q, cache_k, cache_v, page_table, positions,
                       k_valid=None):

@@ -29,6 +29,7 @@ class ModelContext:
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
     compute_path: str = "float"
+    fused_train: bool = False      # TRAIN: tiled Dense through kernel B5
     device: DeviceLike = None
     ledger: Optional[LayerLedger] = None
 

@@ -1,9 +1,12 @@
-"""Dense layer with first-class TBN quantization (port of ``Dense`` in
-``repro/nn/linear.py``).
+"""Dense layer with first-class TBN quantization (port of ``Dense`` and
+``bwnn_weight`` in ``repro/nn/linear.py``).
 
-TRAIN mode declares the full-precision masters (so masters can be made
-and exported); applying them waits for the training slice. SERVE mode
-carries the shipped form and applies it through the tile-reuse math
+TRAIN mode holds the full-precision masters and applies the effective
+weight: with ``ModelContext(fused_train=True)`` a tiled layer goes through
+``kernels.ops.tbn_dense_train`` (kernel B5, then B2/B1 on the card);
+otherwise it materializes B_hat (``tiled_weight_rows``, or ``tiled_weight``
+for an unaligned tiling) and multiplies densely. SERVE mode carries the
+shipped form and applies it through the tile-reuse math
 (``kernels.ops.tiled_dense_infer``: kernels B1/B2 on the card).
 """
 from __future__ import annotations
@@ -14,13 +17,23 @@ from typing import Optional
 import torch
 
 from repro_torch.core.packing import packed_len, unpack_bits
-from repro_torch.core.tiling import TileSpec, reconstruct_from_tile
-from repro_torch.kernels.ops import tiled_dense_infer
+from repro_torch.core.tiling import (
+    TileSpec,
+    _ste_sign,
+    reconstruct_from_tile,
+    tiled_weight,
+    tiled_weight_rows,
+)
+from repro_torch.kernels.ops import tbn_dense_train, tiled_dense_infer
 from repro_torch.nn import module as mod
 from repro_torch.nn.context import SERVE, ModelContext
 
-TRAIN_APPLY_ITEM = "ROADMAP.md queue A item 8 (training)"
 BWNN_ITEM = "ROADMAP.md queue A item 9 (conv and the paper's BWNN baselines)"
+
+
+def bwnn_weight(w: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """XNOR-Net style binary weight: sign(W) * mean|W| with identity STE."""
+    return (_ste_sign(w) * w.abs().mean()).to(compute_dtype)
 
 
 @dataclasses.dataclass
@@ -79,14 +92,28 @@ class Dense:
         return out
 
     def __call__(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        if self.ctx.mode != SERVE:
-            raise NotImplementedError(
-                f"{self.name}: TRAIN-mode apply is not ported yet: "
-                f"{TRAIN_APPLY_ITEM}")
-        y = self._serve_apply(params, x)
+        if self.ctx.mode == SERVE:
+            y = self._serve_apply(params, x)
+        else:
+            y = self._train_apply(params, x)
         if self.use_bias:
             y = y + params["b"].to(y.dtype)
         return y
+
+    def _train_apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        cd, w = self.ctx.compute_dtype, params["w"]
+        if self.spec is not None and self.ctx.fused_train:
+            return tbn_dense_train(x.to(cd), w, params.get("a", w), self.spec)
+        if self.spec is not None and self.spec.aligned_rows:
+            weff = tiled_weight_rows(w, self.spec, a=params.get("a"), dtype=cd)
+        elif self.spec is not None:
+            weff = tiled_weight(w, self.spec, a=params.get("a"), dtype=cd
+                                ).reshape(self.n_out, self.n_in)
+        elif self.ctx.policy.binarize(self.kind):
+            weff = bwnn_weight(w, cd)
+        else:
+            weff = w.to(cd)
+        return x.to(cd) @ weff.T
 
     def _serve_apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         cd = self.ctx.compute_dtype

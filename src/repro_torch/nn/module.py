@@ -69,6 +69,12 @@ def walk(tree, path=()):
         yield path, tree
 
 
+def get_path(tree: dict, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def set_path(out: dict, path, value) -> None:
     node = out
     for k in path[:-1]:

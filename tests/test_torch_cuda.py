@@ -1,4 +1,5 @@
-"""Kernels B1-B4 on the card against their plain PyTorch versions.
+"""Kernels B1-B5 on the card against their plain PyTorch versions, and the
+paths around them card against CPU.
 
 Imports neither jax nor the JAX package, so it runs on the GPU machine:
 
@@ -14,6 +15,10 @@ from repro_torch.core.packing import pack_bits
 from repro_torch.core.tiling import plan_tiling
 from repro_torch.kernels import ops
 from repro_torch.kernels import tiled_xnor as x8
+from repro_torch.kernels.tile_construct import (
+    tile_construct_kernel,
+    tile_construct_plain,
+)
 from repro_torch.kernels.tiled_matmul import tiled_matmul_plain, tiled_matmul_unique
 from repro_torch.kernels.tiled_matvec import (
     MATVEC_MAX_M,
@@ -28,7 +33,7 @@ RTOL = 1e-4      # x*±1 is exact in f32: only the summation order differs
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (kernels B1-B4 have no CPU mode)")
+        pytest.skip("needs a CUDA GPU (kernels B1-B5 have no CPU mode)")
     return torch.device("cuda")
 
 
@@ -131,3 +136,95 @@ def test_int_paths_on_card_match_cpu(cuda_device, path, m):
     rtol = 1e-5 if m <= 32 else RTOL
     torch.testing.assert_close(got.cpu(), want, rtol=rtol,
                                atol=rtol * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["W", "A"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,q", [(1, 32), (3, 96), (8, 4096), (4, 8192),
+                                 (8, 3 * 2048 + 32), (2, 64 * 2048)])
+def test_tile_construct_kernel_matches_plain(cuda_device, p, q, dtype, source):
+    """B5: the packed words are exactly the plain version's (both add the
+    p rows in the same order in f32); alpha to rtol 1e-5 (|.| sums in
+    another order)."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(p * q)
+    w = torch.randn((p, q), generator=gen, device=cuda_device).to(dtype)
+    a = (torch.randn((p, q), generator=gen, device=cuda_device).to(dtype)
+         if source == "A" else None)
+    before = tile_construct_kernel.launches
+    got_w, got_a = tile_construct_kernel(w, a)
+    torch.cuda.synchronize()
+    assert tile_construct_kernel.launches == before + 1
+    want_w, want_a = tile_construct_plain(w, a)
+    assert got_w.dtype == torch.int32 and torch.equal(got_w, want_w)
+    torch.testing.assert_close(got_a, want_a, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha_source", ["W", "A"])
+@pytest.mark.parametrize("alpha_mode", ["layer", "tile"])
+def test_tile_construct_on_card_matches_cpu(cuda_device, alpha_source, alpha_mode):
+    """ops.tile_construct around B5: q = 500 pads to 512, the alpha
+    rescale and the layer mean, card against CPU."""
+    spec = plan_tiling((40, 50), p=4, min_size=1, alpha_mode=alpha_mode,
+                       alpha_source=alpha_source)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    w = torch.randn((40, 50), generator=gen, device=cuda_device)
+    a = torch.randn((40, 50), generator=gen, device=cuda_device)
+    got = ops.tile_construct(w, spec, a=a)
+    want = ops.tile_construct(w.cpu(), spec, a=a.cpu())
+    assert torch.equal(got[0].cpu(), want[0])
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 96])
+def test_tbn_dense_train_on_card_matches_cpu(cuda_device, m):
+    """The fused training forward (B5, then B1 at m=4 or B2 at m=96) and
+    its gradient, card against CPU, f32."""
+    spec = plan_tiling((4 * 24, 64), p=4, min_size=1, alpha_source="W")
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(m)
+    x0 = torch.randn((m, 64), generator=gen, device=cuda_device)
+    w0 = torch.randn((96, 64), generator=gen, device=cuda_device)
+    g0 = torch.randn((m, 96), generator=gen, device=cuda_device)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        x = x0.to(dev).clone().requires_grad_()
+        w = w0.to(dev).clone().requires_grad_()
+        y = ops.tbn_dense_train(x, w, w, spec)
+        y.backward(g0.to(dev))
+        out[dev] = (y.detach().cpu(), x.grad.cpu(), w.grad.cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=RTOL,
+                                   atol=RTOL * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_fused_train_forward_on_card_matches_cpu(cuda_device):
+    """The reduced model's fused train_forward and every gradient leaf,
+    card (B5 + B1/B2) against CPU (plain versions), f32."""
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.nn import module as mod
+    from repro_torch.nn.context import TRAIN, ModelContext
+
+    cfg = get_config("granite-8b").reduced()
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (2, 24), generator=gen)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, ModelContext(policy=cfg.tbn, mode=TRAIN,
+                                              compute_dtype=torch.float32,
+                                              device=dev, fused_train=True))
+        params = mod.map_tree(lambda v: v.to(dev), build_model(
+            cfg, ModelContext(policy=cfg.tbn, mode=TRAIN, device="cpu")).init(0))
+        leaves = [v.requires_grad_() for _, v in mod.walk(params)]
+        loss, _ = model.train_forward(params, {"tokens": tokens})
+        grads = torch.autograd.grad(loss, leaves)
+        out[dev] = (loss.detach().cpu(), [g.cpu() for g in grads])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=0)
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(got, want, rtol=1e-3,
+                                   atol=1e-3 * float(want.abs().max()))

@@ -18,6 +18,7 @@ import torch
 from repro_torch.configs import build_model, get_config
 from repro_torch.device import NoCudaDeviceError, resolve_device
 from repro_torch.launch import serve as serve_cli
+from repro_torch.launch import train as train_cli
 from repro_torch.nn.context import SERVE, ModelContext
 from repro_torch.serve.engine import BatchedEngine, ServeConfig
 
@@ -83,6 +84,15 @@ def test_default_device_is_cuda_and_never_falls_back(no_cuda):
         ModelContext(policy=cfg.tbn, mode=SERVE)
     with pytest.raises(NoCudaDeviceError):
         serve_cli.main(["--reduced", "--requests", "1"])
+
+
+def test_train_cli_needs_a_card_unless_asked(no_cuda, tmp_path):
+    with pytest.raises(NoCudaDeviceError):
+        train_cli.main(["--reduced", "--steps", "1", "--ckpt-dir", str(tmp_path)])
+    cfg = get_config("granite-8b").reduced()
+    with pytest.raises(NoCudaDeviceError):
+        ModelContext(policy=cfg.tbn, fused_train=True)
+    assert not any(tmp_path.iterdir())
 
 
 def test_engine_runs_where_its_model_runs(no_cuda):
