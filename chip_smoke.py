@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases (any failure raises and exits non-zero; no phase is skipped):
-  1. print the card's name and power limit, build kernels B1-B5 from
+  1. print the card's name and power limit, build kernels B1-B6 from
      ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
   2. kernel vs plain version on the card at the (K, r) pairs of the
      full-width granite-8b path. B1 at m in {1, 4, 32} and B2 at m in
@@ -61,7 +61,31 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
   7. full width, 2 layers, f32, batch 1 x 64: fused ``train_forward`` and
      backward on the card (kernels) against the CPU (plain versions) on the
      same masters: the B5 words of every layer equal, the loss within rtol
-     1e-4, every gradient leaf within rtol 1e-3, atol 1e-3 * max|g|.
+     1e-4, every gradient leaf within rtol 1e-3, atol 1e-3 * max|g|;
+  8. B6 (fused-im2col tiled conv) against its plain version on the card at
+     the four tiled-conv shapes of ResNet-34 ImageNet (28x28x128 -> 14x14
+     s2 r 128; 14x14x256 s1 r 128; 14x14x256 -> 7x7 s2 r 256; 7x7x512 s1
+     r 256), N in {1, 64}, bf16 and f32, rtol 1e-4, atol 1e-4*max|u_ref|;
+     timed beside the plain version, the library yardstick (``F.conv2d``
+     in the input's type on the unpacked ±1 bank, cuDNN, which the port
+     never calls) and the bound, per shape and summed per forward (18
+     calls). Then ``ops.tiled_conv_infer`` card against CPU for C = 48, a
+     1x1 stride-2 256 -> 512 conv at p = 8, kernel (5, 3) stride (1, 2)
+     VALID, SAME_LOWER, explicit pads [(2, 1), (0, 2)], alpha "layer" and
+     "tile";
+  9. serve the paper's ResNet-34 ImageNet (Table 1: TBN p = 2, lambda 150k,
+     alpha per tile from A, 1000 classes) at full width through the entry
+     points of a user: TRAIN masters from seed 0 -> ``export_serving_params``
+     -> SERVE model (bf16) forward. The ledger must read 21,779,648 params,
+     11.646 Mbit, 0.5347 bits/param. 64 images of 224 x 224 x 3: one
+     warm-up, then 10 timed forwards (median ms and images/s), and 10
+     forwards at N = 1 (latency); counters zeroed before and read after
+     each run: B6 = 18 per forward, B2 = 1 per N = 64 forward, B1 = 1 per
+     N = 1 forward, B3 = B4 = B5 = 0. One N = 64 forward traced with
+     torch.profiler (device busy vs wall, top kernels);
+ 10. the same export at full width in f32, N = 2 at 224 x 224: logits on
+     the card (B6, B1, cuDNN for the BWNN convs) against the CPU model
+     (plain versions) at rtol = atol = 1e-3.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the JSON status line.
@@ -111,6 +135,16 @@ B5_SHAPES = (("q/o", 8, 4096 * 4096 // 8, 2), ("k/v", 8, 1024 * 4096 // 8, 2),
              ("head", 8, 49152 * 4096 // 8, 0))
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 512
 TRAIN_STEPS, RESUME_FROM, REPLAY_RTOL = 6, 3, 1e-3
+# (name, input H = W, C, r, stride, calls per forward) of every B6 call of
+# ResNet-34 ImageNet at p = 2 (3x3 convs of stages 2 and 3; the rest stay
+# BWNN under lambda = 150k)
+CONV_SHAPES = (("s2.entry 28x28x128 s2", 28, 128, 128, 2, 1),
+               ("s2 14x14x256 s1", 14, 256, 128, 1, 11),
+               ("s3.entry 14x14x256 s2", 14, 256, 256, 2, 1),
+               ("s3 7x7x512 s1", 7, 512, 256, 1, 5))
+CONV_NS = (1, 64)
+R34_BATCH, R34_TIMED = 64, 10
+R34_LEDGER = (21_779_648, 11.646, 0.5347)   # params, Mbit, bits/param
 
 
 def fail(msg: str) -> None:
@@ -133,8 +167,9 @@ def peaks(card: str):
 
 
 def kernels():
-    """{"B1".."B5": wrapper}: the wrappers whose ``launches`` count."""
+    """{"B1".."B6": wrapper}: the wrappers whose ``launches`` count."""
     from repro_torch.kernels.tile_construct import tile_construct_kernel
+    from repro_torch.kernels.tiled_conv import tiled_conv_unique
     from repro_torch.kernels.tiled_matmul import tiled_matmul_unique
     from repro_torch.kernels.tiled_matvec import tiled_matvec_unique
     from repro_torch.kernels.tiled_xnor import (
@@ -144,7 +179,7 @@ def kernels():
 
     return {"B1": tiled_matvec_unique, "B2": tiled_matmul_unique,
             "B3": tiled_xnor_matvec_unique, "B4": tiled_int8_matvec_unique,
-            "B5": tile_construct_kernel}
+            "B5": tile_construct_kernel, "B6": tiled_conv_unique}
 
 
 def zero_counters():
@@ -384,7 +419,7 @@ def serve_run(cfg, s_model, sp, path: str):
              f"{st['extend_ticks']} extend ticks; both must run")
     own = PATH_KERNEL[path]
     need = (7 * cfg.n_layers + 1) * st["decode_ticks"] + st["extend_ticks"]
-    others = [k for k in ("B1", "B3", "B4", "B5") if k != own]
+    others = [k for k in ("B1", "B3", "B4", "B5", "B6") if k != own]
     if (counts[own] != need or counts["B2"] < st["extend_ticks"]
             or any(counts[k] for k in others)):
         fail(f"{path}: launch counters {counts}; need {own} = {need}, B2 >= "
@@ -730,9 +765,9 @@ def phase_train_fused(cfg):
         t_run1 = time.perf_counter() - t0
         want = TRAIN_STEPS * per_step
         if (counts1["B5"] != want or counts1["B2"] != want
-                or any(counts1[k] for k in ("B1", "B3", "B4"))):
+                or any(counts1[k] for k in ("B1", "B3", "B4", "B6"))):
             fail(f"train [run 1]: launch counters {counts1}; need B5 = B2 = "
-                 f"{TRAIN_STEPS} * (14 L + 1) = {want}, B1 = B3 = B4 = 0")
+                 f"{TRAIN_STEPS} * (14 L + 1) = {want}, B1 = B3 = B4 = B6 = 0")
         print(f"train [fused, L={L}, full width, bf16, B*S={TRAIN_BATCH}x{TRAIN_SEQ}] "
               f"run 1: {TRAIN_STEPS} steps in {t_run1:.1f}s (with set-up and 2 "
               f"checkpoints); losses " + " ".join(f"{v[0]:.4f}" for v in log1.values())
@@ -769,7 +804,7 @@ def phase_train_fused(cfg):
             fail(f"train [resume]: ran steps {sorted(log2)}, expected "
                  f"{RESUME_FROM + 1}..{TRAIN_STEPS} from the step-{RESUME_FROM} checkpoint")
         if (counts2["B5"] != want2 or counts2["B2"] != want2
-                or any(counts2[k] for k in ("B1", "B3", "B4"))):
+                or any(counts2[k] for k in ("B1", "B3", "B4", "B6"))):
             fail(f"train [resume]: launch counters {counts2}; need B5 = B2 = {want2}")
         worst = 0.0
         for s_, (loss2, _) in log2.items():
@@ -868,6 +903,298 @@ def phase_train_card_vs_cpu(cfg):
     torch.cuda.empty_cache()
 
 
+def conv_operands(n: int, h: int, c: int, r: int, stride: int, dtype, gen):
+    """Padded NHWC input and a random conv-layout tile for one ResNet-34
+    3x3 SAME conv, as ``ops.tiled_conv_infer`` hands them to B6."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ops import resolve_conv_padding
+
+    (oh, ow), ((lo, hi), _) = resolve_conv_padding((h, h), (3, 3),
+                                                   (stride, stride), "SAME")
+    x = torch.randn((n, h, h, c), generator=gen, device="cuda").to(dtype)
+    x = F.pad(x, (0, 0, lo, hi, lo, hi))
+    packed = torch.randint(0, 2**32, (9, r, c // 32), generator=gen,
+                           device="cuda", dtype=torch.int64).to(torch.int32)
+    return x, packed, dict(kernel=(3, 3), stride=(stride, stride), out_hw=(oh, ow))
+
+
+def check_conv(x, packed, kw, bw, peak):
+    """B6 once against its plain version on the same card inputs (tolerance
+    and counter), then timed beside the plain version, the library
+    yardstick and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.packing import unpack_conv_tile
+    from repro_torch.kernels.tiled_conv import tiled_conv_plain
+
+    kernel = kernels()["B6"]
+    before = kernel.launches
+    got = kernel(x, packed, **kw)
+    torch.cuda.synchronize()
+    if kernel.launches != before + 1:
+        fail("tiled_conv_unique did not count its launch")
+    want = tiled_conv_plain(x, packed, **kw)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=RTOL, atol=RTOL * scale):
+        fail(f"B6 x={tuple(x.shape)} r={packed.shape[1]} {x.dtype}: max|err| "
+             f"{err:.3e} over tolerance (max|u| {scale:.3e})")
+    n, _, _, c = x.shape
+    (oh, ow), r = kw["out_hw"], packed.shape[1]
+    bank = unpack_conv_tile(packed, r, c, 3, 3, dtype=x.dtype)
+    x_nchw = x.permute(0, 3, 1, 2)          # channels-last view: cuDNN NHWC
+    m = n * oh * ow
+    nbytes = x.numel() * x.element_size() + packed.numel() * 4 + m * r * 4
+    flops = 2.0 * m * 9 * c * r
+    t_bytes, t_ops = 1e3 * nbytes / bw, 1e3 * flops / peak
+    return dict(err=err, scale=scale,
+                ms=time_ms(lambda: kernel(x, packed, **kw)),
+                plain_ms=time_ms(lambda: tiled_conv_plain(x, packed, **kw)),
+                library_ms=time_ms(lambda: F.conv2d(x_nchw, bank, stride=kw["stride"])),
+                bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops)
+
+
+def conv_infer_cases():
+    """(label, (c_out, c_in, kh, kw, p), stride, padding, alpha_mode, (H, W))
+    of the ``tiled_conv_infer`` card-vs-CPU checks."""
+    return (("C=48", (64, 48, 3, 3, 2), (1, 1), "SAME", "tile", (14, 14)),
+            ("1x1 s2 256->512 p=8", (512, 256, 1, 1, 8), (2, 2), "SAME", "tile",
+             (14, 14)),
+            ("k(5,3) s(1,2) VALID", (64, 32, 5, 3, 2), (1, 2), "VALID", "tile",
+             (12, 11)),
+            ("SAME_LOWER s2", (64, 32, 3, 3, 2), (2, 2), "SAME_LOWER", "tile",
+             (14, 14)),
+            ("pads [(2,1),(0,2)]", (64, 32, 3, 3, 2), (1, 1), [(2, 1), (0, 2)],
+             "tile", (7, 7)),
+            ("alpha layer s2", (128, 64, 3, 3, 2), (2, 2), "SAME", "layer",
+             (28, 28)),
+            ("alpha tile s2", (128, 64, 3, 3, 2), (2, 2), "SAME", "tile",
+             (28, 28)))
+
+
+def phase_conv(card: str):
+    """Phase 8: B6 vs plain at the ResNet-34 shapes, then the wrapper's
+    padding and alpha cases card vs CPU. Returns {(shape, N, dtype):
+    measurements}."""
+    import torch
+
+    from repro_torch.core.packing import pack_conv_tile
+    from repro_torch.core.tiling import plan_tiling
+    from repro_torch.kernels import ops
+
+    bw, bf16_peak, f32_peak, _ = peaks(card)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    results = {}
+    for name, h, c, r, stride, _ in CONV_SHAPES:
+        for n in CONV_NS:
+            for dtype, peak in ((torch.bfloat16, bf16_peak), (torch.float32, f32_peak)):
+                x, packed, kw = conv_operands(n, h, c, r, stride, dtype, gen)
+                res = check_conv(x, packed, kw, bw, peak)
+                dname = str(dtype).split(".")[-1]
+                results[(name, n, dname)] = res
+                print(f"B6 {name:22s} N={n:2d} r={r} {dname:8s} max|err|="
+                      f"{res['err']:.2e} (max|u|={res['scale']:.1f}) kernel "
+                      f"{res['ms']:.4f}ms plain {res['plain_ms']:.4f}ms library "
+                      f"{res['library_ms']:.4f}ms bound {res['bound_ms']:.4f}ms "
+                      f"({'ops' if res['ops_ms'] >= res['bytes_ms'] else 'bytes'})",
+                      flush=True)
+                del x, packed
+    for n in CONV_NS:
+        for dname in ("bfloat16", "float32"):
+            tot = conv_forward_totals(results, n, dname)
+            print(f"B6 per ResNet-34 forward, N={n}, {dname} (18 calls): kernel "
+                  f"{tot['ms']:.3f}ms plain {tot['plain_ms']:.3f}ms library "
+                  f"{tot['library_ms']:.3f}ms bound {tot['bound_ms']:.3f}ms",
+                  flush=True)
+    worst = 0.0
+    for label, (c_out, c_in, kh, kw, p), stride, padding, mode, hw in conv_infer_cases():
+        spec = plan_tiling((c_out, c_in, kh, kw), p=p, min_size=0, alpha_mode=mode)
+        x = torch.randn((2, *hw, c_in), generator=gen, device="cuda")
+        t = torch.randn((spec.q,), generator=gen, device="cuda")
+        packed = pack_conv_tile(t, c_out // p, c_in, kh, kw)
+        alpha = torch.rand((spec.n_alpha,), generator=gen, device="cuda") + 0.1
+        before = kernels()["B6"].launches
+        got = ops.tiled_conv_infer(x, packed, alpha, spec, stride=stride,
+                                   padding=padding).cpu()
+        if kernels()["B6"].launches != before + 1:
+            fail(f"tiled_conv_infer [{label}] did not launch B6")
+        want = ops.tiled_conv_infer(x.cpu(), packed.cpu(), alpha.cpu(), spec,
+                                    stride=stride, padding=padding)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        worst = max(worst, err / scale)
+        if got.shape != want.shape or not torch.allclose(got, want, rtol=RTOL,
+                                                         atol=RTOL * scale):
+            fail(f"tiled_conv_infer [{label}] card vs CPU: max|err| {err:.3e} "
+                 f"(max|y| {scale:.3e})")
+    print(f"tiled_conv_infer card vs CPU (f32; C=48, 1x1 s2 p=8, k(5,3) VALID, "
+          f"SAME_LOWER, explicit pads, alpha layer/tile): max|err|/max|y| "
+          f"{worst:.2e} (rtol {RTOL}) OK", flush=True)
+    torch.cuda.empty_cache()
+    return results
+
+
+def conv_forward_totals(results, n: int, dtype: str):
+    """Sum the per-shape B6 measurements over the 18 calls of a forward."""
+    return {key: sum(calls * results[(name, n, dtype)][key]
+                     for name, _, _, _, _, calls in CONV_SHAPES)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
+                        "ops_ms")}
+
+
+def resnet34_models(dtype, devices=("cuda",)):
+    """(TRAIN model, {device: SERVE model}, policy, ledger report) of
+    ResNet-34 ImageNet under Table 1's policy."""
+    from repro_torch.core.policy import tbn_policy
+    from repro_torch.models.paper import build_paper_model
+    from repro_torch.nn.context import SERVE, TRAIN, ModelContext
+
+    pol = tbn_policy(p=2, min_size=150_000, alpha_source="A", alpha_mode="tile")
+    kw = dict(imagenet=True, classes=1000)
+    tctx = ModelContext(policy=pol, mode=TRAIN, device="cuda")
+    tm = build_paper_model("resnet34", tctx, **kw)
+    sms = {dev: build_paper_model("resnet34", ModelContext(
+        policy=pol, mode=SERVE, compute_dtype=dtype, device=dev), **kw)
+        for dev in devices}
+    return tm, sms, pol, tctx.ledger.report()
+
+
+def r34_forwards(model, sp, x, n_fwd: int):
+    """``n_fwd`` synchronized forwards; counters zeroed just before and read
+    just after. Returns (logits of the last, [seconds], counts)."""
+    import torch
+
+    zero_counters()
+    times = []
+    with torch.no_grad():
+        for _ in range(n_fwd):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = model(sp, x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    return y, times, read_counters()
+
+
+def phase_resnet34():
+    """Phase 9: ResNet-34 ImageNet at full width through the entry points.
+    Returns (exported SERVE params, measurements)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.nn import module as mod
+    from repro_torch.serve.weights import (
+        export_serving_params,
+        serving_bytes,
+        tile_serving_bytes,
+    )
+
+    t0 = time.perf_counter()
+    tm, sms, pol, rep = resnet34_models(torch.bfloat16)
+    sm = sms["cuda"]
+    got = (rep.universe_params, round(rep.mbit(), 3), round(rep.bits_per_param(), 4))
+    if got != R34_LEDGER:
+        fail(f"ResNet-34 ledger {got}, expected {R34_LEDGER}")
+    tp = tm.init(0)
+    sp = export_serving_params(tm.specs(), sm.specs(), tp, pol)
+    master_b = serving_bytes(tp)
+    del tp
+    torch.cuda.synchronize()
+    n_b6 = sum(1 for path, _ in mod.walk(sp) if path[-1] == "tile_conv")
+    if n_b6 != 18:
+        fail(f"ResNet-34 SERVE tree has {n_b6} tiled convs, expected 18")
+    print(f"resnet34-imagenet TBN p=2 lambda=150k: {rep.universe_params:,} params, "
+          f"{rep.mbit():.3f} Mbit, {rep.bits_per_param():.4f} bits/param; masters "
+          f"(W and A) {master_b / 1e6:.1f} MB -> shipped {serving_bytes(sp) / 1e6:.3f} "
+          f"MB (tile words {tile_serving_bytes(sp) / 1e6:.3f} MB), 18 tiled convs, "
+          f"exported in {time.perf_counter() - t0:.1f}s", flush=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    x = torch.randn((R34_BATCH, 224, 224, 3), generator=gen, device="cuda")
+    r34_forwards(sm, sp, x, 1)                              # warm-up
+    y, times, counts = r34_forwards(sm, sp, x, R34_TIMED)
+    need = dict(B1=0, B2=R34_TIMED, B3=0, B4=0, B5=0, B6=18 * R34_TIMED)
+    if counts != need:
+        fail(f"resnet34 N={R34_BATCH}: launch counters {counts}, need {need}")
+    if y.shape != (R34_BATCH, 1000) or not torch.isfinite(y).all():
+        fail(f"resnet34 N={R34_BATCH}: logits {tuple(y.shape)} not finite")
+    fwd_ms = 1e3 * statistics.median(times)
+    x1 = x[:1].contiguous()
+    r34_forwards(sm, sp, x1, 1)
+    y1, times1, counts1 = r34_forwards(sm, sp, x1, R34_TIMED)
+    need1 = dict(need, B1=R34_TIMED, B2=0)
+    if counts1 != need1 or y1.shape != (1, 1000) or not torch.isfinite(y1).all():
+        fail(f"resnet34 N=1: launch counters {counts1} (need {need1}) or "
+             f"logits not finite")
+    lat_ms = 1e3 * statistics.median(times1)
+    print(f"serve resnet34-imagenet bf16 N={R34_BATCH}: forward {fwd_ms:.2f} ms "
+          f"(median of {R34_TIMED}: " + ", ".join(f"{1e3 * t:.2f}" for t in times)
+          + f"), {R34_BATCH / (fwd_ms / 1e3):.0f} images/s | N=1 latency "
+          f"{lat_ms:.2f} ms (median of {R34_TIMED}) | launches N={R34_BATCH} "
+          + " ".join(f"{k}={v}" for k, v in counts.items()) + " | N=1 "
+          + " ".join(f"{k}={v}" for k, v in counts1.items()), flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            sm(sp, x)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events, by_name = device_time_by_name(prof)
+    prof_res = None
+    if not events:
+        print("profile [resnet34]: the profiler recorded no device events "
+              "(device time not measured)")
+    else:
+        busy = sum(t for t, _ in by_name.values())
+        # N = 64 fills the card without split K, so B6 is its main kernel
+        b6 = sum(t for k, (t, _) in by_name.items() if "conv_bf16_kernel" in k)
+        print(f"profile [resnet34 N={R34_BATCH} forward]: device busy {busy:.2f} ms "
+              f"of {wall_ms:.2f} ms wall (profiled) -> device idle share "
+              f"{1 - busy / wall_ms:.3f}; {len(events)} device ops; B6 {b6:.2f} ms "
+              f"({b6 / busy:.3f} of busy)", flush=True)
+        for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+            print(f"  {t:8.3f} ms {n:5d}x  {name[:90]}")
+        prof_res = dict(busy_ms=busy, wall_ms=wall_ms, b6_ms=b6)
+    del x, y
+    torch.cuda.empty_cache()
+    return sp, dict(launches=counts["B6"], fwd_ms=fwd_ms, lat_ms=lat_ms,
+                    prof=prof_res)
+
+
+def phase_resnet34_card_vs_cpu(sp):
+    """Phase 10: the same export in f32, N = 2 at 224 x 224, card vs CPU."""
+    import torch
+
+    from repro_torch.nn import module as mod
+
+    _, sms, _, _ = resnet34_models(torch.float32, devices=("cuda", "cpu"))
+    gen = torch.Generator()
+    gen.manual_seed(2)
+    x = torch.randn((2, 224, 224, 3), generator=gen)
+    sp_cpu = mod.map_tree(lambda v: v.cpu(), sp)
+    y_card, _, counts = r34_forwards(sms["cuda"], sp, x.cuda(), 1)
+    if counts["B6"] != 18 or counts["B1"] != 1 or counts["B2"]:
+        fail(f"resnet34 card vs CPU: launch counters {counts}")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y_cpu = sms["cpu"](sp_cpu, x)
+    dt = time.perf_counter() - t0
+    y_card = y_card.cpu()
+    err = float((y_card - y_cpu).abs().max())
+    if not torch.isfinite(y_card).all() or not torch.allclose(
+            y_card, y_cpu, rtol=1e-3, atol=1e-3):
+        fail(f"resnet34 card vs CPU logits differ: max|diff| {err:.3e} "
+             f"(max|logit| {float(y_cpu.abs().max()):.3e})")
+    print(f"resnet34 card vs CPU (full width, f32, N=2, 224x224): logits max|diff| "
+          f"{err:.2e} (max|logit| {float(y_cpu.abs().max()):.2f}, rtol=atol=1e-3) "
+          f"OK; CPU forward {dt:.1f}s", flush=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -904,6 +1231,10 @@ def main() -> None:
     train = phase_train_fused(cfg)
     phase_train_cli()
     phase_train_card_vs_cpu(cfg)
+    conv = phase_conv(card)
+    sp34, r34 = phase_resnet34()
+    phase_resnet34_card_vs_cpu(sp34)
+    del sp34
 
     entries = []
     for kname, fname, m, head, dtype, replaces in (
@@ -942,6 +1273,19 @@ def main() -> None:
         "bound_ms": b5_tot["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "per": f"one train step at L={TRAIN_LAYERS}, B·S={TRAIN_BATCH * TRAIN_SEQ} "
                f"({train['per_step']} calls, f32 masters, alpha from W)",
+    })
+    b6_tot = conv_forward_totals(conv, R34_BATCH, "bfloat16")
+    entries.append({
+        "name": "tiled_conv", "route": "cuda",
+        "source": "src/repro_torch/csrc/tiled_conv.cu",
+        "replaces": "src/repro/kernels/tiled_conv.py:68",
+        "launches": r34["launches"],
+        "max_abs_err": max(v["err"] for v in conv.values()),
+        "ms": b6_tot["ms"], "plain_ms": b6_tot["plain_ms"],
+        "bound_ms": b6_tot["bound_ms"],
+        "bound_by": "operations" if b6_tot["ops_ms"] >= b6_tot["bytes_ms"] else "bytes",
+        "library_ms": b6_tot["library_ms"],
+        "per": f"one ResNet-34 ImageNet forward at N={R34_BATCH}, bf16 (18 calls)",
     })
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": entries}))

@@ -1,9 +1,10 @@
-"""PyTorch / CUDA port of the Tiled Bit Networks serving path.
+"""PyTorch / CUDA port of Tiled Bit Networks: serving and training the
+decoder LM, and the paper's CNN / transformer / PointNet models.
 
 Mirrors ``src/repro/`` module for module (same names, same "/"-joined
 param-tree key paths) so each module's JAX reference is easy to find.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-the two hand-written Hopper kernels (``kernels/tiled_matvec.py``,
-``kernels/tiled_matmul.py``) launch only for CUDA tensors, and their plain
-PyTorch versions run only for CPU tensors.
+the hand-written Hopper kernels B1-B6 (``kernels/*.py`` over ``csrc/``)
+launch only for CUDA tensors, and their plain PyTorch versions run only
+for CPU tensors.
 """

@@ -1,4 +1,5 @@
-"""Bit packing for tile vectors (port of ``repro/core/packing.py``).
+"""Bit packing for tile vectors and conv tiles (port of
+``repro/core/packing.py``).
 
 Bit order: bit j of word i encodes element ``i*32 + j`` (little-endian
 within the word). +1 -> bit 1, -1 -> bit 0. q is padded to a multiple of
@@ -41,3 +42,21 @@ def unpack_bits(packed: torch.Tensor, q: int, dtype=torch.float32) -> torch.Tens
     bits = (packed.to(torch.int32)[..., :, None] >> shifts) & 1
     flat = bits.reshape(*packed.shape[:-1], packed.shape[-1] * LANE_BITS)[..., :q]
     return (flat * 2 - 1).to(dtype)
+
+
+def pack_conv_tile(t: torch.Tensor, r: int, c_in: int, kh: int, kw: int
+                   ) -> torch.Tensor:
+    """Flat conv tile (q,) ±1 -> (kh*kw, r, ceil(c_in/32)) int32, the "conv
+    layout": q = r*c_in*kh*kw is flat in OIHW order (r filters); each kernel
+    position's (r, c_in) cross-section is packed along channels, rows padded
+    to whole words with zero bits (consumers pad activations with zero
+    channels, so the -1 those bits unpack to contributes nothing)."""
+    bank = t.reshape(r, c_in, kh, kw)
+    return pack_bits(bank.permute(2, 3, 0, 1).reshape(kh * kw, r, c_in))
+
+
+def unpack_conv_tile(packed: torch.Tensor, r: int, c_in: int, kh: int, kw: int,
+                     dtype=torch.float32) -> torch.Tensor:
+    """(kh*kw, r, ceil(c_in/32)) int32 -> OIHW tile bank (r, c_in, kh, kw) ±1."""
+    by_pos = unpack_bits(packed, c_in, dtype=dtype)        # (kh*kw, r, c_in)
+    return by_pos.reshape(kh, kw, r, c_in).permute(2, 3, 0, 1)

@@ -1,6 +1,6 @@
 """Tile planning, the training-time construction with its straight-through
-estimator, and the serve-side tile math (port of ``repro/core/tiling.py``
-without the conv plan).
+estimator, the serve-side tile math and the conv plan (port of
+``repro/core/tiling.py``).
 
 A weight with N elements is compressed by p (N = p*q): reshape to (p, q),
 sum over p, take the sign -> one ±1 tile t of length q, scaled by alpha
@@ -14,6 +14,8 @@ from typing import Literal, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.packing import packed_len
 
 AlphaMode = Literal["layer", "tile"]
 AlphaSource = Literal["W", "A"]
@@ -46,6 +48,11 @@ class TileSpec:
     @property
     def n_alpha(self) -> int:
         return self.p if self.alpha_mode == "tile" else 1
+
+    @property
+    def stored_bits(self) -> int:
+        """Bits stored at inference: q tile bits + fp32 alpha scalars."""
+        return self.q + 32 * self.n_alpha
 
 
 def plan_tiling(
@@ -234,3 +241,72 @@ def tiled_matmul_reference(x: torch.Tensor, t: torch.Tensor,
     else:
         y = u[..., None, :] * alpha.reshape((1,) * (u.ndim - 1) + (spec.p, 1))
     return y.reshape(*x.shape[:-1], n_out)
+
+
+# --------------------------------------------------------------------------
+# Conv tiling plan: how the flat (p, q) tiling lands on an OIHW weight
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ConvTilePlan:
+    """Structured view of an aligned tiling of an OIHW conv weight.
+
+    For W (c_out, c_in, kh, kw) with p | c_out the flat row-major (p, q)
+    tiling covers r = c_out / p complete filters per tile, so replica a of
+    the tile is filters a*r .. (a+1)*r - 1: the conv runs against the
+    r-filter bank once and the p replicas are a broadcast-scale by alpha.
+    The shipped tile is in conv layout, (kh*kw, r, ceil(c_in/32)) int32
+    (``core.packing.pack_conv_tile``)."""
+
+    spec: TileSpec
+
+    def __post_init__(self):
+        if len(self.spec.shape) != 4:
+            raise ValueError(f"conv plan needs a 4-D weight, got {self.spec.shape}")
+        if not self.spec.aligned_rows:
+            raise ValueError("conv plan needs p | c_out (aligned tiling)")
+
+    @property
+    def c_out(self) -> int:
+        return self.spec.shape[0]
+
+    @property
+    def c_in(self) -> int:
+        return self.spec.shape[1]
+
+    @property
+    def kernel(self) -> Tuple[int, int]:
+        return (self.spec.shape[2], self.spec.shape[3])
+
+    @property
+    def r(self) -> int:
+        """Filters covered by one tile."""
+        return self.spec.rows_per_tile
+
+    @property
+    def kk(self) -> int:
+        """Patch length: elements of one filter (the im2col contraction)."""
+        return self.spec.n // self.spec.shape[0]
+
+    @property
+    def positions(self) -> int:
+        return self.spec.shape[2] * self.spec.shape[3]
+
+    def packed_shape(self) -> Tuple[int, int, int]:
+        """Shipped conv-layout tile shape: (kh*kw, r, ceil(c_in/32))."""
+        return (self.positions, self.r, packed_len(self.c_in))
+
+
+def plan_conv_tiling(spec: Optional[TileSpec]) -> Optional[ConvTilePlan]:
+    """ConvTilePlan for a conv TileSpec, or None when the tiled conv path
+    does not apply (no tiling, not 4-D, unaligned: the layer then serves by
+    dense reconstruction)."""
+    if spec is None or len(spec.shape) != 4 or not spec.aligned_rows:
+        return None
+    return ConvTilePlan(spec=spec)
+
+
+def conv_tile_bank(t: torch.Tensor, plan: ConvTilePlan, dtype=torch.float32
+                   ) -> torch.Tensor:
+    """The flat tile t (q,) as the r-filter OIHW bank (r, c_in, kh, kw)."""
+    kh, kw = plan.kernel
+    return t.reshape(plan.r, plan.c_in, kh, kw).to(dtype)

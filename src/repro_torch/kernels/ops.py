@@ -1,6 +1,14 @@
-"""Tiled dense layer ops (port of ``repro/kernels/ops.py``: the serving-time
-``tiled_dense_infer`` with its three compute paths, and the training-time
-``tile_construct`` / ``tbn_dense_train``).
+"""Tiled layer ops (port of ``repro/kernels/ops.py``: the serving-time
+``tiled_dense_infer`` with its three compute paths, the serving-time conv
+``tiled_conv_infer``, and the training-time ``tile_construct`` /
+``tbn_dense_train``).
+
+``tiled_conv_infer`` pads x spatially (the reference's asymmetric SAME
+rule, ``resolve_conv_padding``) and to whole 32-channel words, runs the
+conv against the r = c_out/p unique filters of the conv-layout tile
+(kernel B6, ``kernels/tiled_conv.py``) and broadcasts the p replicas with
+their alphas. The tensor-parallel ``shard_map`` branch of the reference
+waits for the mesh work (ROADMAP item 12).
 
 ``tbn_dense_train`` is the fused training forward: ``tile_construct``
 (kernel B5) builds the packed tile and alpha from the masters, then
@@ -30,14 +38,20 @@ reference's ``use_pallas=False`` rule).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.packing import LANE_BITS, packed_len, unpack_bits
-from repro_torch.core.tiling import TileSpec, tiled_matmul_reference, tiled_weight
+from repro_torch.core.tiling import (
+    TileSpec,
+    plan_conv_tiling,
+    tiled_matmul_reference,
+    tiled_weight,
+)
 from repro_torch.kernels.tile_construct import tile_construct_kernel
+from repro_torch.kernels.tiled_conv import tiled_conv_unique
 from repro_torch.kernels.tiled_matmul import tiled_matmul_unique
 from repro_torch.kernels.tiled_matvec import MATVEC_MAX_M, tiled_matvec_unique
 from repro_torch.kernels.tiled_xnor import (
@@ -137,6 +151,98 @@ def tiled_dense_infer(x: torch.Tensor, packed: torch.Tensor,
     y3 = _replicate_dense_out(_dense_unique_local(xm, packed, compute_path),
                               alpha, spec)
     return y3.reshape(*lead, n_out).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Inference conv
+# --------------------------------------------------------------------------
+Padding = Union[str, Sequence[Tuple[int, int]]]
+
+
+def _conv_spatial(size: int, k: int, s: int, pad) -> Tuple[int, int, int]:
+    """(out_size, pad_lo, pad_hi) with ``conv_general_dilated`` semantics:
+    SAME puts the odd pad pixel at the high end, SAME_LOWER at the low."""
+    if pad in ("SAME", "SAME_LOWER"):
+        out = -(-size // s)
+        total = max((out - 1) * s + k - size, 0)
+        half = total // 2
+        lo = half if pad == "SAME" else total - half
+        return out, lo, total - lo
+    if pad == "VALID":
+        lo = hi = 0
+    elif isinstance(pad, str):
+        raise ValueError(f"unsupported padding {pad!r} for tiled conv")
+    else:
+        lo, hi = pad
+    return (size + lo + hi - k) // s + 1, lo, hi
+
+
+def resolve_conv_padding(hw: Tuple[int, int], kernel: Tuple[int, int],
+                         stride: Tuple[int, int], padding: Padding
+                         ) -> Tuple[Tuple[int, int],
+                                    Tuple[Tuple[int, int], Tuple[int, int]]]:
+    """-> ((OH, OW), explicit ((lo_h, hi_h), (lo_w, hi_w)))."""
+    pads = (padding, padding) if isinstance(padding, str) else tuple(padding)
+    oh, lo_h, hi_h = _conv_spatial(hw[0], kernel[0], stride[0], pads[0])
+    ow, lo_w, hi_w = _conv_spatial(hw[1], kernel[1], stride[1], pads[1])
+    return (oh, ow), ((lo_h, hi_h), (lo_w, hi_w))
+
+
+def pad_nhwc(x: torch.Tensor, kernel: Tuple[int, int], stride: Tuple[int, int],
+             padding: Padding, value: float = 0.0) -> torch.Tensor:
+    """NHWC x padded explicitly by the reference's rule, for a dense conv or
+    a pool that then runs unpadded (PyTorch's own padding is symmetric)."""
+    _, ((lo_h, hi_h), (lo_w, hi_w)) = resolve_conv_padding(
+        (x.shape[1], x.shape[2]), kernel, stride, padding)
+    if not (lo_h or hi_h or lo_w or hi_w):
+        return x
+    return F.pad(x, (0, 0, lo_w, hi_w, lo_h, hi_h), value=value)
+
+
+def _replicate_conv_out(u: torch.Tensor, alpha: torch.Tensor, spec: TileSpec
+                        ) -> torch.Tensor:
+    """u (N, OH, OW, r) -> y (N, OH, OW, p, r), replica-major: output channel
+    a*r + j is replica a of unique filter j."""
+    n, oh, ow, r = u.shape
+    alpha = alpha.to(u.dtype)
+    if spec.alpha_mode == "layer":
+        return u[..., None, :].expand(n, oh, ow, spec.p, r) * alpha.reshape(1)
+    return u[..., None, :] * alpha[:, None]
+
+
+def tiled_conv_infer(x: torch.Tensor, packed: torch.Tensor,
+                     alpha: torch.Tensor, spec: TileSpec, *,
+                     stride: Tuple[int, int] = (1, 1),
+                     padding: Padding = "SAME") -> torch.Tensor:
+    """y = conv(x, W_hat) from the shipped conv representation.
+
+    x (N, H, W, C) NHWC; packed (kh*kw, r, ceil(C/32)) int32 conv-layout
+    tile (``core.packing.pack_conv_tile``); alpha (n_alpha,). spec.shape ==
+    (c_out, C, kh, kw) with p | c_out. The dense weight never exists: the
+    conv runs against the r unique filters (kernel B6 on the card, its
+    plain version on the CPU) and the p replicas are a broadcast-scale.
+    Returns (N, OH, OW, c_out) in x's dtype."""
+    plan = plan_conv_tiling(spec)
+    if plan is None:
+        raise ValueError(f"spec {spec.shape} has no aligned conv tiling")
+    kh, kw = plan.kernel
+    sh, sw = stride
+    n, h, w, c = x.shape
+    if c != plan.c_in:
+        raise ValueError(f"x has {c} channels, the tile {plan.c_in}")
+    (oh, ow), pads = resolve_conv_padding((h, w), (kh, kw), stride, padding)
+    # pad so every kernel read is in bounds, and channels to whole words
+    # (zero activations against any tile bit contribute nothing)
+    hp = max(h + pads[0][0] + pads[0][1], (oh - 1) * sh + kh)
+    wp = max(w + pads[1][0] + pads[1][1], (ow - 1) * sw + kw)
+    cpad = packed.shape[2] * LANE_BITS - c
+    widths = (0, cpad, pads[1][0], wp - w - pads[1][0], pads[0][0],
+              hp - h - pads[0][0])
+    xin = F.pad(x, widths) if any(widths) else x.contiguous()
+    u = tiled_conv_unique(xin, packed, kernel=(kh, kw), stride=(sh, sw),
+                          out_hw=(oh, ow))
+    y5 = _replicate_conv_out(u, alpha, spec)
+    return y5.reshape(n, oh, ow, spec.p * plan.r).to(x.dtype)
 
 
 # --------------------------------------------------------------------------

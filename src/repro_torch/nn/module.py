@@ -25,9 +25,11 @@ Initializer = Callable[[torch.Generator, Tuple[int, ...], Any, torch.device],
 
 
 def kaiming() -> Initializer:
-    """He-normal over the last (input) axis of a dense weight."""
+    """He-normal over the last (input) axis of a dense weight, or over
+    c_in * kh * kw of an OIHW conv weight."""
     def init(gen, shape, dtype, device):
-        std = float(np.sqrt(2.0 / max(1, shape[-1])))
+        fan_in = int(np.prod(shape[1:])) if len(shape) > 2 else shape[-1]
+        std = float(np.sqrt(2.0 / max(1, fan_in)))
         return std * torch.randn(shape, generator=gen, dtype=dtype, device=device)
 
     return init

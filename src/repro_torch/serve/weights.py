@@ -1,14 +1,16 @@
 """TRAIN masters -> shipped SERVE representation, and the weight carrier
 from the JAX package's param trees (port of ``repro/serve/weights.py``).
 
-    tiled layer (aligned)   -> row-packed tile (r, ceil(n_in/32)) int32 + alpha
+    tiled Dense (aligned)   -> row-packed tile (r, ceil(n_in/32)) int32 + alpha
+    tiled Conv2D (aligned)  -> conv-layout tile (kh*kw, r, ceil(c_in/32)) + alpha
     tiled layer (unaligned) -> flat packed tile (ceil(q/32),) int32 + alpha
+    BWNN layer (below lambda) -> row-packed sign bits (rows, ceil(rest/32))
+                               + one alpha
     kept-dense leaf / norm / embedding -> cast to the serve decl's dtype
 
 The converter pairs the TRAIN and SERVE spec trees of one architecture
 and dispatches on the serve node's keys, so it handles stacked (layer
-axis) leaves without per-model code. The BWNN and conv branches wait for
-the slices that port those layers.
+axis) leaves without per-model code.
 """
 from __future__ import annotations
 
@@ -17,12 +19,16 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.packing import pack_bits, packed_len
+from repro_torch.core.packing import pack_bits, pack_conv_tile, packed_len
 from repro_torch.core.policy import TBNPolicy
-from repro_torch.core.tiling import TileSpec, compute_alpha, plan_tiling, tile_vector
+from repro_torch.core.tiling import (
+    TileSpec,
+    compute_alpha,
+    plan_conv_tiling,
+    plan_tiling,
+    tile_vector,
+)
 from repro_torch.nn import module as mod
-
-BWNN_CONV_ITEM = "ROADMAP.md queue A item 9 (conv and the paper's BWNN baselines)"
 
 
 def _derive_layer_spec(policy: TBNPolicy, layer_shape: Tuple[int, ...]):
@@ -51,6 +57,25 @@ def _export_tiled_rows(w, a, spec: TileSpec):
     return pack_bits(t.reshape(spec.rows_per_tile, n_in)), alpha
 
 
+def _export_conv_tiled(w, a, spec: TileSpec):
+    """Conv-layout packed tile (kh*kw, r, ceil(c_in/32)) + alpha: the same
+    tile bits as ``_export_tiled``, laid out per kernel position so kernel
+    B6 reads them as shipped."""
+    plan = plan_conv_tiling(spec)
+    t, alpha = _tile_and_alpha(w, a, spec)
+    kh, kw = plan.kernel
+    return pack_conv_tile(t, plan.r, plan.c_in, kh, kw), alpha
+
+
+def _export_bwnn(w, _a=None):
+    """Row-packed sign bits + one alpha (mean|W| in f32) for one weight:
+    rows are the leading dim, the rest flattens into the packed axis (dense
+    (n_out, n_in) rows and OIHW (c_out, c_in*kh*kw) filters alike)."""
+    alpha = w.float().abs().mean().reshape(1)
+    rows = torch.where(w > 0, 1.0, -1.0).reshape(w.shape[0], -1)
+    return pack_bits(rows), alpha
+
+
 def _per_layer(fn, w, a, n_lead: int):
     """Apply a one-layer export over ``n_lead`` leading (stacked) axes, one
     layer at a time (the reference's vmap; a loop keeps the temporaries to
@@ -66,15 +91,39 @@ def _per_layer(fn, w, a, n_lead: int):
             alpha.reshape(*lead, *alpha.shape[1:]))
 
 
+def _with_bias(out: Dict, sv_spec, tr_par) -> Dict:
+    if "b" in sv_spec:
+        out["b"] = tr_par["b"].to(sv_spec["b"].dtype)
+    return out
+
+
 def export_serving_params(train_specs: mod.SpecTree, serve_specs: mod.SpecTree,
                           train_params: Dict, policy: TBNPolicy) -> Dict:
     """Walk the two spec trees; emit the SERVE param tree from masters."""
 
     def convert(tr_spec, sv_spec, tr_par):
         keys = set(sv_spec)
-        if "tile_conv" in keys or "wbits" in keys:
-            raise NotImplementedError(
-                f"conv / BWNN export is not ported yet: {BWNN_CONV_ITEM}")
+        if "tile_conv" in keys:                 # tiled Conv2D
+            tile_decl = sv_spec["tile_conv"]
+            w = tr_par["w"]
+            a = tr_par.get("a", w)
+            n_lead = len(tile_decl.shape) - 3
+            layer_shape = tuple(w.shape[n_lead:])
+            spec = _derive_layer_spec(policy, layer_shape)
+            plan = plan_conv_tiling(spec)
+            if (plan is None or plan.packed_shape() != tuple(tile_decl.shape[n_lead:])
+                    or spec.n_alpha != sv_spec["alpha"].shape[-1]):
+                raise ValueError(
+                    f"derived conv plan does not match serve decl "
+                    f"{tuple(tile_decl.shape)} for shape {layer_shape}")
+            tile, alpha = _per_layer(
+                lambda we, ae: _export_conv_tiled(we, ae, spec), w, a, n_lead)
+            return _with_bias({"tile_conv": tile, "alpha": alpha}, sv_spec, tr_par)
+        if "wbits" in keys:                     # BWNN layer
+            w = tr_par["w"]
+            n_lead = len(sv_spec["wbits"].shape) - 2
+            bits, alpha = _per_layer(_export_bwnn, w, w, n_lead)
+            return _with_bias({"wbits": bits, "alpha": alpha}, sv_spec, tr_par)
         if "tile" in keys:
             tile_decl: mod.ParamSpec = sv_spec["tile"]
             alpha_decl: mod.ParamSpec = sv_spec["alpha"]
@@ -105,10 +154,7 @@ def export_serving_params(train_specs: mod.SpecTree, serve_specs: mod.SpecTree,
                 exported = _per_layer(
                     lambda we, ae: _export_tiled(we, ae, spec), w, a, n_lead)
             tile, alpha = exported
-            out = {"tile": tile, "alpha": alpha}
-            if "b" in keys:
-                out["b"] = tr_par["b"].to(sv_spec["b"].dtype)
-            return out
+            return _with_bias({"tile": tile, "alpha": alpha}, sv_spec, tr_par)
         out = {}
         for k, decl in sv_spec.items():
             if isinstance(decl, mod.ParamSpec):
@@ -137,3 +183,9 @@ def params_from_numpy(tree: Dict, device) -> Dict:
 def serving_bytes(params) -> int:
     """Exact bytes of a param tree."""
     return sum(v.numel() * v.element_size() for _, v in mod.walk(params))
+
+
+def tile_serving_bytes(params) -> int:
+    """Bytes of the packed tile bits alone (``tile`` and ``tile_conv``)."""
+    return sum(v.numel() * v.element_size() for path, v in mod.walk(params)
+               if path[-1] in ("tile", "tile_conv"))

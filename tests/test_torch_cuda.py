@@ -1,4 +1,4 @@
-"""Kernels B1-B5 on the card against their plain PyTorch versions, and the
+"""Kernels B1-B6 on the card against their plain PyTorch versions, and the
 paths around them card against CPU.
 
 Imports neither jax nor the JAX package, so it runs on the GPU machine:
@@ -11,10 +11,12 @@ Imports neither jax nor the JAX package, so it runs on the GPU machine:
 import pytest
 import torch
 
-from repro_torch.core.packing import pack_bits
+from repro_torch.core.packing import pack_bits, pack_conv_tile
+from repro_torch.core.policy import tbn_policy
 from repro_torch.core.tiling import plan_tiling
 from repro_torch.kernels import ops
 from repro_torch.kernels import tiled_xnor as x8
+from repro_torch.kernels.tiled_conv import tiled_conv_plain, tiled_conv_unique
 from repro_torch.kernels.tile_construct import (
     tile_construct_kernel,
     tile_construct_plain,
@@ -33,7 +35,7 @@ RTOL = 1e-4      # x*±1 is exact in f32: only the summation order differs
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (kernels B1-B5 have no CPU mode)")
+        pytest.skip("needs a CUDA GPU (kernels B1-B6 have no CPU mode)")
     return torch.device("cuda")
 
 
@@ -228,3 +230,99 @@ def test_fused_train_forward_on_card_matches_cpu(cuda_device):
     for got, want in zip(out["cuda"][1], out["cpu"][1]):
         torch.testing.assert_close(got, want, rtol=1e-3,
                                    atol=1e-3 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,hw,c,r,k,s", [
+    (1, 30, 128, 128, 3, 2),    # ResNet-34 stage-2 entry, N = 1 (split K)
+    (2, 16, 256, 128, 3, 1),    # stage 2
+    (1, 9, 512, 256, 3, 1),     # stage 3, N = 1: 4 output tiles
+    (3, 11, 64, 100, 3, 2),     # ragged M and r
+    (2, 8, 64, 512, 1, 2),      # 1x1 stride-2 downsample
+    (1, 7, 32, 1, 1, 1)])
+def test_conv_kernel_matches_plain(cuda_device, dtype, n, hw, c, r, k, s):
+    """B6 on pre-padded NHWC input against its plain version (rtol 1e-4,
+    atol 1e-4 * max|u|: x * ±1 is exact, only the sum order differs)."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(n * hw + c + r)
+    x = torch.randn((n, hw, hw, c), generator=gen, device=cuda_device).to(dtype)
+    packed = torch.randint(0, 2**32, (k * k, r, c // 32), generator=gen,
+                           device=cuda_device, dtype=torch.int64).to(torch.int32)
+    o = (hw - k) // s + 1
+    kw = dict(kernel=(k, k), stride=(s, s), out_hw=(o, o))
+    before = tiled_conv_unique.launches
+    got = tiled_conv_unique(x, packed, **kw)
+    torch.cuda.synchronize()
+    assert tiled_conv_unique.launches == before + 1
+    want = tiled_conv_plain(x, packed, **kw)
+    torch.testing.assert_close(got, want, rtol=RTOL,
+                               atol=RTOL * float(want.abs().max()))
+    again = tiled_conv_unique(x, packed, **kw)
+    assert torch.equal(again, got)          # fixed-order split-K pass
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["c48", "down1x1", "k53", "same_lower",
+                                  "pairs", "layer", "tile"])
+def test_tiled_conv_infer_on_card_matches_cpu(cuda_device, case):
+    """tiled_conv_infer's padding (channels to whole words, asymmetric
+    SAME), replica broadcast and alpha modes around B6, card against
+    CPU, f32."""
+    c_out, c_in, kh, kw, p = 64, 32, 3, 3, 2
+    stride, padding, mode, hw = (1, 1), "SAME", "tile", (12, 12)
+    if case == "c48":
+        c_in = 48
+    elif case == "down1x1":
+        c_out, c_in, kh, kw, p, stride = 512, 256, 1, 1, 8, (2, 2)
+    elif case == "k53":
+        kh, kw, stride, padding, hw = 5, 3, (1, 2), "VALID", (12, 11)
+    elif case == "same_lower":
+        stride, padding = (2, 2), "SAME_LOWER"
+    elif case == "pairs":
+        padding = [(2, 1), (0, 2)]
+    elif case == "layer":
+        mode, stride = "layer", (2, 2)
+    spec = plan_tiling((c_out, c_in, kh, kw), p=p, min_size=0, alpha_mode=mode)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(c_in + kh)
+    x = torch.randn((2, *hw, c_in), generator=gen, device=cuda_device)
+    t = torch.randn((spec.q,), generator=gen, device=cuda_device)
+    packed = pack_conv_tile(t, c_out // p, c_in, kh, kw)
+    alpha = torch.rand((spec.n_alpha,), generator=gen, device=cuda_device) + 0.1
+    before = tiled_conv_unique.launches
+    got = ops.tiled_conv_infer(x, packed, alpha, spec, stride=stride,
+                               padding=padding)
+    assert tiled_conv_unique.launches == before + 1
+    want = ops.tiled_conv_infer(x.cpu(), packed.cpu(), alpha.cpu(), spec,
+                                stride=stride, padding=padding)
+    torch.testing.assert_close(got.cpu(), want, rtol=RTOL,
+                               atol=RTOL * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_resnet34_imagenet_serve_on_card_matches_cpu(cuda_device):
+    """A cut ResNet-34 ImageNet (width 8, lambda 2000, 64 x 64 input): SERVE
+    logits card (B6, B1, cuDNN for the BWNN convs) against CPU, f32."""
+    from repro_torch.models.paper import build_paper_model
+    from repro_torch.nn import module as mod
+    from repro_torch.nn.context import SERVE, TRAIN, ModelContext
+    from repro_torch.serve.weights import export_serving_params
+
+    torch.backends.cudnn.allow_tf32 = False
+    pol = tbn_policy(p=2, min_size=2000)
+    kw = dict(width=8, imagenet=True, classes=1000)
+    tm = build_paper_model("resnet34", ModelContext(policy=pol, mode=TRAIN,
+                                                    device="cpu"), **kw)
+    models = {dev: build_paper_model("resnet34", ModelContext(
+        policy=pol, mode=SERVE, compute_dtype=torch.float32, device=dev), **kw)
+        for dev in ("cuda", "cpu")}
+    sp = export_serving_params(tm.specs(), models["cpu"].specs(), tm.init(0), pol)
+    x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(0))
+    before = tiled_conv_unique.launches
+    with torch.no_grad():
+        got = models["cuda"](mod.map_tree(lambda v: v.cuda(), sp), x.cuda())
+        want = models["cpu"](sp, x)
+    n_tiled = sum(1 for path, _ in mod.walk(sp) if path[-1] == "tile_conv")
+    assert n_tiled == 26 and tiled_conv_unique.launches - before == n_tiled
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
