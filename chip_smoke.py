@@ -5,7 +5,9 @@
 
 Phases (any failure raises and exits non-zero; no phase is skipped):
   1. print the card's name and power limit, build kernels B1-B6 from
-     ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
+     ``src/repro_torch/csrc`` (one nvcc per source, in parallel), print
+     ptxas's registers and spills, and require HGMMA (wgmma) instructions
+     in the SASS of B2's and B6's libraries (``cuobjdump --dump-sass``);
   2. kernel vs plain version on the card at the (K, r) pairs of the
      full-width granite-8b path. B1 at m in {1, 4, 32} and B2 at m in
      {33, 128, 512}, bf16 and f32, and B2 in bf16 at m = 2048 (the
@@ -17,7 +19,11 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      from ``pack_bits`` (pad bits): their int32 accumulators must be
      exactly equal. Each is timed beside the plain version, the library
      yardstick (``torch.matmul`` in bf16 on pre-unpacked operands, which
-     the port never calls) and the data-sheet bound. B5 (tile
+     the port never calls) and the data-sheet bound, with its TFLOP/s. In
+     bf16 every Hopper body of B2 is held to the same tolerance and timed
+     beside its modelled time (the planner's cost model) and the planner's
+     pick; B2's totals per fused train step and per extend tick are
+     printed. B5 (tile
      construction) at the five full-width (p, q) shapes of granite-8b's
      tiled layers, f32 masters, alpha from W and from a separate A, plus a
      q = 500 case through ``ops.tile_construct`` (padding): packed words
@@ -69,7 +75,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      timed beside the plain version, the library yardstick (``F.conv2d``
      in the input's type on the unpacked ±1 bank, cuDNN, which the port
      never calls) and the bound, per shape and summed per forward (18
-     calls). Then ``ops.tiled_conv_infer`` card against CPU for C = 48, a
+     calls), with TFLOP/s; in bf16 every body is checked and timed as in
+     phase 2. Then ``ops.tiled_conv_infer`` card against CPU for C = 48, a
      1x1 stride-2 256 -> 512 conv at p = 8, kernel (5, 3) stride (1, 2)
      VALID, SAME_LOWER, explicit pads [(2, 1), (0, 2)], alpha "layer" and
      "tile";
@@ -191,6 +198,21 @@ def read_counters():
     return {name: fn.launches for name, fn in kernels().items()}
 
 
+def check_hgmma(build) -> None:
+    """The Hopper bodies of B2 and B6 must reach the tensor cores through
+    wgmma: their libraries' SASS must hold HGMMA instructions."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in ("tiled_matmul", "tiled_conv"):
+        sass = subprocess.run([tool, "--dump-sass", str(build.lib_path(name))],
+                              check=True, capture_output=True, text=True,
+                              timeout=300).stdout
+        n = sum(1 for line in sass.splitlines() if "HGMMA" in line)
+        if n == 0:
+            fail(f"{name}: no HGMMA instruction in the SASS of "
+                 f"{build.lib_path(name).name}")
+        print(f"  {name}: {n} HGMMA instructions in the SASS", flush=True)
+
+
 def time_ms(fn, iters: int = 20, reps: int = 5) -> float:
     """Device time of one ``fn()`` call: ``iters`` calls captured in a CUDA
     graph, replayed ``reps`` times between CUDA events (launch overhead on
@@ -239,12 +261,61 @@ def check_kernel(kernel, plain, x, packed, bw, peak):
     nbytes = x.numel() * x.element_size() + packed.numel() * 4 + m * r * 4
     flops = 2.0 * m * k * r
     t_bytes, t_ops = 1e3 * nbytes / bw, 1e3 * flops / peak
-    return dict(
-        err=err, scale=scale,
+    res = dict(
+        err=err, scale=scale, flops=flops,
         ms=time_ms(lambda: kernel(x, packed)),
         plain_ms=time_ms(lambda: plain(x, packed)),
         library_ms=time_ms(lambda: torch.matmul(x, dense.T)),
         bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops)
+    if kernel.__name__ == "tiled_matmul_unique" and x.dtype == torch.bfloat16:
+        from repro_torch.kernels.tiled_matmul import (
+            BODIES,
+            _sm_count,
+            plan_cost,
+            plan_matmul,
+            tiled_matmul_body,
+        )
+
+        sms = _sm_count(x.device.index)
+        res.update(survey_bodies(
+            lambda body: tiled_matmul_body(x, packed, body), want, BODIES,
+            lambda body: plan_matmul(m, r, packed.shape[1], sms, body=body),
+            lambda plan: plan_cost(plan, m, r, sms),
+            f"B2 m={m} K={k} r={r}"))
+    return res
+
+
+def survey_bodies(run, want, bodies, plan_of, cost_of, what: str):
+    """Every bf16 body of B2 / B6 at one shape: held to the kernel's
+    tolerance against the same plain result, timed, and its planned time
+    (the planner's cost model) beside it. Returns the planner's pick and
+    {body: (ms, modelled ms, splits)}."""
+    import torch
+
+    scale = float(want.abs().max())
+    survey = {}
+    for body in bodies:
+        got = run(body)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=RTOL, atol=RTOL * scale):
+            fail(f"{what} body {body}: max|err| {err:.3e} over tolerance "
+                 f"(max|u| {scale:.3e})")
+        plan = plan_of(body)
+        survey[body] = (time_ms(lambda: run(body)), cost_of(plan) / 1e3,
+                        plan.splits)
+    return dict(body=plan_of(None).body, survey=survey)
+
+
+def tflops(res) -> str:
+    """Achieved TFLOP/s of a measurement; in bf16 the planner's body and
+    every body's time (modelled time, K splits)."""
+    out = f"{res['flops'] / res['ms'] / 1e9:.0f} TFLOP/s"
+    if "body" in res:
+        out += f" [{res['body']}] bodies: " + ", ".join(
+            f"{b} {ms:.4f}ms (model {model:.4f}, {splits} splits)"
+            for b, (ms, model, splits) in res["survey"].items())
+    return out
 
 
 def int_operands(path: str, m: int, n_in: int, r: int, gen):
@@ -332,7 +403,7 @@ def phase_kernels(card: str):
     for kname, kernel, plain, ms, dtypes in (
             ("B1", ks["B1"], tiled_matvec_plain, B1_MS, both),
             ("B2", ks["B2"], tiled_matmul_plain, B2_MS, both),
-            # the fused train path's forward: bf16, m = B*S (split_k picks
+            # the fused train path's forward: bf16, m = B*S (the planner picks
             # other split counts there than at the extend shapes)
             ("B2", ks["B2"], tiled_matmul_plain, (TRAIN_BATCH * TRAIN_SEQ,),
              both[:1])):
@@ -348,8 +419,8 @@ def phase_kernels(card: str):
                           f"{str(dtype).split('.')[-1]:8s} max|err|={res['err']:.2e} "
                           f"(max|u|={res['scale']:.1f}) kernel {res['ms']:.4f}ms "
                           f"plain {res['plain_ms']:.4f}ms library "
-                          f"{res['library_ms']:.4f}ms bound {res['bound_ms']:.4f}ms",
-                          flush=True)
+                          f"{res['library_ms']:.4f}ms bound {res['bound_ms']:.4f}ms "
+                          f"| {tflops(res)}", flush=True)
     step = {key: sum((2 * per * TRAIN_LAYERS + (name == "lm_head"))
                      * results[("B2", TRAIN_BATCH * TRAIN_SEQ, "bfloat16", name)][key]
                      for name, _, _, per in SHAPES)
@@ -358,6 +429,11 @@ def phase_kernels(card: str):
           f"bf16 ({2 * 7 * TRAIN_LAYERS + 1} calls): kernel {step['ms']:.3f}ms plain "
           f"{step['plain_ms']:.3f}ms library {step['library_ms']:.3f}ms bound "
           f"{step['bound_ms']:.3f}ms", flush=True)
+    m = N_SLOTS * CHUNK
+    tick = tick_totals(results, "B2", m, 36, False)
+    print(f"B2 per extend tick at L=36, m={m}, bf16 (252 calls): kernel "
+          f"{tick['ms']:.3f}ms library {tick['library_ms']:.3f}ms bound "
+          f"{tick['bound_ms']:.3f}ms", flush=True)
     for kname, path in (("B3", "xnor"), ("B4", "int8")):
         for m in INT_MS:     # pad bits: n_in = 80 against a pack_bits tile
             check_int_kernel(path, m, 80, 24, gen, bw, int_peak, timed=False)
@@ -701,7 +777,7 @@ def profile_train_step(step_fn, state, batch, label: str):
     b5 = sum(t for k, (t, _) in by_name.items()
              if "construct_kernel" in k or "alpha_kernel" in k)
     b2 = sum(t for k, (t, _) in by_name.items()
-             if "matmul_bf16_kernel" in k or "matmul_f32_kernel" in k
+             if "matmul_wgmma_kernel" in k or "matmul_f32_kernel" in k
              or "sum_splits_kernel" in k)
     print(f"profile [{label}]: step device busy {busy:.1f} ms of {wall_ms:.1f} ms "
           f"wall (profiled) -> device idle share {1 - busy / wall_ms:.3f}; "
@@ -950,11 +1026,26 @@ def check_conv(x, packed, kw, bw, peak):
     nbytes = x.numel() * x.element_size() + packed.numel() * 4 + m * r * 4
     flops = 2.0 * m * 9 * c * r
     t_bytes, t_ops = 1e3 * nbytes / bw, 1e3 * flops / peak
-    return dict(err=err, scale=scale,
-                ms=time_ms(lambda: kernel(x, packed, **kw)),
-                plain_ms=time_ms(lambda: tiled_conv_plain(x, packed, **kw)),
-                library_ms=time_ms(lambda: F.conv2d(x_nchw, bank, stride=kw["stride"])),
-                bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops)
+    res = dict(err=err, scale=scale, flops=flops,
+               ms=time_ms(lambda: kernel(x, packed, **kw)),
+               plain_ms=time_ms(lambda: tiled_conv_plain(x, packed, **kw)),
+               library_ms=time_ms(lambda: F.conv2d(x_nchw, bank, stride=kw["stride"])),
+               bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops)
+    if x.dtype == torch.bfloat16:
+        from repro_torch.kernels.tiled_conv import (
+            CONV_BODIES,
+            plan_conv,
+            tiled_conv_body,
+        )
+        from repro_torch.kernels.tiled_matmul import _sm_count, plan_cost
+
+        sms = _sm_count(x.device.index)
+        res.update(survey_bodies(
+            lambda body: tiled_conv_body(x, packed, body, **kw), want, CONV_BODIES,
+            lambda body: plan_conv(m, r, (3, 3), c // 32, sms, body=body),
+            lambda plan: plan_cost(plan, m, r, sms),
+            f"B6 x={tuple(x.shape)} r={r}"))
+    return res
 
 
 def conv_infer_cases():
@@ -1000,8 +1091,8 @@ def phase_conv(card: str):
                       f"{res['err']:.2e} (max|u|={res['scale']:.1f}) kernel "
                       f"{res['ms']:.4f}ms plain {res['plain_ms']:.4f}ms library "
                       f"{res['library_ms']:.4f}ms bound {res['bound_ms']:.4f}ms "
-                      f"({'ops' if res['ops_ms'] >= res['bytes_ms'] else 'bytes'})",
-                      flush=True)
+                      f"({'ops' if res['ops_ms'] >= res['bytes_ms'] else 'bytes'}) "
+                      f"| {tflops(res)}", flush=True)
                 del x, packed
     for n in CONV_NS:
         for dname in ("bfloat16", "float32"):
@@ -1152,7 +1243,7 @@ def phase_resnet34():
     else:
         busy = sum(t for t, _ in by_name.values())
         # N = 64 fills the card without split K, so B6 is its main kernel
-        b6 = sum(t for k, (t, _) in by_name.items() if "conv_bf16_kernel" in k)
+        b6 = sum(t for k, (t, _) in by_name.items() if "conv_wgmma_kernel" in k)
         print(f"profile [resnet34 N={R34_BATCH} forward]: device busy {busy:.2f} ms "
               f"of {wall_ms:.2f} ms wall (profiled) -> device idle share "
               f"{1 - busy / wall_ms:.3f}; {len(events)} device ops; B6 {b6:.2f} ms "
@@ -1219,6 +1310,7 @@ def main() -> None:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    check_hgmma(_build)
 
     results = phase_kernels(card)
     b5 = phase_b5(card)

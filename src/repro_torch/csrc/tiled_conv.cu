@@ -17,28 +17,42 @@
 // N = 64 that is 2*M*K*r = 7 GFLOP per call against a few MB of input,
 // far above the card's ~295 flop/byte ridge in bf16. Neither the im2col
 // matrix (kh*kw times the input) nor the dense ±1 weight may exist in
-// device memory.
+// device memory, and only wgmma reaches the tensor cores' rate.
 //
-// Design: tiled_matmul.cu's GEMM (64 x 64 output tiles of pixels x
-// filters, one packed word = 32 channels per K step) with the A operand
-// gathered straight from NHWC: each block decodes its 64 tile rows once
-// into (n, oh, ow) base offsets, and K step (i, j, w) reads channels
-// 32w..32w+31 of x[n, oh*sh+i, ow*sw+j, :], contiguous in NHWC, so the
-// gather costs no more than B2's row loads. B reads the conv-layout word
-// packed[i*kw+j, f, w] directly. When the grid has few tiles (N = 1 at
-// the 7x7 stage: 4 tiles for 132 SMs) the K steps are split over
-// blockIdx.z and a second pass adds the slices in a fixed order
-// (deterministic, unlike atomics).
-//  * bf16: 4 warps, each 32 x 32 of the tile, `mma.sync.m16n8k16` bf16 with
-//    f32 accumulation; each lane builds its B registers from the packed
-//    word (0xBF80 is -1.0; a set bit clears the sign), so the ±1 tile lives
-//    only in registers.
-//  * f32: 256 threads, each 4 x 4 outputs, plain FMA (TF32 would round x).
+// Design, bf16: B2's Hopper mainloop (hopper_gemm.cuh) with the im2col
+// gather as its producer. The K loop runs over stages (i, j, pair of words):
+// 64 channels of one kernel position, so a stage never straddles two
+// positions (C = 32: the second word is missing and its channels read as
+// zero). The producer warpgroup decodes its pixels into (n, oh, ow) base
+// offsets once; each pixel row of a stage is 128 contiguous bytes of NHWC,
+// x[n, oh*sh+i, ow*sw+j, 64w..64w+63], copied as 8 x 16-byte cp.async into
+// the swizzled slot (chunk ^ (row % 8)) with zero fill past the last pixel
+// or channel, beside the stage's conv-layout words packed[i*kw+j, f, 2w..].
+// Each producer thread's copies complete the stage's mbarrier as they land
+// (cp.async.mbarrier.arrive), so the producer never waits on its own
+// copies; since wgmma reads through the async proxy what cp.async wrote
+// through the generic one, the consumers fence the proxies after each
+// stage's barrier wait. Two consumer warpgroups run wgmma with the ±1
+// operand built in registers from the words (0xBF80 is -1.0; a set bit
+// clears the sign). Tiles and the K split come from the wrapper's planner
+// (`plan_conv`); split z writes its partial tile to slice z of a workspace
+// and a second pass adds the slices in a fixed order (deterministic, unlike
+// atomics).
+// What bounds it still: at N = 64 the 14x14 layers have 98 tiles of 128
+// pixels for 132 SMs (one partial wave), and the epilogue does not overlap
+// the next tile's loads (no persistent grid) (PERF.md §6).
+// f32: 64 x 64 tiles of pixels x filters, 256 threads, each 4 x 4 outputs,
+// plain FMA (TF32 would round x), the A operand gathered from NHWC per
+// (i, j, word) step into shared memory; a split K lands in a workspace that
+// a second pass adds in a fixed order. Off the main paths.
 // Products of x with ±1 are exact in f32, so the result differs from the
 // plain version only by summation order.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -47,7 +61,8 @@ constexpr int kBN = 64;
 constexpr int kBK = 32;  // one packed word (32 channels) per K step
 
 struct ConvShape {
-  int n, hp, wp, words, r, kw, sh, sw, oh, ow, steps;
+  int n, hp, wp, words, r, kw, sh, sw, oh, ow;
+  int steps;  // K units of the body: steps (i, j, w) or stages (i, j, pair)
 };
 
 // Element offset of tile row m0 + t's patch origin x[n, oh*sh, ow*sw, 0],
@@ -69,109 +84,6 @@ __device__ __forceinline__ long long step_offset(const ConvShape& s, int st,
   *w = st - *pos * s.words;
   const int i = *pos / s.kw, j = *pos - i * s.kw;
   return ((long long)i * s.wp + j) * (s.words * 32) + *w * 32;
-}
-
-// ---------------------------------------------------------------- bf16 path
-constexpr int kBf16Threads = 128;
-constexpr int kXPitch = kBK + 8;  // bf16 elements; 80-byte rows, conflict-free
-
-__device__ __forceinline__ uint32_t pm1_pair(uint32_t word, int bit) {
-  const uint32_t lo = (word >> bit) & 1u;
-  const uint32_t hi = (word >> (bit + 1)) & 1u;
-  return 0xBF80BF80u ^ ((lo << 15) | (hi << 31));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(kBf16Threads)
-conv_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                 const uint32_t* __restrict__ packed, float* __restrict__ out,
-                 ConvShape s, int steps_per_split) {
-  __shared__ __align__(16) __nv_bfloat16 xs[kBM][kXPitch];
-  __shared__ uint32_t ws[kBN];
-  __shared__ long long base[kBM];
-  const int m = s.n * s.oh * s.ow;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int g = lane >> 2, tig = lane & 3;
-  const int st0 = blockIdx.z * steps_per_split;
-  const int st1 = min(s.steps, st0 + steps_per_split);
-  out += (size_t)blockIdx.z * m * s.r;  // this split's slice
-  if (threadIdx.x < kBM) base[threadIdx.x] = row_base(s, m0 + threadIdx.x);
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
-
-  for (int st = st0; st < st1; ++st) {
-    int pos, w;
-    const long long off = step_offset(s, st, &pos, &w);
-    __syncthreads();  // the previous step's tiles are consumed (and base set)
-    // x tile: 64 patch rows x 32 channels = 256 chunks of 16 bytes, 2 each
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = threadIdx.x + e * kBf16Threads;
-      const int row = c >> 2, col8 = (c & 3) * 8;
-      const long long b = base[row];
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (b >= 0) v = *reinterpret_cast<const uint4*>(x + b + off + col8);
-      *reinterpret_cast<uint4*>(&xs[row][col8]) = v;
-    }
-    if (threadIdx.x < kBN) {
-      const int f = n0 + threadIdx.x;
-      ws[threadIdx.x] =
-          f < s.r ? packed[((size_t)pos * s.r + f) * s.words + w] : 0u;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t afr[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int row = wm + mt * 16 + g;
-        const int col = kk + tig * 2;
-        afr[mt][0] = *reinterpret_cast<const uint32_t*>(&xs[row][col]);
-        afr[mt][1] = *reinterpret_cast<const uint32_t*>(&xs[row + 8][col]);
-        afr[mt][2] = *reinterpret_cast<const uint32_t*>(&xs[row][col + 8]);
-        afr[mt][3] = *reinterpret_cast<const uint32_t*>(&xs[row + 8][col + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const uint32_t word = ws[wn + nt * 8 + g];
-        const uint32_t b0 = pm1_pair(word, kk + tig * 2);
-        const uint32_t b1 = pm1_pair(word, kk + tig * 2 + 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], afr[mt], b0, b1);
-      }
-    }
-  }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int row = m0 + wm + mt * 16 + g;
-      const int col = n0 + wn + nt * 8 + tig * 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // h = 1: rows g + 8
-        const int rr = row + h * 8;
-        if (rr >= m) continue;
-        if (col < s.r) out[(size_t)rr * s.r + col] = acc[mt][nt][2 * h];
-        if (col + 1 < s.r) out[(size_t)rr * s.r + col + 1] = acc[mt][nt][2 * h + 1];
-      }
-    }
 }
 
 // ----------------------------------------------------------------- f32 path
@@ -238,59 +150,164 @@ conv_f32_kernel(const float* __restrict__ x, const uint32_t* __restrict__ packed
   }
 }
 
-// -------------------------------------------------- split-K second pass
-__global__ void sum_splits_kernel(const float* __restrict__ ws,
-                                  float* __restrict__ out, int n, int splits) {
-  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < n;
-       idx += gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int z = 0; z < splits; ++z) acc += ws[(size_t)z * n + idx];
-    out[idx] = acc;
+// ------------------------------------------------- bf16 path, Hopper body
+// Grid: pixel tiles on x, filter tiles on y, K splits on z (split z writes
+// its partial tile to slice z of the workspace; a split starts at an even
+// stage). words_tma: the conv-layout words come by TMA (wmap: (kh*kw, r,
+// words) int32, boxes of 4 words x kBM filters at one position), one box
+// per pair of stages; else (words % 4 != 0) each stage's words by cp.async.
+template <int SLABS, int BN>
+__global__ void __launch_bounds__(hopper::kThreads, 1)
+conv_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
+                  const uint32_t* __restrict__ packed,
+                  const __grid_constant__ CUtensorMap wmap, int words_tma,
+                  float* __restrict__ out, ConvShape s, int stages_per_split) {
+  using T = hopper::Tile<SLABS, BN>;
+  extern __shared__ uint8_t smem[];
+  __shared__ uint64_t full[hopper::kStages], empty[hopper::kStages];
+  const int m = s.n * s.oh * s.ow;
+  const int m0 = blockIdx.x * BN, f0 = blockIdx.y * T::kBM;
+  const int pairs = (s.words + 1) / 2;   // stages per kernel position
+  out += (size_t)blockIdx.z * m * s.r;  // this split's slice
+  const int st0 = blockIdx.z * stages_per_split;
+  const int n = min(s.steps, st0 + stages_per_split) - st0;  // steps: stages
+  // full: one arrival per producer thread once its copies have landed
+  // (cp.async.mbarrier.arrive), plus the words' TMA bytes
+  const hopper::Ring ring = hopper::ring_setup<T>(smem, full, empty, 128);
+
+  if (threadIdx.x >= 128 * hopper::kConsumers) {  // producer: the gather
+    hopper::producer_regs<SLABS, BN>();
+    const int pt = threadIdx.x - 128 * hopper::kConsumers;
+    const int chunk = pt & 7, row0 = pt >> 3;      // rows row0 + 16 e
+    constexpr int kRows = BN / 16;
+    const int c = s.words * 32;
+    long long base[kRows];
+#pragma unroll
+    for (int e = 0; e < kRows; ++e) base[e] = row_base(s, m0 + row0 + 16 * e);
+    for (int it = 0; it < n; ++it) {
+      const int sl = it % hopper::kStages;
+      hopper::mbar_wait(&ring.empty[sl], ((it / hopper::kStages) & 1) ^ 1);
+      const int st = st0 + it;
+      const int pos = st / pairs, w2 = st - pos * pairs;
+      const int i = pos / s.kw, j = pos - i * s.kw;
+      uint32_t* wt = hopper::stage_words<T>(ring, it);
+      if (words_tma) {
+        if (pt == 0 && !(it & 1)) {
+          hopper::mbar_expect_tx(&ring.full[sl], T::kPairWBytes);
+          hopper::tma_load_3d(wt, &wmap, w2 * hopper::kStageWords, f0, pos,
+                              &ring.full[sl]);
+        }
+      } else {
+        for (int e = pt; e < T::kBM * hopper::kStageWords; e += 128) {
+          const int row = e / hopper::kStageWords, jw = e % hopper::kStageWords;
+          const int f = f0 + row, w = w2 * hopper::kStageWords + jw;
+          const bool ok = f < s.r && w < s.words;
+          hopper::cp_async4(wt + row * 2 * hopper::kStageWords + jw,
+                            ok ? packed + ((size_t)pos * s.r + f) * s.words + w : packed,
+                            ok);
+        }
+      }
+      const int ch = w2 * hopper::kStageK + chunk * 8;
+      const long long off = ((long long)i * s.wp + j) * c + ch;
+      uint8_t* xt = ring.x + sl * T::kXBytes;
+#pragma unroll
+      for (int e = 0; e < kRows; ++e) {
+        const int row = row0 + 16 * e;
+        const bool ok = ch < c && base[e] >= 0;
+        hopper::cp_async16(xt + row * hopper::kRowBytes + ((chunk ^ (row & 7)) << 4),
+                           ok ? x + base[e] + off : x, ok);
+      }
+      hopper::cp_async_arrive_noinc(&ring.full[sl]);
+    }
+    hopper::cp_async_wait_all();
+    return;
   }
+  hopper::consumer_regs<SLABS, BN>();
+  float acc[SLABS][BN / 2];
+  hopper::consume<SLABS, BN, true>(acc, ring, n);
+  hopper::store_tile<SLABS, BN>(acc, ring, out, m, s.r, m0, f0);
+}
+
+template <int SLABS, int BN>
+cudaError_t launch_wgmma(const __nv_bfloat16* x, const uint32_t* packed, float* out,
+                         const ConvShape& s, long long m, int splits, int per,
+                         cudaStream_t stream) {
+  using T = hopper::Tile<SLABS, BN>;
+  static bool smem_ok = false;
+  cudaError_t err = hopper::allow_smem(conv_wgmma_kernel<SLABS, BN>,
+                                       T::kSmemBytes, &smem_ok);
+  if (err != cudaSuccess) return err;
+  if ((s.r + T::kBM - 1) / T::kBM > 65535) return cudaErrorInvalidValue;
+  // the words (kh*kw, r, words) in boxes of 4 words x kBM filters x 1
+  // position, if rows are 16-byte aligned
+  CUtensorMap wmap = {};
+  const int words_tma =
+      s.words % 4 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
+  if (words_tma) {
+    const hopper::EncodeTiled encode = hopper::encode_tiled();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t dims[3] = {(cuuint64_t)s.words, (cuuint64_t)s.r,
+                                (cuuint64_t)s.steps / ((s.words + 1) / 2)};
+    const cuuint64_t strides[2] = {(cuuint64_t)s.words * 4,
+                                   (cuuint64_t)s.words * 4 * s.r};
+    const cuuint32_t box[3] = {2 * hopper::kStageWords, T::kBM, 1};
+    const cuuint32_t estr[3] = {1, 1, 1};
+    if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_INT32, 3, const_cast<uint32_t*>(packed),
+               dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  }
+  const dim3 grid((unsigned)((m + BN - 1) / BN), (s.r + T::kBM - 1) / T::kBM, splits);
+  conv_wgmma_kernel<SLABS, BN><<<grid, hopper::kThreads, T::kSmemBytes, stream>>>(
+      x, packed, wmap, words_tma, out, s, per);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// K steps are (i, j, w) in that order, kh*kw*words of them. splits > 1:
-// `workspace` holds splits * N*OH*OW * r floats; split z covers steps
-// [z * steps_per_split, min(steps, (z + 1) * steps_per_split)).
+// bf16 x: the Hopper body with (filters x pixels) tiles 128 x 64 (body 0),
+// 128 x 128 (1) or 256 x 128 (2) over K stages (i, j, pair of words),
+// kh*kw*ceil(words/2) of them. f32 x: the FMA body (`body` ignored) over K
+// steps (i, j, w), kh*kw*words of them. splits > 1: `workspace` holds
+// splits * N*OH*OW * r floats, split z covers units [z * per_split,
+// min(units, (z + 1) * per_split)), and a second pass adds the slices in a
+// fixed order.
 extern "C" int tbn_tiled_conv(const void* x, const void* packed, void* out,
                               void* workspace, int n, int hp, int wp, int words,
                               int r, int kh, int kw, int sh, int sw, int oh,
-                              int ow, int splits, int steps_per_split,
+                              int ow, int body, int splits, int per_split,
                               int x_is_bf16, void* stream) {
   const long long m = (long long)n * oh * ow;
-  const int steps = kh * kw * words;
+  const int units = kh * kw * (x_is_bf16 ? (words + 1) / 2 : words);
   if (n < 1 || words < 1 || r < 1 || kh < 1 || kw < 1 || sh < 1 || sw < 1 ||
       oh < 1 || ow < 1 || m * r >= (1ll << 31) || (r + kBN - 1) / kBN > 65535 ||
-      splits > 65535 ||
-      hp < (oh - 1) * sh + kh || wp < (ow - 1) * sw + kw || splits < 1 ||
-      steps_per_split < 1 ||
-      (long long)splits * steps_per_split < steps ||
-      (long long)(splits - 1) * steps_per_split >= steps ||
-      (splits > 1 && workspace == nullptr))
+      splits > 65535 || body < 0 || body > 2 || hp < (oh - 1) * sh + kh ||
+      wp < (ow - 1) * sw + kw || splits < 1 || per_split < 1 ||
+      (long long)splits * per_split < units ||
+      (long long)(splits - 1) * per_split >= units ||
+      (splits > 1 && workspace == nullptr) ||
+      (x_is_bf16 && splits > 1 && per_split % 2))   // splits start at even stages
     return (int)cudaErrorInvalidValue;
-  const ConvShape s{n, hp, wp, words, r, kw, sh, sw, oh, ow, steps};
+  const ConvShape s{n, hp, wp, words, r, kw, sh, sw, oh, ow, units};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* pk = static_cast<const uint32_t*>(packed);
   float* target = static_cast<float*>(splits > 1 ? workspace : out);
-  // pixel tiles on x (up to 2^31 - 1), filter tiles on y, K splits on z
-  const dim3 grid((unsigned)((m + kBM - 1) / kBM), (r + kBN - 1) / kBN, splits);
+  cudaError_t err;
   if (x_is_bf16) {
-    conv_bf16_kernel<<<grid, kBf16Threads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const uint32_t*>(packed), target, s, steps_per_split);
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    if (body == 0) err = launch_wgmma<1, 64>(xb, pk, target, s, m, splits, per_split, st);
+    else if (body == 1) err = launch_wgmma<1, 128>(xb, pk, target, s, m, splits, per_split, st);
+    else err = launch_wgmma<2, 128>(xb, pk, target, s, m, splits, per_split, st);
   } else {
-    conv_f32_kernel<<<grid, kF32Threads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const uint32_t*>(packed),
-        target, s, steps_per_split);
+    // pixel tiles on x (up to 2^31 - 1), filter tiles on y, K splits on z
+    const dim3 grid((unsigned)((m + kBM - 1) / kBM), (r + kBN - 1) / kBN, splits);
+    conv_f32_kernel<<<grid, kF32Threads, 0, st>>>(static_cast<const float*>(x), pk,
+                                                  target, s, per_split);
+    err = cudaGetLastError();
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
-  const int total = (int)(m * r);
-  const int blocks = (total + 255) / 256 < 1024 ? (total + 255) / 256 : 1024;
-  sum_splits_kernel<<<blocks, 256, 0, st>>>(target, static_cast<float*>(out),
-                                            total, splits);
-  return (int)cudaGetLastError();
+  return (int)hopper::sum_splits(target, static_cast<float*>(out), m * r, splits, st);
 }
 
 extern "C" const char* tbn_error_string(int err) {

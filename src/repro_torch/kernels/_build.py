@@ -3,12 +3,15 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into
 ``build/kernels/<name>-<hash>.so`` at the repository root, where the hash
-covers the source bytes and the compiler flags, so an edited kernel is
-rebuilt and an unchanged one is reused. :func:`build` starts one ``nvcc``
-per missing library and waits for all of them, so a cold start costs the
-slowest compile, not the sum. Sources have a plain C interface (pointers,
-ints, the stream) and include only the CUDA toolkit, which keeps each
-compile to seconds.
+covers the source bytes, every shared header ``csrc/*.cuh`` and the
+compiler flags, so an edited kernel or header is rebuilt and an unchanged
+one is reused. :func:`build` starts one ``nvcc`` per missing library and
+waits for all of them, so a cold start costs the slowest compile, not the
+sum. Sources have a plain C interface (pointers, ints, the stream) and
+include only the CUDA toolkit, which keeps each compile to seconds;
+``cuTensorMapEncodeTiled``, which encodes B2's and B6's TMA descriptors,
+is fetched at run time through ``cudaGetDriverEntryPoint``, so no library
+links ``libcuda``.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a host that has no ``nvcc``.
@@ -55,6 +58,9 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -2,11 +2,14 @@
 
 Replaces ``repro/kernels/tiled_conv.py:68`` ``tiled_conv_unique`` (the
 Pallas TPU kernel ``_conv_kernel``). The CUDA source is
-``csrc/tiled_conv.cu``; its header says what bounds the kernel on an H100
-(operations: an implicit GEMM of M = N*OH*OW pixels by r filters over
+``csrc/tiled_conv.cu`` with the Hopper mainloop it shares with B2 in
+``csrc/hopper_gemm.cuh``; its header says what bounds the kernel on an
+H100 (operations: an implicit GEMM of M = N*OH*OW pixels by r filters over
 K = kh*kw*C) and how the design gathers the im2col rows straight from
-NHWC and builds the ±1 operand from the packed words in registers, so
-neither the im2col matrix nor the dense weight exists in device memory.
+NHWC into a ring of shared-memory tiles and builds the ±1 operand from the
+packed words in registers, so neither the im2col matrix nor the dense
+weight exists in device memory. :func:`plan_conv` picks the body, its tile
+and the K split on the host.
 
 ``ops.tiled_conv_infer`` pads x (spatially, and channels to whole words)
 and calls the wrapper. The wrapper launches the kernel for CUDA tensors
@@ -22,7 +25,16 @@ import torch
 
 from repro_torch.core.packing import LANE_BITS
 from repro_torch.kernels import _build
-from repro_torch.kernels.tiled_matmul import _sm_count, split_k, unpack_rows
+from repro_torch.kernels.tiled_matmul import (
+    STAGE_WORDS,
+    TILE_M,
+    TILE_N,
+    Plan,
+    _sm_count,
+    best_plan,
+    split_k,
+    unpack_rows,
+)
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -75,12 +87,31 @@ def tiled_conv_plain(x: torch.Tensor, packed: torch.Tensor, *,
     return u.reshape(n, oh, ow, r)
 
 
+# B6's bf16 bodies (its producer gathers up to 128 pixels a tile)
+CONV_BODIES = ("wg128x64", "wg128x128", "wg256x128")
+
+
+def plan_conv(m: int, r: int, kernel: Tuple[int, int], words: int, sms: int,
+              bf16: bool = True, body: str | None = None) -> Plan:
+    """The plan of one B6 call over ``m`` output pixels on a card with
+    ``sms`` SMs. f32 takes the FMA body, its 64 x 64 tiles splitting K
+    steps (i, j, word) like B2 splits words; bf16 the Hopper body of least
+    modelled time among CONV_BODIES (``body`` forces one; the card tests
+    run each), over K stages (i, j, pair of words)."""
+    kh, kw = kernel
+    if not bf16:
+        steps = kh * kw * words
+        return Plan("fma", TILE_M, TILE_N, steps, *split_k(m, r, steps, sms))
+    stages = kh * kw * -(-words // STAGE_WORDS)
+    return best_plan([body] if body else CONV_BODIES, m, r, stages, sms)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     """(library, bound launch function), built and loaded on first use."""
     lib = _build.load("tiled_conv")
     fn = lib.tbn_tiled_conv
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
@@ -94,11 +125,31 @@ def tiled_conv_unique(x: torch.Tensor, packed: torch.Tensor, *,
     x (N, Hp, Wp, C) bf16/f32 NHWC, already padded (Hp >= (OH-1)*sh + kh,
     Wp >= (OW-1)*sw + kw), C a multiple of 32; packed (kh*kw, r, C/32)
     int32 conv layout. Returns (N, OH, OW, r) float32. Launches kernel B6
-    for CUDA tensors; CPU tensors take the plain version."""
+    for CUDA tensors as :func:`plan_conv` plans it; CPU tensors take the
+    plain version."""
     check_operands(x, packed, kernel, stride, out_hw)
     if x.device.type == "cpu":
         return tiled_conv_plain(x, packed, kernel=kernel, stride=stride,
                                 out_hw=out_hw)
+    return _launch(x, packed, kernel, stride, out_hw, None)
+
+
+def tiled_conv_body(x: torch.Tensor, packed: torch.Tensor, body: str, *,
+                    kernel: Tuple[int, int], stride: Tuple[int, int],
+                    out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Kernel B6 on bf16 CUDA tensors with the Hopper ``body`` forced in
+    place of the planner's pick: the card checks hold every body against
+    the plain version and time it beside the cost model."""
+    check_operands(x, packed, kernel, stride, out_hw)
+    if body not in CONV_BODIES or x.dtype != torch.bfloat16:
+        raise ValueError(f"tiled_conv_body: body {body!r} on {x.dtype} x; "
+                         f"expected bfloat16 and one of {CONV_BODIES}")
+    return _launch(x, packed, kernel, stride, out_hw, body)
+
+
+def _launch(x, packed, kernel, stride, out_hw, body) -> torch.Tensor:
+    if x.device.type != "cuda":
+        raise ValueError(f"tiled_conv_unique: no kernel for device {x.device}")
     if x.device.index not in (None, torch.cuda.current_device()):
         raise ValueError(f"tiled_conv_unique: x is on {x.device}, the current "
                          f"CUDA device is {torch.cuda.current_device()}")
@@ -108,16 +159,17 @@ def tiled_conv_unique(x: torch.Tensor, packed: torch.Tensor, *,
     n, hp, wp, _ = x.shape
     _, r, words = packed.shape
     m = n * oh * ow
+    bf16 = x.dtype == torch.bfloat16
     out = torch.empty((n, oh, ow, r), dtype=torch.float32, device=x.device)
-    # K steps are (i, j, word): split them like B2 splits its words
-    splits, per = split_k(m, r, kh * kw * words, _sm_count(out.device.index))
-    work = (torch.empty((splits, m, r), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+    plan = plan_conv(m, r, kernel, words, _sm_count(out.device.index), bf16,
+                     body)
+    work = (torch.empty((plan.splits, m, r), dtype=torch.float32,
+                        device=x.device) if plan.splits > 1 else None)
     lib, launch = _launcher()
     err = launch(x.data_ptr(), packed.data_ptr(), out.data_ptr(),
                  None if work is None else work.data_ptr(), n, hp, wp, words,
-                 r, kh, kw, sh, sw, oh, ow, splits, per,
-                 int(x.dtype == torch.bfloat16),
+                 r, kh, kw, sh, sw, oh, ow, plan.code, plan.splits,
+                 plan.per_split, int(bf16),
                  torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "tiled_conv_unique")
     tiled_conv_unique.launches += 1

@@ -16,12 +16,22 @@ from repro_torch.core.policy import tbn_policy
 from repro_torch.core.tiling import plan_tiling
 from repro_torch.kernels import ops
 from repro_torch.kernels import tiled_xnor as x8
-from repro_torch.kernels.tiled_conv import tiled_conv_plain, tiled_conv_unique
+from repro_torch.kernels.tiled_conv import (
+    CONV_BODIES,
+    tiled_conv_body,
+    tiled_conv_plain,
+    tiled_conv_unique,
+)
 from repro_torch.kernels.tile_construct import (
     tile_construct_kernel,
     tile_construct_plain,
 )
-from repro_torch.kernels.tiled_matmul import tiled_matmul_plain, tiled_matmul_unique
+from repro_torch.kernels.tiled_matmul import (
+    BODIES,
+    tiled_matmul_body,
+    tiled_matmul_plain,
+    tiled_matmul_unique,
+)
 from repro_torch.kernels.tiled_matvec import (
     MATVEC_MAX_M,
     tiled_matvec_plain,
@@ -53,8 +63,12 @@ def _operands(device, m, k, r, dtype, seed):
 @pytest.mark.parametrize("m,k,r", [(1, 32, 1), (4, 96, 130), (17, 160, 65),
                                    (32, 4096, 512), (33, 96, 24),
                                    (128, 4096, 200), (200, 160, 64),
-                                   (128, 14336, 512)])
+                                   (128, 14336, 512), (2048, 4096, 128),
+                                   (2048, 4096, 1792), (130, 96, 130),
+                                   (65, 160, 100)])
 def test_kernel_matches_plain(cuda_device, m, k, r, dtype):
+    """B1 (m <= 32) or B2 with the planner's body; B2 twice, equal (the
+    split-K pass adds in a fixed order)."""
     x, packed = _operands(cuda_device, m, k, r, dtype, m * k + r)
     fn, plain = ((tiled_matvec_unique, tiled_matvec_plain) if m <= MATVEC_MAX_M
                  else (tiled_matmul_unique, tiled_matmul_plain))
@@ -65,6 +79,30 @@ def test_kernel_matches_plain(cuda_device, m, k, r, dtype):
     want = plain(x, packed)
     torch.testing.assert_close(got, want, rtol=RTOL,
                                atol=RTOL * float(want.abs().max()))
+    if fn is tiled_matmul_unique:
+        assert torch.equal(fn(x, packed), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", sorted(BODIES))
+@pytest.mark.parametrize("m,k,r", [
+    (2048, 4096, 128),      # train step k/v: split K
+    (2048, 4096, 1792),     # train step gate/up: 256-filter tiles, no split
+    (128, 14336, 512),      # extend tick, down: long K, many splits
+    (130, 96, 130),         # ragged m and r, 3 words (odd)
+    (65, 160, 100),         # ragged m and r, 5 words (odd)
+    (40, 32, 1),            # one word, one filter
+    (64, 512, 500)])        # the ResNet-34 head
+def test_matmul_body_matches_plain(cuda_device, body, m, k, r):
+    """Every bf16 body of B2, forced, against the plain version; twice,
+    equal (deterministic)."""
+    x, packed = _operands(cuda_device, m, k, r, torch.bfloat16, m + k + r)
+    got = tiled_matmul_body(x, packed, body)
+    torch.cuda.synchronize()
+    want = tiled_matmul_plain(x, packed)
+    torch.testing.assert_close(got, want, rtol=RTOL,
+                               atol=RTOL * float(want.abs().max()))
+    assert torch.equal(tiled_matmul_body(x, packed, body), got)
 
 
 @pytest.mark.cuda
@@ -240,7 +278,13 @@ def test_fused_train_forward_on_card_matches_cpu(cuda_device):
     (1, 9, 512, 256, 3, 1),     # stage 3, N = 1: 4 output tiles
     (3, 11, 64, 100, 3, 2),     # ragged M and r
     (2, 8, 64, 512, 1, 2),      # 1x1 stride-2 downsample
-    (1, 7, 32, 1, 1, 1)])
+    (1, 7, 32, 1, 1, 1),
+    (64, 30, 128, 128, 3, 2),   # ResNet-34's four tiled shapes at N = 64
+    (64, 16, 256, 128, 3, 1),
+    (64, 16, 256, 256, 3, 2),
+    (64, 9, 512, 256, 3, 1),
+    (2, 9, 32, 40, 3, 1),       # C = 32: one word per kernel position
+    (2, 9, 96, 40, 3, 1)])      # 3 words: a stage with one word missing
 def test_conv_kernel_matches_plain(cuda_device, dtype, n, hw, c, r, k, s):
     """B6 on pre-padded NHWC input against its plain version (rtol 1e-4,
     atol 1e-4 * max|u|: x * ±1 is exact, only the sum order differs)."""
@@ -260,6 +304,31 @@ def test_conv_kernel_matches_plain(cuda_device, dtype, n, hw, c, r, k, s):
                                atol=RTOL * float(want.abs().max()))
     again = tiled_conv_unique(x, packed, **kw)
     assert torch.equal(again, got)          # fixed-order split-K pass
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", CONV_BODIES)
+@pytest.mark.parametrize("n,hw,c,r,k,s", [
+    (1, 30, 128, 128, 3, 2), (1, 9, 512, 256, 3, 1), (64, 16, 256, 128, 3, 1),
+    (3, 11, 64, 100, 3, 2), (2, 9, 32, 40, 3, 1), (2, 9, 96, 40, 3, 1),
+    (2, 8, 64, 512, 1, 2)])
+def test_conv_body_matches_plain(cuda_device, body, n, hw, c, r, k, s):
+    """Every bf16 body of B6, forced, against the plain version; twice,
+    equal."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(n + hw + c + r)
+    x = torch.randn((n, hw, hw, c), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    packed = torch.randint(0, 2**32, (k * k, r, c // 32), generator=gen,
+                           device=cuda_device, dtype=torch.int64).to(torch.int32)
+    o = (hw - k) // s + 1
+    kw = dict(kernel=(k, k), stride=(s, s), out_hw=(o, o))
+    got = tiled_conv_body(x, packed, body, **kw)
+    torch.cuda.synchronize()
+    want = tiled_conv_plain(x, packed, **kw)
+    torch.testing.assert_close(got, want, rtol=RTOL,
+                               atol=RTOL * float(want.abs().max()))
+    assert torch.equal(tiled_conv_body(x, packed, body, **kw), got)
 
 
 @pytest.mark.cuda
