@@ -6,24 +6,28 @@
 Phases (any failure raises and exits non-zero; no phase is skipped):
   1. print the card's name and power limit, build kernels B1-B6 from
      ``src/repro_torch/csrc`` (one nvcc per source, in parallel), print
-     ptxas's registers and spills, and require HGMMA (wgmma) instructions
-     in the SASS of B2's and B6's libraries (``cuobjdump --dump-sass``);
+     ptxas's registers and spills, and require the tensor-core instruction
+     of each tensor-core body in its library's SASS (``cuobjdump
+     --dump-sass``): HGMMA (wgmma) in B2's and B6's, HMMA (mma.sync bf16)
+     in B1's, IMMA (mma.sync s8) in B4's;
   2. kernel vs plain version on the card at the (K, r) pairs of the
-     full-width granite-8b path. B1 at m in {1, 4, 32} and B2 at m in
-     {33, 128, 512}, bf16 and f32, and B2 in bf16 at m = 2048 (the
+     full-width granite-8b path. B1 at m in {1, 4, 8, 16, 32} and B2 at m
+     in {33, 128, 512}, bf16 and f32, and B2 in bf16 at m = 2048 (the
      fused train step's B*S; its per-step total is printed), each
      compared at rtol=1e-4, atol=1e-4*max|u_ref| (x*±1 is exact in f32,
      so only the summation
-     order differs). B3 (xnor) and B4 (int8) at m in {1, 4, 32} on
+     order differs). B3 (xnor) and B4 (int8) at m in {1, 4, 8, 16, 32} on
      quantized random activations, plus an n_in = 80 case whose tile comes
      from ``pack_bits`` (pad bits): their int32 accumulators must be
      exactly equal. Each is timed beside the plain version, the library
      yardstick (``torch.matmul`` in bf16 on pre-unpacked operands, which
      the port never calls) and the data-sheet bound, with its TFLOP/s. In
-     bf16 every Hopper body of B2 is held to the same tolerance and timed
-     beside its modelled time (the planner's cost model) and the planner's
-     pick; B2's totals per fused train step and per extend tick are
-     printed. B5 (tile
+     bf16 every body of B1 and B2, and every body of B4, is held to the
+     same check (B4: equal), run twice and equal, and timed beside its
+     modelled time (the planner's cost model) and the planner's pick; B2's
+     totals per fused train step and per extend tick are printed, and the
+     totals of B1, B3 and B4 per decode tick at m = 4 and m = 32, each
+     with the min-max of its timing reps. B5 (tile
      construction) at the five full-width (p, q) shapes of granite-8b's
      tiled layers, f32 masters, alpha from W and from a separate A, plus a
      q = 500 case through ``ops.tile_construct`` (padding): packed words
@@ -38,7 +42,9 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      decode kernel took every m <= 32 projection and that the kernels of the
      other paths were not launched; then three decode-only ticks of each
      path are traced with torch.profiler (device busy time vs the tick's
-     wall time, top kernels);
+     wall time, the decode kernel's share, top kernels), and one
+     decode-only tick of 32 slots (every projection at m = 32) under
+     "float" and "int8";
   4. the same exported weights at full width, 2 layers, f32: one extend and
      one decode_step on the card (kernels) against the CPU model (plain
      versions), float logits at rtol=atol=1e-3 (attention softmax and norms
@@ -120,10 +126,11 @@ sys.path.insert(0, str(ROOT / "src"))
 SHAPES = (("q/o", 4096, 512, 2), ("k/v", 4096, 128, 2),
           ("gate/up", 4096, 1792, 2), ("down", 14336, 512, 1),
           ("lm_head", 4096, 6144, 0))
-B1_MS = (1, 4, 32)
+B1_MS = (1, 4, 8, 16, 32)
 B2_MS = (33, 128, 512)
-INT_MS = (1, 4, 32)
+INT_MS = (1, 4, 8, 16, 32)
 N_SLOTS, CHUNK = 4, 32
+WIDE_SLOTS = MATVEC_M = 32   # MATVEC_MAX_M: the widest decode tick
 RTOL = 1e-4
 INT_RTOL = 1e-5
 # Data-sheet peaks (dense): memory bytes/s, bf16 tensor-core flop/s, f32
@@ -198,25 +205,34 @@ def read_counters():
     return {name: fn.launches for name, fn in kernels().items()}
 
 
-def check_hgmma(build) -> None:
-    """The Hopper bodies of B2 and B6 must reach the tensor cores through
-    wgmma: their libraries' SASS must hold HGMMA instructions."""
+# library -> the tensor-core instruction its bodies must issue: wgmma (B2,
+# B6), mma.sync bf16 (B1) and mma.sync s8 (B4)
+TENSOR_SASS = (("tiled_matmul", "HGMMA"), ("tiled_conv", "HGMMA"),
+               ("tiled_matvec", "HMMA"), ("tiled_int8", "IMMA"))
+
+
+def check_tensor_core_sass(build) -> None:
+    """The tensor-core bodies of B1, B2, B4 and B6 must reach the tensor
+    cores: each library's SASS must hold its instruction (TENSOR_SASS)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name in ("tiled_matmul", "tiled_conv"):
+    for name, op in TENSOR_SASS:
         sass = subprocess.run([tool, "--dump-sass", str(build.lib_path(name))],
                               check=True, capture_output=True, text=True,
                               timeout=300).stdout
-        n = sum(1 for line in sass.splitlines() if "HGMMA" in line)
+        n = sum(1 for line in sass.splitlines() if op in line)
         if n == 0:
-            fail(f"{name}: no HGMMA instruction in the SASS of "
+            fail(f"{name}: no {op} instruction in the SASS of "
                  f"{build.lib_path(name).name}")
-        print(f"  {name}: {n} HGMMA instructions in the SASS", flush=True)
+        print(f"  {name}: {n} {op} instructions in the SASS", flush=True)
 
 
-def time_ms(fn, iters: int = 20, reps: int = 5) -> float:
+def time_reps(fn, iters: int = 20, reps: int = 9):
     """Device time of one ``fn()`` call: ``iters`` calls captured in a CUDA
-    graph, replayed ``reps`` times between CUDA events (launch overhead on
-    the host is not in the number)."""
+    graph, replayed ``reps`` times, each replay between CUDA events (launch
+    overhead on the host is not in the number). Returns (median, min, max)
+    over the replays, in ms a call: the median, because one slow replay (a
+    stall of the card or its host) moved the mean of a few replays by up to
+    2x at the smallest shapes."""
     import torch
 
     fn()
@@ -227,13 +243,24 @@ def time_ms(fn, iters: int = 20, reps: int = 5) -> float:
         for _ in range(iters):
             fn()
     graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    events[0].record()
+    for i in range(reps):
         graph.replay()
-    end.record()
+        events[i + 1].record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * iters)
+    per = [events[i].elapsed_time(events[i + 1]) / iters for i in range(reps)]
+    return statistics.median(per), min(per), max(per)
+
+
+def time_ms(fn, iters: int = 20, reps: int = 9) -> float:
+    """The median of :func:`time_reps`."""
+    return time_reps(fn, iters, reps)[0]
+
+
+def timed(res, key: str, fn) -> None:
+    """res[key] = median ms of fn, res[key + "_lo" / "_hi"] = min / max."""
+    res[key], res[key + "_lo"], res[key + "_hi"] = time_reps(fn)
 
 
 def check_kernel(kernel, plain, x, packed, bw, peak):
@@ -261,12 +288,27 @@ def check_kernel(kernel, plain, x, packed, bw, peak):
     nbytes = x.numel() * x.element_size() + packed.numel() * 4 + m * r * 4
     flops = 2.0 * m * k * r
     t_bytes, t_ops = 1e3 * nbytes / bw, 1e3 * flops / peak
-    res = dict(
-        err=err, scale=scale, flops=flops,
-        ms=time_ms(lambda: kernel(x, packed)),
-        plain_ms=time_ms(lambda: plain(x, packed)),
-        library_ms=time_ms(lambda: torch.matmul(x, dense.T)),
-        bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops)
+    res = dict(err=err, scale=scale, flops=flops, bound_ms=max(t_bytes, t_ops),
+               bytes_ms=t_bytes, ops_ms=t_ops)
+    timed(res, "ms", lambda: kernel(x, packed))
+    res["plain_ms"] = time_ms(lambda: plain(x, packed))
+    timed(res, "library_ms", lambda: torch.matmul(x, dense.T))
+    if kernel.__name__ == "tiled_matvec_unique" and x.dtype == torch.bfloat16:
+        from repro_torch.kernels.tiled_matmul import _sm_count
+        from repro_torch.kernels.tiled_matvec import (
+            B1_COST,
+            MV_BODIES,
+            matvec_cost,
+            plan_matvec,
+            tiled_matvec_body,
+        )
+
+        sms, words = _sm_count(x.device.index), packed.shape[1]
+        res.update(survey_bodies(
+            lambda body: tiled_matvec_body(x, packed, body), want, MV_BODIES,
+            lambda body: plan_matvec(m, r, words, sms, body=body),
+            lambda plan: matvec_cost(plan, B1_COST, m, r, words, sms),
+            f"B1 m={m} K={k} r={r}"))
     if kernel.__name__ == "tiled_matmul_unique" and x.dtype == torch.bfloat16:
         from repro_torch.kernels.tiled_matmul import (
             BODIES,
@@ -285,11 +327,13 @@ def check_kernel(kernel, plain, x, packed, bw, peak):
     return res
 
 
-def survey_bodies(run, want, bodies, plan_of, cost_of, what: str):
-    """Every bf16 body of B2 / B6 at one shape: held to the kernel's
-    tolerance against the same plain result, timed, and its planned time
-    (the planner's cost model) beside it. Returns the planner's pick and
-    {body: (ms, modelled ms, splits)}."""
+def survey_bodies(run, want, bodies, plan_of, cost_of, what: str,
+                  exact: bool = False):
+    """Every body of B1 / B2 / B6 (bf16) or B4 (``exact``) at one shape:
+    held to the kernel's tolerance (B4: equal) against the same plain
+    result, run twice and equal, timed, and its planned time (the planner's
+    cost model) beside it. Returns the planner's pick and {body: (ms,
+    modelled ms, splits)}."""
     import torch
 
     scale = float(want.abs().max())
@@ -297,10 +341,14 @@ def survey_bodies(run, want, bodies, plan_of, cost_of, what: str):
     for body in bodies:
         got = run(body)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not torch.allclose(got, want, rtol=RTOL, atol=RTOL * scale):
+        err = float((got.double() - want.double()).abs().max())
+        ok = (torch.equal(got, want) if exact else
+              torch.allclose(got, want, rtol=RTOL, atol=RTOL * scale))
+        if not ok:
             fail(f"{what} body {body}: max|err| {err:.3e} over tolerance "
-                 f"(max|u| {scale:.3e})")
+                 f"(max|u| {scale:.3e}{', must be equal' if exact else ''})")
+        if not torch.equal(run(body), got):
+            fail(f"{what} body {body}: a second run differs from the first")
         plan = plan_of(body)
         survey[body] = (time_ms(lambda: run(body)), cost_of(plan) / 1e3,
                         plan.splits)
@@ -310,12 +358,17 @@ def survey_bodies(run, want, bodies, plan_of, cost_of, what: str):
 def tflops(res) -> str:
     """Achieved TFLOP/s of a measurement; in bf16 the planner's body and
     every body's time (modelled time, K splits)."""
-    out = f"{res['flops'] / res['ms'] / 1e9:.0f} TFLOP/s"
-    if "body" in res:
-        out += f" [{res['body']}] bodies: " + ", ".join(
-            f"{b} {ms:.4f}ms (model {model:.4f}, {splits} splits)"
-            for b, (ms, model, splits) in res["survey"].items())
-    return out
+    return f"{res['flops'] / res['ms'] / 1e9:.0f} TFLOP/s" + bodies_line(res)
+
+
+def bodies_line(res) -> str:
+    """The planner's body and every surveyed body's time (modelled time, K
+    splits), or "" when the bodies were not surveyed."""
+    if "body" not in res:
+        return ""
+    return f" [{res['body']}] bodies: " + ", ".join(
+        f"{b} {ms:.4f}ms (model {model:.4f}, {splits} splits)"
+        for b, (ms, model, splits) in res["survey"].items())
 
 
 def int_operands(path: str, m: int, n_in: int, r: int, gen):
@@ -342,10 +395,11 @@ def int_operands(path: str, m: int, n_in: int, r: int, gen):
 
 
 def check_int_kernel(path: str, m: int, n_in: int, r: int, gen, bw, int_peak,
-                     timed: bool = True):
+                     with_times: bool = True):
     """B3 (``path`` "xnor") or B4 ("int8") once against its plain version on
     the same card inputs: the int32 accumulators must be equal. Then, if
-    ``timed``, time both and the library yardstick."""
+    ``with_times``, time both and the library yardstick; for B4 also hold
+    every body to the plain version and time it beside the cost model."""
     import torch
 
     from repro_torch.kernels.tiled_matmul import unpack_rows
@@ -374,16 +428,33 @@ def check_int_kernel(path: str, m: int, n_in: int, r: int, gen, bw, int_peak,
         fail(f"{kernel.__name__} m={m} n_in={n_in} r={r}: int32 accumulator "
              f"differs from the plain version (max|err| {err})")
     res = dict(err=err, scale=float(want.abs().max()))
-    if not timed:
+    if not with_times:
         return res
     words = packed.shape[1]
     nbytes = a.numel() * a.element_size() + packed.numel() * 4 + m * r * 4
     ops = 2.0 * m * r * (words if path == "xnor" else n_in)
     t_bytes, t_ops = 1e3 * nbytes / bw, 1e3 * ops / int_peak
     dense = unpack_rows(packed).to(torch.bfloat16)
-    res.update(ms=time_ms(run), plain_ms=time_ms(plain),
-               library_ms=time_ms(lambda: torch.matmul(lib_x, dense.T)),
-               bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops)
+    res.update(bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops)
+    timed(res, "ms", run)
+    res["plain_ms"] = time_ms(plain)
+    timed(res, "library_ms", lambda: torch.matmul(lib_x, dense.T))
+    if path == "int8":
+        from repro_torch.kernels.tiled_matmul import _sm_count
+        from repro_torch.kernels.tiled_matvec import matvec_cost
+        from repro_torch.kernels.tiled_xnor import (
+            B4_COST,
+            INT8_BODIES,
+            plan_int8,
+            tiled_int8_body,
+        )
+
+        sms = _sm_count(a.device.index)
+        res.update(survey_bodies(
+            lambda body: tiled_int8_body(a, packed, body), want, INT8_BODIES,
+            lambda body: plan_int8(m, r, words, sms, body=body),
+            lambda plan: matvec_cost(plan, B4_COST, m, r, words, sms),
+            f"B4 m={m} K={n_in} r={r}", exact=True))
     return res
 
 
@@ -436,7 +507,7 @@ def phase_kernels(card: str):
           f"{tick['bound_ms']:.3f}ms", flush=True)
     for kname, path in (("B3", "xnor"), ("B4", "int8")):
         for m in INT_MS:     # pad bits: n_in = 80 against a pack_bits tile
-            check_int_kernel(path, m, 80, 24, gen, bw, int_peak, timed=False)
+            check_int_kernel(path, m, 80, 24, gen, bw, int_peak, with_times=False)
         for name, k, r, _ in SHAPES:
             for m in INT_MS:
                 res = check_int_kernel(path, m, k, r, gen, bw, int_peak)
@@ -444,9 +515,17 @@ def phase_kernels(card: str):
                 print(f"{kname} {name:8s} K={k:5d} r={r:4d} m={m:3d} {path:8s} "
                       f"exact (max|acc|={res['scale']:.0f}) kernel "
                       f"{res['ms']:.4f}ms plain {res['plain_ms']:.4f}ms library "
-                      f"{res['library_ms']:.4f}ms bound {res['bound_ms']:.4f}ms",
-                      flush=True)
+                      f"{res['library_ms']:.4f}ms bound {res['bound_ms']:.4f}ms"
+                      f"{bodies_line(res)}", flush=True)
         print(f"{kname} n_in=80 r=24 (pad bits) m in {INT_MS}: exact", flush=True)
+    for kname, dtype in (("B1", "bfloat16"), ("B3", "int"), ("B4", "int")):
+        for m in (N_SLOTS, MATVEC_M):
+            tot = tick_totals(results, kname, m, 36, True, dtype)
+            print(f"{kname} per decode tick at L=36, m={m}, {dtype} (253 calls): "
+                  f"kernel {tot['ms']:.3f}ms (reps {tot['ms_lo']:.3f}-"
+                  f"{tot['ms_hi']:.3f}) library {tot['library_ms']:.3f}ms (reps "
+                  f"{tot['library_ms_lo']:.3f}-{tot['library_ms_hi']:.3f}) bound "
+                  f"{tot['bound_ms']:.3f}ms", flush=True)
     return results
 
 
@@ -454,7 +533,8 @@ def tick_totals(results, kname: str, m: int, n_layers: int, with_head: bool,
                 dtype: str = "bfloat16"):
     """Sum the per-shape measurements over the calls of one engine tick."""
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-               bytes_ms=0.0, ops_ms=0.0)
+               bytes_ms=0.0, ops_ms=0.0, ms_lo=0.0, ms_hi=0.0,
+               library_ms_lo=0.0, library_ms_hi=0.0)
     for name, _, _, per_layer in SHAPES:
         n = per_layer * n_layers + (1 if name == "lm_head" and with_head else 0)
         res = results[(kname, m, dtype, name)]
@@ -512,6 +592,8 @@ def serve_run(cfg, s_model, sp, path: str):
           + " ".join(f"{k}={v}" for k, v in counts.items()), flush=True)
     print(f"serve [{path}]: first requests' tokens {[r.output for r in reqs[:2]]}")
     profile_decode(s_model, sp, cfg, st["decode_ms_mean"], path)
+    if path != "xnor":    # the widest decode tick: every projection at m = 32
+        profile_decode(s_model, sp, cfg, None, path, n_ticks=1, n_slots=WIDE_SLOTS)
     return counts
 
 
@@ -558,10 +640,21 @@ def device_time_by_name(prof):
     return events, by_name
 
 
-def profile_decode(s_model, sp, cfg, tick_ms: float, path: str, n_ticks: int = 3):
-    """Trace ``n_ticks`` decode-only ticks with torch.profiler: device busy
-    time per tick (sum of kernel durations; one stream, so no overlap) beside
-    the unprofiled decode tick of the serve run, and the top kernels."""
+# compute path -> kernel-name fragments of its decode kernel: the CUDA-core
+# body, the tensor-core body (decode_mma.cuh's mma_kernel over the source's
+# Op) and its split pass (B2's pass too, but no decode-only tick runs B2)
+PATH_KERNEL_NAMES = {"float": ("matvec_kernel", "Bf16Op", "sum_splits_kernel<float>"),
+                     "xnor": ("xnor",),
+                     "int8": ("int8_kernel", "S8Op", "sum_splits_kernel<int>")}
+
+
+def profile_decode(s_model, sp, cfg, tick_ms, path: str, n_ticks: int = 3,
+                   n_slots: int = N_SLOTS):
+    """Trace ``n_ticks`` decode-only ticks of ``n_slots`` slots with
+    torch.profiler: device busy time per tick (sum of kernel durations; one
+    stream, so no overlap) beside the unprofiled decode tick of the serve
+    run (``tick_ms``, None for a tick size the serve run does not have),
+    the decode kernel's share of it, and the top kernels."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -570,11 +663,12 @@ def profile_decode(s_model, sp, cfg, tick_ms: float, path: str, n_ticks: int = 3
     from repro_torch.serve.sampling import SamplingParams
 
     eng = BatchedEngine(s_model, sp, ServeConfig(
-        n_slots=N_SLOTS, max_len=128, chunk_tokens=CHUNK, page_tokens=16,
+        n_slots=n_slots, max_len=128, chunk_tokens=CHUNK, page_tokens=16,
         compute_path=path))
     rng = np.random.default_rng(2)
-    for _ in range(N_SLOTS):   # 4 x 8 prompt tokens: one extend tick
-        eng.submit(rng.integers(0, cfg.vocab, size=8),
+    prompt = max(1, CHUNK // n_slots)   # all prompts in one extend tick's budget
+    for _ in range(n_slots):
+        eng.submit(rng.integers(0, cfg.vocab, size=prompt),
                    SamplingParams(max_tokens=n_ticks + 3))
     eng.step()
     eng.step()
@@ -587,13 +681,18 @@ def profile_decode(s_model, sp, cfg, tick_ms: float, path: str, n_ticks: int = 3
         fail("the profiled ticks were not decode-only")
     events, by_name = device_time_by_name(prof)
     busy_ms = sum(t for t, _ in by_name.values()) / n_ticks
+    label = f"{path}, {n_slots} slots"
     if not events:
-        print(f"profile [{path}]: the profiler recorded no device events "
+        print(f"profile [{label}]: the profiler recorded no device events "
               f"(device time not measured)")
         return
-    print(f"profile [{path}]: decode tick device busy {busy_ms:.3f} ms of "
-          f"{tick_ms:.2f} ms wall (serve run) -> device idle share "
-          f"{1 - busy_ms / tick_ms:.3f}; {len(events) / n_ticks:.0f} kernels/tick")
+    own = sum(t for k, (t, _) in by_name.items()
+              if any(f in k for f in PATH_KERNEL_NAMES[path])) / n_ticks
+    wall = ("" if tick_ms is None else f" of {tick_ms:.2f} ms wall (serve run) "
+            f"-> device idle share {1 - busy_ms / tick_ms:.3f}")
+    print(f"profile [{label}]: decode tick device busy {busy_ms:.3f} ms{wall}; "
+          f"{PATH_KERNEL[path]} {own:.3f} ms ({own / busy_ms:.3f} of busy); "
+          f"{len(events) / n_ticks:.0f} kernels/tick")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
         print(f"  {t / n_ticks:8.3f} ms/tick {n // n_ticks:5d}x  {name[:90]}")
 
@@ -1310,7 +1409,7 @@ def main() -> None:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    check_hgmma(_build)
+    check_tensor_core_sass(_build)
 
     results = phase_kernels(card)
     b5 = phase_b5(card)
@@ -1352,6 +1451,10 @@ def main() -> None:
             "per": f"one {'decode' if head else 'extend'} tick at L={cfg.n_layers}, "
                    f"m={m}, {'bf16' if dtype == 'bfloat16' else 'bf16 activations quantized'}",
         })
+        if head:   # the decode kernels at the widest tick, m = MATVEC_MAX_M
+            wide = tick_totals(results, kname, MATVEC_M, cfg.n_layers, True, dtype)
+            entries[-1]["at_m32"] = {key: wide[key] for key in
+                                     ("ms", "library_ms", "bound_ms")}
     per_step = b5_per_step(TRAIN_LAYERS)
     b5_tot = {key: sum(n * b5[(name, "W")][key] for name, n in per_step.items())
               for key in ("ms", "plain_ms", "bound_ms")}

@@ -20,7 +20,9 @@ _NOT_PORTED = (
     "minitron-8b", "qwen1.5-32b", "mamba2-370m", "recurrentgemma-2b",
     "seamless-m4t-large-v2", "chameleon-34b",
 )
-_FAMILY_ITEM = "ROADMAP.md queue A item 10 (the other model families)"
+_FAMILY_ITEM = ("ROADMAP.md queue A items 4-6 (the MoE, SSM/hybrid and "
+                "encoder-decoder/VLM families; the other dense configs are "
+                "item 1)")
 
 ARCH_IDS: List[str] = list(_MODULES)
 

@@ -416,23 +416,53 @@ __device__ __forceinline__ void store_tile(const float (&acc)[SLABS][BN / 2],
   }
 }
 
+// Programmatic dependent launch: `kernel` may be launched while the kernel
+// before it on the stream is still running (it is set up early and starts
+// when that kernel triggers or ends); it must call wait_prior_grid() before
+// it touches memory, which waits for the earlier kernel's completion and
+// memory, so stream order holds for the data.
+template <class... KArgs, class... Args>
+inline cudaError_t launch_dependent(void (*kernel)(KArgs...), dim3 grid, dim3 block,
+                                    size_t smem, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+}
+
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // The split-K pass: out[i] = sum over z of ws[z * n + i], added in the
-// order z = 0, 1, ... (deterministic, unlike atomics).
-__global__ void sum_splits_kernel(const float* __restrict__ ws, float* __restrict__ out,
+// order z = 0, 1, ... (deterministic, unlike atomics). Acc: float (B1, B2,
+// B6) or int (B4). A dependent launch: it is set up while the kernel that
+// wrote ws runs.
+template <class Acc>
+__global__ void sum_splits_kernel(const Acc* __restrict__ ws, Acc* __restrict__ out,
                                   long long n, int splits) {
+  wait_prior_grid();
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
-    float a = 0.f;
+    Acc a = 0;
     for (int z = 0; z < splits; ++z) a += ws[z * n + i];
     out[i] = a;
   }
 }
 
-inline cudaError_t sum_splits(const float* ws, float* out, long long n, int splits,
+template <class Acc>
+inline cudaError_t sum_splits(const Acc* ws, Acc* out, long long n, int splits,
                               cudaStream_t stream) {
-  const int blocks = n / 256 + 1 < 1024 ? (int)(n / 256 + 1) : 1024;
-  sum_splits_kernel<<<blocks, 256, 0, stream>>>(ws, out, n, splits);
-  return cudaGetLastError();
+  const dim3 grid(n / 256 + 1 < 1024 ? (unsigned)(n / 256 + 1) : 1024u);
+  return launch_dependent(sum_splits_kernel<Acc>, grid, dim3(256), 0, stream, ws, out, n,
+                          splits);
 }
 
 // cuTensorMapEncodeTiled, fetched at run time through the CUDA runtime's

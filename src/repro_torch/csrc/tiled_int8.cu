@@ -21,25 +21,50 @@
 // the whole read is shorter than the launch latency, so what matters first
 // is that all 132 SMs have work (a layer has only r = 128..6144 rows).
 //
-// Design (kernel B1's layout, integer arithmetic): four warps share each
-// output row j, splitting its words (warp p takes words p*32 + lane,
-// stepping by 128: each warp reads 128 contiguous bytes of T[j] per step),
-// and a block holds two rows. Lane l reads one tile word and expands each
-// nibble to four ±1 bytes in one register: spreading the nibble's bits to
-// the low bit of each byte is a multiply by 0x00204081 (the shifted copies
-// do not overlap) and a mask, and a byte b in {0, 1} becomes 0xFF ^ (b *
-// 0xFE), i.e. -1 or +1. Then, for every row i < m, it reads the 32 int8
-// values q[i, 32w : 32w + 32] (two 16-byte loads; the m rows are a few KB
-// to a few tens of KB and stay in L1) and accumulates eight `__dp4a`
-// (int8 x int8 -> int32) into a register. A warp shuffle sums the lanes and
-// the four partial sums of a row are added through shared memory; integer
-// sums are exact, so the result is bit-identical to the plain version in
-// any order. The TPU kernel's block sizes were for the MXU and do not carry
-// over; `mma.sync` s8 (m16n8k32) is the tensor-core route for a later
-// version. m is a template bucket (1, 2, 4, 8, 16, 32); rows past m are
-// never read.
+// Two bodies; the wrapper's planner (`plan_int8`) picks one per call:
+//
+// "dp4a" (the PR 12 layout, CUDA cores): four warps share each output row
+// j, splitting its words, and a block holds two rows. Lane l reads one tile
+// word and expands each nibble to four ±1 bytes in one register
+// (`pm1_bytes`: spreading the nibble's bits to the low bit of each byte is a
+// multiply by 0x00204081 and a mask, and a byte b in {0, 1} becomes 0xFF ^
+// (b * 0xFE), i.e. -1 or +1). Then, for every row i < m, it reads the 32
+// int8 values q[i, 32w : 32w + 32] (the m rows stay in L1) and accumulates
+// eight `__dp4a` into a register. A warp shuffle and a sum over the four
+// warps finish a row. Eight dp4a per word per row: its cost grows with m,
+// and q is read again for every filter, so it wins only at small m.
+//
+// "mma16" / "mma32" / "mma64" / "mma128" (tensor cores): out is computed
+// transposed, out[:, f0:f0+16]^T = T[f0:f0+16] . q^T, with
+// `mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32`:
+//  * A is 16 filters x 32 k, exactly one packed word per filter row per
+//    instruction. Lane (g, t) holds rows g and g + 8, columns 4t..4t+3 and
+//    16+4t..16+4t+3: `pm1_bytes` of the word's nibbles t and 4 + t, four
+//    registers from two words. The ±1 bytes exist only in registers.
+//  * B is q^T with N = 8 * ceil(m / 8) (rows past m are zero): one
+//    m16n8k32 per n-tile of 8 rows and word, so a word costs one A build
+//    and N / 8 mma whatever m is, and q is staged once per block instead of
+//    read once per filter.
+//  * The block, its K split and the split's reduction are decode_mma.cuh's
+//    (shared with B1): four warps over 16, 32 or 64 filters, or eight over
+//    128 (the body's name); K split over blocks until a wave of blocks
+//    runs; each block copies its whole split of q and of the words into
+//    shared memory with one cp.async burst and waits once. The splits' exact int32 partial
+//    tiles go to a workspace that a second kernel adds (any order would give
+//    the same bits; the fixed one is B1's). Chosen over atomicAdd into a
+//    zeroed output, which costs the same second graph node (the zero fill)
+//    and adds splits * m * r atomics in L2.
+// Why mma.sync and not the warpgroup form: `wgmma ... .s32.s8.s8` does take
+// its A operand from registers (CUTLASS's SM90_64xNx32_S32S8S8_RS_TN
+// atoms), but a warpgroup covers 64 filters, and at N <= 32 a call's time
+// is the word read and its fixed cost, not the tensor-core rate: 64-filter
+// tiles leave the small layers (k/v: 128 filters) with two tiles, and the
+// m16n8k32 tile lets a block cover 16 filters.
+// The TPU kernel's block sizes were for the MXU and do not carry over.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "decode_mma.cuh"
 
 namespace {
 
@@ -66,6 +91,7 @@ int8_kernel(const int8_t* __restrict__ q, const uint32_t* __restrict__ packed,
 #pragma unroll
   for (int i = 0; i < MT; ++i) acc[i] = 0;
 
+  hopper::wait_prior_grid();   // a dependent launch (hopper_gemm.cuh)
   if (j < r) {
     const uint32_t* prow = packed + (size_t)j * words;
     for (int w = part * 32 + lane; w < words; w += kSplit * 32) {
@@ -113,29 +139,71 @@ int8_kernel(const int8_t* __restrict__ q, const uint32_t* __restrict__ packed,
 }
 
 template <int MT>
-cudaError_t launch(const void* q, const void* packed, void* out, int m, int r,
-                   int words, cudaStream_t stream) {
+cudaError_t launch_dp4a(const void* q, const void* packed, void* out, int m, int r,
+                        int words, cudaStream_t stream) {
   const dim3 grid((r + kRowsPerBlock - 1) / kRowsPerBlock);
-  int8_kernel<MT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const int8_t*>(q), static_cast<const uint32_t*>(packed),
-      static_cast<int32_t*>(out), m, r, words);
-  return cudaGetLastError();
+  return hopper::launch_dependent(int8_kernel<MT>, grid, dim3(kThreads), 0, stream,
+                                 static_cast<const int8_t*>(q),
+                                 static_cast<const uint32_t*>(packed),
+                                 static_cast<int32_t*>(out), m, r, words);
 }
+
+cudaError_t dispatch_dp4a(const void* q, const void* packed, void* out, int m, int r,
+                          int words, cudaStream_t s) {
+  if (m <= 1) return launch_dp4a<1>(q, packed, out, m, r, words, s);
+  if (m <= 2) return launch_dp4a<2>(q, packed, out, m, r, words, s);
+  if (m <= 4) return launch_dp4a<4>(q, packed, out, m, r, words, s);
+  if (m <= 8) return launch_dp4a<8>(q, packed, out, m, r, words, s);
+  if (m <= 16) return launch_dp4a<16>(q, packed, out, m, r, words, s);
+  return launch_dp4a<32>(q, packed, out, m, r, words, s);
+}
+
+// ------------------------------------------------------- tensor-core body
+// decode_mma.cuh's Op for int8 q: a packed word covers 32 bytes of a row,
+// one m16n8k32 step.
+struct S8Op {
+  using In = int8_t;
+  using Acc = int;
+  static constexpr int kWordBytes = 32;
+
+  // acc[j] += T[16 filters, one word] . q[8j.., the word's 32 columns]^T:
+  // lane (g, t) holds rows g, g + 8 and columns 4t.., 16 + 4t.. of A, the
+  // nibbles t and 4 + t of the words wa / wb as ±1 bytes.
+  template <int NT>
+  __device__ __forceinline__ static void word(int (&acc)[NT][4], uint32_t wa, uint32_t wb,
+                                              const uint8_t* qw, int xp, int t) {
+    const uint32_t a[4] = {(uint32_t)pm1_bytes(wa >> (4 * t)),
+                           (uint32_t)pm1_bytes(wb >> (4 * t)),
+                           (uint32_t)pm1_bytes(wa >> (16 + 4 * t)),
+                           (uint32_t)pm1_bytes(wb >> (16 + 4 * t))};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const uint8_t* b = qw + j * 8 * xp + 4 * t;
+      asm(
+          "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+r"(acc[j][0]), "+r"(acc[j][1]), "+r"(acc[j][2]), "+r"(acc[j][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+            "r"(*reinterpret_cast<const uint32_t*>(b)),
+            "r"(*reinterpret_cast<const uint32_t*>(b + 16)));
+    }
+  }
+};
 
 }  // namespace
 
-extern "C" int tbn_tiled_int8(const void* q, const void* packed, void* out,
-                              int m, int r, int words, void* stream) {
-  if (m < 1 || m > 32 || r < 1 || words < 1) return (int)cudaErrorInvalidValue;
+// body: 0 dp4a, 1 / 2 / 3 / 4 the tensor-core body over 16 / 32 / 64 / 128
+// filters a block. With splits > 1 the tensor-core body needs `ws` (splits * m * r
+// int32) for the split pass.
+extern "C" int tbn_tiled_int8(const void* q, const void* packed, void* out, void* ws,
+                              int m, int r, int words, int body, int splits,
+                              int words_per_split, void* stream) {
+  if (m < 1 || m > 32 || r < 1 || words < 1 || body < 0 || body > 4)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (m <= 1) err = launch<1>(q, packed, out, m, r, words, s);
-  else if (m <= 2) err = launch<2>(q, packed, out, m, r, words, s);
-  else if (m <= 4) err = launch<4>(q, packed, out, m, r, words, s);
-  else if (m <= 8) err = launch<8>(q, packed, out, m, r, words, s);
-  else if (m <= 16) err = launch<16>(q, packed, out, m, r, words, s);
-  else err = launch<32>(q, packed, out, m, r, words, s);
-  return (int)err;
+  if (body == 0) return (int)dispatch_dp4a(q, packed, out, m, r, words, s);
+  return (int)decode::run<S8Op>(body, q, packed, out, ws, m, r, words, splits,
+                                words_per_split, s);
 }
 
 extern "C" const char* tbn_error_string(int err) {

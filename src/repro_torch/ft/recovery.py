@@ -1,6 +1,6 @@
 """Recovery manager: checkpoint/restart (port of the single-device part of
 ``repro/ft/recovery.py``; restoring onto another mesh waits for
-ROADMAP.md queue A item 12).
+ROADMAP.md queue A item 9, distributed).
 
 The contract with the train loop:
 

@@ -8,7 +8,7 @@ rule, ``resolve_conv_padding``) and to whole 32-channel words, runs the
 conv against the r = c_out/p unique filters of the conv-layout tile
 (kernel B6, ``kernels/tiled_conv.py``) and broadcasts the p replicas with
 their alphas. The tensor-parallel ``shard_map`` branch of the reference
-waits for the mesh work (ROADMAP item 12).
+waits for the mesh work (ROADMAP.md queue A item 9).
 
 ``tbn_dense_train`` is the fused training forward: ``tile_construct``
 (kernel B5) builds the packed tile and alpha from the masters, then

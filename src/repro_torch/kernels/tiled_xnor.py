@@ -12,8 +12,10 @@ batches, m <= ``MATVEC_MAX_M``, here when ``compute_path`` is not "float"):
   t_w)``. Pad bits are 0 on both operands, so they never contribute.
 * ``int8`` (B4, replaces ``tiled_xnor.py:235`` ``tiled_int8_matvec_unique``;
   CUDA source ``csrc/tiled_int8.cu``) — per-row symmetric int8 activations
-  against the ±1 tile with int8 x int8 -> int32 dot products. Pad columns
-  of q are zero, so pad bits never contribute.
+  against the ±1 tile with int8 x int8 -> int32 dot products: ``dp4a`` on
+  CUDA cores, or ``mma.sync`` m16n8k32 s8 on the tensor cores with the ±1
+  bytes built in registers, as :func:`plan_int8` picks. Pad columns of q
+  are zero, so pad bits never contribute.
 
 Both return the exact int32 accumulator; ``ops`` applies the activation
 scale and the alpha broadcast. The quantizers are plain PyTorch, as the
@@ -30,8 +32,13 @@ import torch
 
 from repro_torch.core.packing import LANE_BITS, pack_bits, unpack_bits
 from repro_torch.kernels import _build
-from repro_torch.kernels.tiled_matmul import cuda_args
-from repro_torch.kernels.tiled_matvec import MATVEC_MAX_M
+from repro_torch.kernels.tiled_matmul import _sm_count, cuda_args
+from repro_torch.kernels.tiled_matvec import (
+    MATVEC_MAX_M,
+    CostModel,
+    MatvecPlan,
+    best_matvec_plan,
+)
 
 COMPUTE_PATHS = ("float", "int8", "xnor")
 
@@ -127,15 +134,33 @@ def _check(a: torch.Tensor, packed: torch.Tensor, dtype: torch.dtype,
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher(name: str, symbol: str, n_ints: int):
-    """(library, bound launch function): three pointers, ``n_ints`` ints
-    and the stream; built and loaded on first use."""
+def _launcher(name: str, symbol: str, n_ptrs: int, n_ints: int):
+    """(library, bound launch function): ``n_ptrs`` pointers, ``n_ints``
+    ints and the stream; built and loaded on first use."""
     lib = _build.load(name)
     fn = getattr(lib, symbol)
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * n_ints
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+# body -> (C id, filters per block) of B4: "dp4a" on CUDA cores (two
+# filters a block, no K split), the others mma.sync s8 (csrc/tiled_int8.cu)
+INT8_BODIES = {"dp4a": (0, 2), "mma16": (1, 16), "mma32": (2, 32),
+               "mma64": (3, 64), "mma128": (4, 128)}
+# B4's cost model (see tiled_matvec.CostModel), fitted to chip_smoke.py's
+# body survey on an H100 SXM (PERF.md §6)
+B4_COST = CostModel(simt_call_us=1.41, simt_ns=0.483, call_us=3.43, word_ns=8.25,
+                    stage_ns=5.71, split_ns=0.00402)
+
+
+def plan_int8(m: int, r: int, words: int, sms: int,
+              body: str | None = None) -> MatvecPlan:
+    """The plan of one B4 call on a card with ``sms`` SMs: the body of
+    least modelled time (``body`` forces one; the card tests run each)."""
+    return best_matvec_plan(INT8_BODIES, [body] if body else INT8_BODIES,
+                            B4_COST, m, r, words, sms, 32)
 
 
 def tiled_xnor_matvec_unique(packed_x: torch.Tensor, packed_rows: torch.Tensor,
@@ -152,7 +177,7 @@ def tiled_xnor_matvec_unique(packed_x: torch.Tensor, packed_rows: torch.Tensor,
     if packed_x.device.type == "cpu":
         return xnor_matvec_words(packed_x, packed_rows, n_in=n_in)
     out, stream = cuda_args(packed_x, packed_rows, what, torch.int32)
-    lib, launch = _launcher("tiled_xnor", "tbn_tiled_xnor", 4)
+    lib, launch = _launcher("tiled_xnor", "tbn_tiled_xnor", 3, 4)
     err = launch(packed_x.data_ptr(), packed_rows.data_ptr(), out.data_ptr(),
                  packed_x.shape[0], packed_rows.shape[0], words, n_in, stream)
     _build.check(lib, err, what)
@@ -164,17 +189,42 @@ def tiled_int8_matvec_unique(q: torch.Tensor, packed_rows: torch.Tensor
                              ) -> torch.Tensor:
     """acc = q . T^T with int8 activations and ±1 weights: q (m <= 32, W*32)
     int8 with zero pad columns, packed_rows (r, W) int32 -> (m, r) int32.
-    Launches kernel B4 for CUDA tensors; CPU tensors take the plain
-    version."""
+    Launches kernel B4 for CUDA tensors as :func:`plan_int8` plans it; CPU
+    tensors take the plain version."""
     what = "tiled_int8_matvec_unique"
     words = packed_rows.shape[1] if packed_rows.ndim == 2 else 0
     _check(q, packed_rows, torch.int8, words * LANE_BITS, what)
     if q.device.type == "cpu":
         return int8_matvec_packed(q, packed_rows, n_in=q.shape[1])
+    return _launch_int8(q, packed_rows, None)
+
+
+def tiled_int8_body(q: torch.Tensor, packed_rows: torch.Tensor,
+                    body: str) -> torch.Tensor:
+    """Kernel B4 on CUDA tensors with ``body`` forced in place of the
+    planner's pick: the card checks hold every body against the plain
+    version and time it beside the cost model."""
+    what = "tiled_int8_body"
+    words = packed_rows.shape[1] if packed_rows.ndim == 2 else 0
+    _check(q, packed_rows, torch.int8, words * LANE_BITS, what)
+    if body not in INT8_BODIES:
+        raise ValueError(f"{what}: body {body!r}; expected one of "
+                         f"{sorted(INT8_BODIES)}")
+    return _launch_int8(q, packed_rows, body)
+
+
+def _launch_int8(q: torch.Tensor, packed_rows: torch.Tensor, body
+                 ) -> torch.Tensor:
+    what = "tiled_int8_matvec_unique"
     out, stream = cuda_args(q, packed_rows, what, torch.int32)
-    lib, launch = _launcher("tiled_int8", "tbn_tiled_int8", 3)
+    m, (r, words) = q.shape[0], packed_rows.shape
+    plan = plan_int8(m, r, words, _sm_count(out.device.index), body)
+    work = (torch.empty((plan.splits, m, r), dtype=torch.int32,
+                        device=q.device) if plan.splits > 1 else None)
+    lib, launch = _launcher("tiled_int8", "tbn_tiled_int8", 4, 6)
     err = launch(q.data_ptr(), packed_rows.data_ptr(), out.data_ptr(),
-                 q.shape[0], packed_rows.shape[0], words, stream)
+                 None if work is None else work.data_ptr(), m, r, words,
+                 plan.code, plan.splits, plan.per_split, stream)
     _build.check(lib, err, what)
     tiled_int8_matvec_unique.launches += 1
     return out

@@ -36,7 +36,7 @@ from repro_torch.nn.context import ModelContext
 from repro_torch.optim import adamw, cosine_with_warmup
 from repro_torch.train.step import build_train_step, init_state
 
-MESH_ITEM = "ROADMAP.md queue A item 12 (distributed)"
+MESH_ITEM = "ROADMAP.md queue A item 9 (distributed and the platform layer)"
 
 
 def make_policy(cfg: ArchConfig, mode: str, tbn_p: Optional[int]):

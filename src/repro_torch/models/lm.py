@@ -30,10 +30,12 @@ from repro_torch.nn.ffn import MLP
 from repro_torch.nn.linear import Dense
 from repro_torch.nn.norms import LayerNorm, RMSNorm
 
-FAMILY_ITEM = "ROADMAP.md queue A item 10 (the other model families)"
-WINDOW_ITEM = "ROADMAP.md queue A item 10 (windowed rings, recurrent state)"
-INT8_KV_ITEM = "ROADMAP.md queue A item 7 (integer paths, int8 KV)"
-DOTS_REMAT_ITEM = "ROADMAP.md queue A item 8b (selective \"dots\" remat)"
+FAMILY_ITEM = ("ROADMAP.md queue A items 4-6 (the MoE, SSM/hybrid and "
+               "encoder-decoder/VLM families)")
+WINDOW_ITEM = ("ROADMAP.md queue A item 5 (sliding-window rings and recurrent "
+               "state, with the SSM and hybrid families)")
+INT8_KV_ITEM = "ROADMAP.md queue A item 1 (int8 KV, with the rest of the dense family)"
+DOTS_REMAT_ITEM = "ROADMAP.md queue A item 10 (leftovers: selective \"dots\" remat)"
 # _ce_sum chunks the batch when b % 32 == 0 and S * vocab reaches this
 CE_CHUNK_MIN_ELEMS = 2**26
 

@@ -34,6 +34,8 @@ from repro_torch.kernels.tiled_matmul import (
 )
 from repro_torch.kernels.tiled_matvec import (
     MATVEC_MAX_M,
+    MV_BODIES,
+    tiled_matvec_body,
     tiled_matvec_plain,
     tiled_matvec_unique,
 )
@@ -103,6 +105,53 @@ def test_matmul_body_matches_plain(cuda_device, body, m, k, r):
     torch.testing.assert_close(got, want, rtol=RTOL,
                                atol=RTOL * float(want.abs().max()))
     assert torch.equal(tiled_matmul_body(x, packed, body), got)
+
+
+# Ragged decode shapes for the forced B1 / B4 bodies: m in {1, 3, 4, 8, 9,
+# 17, 32} (n-tiles of 8 rows, part filled), r not a multiple of 16, 32 or
+# 64 filters, words odd or not a multiple of 4, one word, more words than
+# a staged chunk (16), and the full-width lm_head and down shapes.
+MATVEC_CASES = [(1, 32, 1), (3, 96, 130), (4, 160, 65), (8, 4096, 200),
+                (9, 1568, 100), (17, 544, 24), (32, 96, 130), (32, 14336, 512),
+                (32, 4096, 6144), (1, 4096, 128), (9, 14336, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", sorted(MV_BODIES))
+@pytest.mark.parametrize("m,k,r", MATVEC_CASES)
+def test_matvec_body_matches_plain(cuda_device, body, m, k, r):
+    """Every body of B1, forced, against the plain version (bf16; f32 on
+    the CUDA-core body); twice, equal (the split pass adds in a fixed
+    order)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        if dtype == torch.float32 and body != "simt":
+            continue
+        x, packed = _operands(cuda_device, m, k, r, dtype, 7 * m + k + r)
+        before = tiled_matvec_unique.launches
+        got = tiled_matvec_body(x, packed, body)
+        torch.cuda.synchronize()
+        assert tiled_matvec_unique.launches == before + 1
+        want = tiled_matvec_plain(x, packed)
+        torch.testing.assert_close(got, want, rtol=RTOL,
+                                   atol=RTOL * float(want.abs().max()))
+        assert torch.equal(tiled_matvec_body(x, packed, body), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", sorted(x8.INT8_BODIES))
+@pytest.mark.parametrize("m,k,r", MATVEC_CASES)
+def test_int8_body_matches_plain_exactly(cuda_device, body, m, k, r):
+    """Every body of B4, forced, against the plain version: int32
+    accumulators equal, and equal again on a second run (the split
+    blocks' atomic adds are exact in any order)."""
+    a, rows = _int_operands(cuda_device, "int8", m, k, r, 11 * m + k + r)
+    before = x8.tiled_int8_matvec_unique.launches
+    got = x8.tiled_int8_body(a, rows, body)
+    torch.cuda.synchronize()
+    assert x8.tiled_int8_matvec_unique.launches == before + 1
+    want = x8.int8_matvec_packed(a, rows, n_in=a.shape[1])
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(x8.tiled_int8_body(a, rows, body), got)
 
 
 @pytest.mark.cuda

@@ -424,7 +424,7 @@ def test_train_cli_policy_modes(tmp_path, capsys, mode):
 
 
 def test_train_cli_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         train_cli.main(["--reduced", "--device", "cpu", "--mesh", "1x1"])
 
 

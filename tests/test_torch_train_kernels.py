@@ -321,5 +321,5 @@ def test_remat_modes():
     assert losses[0] == losses[1]
     m = build_model(dataclasses.replace(cfg, remat="dots"),
                     ModelContext(policy=cfg.tbn, mode=TRAIN, device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         m.train_forward(m.init(0), tokens)
