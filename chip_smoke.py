@@ -9,7 +9,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      ptxas's registers and spills, and require the tensor-core instruction
      of each tensor-core body in its library's SASS (``cuobjdump
      --dump-sass``): HGMMA (wgmma) in B2's and B6's, HMMA (mma.sync bf16)
-     in B1's, IMMA (mma.sync s8) in B4's;
+     in B1's, IMMA (mma.sync s8) in B4's, BMMA (mma.sync b1 AND-popc) in
+     B3's;
   2. kernel vs plain version on the card at the (K, r) pairs of the
      full-width granite-8b path. B1 at m in {1, 4, 8, 16, 32} and B2 at m
      in {33, 128, 512}, bf16 and f32, and B2 in bf16 at m = 2048 (the
@@ -22,12 +23,15 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      exactly equal. Each is timed beside the plain version, the library
      yardstick (``torch.matmul`` in bf16 on pre-unpacked operands, which
      the port never calls) and the data-sheet bound, with its TFLOP/s. In
-     bf16 every body of B1 and B2, and every body of B4, is held to the
-     same check (B4: equal), run twice and equal, and timed beside its
-     modelled time (the planner's cost model) and the planner's pick; B2's
+     bf16 every body of B1 and B2, and every body of B3 (each tensor-core
+     body with K whole and with K split and added in a cluster) and of B4,
+     is held to the same check (B3 / B4: equal, B3 also at n_in =
+     80), run twice and equal, and timed beside its modelled time (the
+     planner's cost model) and the planner's pick; B2's
      totals per fused train step and per extend tick are printed, and the
      totals of B1, B3 and B4 per decode tick at m = 4 and m = 32, each
-     with the min-max of its timing reps. B5 (tile
+     with the min-max of its timing reps, and the planners' host time per
+     decode tick, cached and not. B5 (tile
      construction) at the five full-width (p, q) shapes of granite-8b's
      tiled layers, f32 masters, alpha from W and from a separate A, plus a
      q = 500 case through ``ops.tile_construct`` (padding): packed words
@@ -43,8 +47,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      other paths were not launched; then three decode-only ticks of each
      path are traced with torch.profiler (device busy time vs the tick's
      wall time, the decode kernel's share, top kernels), and one
-     decode-only tick of 32 slots (every projection at m = 32) under
-     "float" and "int8";
+     decode-only tick of 32 slots (every projection at m = 32) under each
+     path;
   4. the same exported weights at full width, 2 layers, f32: one extend and
      one decode_step on the card (kernels) against the CPU model (plain
      versions), float logits at rtol=atol=1e-3 (attention softmax and norms
@@ -206,14 +210,15 @@ def read_counters():
 
 
 # library -> the tensor-core instruction its bodies must issue: wgmma (B2,
-# B6), mma.sync bf16 (B1) and mma.sync s8 (B4)
+# B6), mma.sync bf16 (B1), mma.sync s8 (B4) and mma.sync b1 AND-popc (B3)
 TENSOR_SASS = (("tiled_matmul", "HGMMA"), ("tiled_conv", "HGMMA"),
-               ("tiled_matvec", "HMMA"), ("tiled_int8", "IMMA"))
+               ("tiled_matvec", "HMMA"), ("tiled_int8", "IMMA"),
+               ("tiled_xnor", "BMMA"))
 
 
 def check_tensor_core_sass(build) -> None:
-    """The tensor-core bodies of B1, B2, B4 and B6 must reach the tensor
-    cores: each library's SASS must hold its instruction (TENSOR_SASS)."""
+    """The tensor-core bodies of B1-B4 and B6 must reach the tensor cores:
+    each library's SASS must hold its instruction (TENSOR_SASS)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name, op in TENSOR_SASS:
         sass = subprocess.run([tool, "--dump-sass", str(build.lib_path(name))],
@@ -328,12 +333,12 @@ def check_kernel(kernel, plain, x, packed, bw, peak):
 
 
 def survey_bodies(run, want, bodies, plan_of, cost_of, what: str,
-                  exact: bool = False):
-    """Every body of B1 / B2 / B6 (bf16) or B4 (``exact``) at one shape:
-    held to the kernel's tolerance (B4: equal) against the same plain
-    result, run twice and equal, timed, and its planned time (the planner's
-    cost model) beside it. Returns the planner's pick and {body: (ms,
-    modelled ms, splits)}."""
+                  exact: bool = False, with_times: bool = True):
+    """Every body of B1 / B2 / B6 (bf16) or B3 / B4 (``exact``) at one
+    shape: held to the kernel's tolerance (B3 / B4: equal) against the same
+    plain result, run twice and equal, and, if ``with_times``, timed beside
+    its planned time (the planner's cost model). Returns the planner's pick
+    and {body: (ms, modelled ms, splits)}."""
     import torch
 
     scale = float(want.abs().max())
@@ -349,6 +354,8 @@ def survey_bodies(run, want, bodies, plan_of, cost_of, what: str,
                  f"(max|u| {scale:.3e}{', must be equal' if exact else ''})")
         if not torch.equal(run(body), got):
             fail(f"{what} body {body}: a second run differs from the first")
+        if not with_times:
+            continue
         plan = plan_of(body)
         survey[body] = (time_ms(lambda: run(body)), cost_of(plan) / 1e3,
                         plan.splits)
@@ -394,12 +401,27 @@ def int_operands(path: str, m: int, n_in: int, r: int, gen):
     return a, packed, lib_x
 
 
+def xnor_variant(name):
+    """(body, split reduction) of a surveyed B3 name ("bmma32/cluster");
+    (None, None) for the planner's own pick."""
+    body, _, reduce = (name or "").partition("/")
+    return body or None, reduce or None
+
+
+def xnor_name(plan) -> str:
+    """The surveyed name of a B3 plan: the body, and for a tensor-core body
+    how its K splits are added ("none" or "cluster")."""
+    return plan.body if plan.code == 0 else f"{plan.body}/{plan.reduce}"
+
+
 def check_int_kernel(path: str, m: int, n_in: int, r: int, gen, bw, int_peak,
                      with_times: bool = True):
     """B3 (``path`` "xnor") or B4 ("int8") once against its plain version on
-    the same card inputs: the int32 accumulators must be equal. Then, if
-    ``with_times``, time both and the library yardstick; for B4 also hold
-    every body to the plain version and time it beside the cost model."""
+    the same card inputs: the int32 accumulators must be equal. For B3 also
+    hold every body (and split reduction) to the plain version, run twice.
+    Then, if ``with_times``, time the kernel, the plain version and the
+    library yardstick, and every body of B3 and B4 beside the cost
+    model."""
     import torch
 
     from repro_torch.kernels.tiled_matmul import unpack_rows
@@ -428,9 +450,33 @@ def check_int_kernel(path: str, m: int, n_in: int, r: int, gen, bw, int_peak,
         fail(f"{kernel.__name__} m={m} n_in={n_in} r={r}: int32 accumulator "
              f"differs from the plain version (max|err| {err})")
     res = dict(err=err, scale=float(want.abs().max()))
+    words = packed.shape[1]
+    if path == "xnor":
+        from repro_torch.kernels.tiled_matmul import _sm_count
+        from repro_torch.kernels.tiled_matvec import matvec_cost
+        from repro_torch.kernels.tiled_xnor import (
+            B3_COST,
+            XNOR_BODIES,
+            plan_xnor,
+            tiled_xnor_body,
+            xnor_plans,
+        )
+
+        sms = _sm_count(a.device.index)
+        names = [xnor_name(p) for b in XNOR_BODIES for p in xnor_plans(m, r, words, sms, b)]
+
+        def forced(name):
+            body, reduce = xnor_variant(name)
+            return tiled_xnor_body(a, packed, body, n_in=n_in, reduce=reduce)
+
+        res.update(survey_bodies(
+            forced, want, names,
+            lambda name: plan_xnor(m, r, words, sms, *xnor_variant(name)),
+            lambda plan: matvec_cost(plan, B3_COST, m, r, words, sms),
+            f"B3 m={m} K={n_in} r={r}", exact=True, with_times=with_times))
+        res["body"] = xnor_name(plan_xnor(m, r, words, sms))
     if not with_times:
         return res
-    words = packed.shape[1]
     nbytes = a.numel() * a.element_size() + packed.numel() * 4 + m * r * 4
     ops = 2.0 * m * r * (words if path == "xnor" else n_in)
     t_bytes, t_ops = 1e3 * nbytes / bw, 1e3 * ops / int_peak
@@ -526,7 +572,36 @@ def phase_kernels(card: str):
                   f"{tot['ms_hi']:.3f}) library {tot['library_ms']:.3f}ms (reps "
                   f"{tot['library_ms_lo']:.3f}-{tot['library_ms_hi']:.3f}) bound "
                   f"{tot['bound_ms']:.3f}ms", flush=True)
+    planner_host_cost()
     return results
+
+
+def planner_host_cost() -> None:
+    """Host time of the B1 / B3 / B4 planners over the 253 calls of one
+    decode tick at L=36, m = 4, uncached (the planning itself) and as the
+    wrappers ask them (cached): the median of 5 timed ticks."""
+    from repro_torch.kernels.tiled_matmul import _sm_count
+    from repro_torch.kernels.tiled_matvec import plan_matvec
+    from repro_torch.kernels.tiled_xnor import plan_int8, plan_xnor
+
+    sms = _sm_count(0)
+    calls = [(k // 32, r) for name, k, r, per in SHAPES
+             for _ in range(per * 36 + (name == "lm_head"))]
+    parts = []
+    for kname, plan in (("B1", plan_matvec), ("B3", plan_xnor), ("B4", plan_int8)):
+        times = {}
+        for how, fn in (("uncached", plan.__wrapped__), ("cached", plan)):
+            reps = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                for words, r in calls:
+                    fn(N_SLOTS, r, words, sms)
+                reps.append(time.perf_counter() - t0)
+            times[how] = 1e3 * sorted(reps)[2]
+        parts.append(f"{kname} {plan.__name__} {times['uncached']:.3f}ms uncached, "
+                     f"{times['cached']:.4f}ms cached")
+    print(f"planner host time per decode tick at L=36, m={N_SLOTS} ({len(calls)} "
+          f"calls, median of 5): " + "; ".join(parts), flush=True)
 
 
 def tick_totals(results, kname: str, m: int, n_layers: int, with_head: bool,
@@ -592,8 +667,8 @@ def serve_run(cfg, s_model, sp, path: str):
           + " ".join(f"{k}={v}" for k, v in counts.items()), flush=True)
     print(f"serve [{path}]: first requests' tokens {[r.output for r in reqs[:2]]}")
     profile_decode(s_model, sp, cfg, st["decode_ms_mean"], path)
-    if path != "xnor":    # the widest decode tick: every projection at m = 32
-        profile_decode(s_model, sp, cfg, None, path, n_ticks=1, n_slots=WIDE_SLOTS)
+    # the widest decode tick: every projection at m = 32
+    profile_decode(s_model, sp, cfg, None, path, n_ticks=1, n_slots=WIDE_SLOTS)
     return counts
 
 
@@ -642,9 +717,10 @@ def device_time_by_name(prof):
 
 # compute path -> kernel-name fragments of its decode kernel: the CUDA-core
 # body, the tensor-core body (decode_mma.cuh's mma_kernel over the source's
-# Op) and its split pass (B2's pass too, but no decode-only tick runs B2)
+# Op) and, for B1 / B4, its split pass (B2's pass too, but no decode-only
+# tick runs B2; B3 adds its K splits in a cluster, in the same kernel)
 PATH_KERNEL_NAMES = {"float": ("matvec_kernel", "Bf16Op", "sum_splits_kernel<float>"),
-                     "xnor": ("xnor",),
+                     "xnor": ("xnor_kernel", "XnorOp"),
                      "int8": ("int8_kernel", "S8Op", "sum_splits_kernel<int>")}
 
 

@@ -9,7 +9,10 @@ batches, m <= ``MATVEC_MAX_M``, here when ``compute_path`` is not "float"):
 * ``xnor`` (B3, replaces ``tiled_xnor.py:147`` ``tiled_xnor_matvec_unique``;
   CUDA source ``csrc/tiled_xnor.cu``) — sign-pack the activations in the
   tile's word layout and compute ``acc = n_in - 2 * sum_w popcount(x_w XOR
-  t_w)``. Pad bits are 0 on both operands, so they never contribute.
+  t_w)``: ``__popc`` on CUDA cores, or the 1-bit ``mma.sync`` m16n8k256
+  AND-popcount on the tensor cores with the popcounts of x and of the tile
+  folded in, as :func:`plan_xnor` picks. Pad bits are 0 on both operands,
+  so they never contribute.
 * ``int8`` (B4, replaces ``tiled_xnor.py:235`` ``tiled_int8_matvec_unique``;
   CUDA source ``csrc/tiled_int8.cu``) — per-row symmetric int8 activations
   against the ±1 tile with int8 x int8 -> int32 dot products: ``dp4a`` on
@@ -38,6 +41,9 @@ from repro_torch.kernels.tiled_matvec import (
     CostModel,
     MatvecPlan,
     best_matvec_plan,
+    matvec_cost,
+    matvec_plan,
+    max_split_words,
 )
 
 COMPUTE_PATHS = ("float", "int8", "xnor")
@@ -155,31 +161,117 @@ B4_COST = CostModel(simt_call_us=1.41, simt_ns=0.483, call_us=3.43, word_ns=8.25
                     stage_ns=5.71, split_ns=0.00402)
 
 
+@functools.lru_cache(maxsize=None)
 def plan_int8(m: int, r: int, words: int, sms: int,
               body: str | None = None) -> MatvecPlan:
     """The plan of one B4 call on a card with ``sms`` SMs: the body of
-    least modelled time (``body`` forces one; the card tests run each)."""
+    least modelled time (``body`` forces one; the card tests run each).
+    Cached: a pure function of its arguments, asked on every launch."""
     return best_matvec_plan(INT8_BODIES, [body] if body else INT8_BODIES,
                             B4_COST, m, r, words, sms, 32)
+
+
+# body -> (C id, filters per block) of B3: "popc" on CUDA cores (two
+# filters a block, no K split), the others the 1-bit mma.sync m16n8k256
+# (csrc/tiled_xnor.cu), whose splits are whole steps of XNOR_STEP words.
+# XNOR_REDUCE: K whole in each block ("none"), or split at most
+# XNOR_CLUSTER times and added in a thread-block cluster ("cluster")
+XNOR_BODIES = {"popc": (0, 2), "bmma16": (1, 16), "bmma32": (2, 32),
+               "bmma64": (3, 64), "bmma128": (4, 128)}
+XNOR_STEP, XNOR_CLUSTER = 8, 8
+XNOR_REDUCE = ("none", "cluster")
+# The planner offers "popc" up to this m: from its 16-row template on, its
+# rows' cross-lane sums cost more than a tensor-core body at every
+# main-path shape (PERF.md §6), in a step the cost model's per-row term
+# does not follow. Past it "popc" is only the fallback for a K too long for
+# every tensor-core plan.
+XNOR_POPC_MAX_M = 8
+# B3's cost model, fitted to chip_smoke.py's body survey on an H100 SXM
+# (PERF.md §6)
+B3_COST = CostModel(simt_call_us=1.35, simt_ns=0.0786, simt_row_ns=17.6, call_us=1.856,
+                    word_ns=2.247, stage_ns=1.884, cluster_us=0.520, cluster_tile_us=0.242)
+
+
+def xnor_plans(m: int, r: int, words: int, sms: int, body: str):
+    """Every plan of ``body`` for one B3 call: the CUDA-core body's one, or
+    a tensor-core body's plans by XNOR_REDUCE: K whole (where it fits in
+    shared memory) and K split, few enough times for a cluster, until a
+    wave of blocks runs (where K has more than one step)."""
+    code, bf = XNOR_BODIES[body]
+    if code == 0:
+        return [matvec_plan(XNOR_BODIES, body, m, r, words, sms, 4)]
+    plans = []
+    if words <= max_split_words(m, bf, 4, XNOR_STEP):
+        plans.append(MatvecPlan(body, code, bf, 1, words))
+    plan = matvec_plan(XNOR_BODIES, body, m, r, words, sms, 4, XNOR_STEP, XNOR_CLUSTER)
+    if plan is not None and plan.splits > 1:
+        plans.append(plan)
+    return plans
+
+
+@functools.lru_cache(maxsize=None)
+def plan_xnor(m: int, r: int, words: int, sms: int, body: str | None = None,
+              reduce: str | None = None) -> MatvecPlan:
+    """The plan of one B3 call on a card with ``sms`` SMs: the body and
+    split reduction of least modelled time (first on a tie; ``body`` and
+    ``reduce`` force them, for the card tests and the body survey), and
+    "popc" where no tensor-core plan fits. Cached: a pure function of its
+    arguments, asked on every launch."""
+    names = [body] if body else [b for b in XNOR_BODIES
+                                 if b != "popc" or m <= XNOR_POPC_MAX_M]
+    plans = [p for b in names for p in xnor_plans(m, r, words, sms, b)
+             if reduce is None or p.code == 0 or p.reduce == reduce]
+    if not plans and body is None:
+        plans = xnor_plans(m, r, words, sms, "popc")
+    if not plans:
+        raise ValueError(f"plan_xnor: body {body!r} has no {reduce} plan at m={m}, "
+                         f"r={r}, words={words}")
+    return min(plans, key=lambda p: matvec_cost(p, B3_COST, m, r, words, sms))
 
 
 def tiled_xnor_matvec_unique(packed_x: torch.Tensor, packed_rows: torch.Tensor,
                              *, n_in: int) -> torch.Tensor:
     """acc = sign(x) . T^T in the integer domain: packed_x (m <= 32, W)
     int32 sign-packed activations, packed_rows (r, W) int32, pad bits 0 on
-    both -> (m, r) int32. Launches kernel B3 for CUDA tensors; CPU tensors
-    take the plain version."""
+    both -> (m, r) int32. Launches kernel B3 for CUDA tensors as
+    :func:`plan_xnor` plans it; CPU tensors take the plain version."""
     what = "tiled_xnor_matvec_unique"
+    _check_xnor(packed_x, packed_rows, n_in, what)
+    if packed_x.device.type == "cpu":
+        return xnor_matvec_words(packed_x, packed_rows, n_in=n_in)
+    return _launch_xnor(packed_x, packed_rows, n_in, None, None)
+
+
+def tiled_xnor_body(packed_x: torch.Tensor, packed_rows: torch.Tensor, body: str,
+                    *, n_in: int, reduce: str | None = None) -> torch.Tensor:
+    """Kernel B3 on CUDA tensors with ``body`` (and the split reduction,
+    ``reduce``: one of XNOR_REDUCE) forced in place of the planner's pick:
+    the card checks hold every body against the plain version and time it
+    beside the cost model."""
+    what = "tiled_xnor_body"
+    _check_xnor(packed_x, packed_rows, n_in, what)
+    if body not in XNOR_BODIES or reduce not in (None, *XNOR_REDUCE):
+        raise ValueError(f"{what}: body {body!r}, reduce {reduce!r}; expected one "
+                         f"of {sorted(XNOR_BODIES)} and of {XNOR_REDUCE}")
+    return _launch_xnor(packed_x, packed_rows, n_in, body, reduce)
+
+
+def _check_xnor(packed_x, packed_rows, n_in: int, what: str) -> None:
     words = packed_rows.shape[1] if packed_rows.ndim == 2 else 0
     _check(packed_x, packed_rows, torch.int32, words, what)
     if not 0 < n_in <= words * LANE_BITS:
         raise ValueError(f"{what}: n_in={n_in} outside the {words} words")
-    if packed_x.device.type == "cpu":
-        return xnor_matvec_words(packed_x, packed_rows, n_in=n_in)
+
+
+def _launch_xnor(packed_x: torch.Tensor, packed_rows: torch.Tensor, n_in: int,
+                 body, reduce) -> torch.Tensor:
+    what = "tiled_xnor_matvec_unique"
     out, stream = cuda_args(packed_x, packed_rows, what, torch.int32)
-    lib, launch = _launcher("tiled_xnor", "tbn_tiled_xnor", 3, 4)
-    err = launch(packed_x.data_ptr(), packed_rows.data_ptr(), out.data_ptr(),
-                 packed_x.shape[0], packed_rows.shape[0], words, n_in, stream)
+    m, (r, words) = packed_x.shape[0], packed_rows.shape
+    plan = plan_xnor(m, r, words, _sm_count(out.device.index), body, reduce)
+    lib, launch = _launcher("tiled_xnor", "tbn_tiled_xnor", 3, 7)
+    err = launch(packed_x.data_ptr(), packed_rows.data_ptr(), out.data_ptr(), m, r,
+                 words, n_in, plan.code, plan.splits, plan.per_split, stream)
     _build.check(lib, err, what)
     tiled_xnor_matvec_unique.launches += 1
     return out

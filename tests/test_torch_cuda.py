@@ -205,6 +205,56 @@ def test_int_kernel_matches_plain_exactly(cuda_device, path, m, n_in, r):
     assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
+# B3's forced bodies: the cases of test_int_kernel_matches_plain_exactly,
+# then ragged steps of 8 words: n_in not a multiple of 256, words not a
+# multiple of 8 (10, 65: the last step zero-filled) or of 4 (the 4-byte
+# staging path), r = 1.
+XNOR_CASES = [(1, 32, 1), (4, 80, 24), (3, 96, 130), (17, 160, 65),
+              (32, 4096, 512), (4, 14336, 512), (4, 4096, 6144),
+              (9, 300, 24), (32, 1000, 130), (5, 2080, 65), (24, 14336, 1)]
+XNOR_VARIANTS = [("popc", None)] + [(b, red) for b in sorted(x8.XNOR_BODIES)
+                                    if b != "popc" for red in x8.XNOR_REDUCE]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body,reduce", XNOR_VARIANTS)
+@pytest.mark.parametrize("m,n_in,r", XNOR_CASES)
+def test_xnor_body_matches_plain_exactly(cuda_device, body, reduce, m, n_in, r):
+    """Every body of B3, forced, with K whole in a block, and split and
+    added in a cluster, against the plain version: int32 accumulators
+    equal, and equal again on a second run. A variant the shape has not (K
+    of one step cannot split; K too long for one block) is refused."""
+    a, rows = _int_operands(cuda_device, "xnor", m, n_in, r, 13 * m + n_in + r)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plans = x8.xnor_plans(m, r, rows.shape[1], sms, body)
+    if body != "popc" and reduce not in {p.reduce for p in plans}:
+        with pytest.raises(ValueError, match="has no"):
+            x8.tiled_xnor_body(a, rows, body, n_in=n_in, reduce=reduce)
+        return
+    before = x8.tiled_xnor_matvec_unique.launches
+    got = x8.tiled_xnor_body(a, rows, body, n_in=n_in, reduce=reduce)
+    torch.cuda.synchronize()
+    assert x8.tiled_xnor_matvec_unique.launches == before + 1
+    want = x8.xnor_matvec_words(a, rows, n_in=n_in)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(x8.tiled_xnor_body(a, rows, body, n_in=n_in, reduce=reduce), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [9, 32])
+def test_xnor_past_every_tensor_core_plan_takes_popc(cuda_device, m):
+    """A K too long for a cluster of splits in shared memory: the planner
+    falls back to "popc" past its row limit, and the result is exact."""
+    from repro_torch.kernels.tiled_matvec import max_split_words
+
+    words = x8.XNOR_CLUSTER * max_split_words(m, 16, 4, x8.XNOR_STEP, True) + x8.XNOR_STEP
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert x8.plan_xnor(m, 40, words, sms).body == "popc"
+    a, rows = _int_operands(cuda_device, "xnor", m, words * 32 - 5, 40, m + words)
+    got = x8.tiled_xnor_matvec_unique(a, rows, n_in=words * 32 - 5)
+    assert torch.equal(got, x8.xnor_matvec_words(a, rows, n_in=words * 32 - 5))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["xnor", "int8"])
 @pytest.mark.parametrize("m", [4, 33])
