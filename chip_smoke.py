@@ -37,6 +37,13 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      q = 500 case through ``ops.tile_construct`` (padding): packed words
      ``torch.equal`` to the plain version, alpha at rtol 1e-5, timed beside
      the plain version and the bound (no single PyTorch call computes B5);
+  2b. the planners' picks of B1-B4 (no body survey) at every (K, r) of
+     qwen1.5-32b, starcoder2-7b and minitron-8b that granite-8b has not:
+     B1 at m in {1, 4, 32} and B2 at m = 128, bf16 and f32, at the same
+     tolerance; B3 / B4 at m in {1, 4, 32}, equal; each timed beside the
+     plain version, the library yardstick and the bound, with the pick;
+     then qwen1.5-32b's totals per extend tick (448 calls) and per decode
+     tick at m = 4 and m = 32 (449 calls at L = 64);
   3. serve granite-8b at its published width through the user entry points
      (masters from a seed -> export -> BatchedEngine): 8 requests, prompts
      of 3-100 tokens, 16 greedy tokens each, 4 slots, 32-token chunks,
@@ -59,6 +66,27 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      model a reordered f32 sum upstream can flip one activation's sign or
      int8 rounding, so the integer paths' model-level max|d logit| is
      printed and only checked to be finite;
+  4b. serve qwen1.5-32b at its published width and all 64 layers, with its
+     int8 KV cache, from masters built, exported and freed one leaf at a
+     time (``build_serving``; the peak of device memory across the build
+     is printed and must leave 10% of the card): the requests of phase 3
+     under "float", "xnor" and "int8" on one export, with the same counter
+     checks (own kernel = (7 L + 1) per decode tick + 1 per extend tick),
+     the K/V pools int8 codes with f32 scales, and one 4-slot decode tick
+     traced per path;
+  4c. qwen1.5-32b at full width, 2 layers, f32: ``quantize_kv`` card
+     against CPU on one K tensor (codes and scales equal); one extend and
+     one decode step on the card against the CPU model, with float K/V
+     pools (logits at rtol=atol=1e-3) and with the int8 KV cache (codes
+     within one step, the count that differ printed; layer 0's scales at
+     rtol 1e-5;
+     decode logits from the card's pools at rtol=atol=1e-3; the logits
+     from each device's own codes printed, finite);
+  4d. minitron-8b and starcoder2-7b at their published width and depth (32
+     layers each), built the same way, float path: 4 requests of 8 greedy
+     tokens each with the same counter checks (own kernel = (6 L + 1) per
+     decode tick + 1 per extend tick: their MLPs are not gated), first
+     tokens printed;
   5. train granite-8b at published width, 4 layers (n_layers 36 -> 4: the
      masters, gradients and AdamW moments of all 36 do not fit one card),
      through ``launch.train.build_training`` as the CLI wires it but with
@@ -130,6 +158,21 @@ sys.path.insert(0, str(ROOT / "src"))
 SHAPES = (("q/o", 4096, 512, 2), ("k/v", 4096, 128, 2),
           ("gate/up", 4096, 1792, 2), ("down", 14336, 512, 1),
           ("lm_head", 4096, 6144, 0))
+# (name, K, r, calls per layer) of the tiled matmuls of the other dense
+# configs at full width (r = n_out / 8); granite-8b's (K, r) among them
+# are checked by phase 2 and not again
+FAMILY_SHAPES = {
+    "qwen1.5-32b": (("q/k/v/o", 5120, 640, 4), ("gate/up", 5120, 3424, 2),
+                    ("down", 27392, 640, 1), ("lm_head", 5120, 19008, 0)),
+    "starcoder2-7b": (("q/o", 4608, 576, 2), ("k/v", 4608, 64, 2),
+                      ("up", 4608, 2304, 1), ("down", 18432, 576, 1),
+                      ("lm_head", 4608, 6144, 0)),
+    "minitron-8b": (("q/o", 4096, 512, 2), ("k/v", 4096, 128, 2),
+                    ("up", 4096, 2048, 1), ("down", 16384, 512, 1),
+                    ("lm_head", 4096, 32000, 0)),
+}
+FAMILY_MS = (1, 4, 32)
+QWEN = "qwen1.5-32b"
 B1_MS = (1, 4, 8, 16, 32)
 B2_MS = (33, 128, 512)
 INT_MS = (1, 4, 8, 16, 32)
@@ -268,10 +311,11 @@ def timed(res, key: str, fn) -> None:
     res[key], res[key + "_lo"], res[key + "_hi"] = time_reps(fn)
 
 
-def check_kernel(kernel, plain, x, packed, bw, peak):
+def check_kernel(kernel, plain, x, packed, bw, peak, survey: bool = True):
     """Run ``kernel`` once against ``plain`` on the same card inputs, assert
     the tolerance and that the launch counter rose, then time both and the
-    library yardstick. Returns a dict of the measurements."""
+    library yardstick; in bf16, with ``survey``, hold and time every body
+    (else note the planner's pick). Returns a dict of the measurements."""
     import torch
 
     from repro_torch.kernels.tiled_matmul import unpack_rows
@@ -298,6 +342,10 @@ def check_kernel(kernel, plain, x, packed, bw, peak):
     timed(res, "ms", lambda: kernel(x, packed))
     res["plain_ms"] = time_ms(lambda: plain(x, packed))
     timed(res, "library_ms", lambda: torch.matmul(x, dense.T))
+    if not survey:
+        res["body"] = picked(kernel.__name__, m, r, packed.shape[1],
+                             x.dtype == torch.bfloat16)
+        return res
     if kernel.__name__ == "tiled_matvec_unique" and x.dtype == torch.bfloat16:
         from repro_torch.kernels.tiled_matmul import _sm_count
         from repro_torch.kernels.tiled_matvec import (
@@ -330,6 +378,23 @@ def check_kernel(kernel, plain, x, packed, bw, peak):
             lambda plan: plan_cost(plan, m, r, sms),
             f"B2 m={m} K={k} r={r}"))
     return res
+
+
+def picked(kernel: str, m: int, r: int, words: int, bf16: bool = True) -> str:
+    """The planner's pick for one call of ``kernel`` (a wrapper's name) on
+    this card: the body and its K splits (B3: and how they are added)."""
+    from repro_torch.kernels.tiled_matmul import _sm_count, plan_matmul
+    from repro_torch.kernels.tiled_matvec import plan_matvec
+    from repro_torch.kernels.tiled_xnor import plan_int8, plan_xnor
+
+    sms = _sm_count(0)
+    if kernel == "tiled_xnor_matvec_unique":
+        plan = plan_xnor(m, r, words, sms)
+        return f"{xnor_name(plan)} x{plan.splits}"
+    plan = {"tiled_matvec_unique": lambda: plan_matvec(m, r, words, sms, bf16),
+            "tiled_matmul_unique": lambda: plan_matmul(m, r, words, sms, bf16),
+            "tiled_int8_matvec_unique": lambda: plan_int8(m, r, words, sms)}[kernel]()
+    return f"{plan.body} x{plan.splits}"
 
 
 def survey_bodies(run, want, bodies, plan_of, cost_of, what: str,
@@ -373,6 +438,8 @@ def bodies_line(res) -> str:
     splits), or "" when the bodies were not surveyed."""
     if "body" not in res:
         return ""
+    if not res.get("survey"):
+        return f" [{res['body']}]"
     return f" [{res['body']}] bodies: " + ", ".join(
         f"{b} {ms:.4f}ms (model {model:.4f}, {splits} splits)"
         for b, (ms, model, splits) in res["survey"].items())
@@ -415,13 +482,13 @@ def xnor_name(plan) -> str:
 
 
 def check_int_kernel(path: str, m: int, n_in: int, r: int, gen, bw, int_peak,
-                     with_times: bool = True):
+                     with_times: bool = True, survey: bool = True):
     """B3 (``path`` "xnor") or B4 ("int8") once against its plain version on
-    the same card inputs: the int32 accumulators must be equal. For B3 also
-    hold every body (and split reduction) to the plain version, run twice.
-    Then, if ``with_times``, time the kernel, the plain version and the
-    library yardstick, and every body of B3 and B4 beside the cost
-    model."""
+    the same card inputs: the int32 accumulators must be equal. With
+    ``survey``, for B3 also hold every body (and split reduction) to the
+    plain version, run twice. Then, if ``with_times``, time the kernel, the
+    plain version and the library yardstick, and, with ``survey``, every
+    body of B3 and B4 beside the cost model."""
     import torch
 
     from repro_torch.kernels.tiled_matmul import unpack_rows
@@ -451,7 +518,9 @@ def check_int_kernel(path: str, m: int, n_in: int, r: int, gen, bw, int_peak,
              f"differs from the plain version (max|err| {err})")
     res = dict(err=err, scale=float(want.abs().max()))
     words = packed.shape[1]
-    if path == "xnor":
+    if not survey:
+        res["body"] = picked(kernel.__name__, m, r, words)
+    elif path == "xnor":
         from repro_torch.kernels.tiled_matmul import _sm_count
         from repro_torch.kernels.tiled_matvec import matvec_cost
         from repro_torch.kernels.tiled_xnor import (
@@ -485,7 +554,7 @@ def check_int_kernel(path: str, m: int, n_in: int, r: int, gen, bw, int_peak,
     timed(res, "ms", run)
     res["plain_ms"] = time_ms(plain)
     timed(res, "library_ms", lambda: torch.matmul(lib_x, dense.T))
-    if path == "int8":
+    if path == "int8" and survey:
         from repro_torch.kernels.tiled_matmul import _sm_count
         from repro_torch.kernels.tiled_matvec import matvec_cost
         from repro_torch.kernels.tiled_xnor import (
@@ -604,13 +673,92 @@ def planner_host_cost() -> None:
           f"calls, median of 5): " + "; ".join(parts), flush=True)
 
 
+def family_shapes(arch: str):
+    """FAMILY_SHAPES[arch] keyed as phase 2b stores its measurements (by
+    (K, r), so that two configs' equal shapes are one measurement)."""
+    return tuple((f"K{k} r{r}", k, r, per) for _, k, r, per in FAMILY_SHAPES[arch])
+
+
+def phase_family_kernels(card: str, results) -> None:
+    """Phase 2b: the planners' picks of B1-B4 at every (K, r) of the other
+    dense configs that granite-8b has not, against the plain version (B1 at
+    m in FAMILY_MS and B2 at the extend tick's m, bf16 and f32, within
+    RTOL; B3 / B4 at m in FAMILY_MS, equal), each timed beside the plain
+    version, the library yardstick and the bound, with the pick printed.
+    No body survey. Adds to ``results``; prints qwen1.5-32b's totals per
+    decode and extend tick."""
+    import torch
+
+    from repro_torch.kernels.tiled_matmul import tiled_matmul_plain
+    from repro_torch.kernels.tiled_matvec import tiled_matvec_plain
+
+    t0 = time.perf_counter()
+    bw, bf16_peak, f32_peak, int_peak = peaks(card)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    ks = kernels()
+    seen = {(k, r) for _, k, r, _ in SHAPES}
+    for arch in FAMILY_SHAPES:
+        for (key, k, r, _), (name, *_) in zip(family_shapes(arch), FAMILY_SHAPES[arch]):
+            if (k, r) in seen:
+                continue
+            seen.add((k, r))
+            packed = torch.randint(0, 2**32, (r, k // 32), generator=gen,
+                                   device="cuda", dtype=torch.int64).to(torch.int32)
+            for kname, plain, ms in (("B1", tiled_matvec_plain, FAMILY_MS),
+                                     ("B2", tiled_matmul_plain, (N_SLOTS * CHUNK,))):
+                for dtype, peak in ((torch.bfloat16, bf16_peak),
+                                    (torch.float32, f32_peak)):
+                    dt = str(dtype).split(".")[-1]
+                    for m in ms:
+                        x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+                        res = check_kernel(ks[kname], plain, x, packed, bw, peak,
+                                           survey=False)
+                        results[(kname, m, dt, key)] = res
+                        print(f"{kname} {arch} {name:8s} K={k:5d} r={r:5d} m={m:3d} "
+                              f"{dt:8s} max|err|={res['err']:.2e} (max|u|="
+                              f"{res['scale']:.1f}) kernel {res['ms']:.4f}ms plain "
+                              f"{res['plain_ms']:.4f}ms library {res['library_ms']:.4f}ms "
+                              f"bound {res['bound_ms']:.4f}ms{bodies_line(res)}",
+                              flush=True)
+            del packed
+            for kname, path in (("B3", "xnor"), ("B4", "int8")):
+                for m in FAMILY_MS:
+                    res = check_int_kernel(path, m, k, r, gen, bw, int_peak,
+                                           survey=False)
+                    results[(kname, m, "int", key)] = res
+                    print(f"{kname} {arch} {name:8s} K={k:5d} r={r:5d} m={m:3d} "
+                          f"{path:8s} exact (max|acc|={res['scale']:.0f}) kernel "
+                          f"{res['ms']:.4f}ms plain {res['plain_ms']:.4f}ms library "
+                          f"{res['library_ms']:.4f}ms bound {res['bound_ms']:.4f}ms"
+                          f"{bodies_line(res)}", flush=True)
+    shapes, n_layers = family_shapes(QWEN), 64
+    calls = sum(per for *_, per in shapes) * n_layers
+    m = N_SLOTS * CHUNK
+    tot = tick_totals(results, "B2", m, n_layers, False, shapes=shapes)
+    print(f"B2 {QWEN} per extend tick at L={n_layers}, m={m}, bf16 ({calls} calls): "
+          f"kernel {tot['ms']:.3f}ms library {tot['library_ms']:.3f}ms bound "
+          f"{tot['bound_ms']:.3f}ms", flush=True)
+    for kname, dtype in (("B1", "bfloat16"), ("B3", "int"), ("B4", "int")):
+        for m in (N_SLOTS, MATVEC_M):
+            tot = tick_totals(results, kname, m, n_layers, True, dtype, shapes)
+            print(f"{kname} {QWEN} per decode tick at L={n_layers}, m={m}, {dtype} "
+                  f"({calls + 1} calls): kernel {tot['ms']:.3f}ms (reps "
+                  f"{tot['ms_lo']:.3f}-{tot['ms_hi']:.3f}) library "
+                  f"{tot['library_ms']:.3f}ms (reps {tot['library_ms_lo']:.3f}-"
+                  f"{tot['library_ms_hi']:.3f}) bound {tot['bound_ms']:.3f}ms",
+                  flush=True)
+    torch.cuda.empty_cache()
+    print(f"phase 2b (dense-family shapes): {time.perf_counter() - t0:.1f}s", flush=True)
+
+
 def tick_totals(results, kname: str, m: int, n_layers: int, with_head: bool,
-                dtype: str = "bfloat16"):
+                dtype: str = "bfloat16", shapes=SHAPES):
     """Sum the per-shape measurements over the calls of one engine tick."""
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                bytes_ms=0.0, ops_ms=0.0, ms_lo=0.0, ms_hi=0.0,
                library_ms_lo=0.0, library_ms_hi=0.0)
-    for name, _, _, per_layer in SHAPES:
+    for name, _, _, per_layer in shapes:
         n = per_layer * n_layers + (1 if name == "lm_head" and with_head else 0)
         res = results[(kname, m, dtype, name)]
         for key in tot:
@@ -618,11 +766,21 @@ def tick_totals(results, kname: str, m: int, n_layers: int, with_head: bool,
     return tot
 
 
-def serve_run(cfg, s_model, sp, path: str):
-    """Drive 8 requests through a BatchedEngine under ``path``: every launch
-    counter is 0 just before the run and read just after it. Asserts that
-    the path's decode kernel took every m <= 32 projection, B2 every
-    extend, and no other kernel ran. Returns the counts."""
+def dense_calls(cfg) -> int:
+    """Tiled projections of one layer: q, k, v, o and the MLP's (gate, up,
+    down, or up, down)."""
+    return 4 + (3 if cfg.gated_mlp else 2)
+
+
+def serve_run(cfg, s_model, sp, path: str, requests: int = 8,
+              max_tokens: int = 16, profile_ticks: int = 3, wide: bool = True):
+    """Drive ``requests`` prompts of 3-100 tokens, ``max_tokens`` greedy
+    tokens each, through a BatchedEngine under ``path``: every launch
+    counter is 0 just before the run and read just after it. Asserts the
+    K/V pools' types (int8 codes and f32 scales under an int8 KV config),
+    that the path's decode kernel took every m <= 32 projection, B2 every
+    extend, and no other kernel ran. Then traces ``profile_ticks`` 4-slot
+    decode ticks and, with ``wide``, one of 32 slots. Returns the counts."""
     import numpy as np
     import torch
 
@@ -633,42 +791,52 @@ def serve_run(cfg, s_model, sp, path: str):
     eng = BatchedEngine(s_model, sp, ServeConfig(
         n_slots=N_SLOTS, max_len=128, chunk_tokens=CHUNK, page_tokens=16,
         compute_path=path))
+    pools = {k: v.dtype for k, v in eng.caches[0].items()}
+    want = ({"k": torch.int8, "v": torch.int8, "ks": torch.float32,
+             "vs": torch.float32} if cfg.kv_dtype == "int8" else
+            {"k": torch.bfloat16, "v": torch.bfloat16})
+    if pools != want:
+        fail(f"{cfg.name} {path}: K/V pools {pools}, expected {want}")
     rng = np.random.default_rng(0)
-    reqs = [eng.submit(p, SamplingParams(max_tokens=16))
-            for p in synthetic_prompts(rng, 8, cfg.vocab, 3, 101)]
+    reqs = [eng.submit(p, SamplingParams(max_tokens=max_tokens))
+            for p in synthetic_prompts(rng, requests, cfg.vocab, 3, 101)]
     zero_counters()
     ticks, dt, tick_ends = drain(eng, reqs)
     counts = read_counters()
     st = eng.stats()
     tok = sum(len(r.output) for r in reqs)
-    if not all(r.done and len(r.output) == 16 for r in reqs):
-        fail(f"{path}: not every request finished with 16 tokens")
+    label = f"{cfg.name} {path}"
+    if not all(r.done and len(r.output) == max_tokens for r in reqs):
+        fail(f"{label}: not every request finished with {max_tokens} tokens")
     if not all(0 <= t < cfg.vocab for r in reqs for t in r.output):
-        fail(f"{path}: a sampled token is outside the vocabulary")
+        fail(f"{label}: a sampled token is outside the vocabulary")
     if st["decode_ticks"] == 0 or st["extend_ticks"] == 0:
-        fail(f"{path}: the run had {st['decode_ticks']} decode and "
+        fail(f"{label}: the run had {st['decode_ticks']} decode and "
              f"{st['extend_ticks']} extend ticks; both must run")
     own = PATH_KERNEL[path]
-    need = (7 * cfg.n_layers + 1) * st["decode_ticks"] + st["extend_ticks"]
+    need = ((dense_calls(cfg) * cfg.n_layers + 1) * st["decode_ticks"]
+            + st["extend_ticks"])
     others = [k for k in ("B1", "B3", "B4", "B5", "B6") if k != own]
     if (counts[own] != need or counts["B2"] < st["extend_ticks"]
             or any(counts[k] for k in others)):
-        fail(f"{path}: launch counters {counts}; need {own} = {need}, B2 >= "
+        fail(f"{label}: launch counters {counts}; need {own} = {need}, B2 >= "
              f"{st['extend_ticks']}, {others} = 0: the main path did not go "
              f"through the kernels")
     ttfts, itls = latency_report(reqs, tick_ends)
     torch.cuda.synchronize()
-    print(f"serve [{path}]: {len(reqs)} requests, {tok} tokens in {ticks} ticks "
+    print(f"serve [{label}]: {len(reqs)} requests, {tok} tokens in {ticks} ticks "
           f"({st['extend_ticks']} extend, {st['decode_ticks']} decode), {dt:.3f}s, "
           f"{tok / dt:.1f} tok/s | TTFT mean {1e3 * np.mean(ttfts):.1f}ms max "
           f"{1e3 * np.max(ttfts):.1f}ms | ITL mean {1e3 * np.mean(itls):.2f}ms max "
           f"{1e3 * np.max(itls):.2f}ms | extend tick {st['extend_ms_mean']:.2f}ms "
           f"decode tick {st['decode_ms_mean']:.2f}ms | launches "
           + " ".join(f"{k}={v}" for k, v in counts.items()), flush=True)
-    print(f"serve [{path}]: first requests' tokens {[r.output for r in reqs[:2]]}")
-    profile_decode(s_model, sp, cfg, st["decode_ms_mean"], path)
-    # the widest decode tick: every projection at m = 32
-    profile_decode(s_model, sp, cfg, None, path, n_ticks=1, n_slots=WIDE_SLOTS)
+    print(f"serve [{label}]: first requests' tokens {[r.output for r in reqs[:2]]}")
+    if profile_ticks:
+        profile_decode(s_model, sp, cfg, st["decode_ms_mean"], path,
+                       n_ticks=profile_ticks)
+    if wide:   # the widest decode tick: every projection at m = 32
+        profile_decode(s_model, sp, cfg, None, path, n_ticks=1, n_slots=WIDE_SLOTS)
     return counts
 
 
@@ -757,7 +925,7 @@ def profile_decode(s_model, sp, cfg, tick_ms, path: str, n_ticks: int = 3,
         fail("the profiled ticks were not decode-only")
     events, by_name = device_time_by_name(prof)
     busy_ms = sum(t for t, _ in by_name.values()) / n_ticks
-    label = f"{path}, {n_slots} slots"
+    label = f"{cfg.name} {path}, {n_slots} slots"
     if not events:
         print(f"profile [{label}]: the profiler recorded no device events "
               f"(device time not measured)")
@@ -867,6 +1035,190 @@ def phase_card_vs_cpu(cfg, sp):
         print(f"model card vs CPU [{path}] (L=2, full width, f32): extend "
               f"max|diff| {errs[0]:.2e}, decode max|diff| {errs[1]:.2e} "
               f"{verdict}", flush=True)
+
+
+def build_on_card(cfg):
+    """``build_serving`` on the card (streamed masters, bf16), with the peak
+    of allocated device memory across the build, which must leave room on
+    the card. Returns (model, params, master bytes)."""
+    import torch
+
+    from repro_torch.launch.serve import build_serving
+    from repro_torch.serve.weights import serving_bytes
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s_model, sp, master_b = build_serving(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    peak, card = torch.cuda.max_memory_allocated(), torch.cuda.mem_get_info()[1]
+    print(f"serve {cfg.name}: L={cfg.n_layers} d={cfg.d_model} heads={cfg.n_heads}/"
+          f"{cfg.n_kv} d_ff={cfg.d_ff} vocab={cfg.vocab} p={cfg.tbn.p} kv "
+          f"{cfg.kv_dtype} bf16: masters {master_b / 1e9:.2f}GB -> shipped "
+          f"{serving_bytes(sp) / 1e9:.3f}GB, built one master leaf at a time in "
+          f"{time.perf_counter() - t0:.1f}s; peak device memory in the build "
+          f"{peak / 1e9:.2f}GB of {card / 1e9:.2f}GB", flush=True)
+    if peak > 0.9 * card:
+        fail(f"{cfg.name}: the build's peak {peak / 1e9:.2f}GB leaves under 10% "
+             f"of the card's {card / 1e9:.2f}GB")
+    return s_model, sp, master_b
+
+
+def phase_serve_qwen(cfg):
+    """Phase 4b: qwen1.5-32b at its published width and all 64 layers, with
+    its int8 KV cache, under each compute path on one streamed export; one
+    4-slot decode tick traced per path. Returns (params, launch counts)."""
+    import torch
+
+    from repro_torch.configs import build_model
+    from repro_torch.nn.context import SERVE, ModelContext
+
+    t0 = time.perf_counter()
+    s_model, sp, _ = build_on_card(cfg)
+    launches = dict.fromkeys(("B1", "B2", "B3", "B4"), 0)
+    for path in PATH_KERNEL:
+        if path != "float":
+            s_model = build_model(cfg, ModelContext(
+                policy=cfg.tbn, mode=SERVE, compute_dtype=torch.bfloat16,
+                device="cuda", compute_path=path))
+        counts = serve_run(cfg, s_model, sp, path, profile_ticks=1, wide=False)
+        for k in (PATH_KERNEL[path], "B2"):
+            launches[k] += counts[k]
+    print(f"phase 4b ({cfg.name} serve): {time.perf_counter() - t0:.1f}s", flush=True)
+    return sp, launches
+
+
+def qwen_two_layers(cfg, sp, dev: str, kv_dtype: str, pools=None):
+    """qwen1.5-32b cut to 2 layers, f32, on ``dev``: one extend of two
+    slots (24 and 17 of 24 columns) and one decode step through an 8-page
+    table. With ``pools``, the decode step reads those K/V pools (another
+    device's, after its extend) in place of its own. Returns (extend
+    logits, decode logits, the pools after the extend), on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import build_model
+    from repro_torch.nn import module as mod
+    from repro_torch.nn.context import SERVE, ModelContext
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, kv_dtype=kv_dtype)
+    params = mod.map_tree(lambda v: v[:2].to(dev), sp.pop("seg0"))
+    params = dict(mod.map_tree(lambda v: v.to(dev), sp), seg0=params)
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 24))).to(dev)
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 1))).to(dev)
+    model = build_model(cfg2, ModelContext(policy=cfg.tbn, mode=SERVE,
+                                           compute_dtype=torch.float32, device=dev))
+    caches = model.init_caches(8, 16, torch.float32)
+    ptab = torch.arange(8, dtype=torch.int32, device=dev).reshape(2, 4)
+    lengths = torch.zeros(2, dtype=torch.int32, device=dev)
+    n_new = torch.tensor([24, 17], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        le, caches, lengths = model.extend(params, tokens, caches, lengths,
+                                           n_new, ptab)
+        # the 8 mapped pages; the last page takes the dropped writes
+        own = {n: v[:, :8].to("cpu", copy=True) for n, v in caches[0].items()}
+        for n, v in (pools or {}).items():
+            caches[0][n][:, :8].copy_(v)
+        ld, _, _ = model.decode_step(params, nxt, caches, lengths, ptab)
+    return le.cpu(), ld.cpu(), own
+
+
+def phase_qwen_card_vs_cpu(cfg, sp):
+    """Phase 4c: qwen1.5-32b at full width, 2 layers, f32, on the card
+    (kernels) against the CPU (plain versions).
+
+    * ``quantize_kv`` on one K tensor: codes and scales equal.
+    * Float K/V pools (``kv_dtype`` "bf16": the compute dtype): extend and
+      decode logits at rtol = atol = 1e-3, as phase 4 holds granite-8b.
+    * The int8 KV cache: after the extend, the pools' codes within one
+      step (the count that differ is printed) and layer 0's scales (its
+      K/V rows differ by summation order only) at rtol 1e-5;
+      the decode step on the CPU from the card's pools against the card's
+      at rtol = atol = 1e-3. The int8 KV logits of each device from its own
+      pools are printed and checked finite only: a K/V value that a
+      reordered f32 sum moves across a rounding boundary moves its code
+      by one step (1/127 of the row's amax), and the logits with it by
+      ~5e-3, while the decode step from the same pools agrees to ~1e-5
+      (PERF.md §6)."""
+    import torch
+
+    from repro_torch.nn.attention import quantize_kv
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    k = 3 * torch.randn((2, 24, cfg.n_kv, cfg.d_model // cfg.n_heads),
+                        generator=gen, device="cuda")
+    q_card, s_card = quantize_kv(k)
+    q_cpu, s_cpu = quantize_kv(k.cpu())
+    if not (torch.equal(q_card.cpu(), q_cpu) and torch.equal(s_card.cpu(), s_cpu)):
+        fail("quantize_kv: card codes or scales differ from the CPU's")
+    print(f"quantize_kv card vs CPU ({tuple(k.shape)} f32): codes and scales "
+          f"equal", flush=True)
+
+    def held(what, a, b):
+        err = float((a - b).abs().max())
+        if not torch.isfinite(a).all() or not torch.allclose(a, b, rtol=1e-3, atol=1e-3):
+            fail(f"{cfg.name} card vs CPU {what} logits differ: max|diff| {err:.3e}")
+        return err
+
+    card = qwen_two_layers(cfg, dict(sp), "cuda", "bf16")
+    cpu = qwen_two_layers(cfg, dict(sp), "cpu", "bf16")
+    errs = [held(f"{w} (float K/V)", a, b)
+            for w, a, b in zip(("extend", "decode"), card, cpu)]
+    card = qwen_two_layers(cfg, dict(sp), "cuda", "int8")
+    cpu = qwen_two_layers(cfg, dict(sp), "cpu", "int8", pools=card[2])
+    n_codes, n_diff = 0, 0
+    for name in ("k", "v"):
+        a, b = card[2][name], cpu[2][name]
+        if a.dtype != torch.int8 or b.dtype != torch.int8:
+            fail(f"{cfg.name}: the {name} pool holds {a.dtype} / {b.dtype}, not int8")
+        d = (a.int() - b.int()).abs()
+        n_codes, n_diff = n_codes + d.numel(), n_diff + int((d > 0).sum())
+        if int(d.max()) > 1:
+            fail(f"{cfg.name}: {name} codes card vs CPU differ by {int(d.max())}")
+    worst_s = [0.0, 0.0]       # per layer
+    for name in ("ks", "vs"):
+        for layer, (a, b) in enumerate(zip(card[2][name], cpu[2][name])):
+            rel = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+            worst_s[layer] = max(worst_s[layer], rel)
+        if worst_s[0] > 1e-5:
+            fail(f"{cfg.name}: layer 0 {name} scales card vs CPU over rtol 1e-5")
+    dec = held("decode (int8 K/V, the card's pools)", card[1], cpu[1])
+    if not torch.isfinite(card[0]).all():
+        fail(f"{cfg.name}: card extend logits (int8 K/V) are not finite")
+    own = float((card[0] - cpu[0]).abs().max())
+    print(f"model card vs CPU [{cfg.name} float, L=2, full width, f32]: float K/V "
+          f"extend max|diff| {errs[0]:.2e}, decode {errs[1]:.2e} (rtol=atol=1e-3) "
+          f"OK; int8 K/V: codes within 1 step, {n_diff} of {n_codes} differ, "
+          f"scales max rel diff {worst_s[0]:.2e} in layer 0 (rtol 1e-5), "
+          f"{worst_s[1]:.2e} in layer 1 (after layer 0's code steps), decode "
+          f"from the card's "
+          f"pools max|diff| {dec:.2e} (rtol=atol=1e-3) OK, extend from each "
+          f"device's own codes max|diff| {own:.2e} (finite; not held); "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def phase_serve_family(arch: str):
+    """Phase 4d: ``arch`` at its published width and depth, float path,
+    4 requests of 8 greedy tokens, through the same counter checks.
+    Returns the launch counts."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    s_model, sp, _ = build_on_card(cfg)
+    counts = serve_run(cfg, s_model, sp, "float", requests=4, max_tokens=8,
+                       profile_ticks=0, wide=False)
+    del s_model, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 4d ({arch} serve): {time.perf_counter() - t0:.1f}s", flush=True)
+    return counts
 
 
 def b5_per_step(n_layers: int):
@@ -1488,11 +1840,21 @@ def main() -> None:
     check_tensor_core_sass(_build)
 
     results = phase_kernels(card)
+    phase_family_kernels(card, results)
     b5 = phase_b5(card)
     cfg = get_config("granite-8b")
     sp, launches = phase_serve(cfg)
     phase_card_vs_cpu(cfg, sp)
     del sp
+    qwen = get_config(QWEN)
+    sp, counts = phase_serve_qwen(qwen)
+    phase_qwen_card_vs_cpu(qwen, sp)
+    del sp
+    for arch in ("minitron-8b", "starcoder2-7b"):
+        counts = {k: counts[k] + v for k, v in phase_serve_family(arch).items()
+                  if k in counts}
+    for k, v in counts.items():
+        launches[k] += v
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train_fused(cfg)

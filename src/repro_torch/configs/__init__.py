@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> ArchConfig.
 
-Only the configurations ported so far are registered; the others of the
-reference registry raise ``NotImplementedError`` naming the ROADMAP item
+The dense family is registered whole; the other arch ids of the reference
+registry raise ``NotImplementedError`` naming the ROADMAP item
 that ports them, as does ``build_model`` for any family but ``dense``.
 """
 from __future__ import annotations
@@ -13,16 +13,17 @@ from repro_torch.configs.base import ArchConfig
 
 _MODULES: Dict[str, str] = {
     "granite-8b": "repro_torch.configs.granite_8b",
+    "minitron-8b": "repro_torch.configs.minitron_8b",
+    "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
+    "qwen1.5-32b": "repro_torch.configs.qwen1p5_32b",
 }
 # The reference registry's other arch ids, ported with their families.
 _NOT_PORTED = (
-    "moonshot-v1-16b-a3b", "qwen2-moe-a2.7b", "starcoder2-7b",
-    "minitron-8b", "qwen1.5-32b", "mamba2-370m", "recurrentgemma-2b",
-    "seamless-m4t-large-v2", "chameleon-34b",
+    "moonshot-v1-16b-a3b", "qwen2-moe-a2.7b", "mamba2-370m",
+    "recurrentgemma-2b", "seamless-m4t-large-v2", "chameleon-34b",
 )
 _FAMILY_ITEM = ("ROADMAP.md queue A items 4-6 (the MoE, SSM/hybrid and "
-                "encoder-decoder/VLM families; the other dense configs are "
-                "item 1)")
+                "encoder-decoder/VLM families)")
 
 ARCH_IDS: List[str] = list(_MODULES)
 

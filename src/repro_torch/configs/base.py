@@ -34,7 +34,7 @@ class ArchConfig:
             p=4, min_size=150_000, alpha_source="W", alpha_mode="tile"
         )
     )
-    kv_dtype: str = "bf16"         # "int8" KV waits for a later slice
+    kv_dtype: str = "bf16"         # "bf16" (the compute dtype) | "int8"
     remat: str = "full"            # training: full | none ("dots" not ported)
     attn_chunk: int = 1024         # chunked-attention query block
     grad_accum: int = 1            # microbatches per training step

@@ -9,11 +9,15 @@ versions on the host instead (there is no silent fallback: without a card
 and without ``--device cpu`` the CLI raises). ``--compute-path xnor`` or
 ``int8`` serves the decode ticks through the integer kernels B3 / B4.
 
-Flow: init the TRAIN masters on the device, export the SERVE form (packed
-tile rows + alpha), stand up the ``BatchedEngine`` and drain a batch of
-synthetic prompts, timing every tick. Prints the compression of the
-shipped weights, the throughput, a TTFT / inter-token-latency line, and
-the first requests' tokens.
+``--arch`` takes any dense-family id: granite-8b, minitron-8b,
+starcoder2-7b, qwen1.5-32b (int8 KV cache); ``--reduced`` serves its tiny
+same-family config.
+
+Flow: build the TRAIN masters on the device one leaf at a time, export
+each to the SERVE form (packed tile rows + alpha) and free it, stand up
+the ``BatchedEngine`` and drain a batch of synthetic prompts, timing every
+tick. Prints the compression of the shipped weights, the throughput, a
+TTFT / inter-token-latency line, and the first requests' tokens.
 """
 from __future__ import annotations
 
@@ -26,10 +30,15 @@ import torch
 from repro_torch.configs import ArchConfig, build_model, get_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.tiled_xnor import COMPUTE_PATHS
+from repro_torch.nn import module as mod
 from repro_torch.nn.context import SERVE, TRAIN, ModelContext
 from repro_torch.serve.engine import BatchedEngine, ServeConfig
 from repro_torch.serve.sampling import SamplingParams
-from repro_torch.serve.weights import export_serving_params, serving_bytes
+from repro_torch.serve.weights import (
+    export_serving_params,
+    serving_bytes,
+    spec_bytes,
+)
 
 
 def device_label(device: torch.device) -> str:
@@ -42,21 +51,22 @@ def build_serving(cfg: ArchConfig, *, device, seed: int,
                   compute_dtype=torch.bfloat16, compute_path: str = "float"):
     """Random TRAIN masters from ``seed`` -> (SERVE model, SERVE params,
     master bytes). The SERVE model applies its dense layers through
-    ``compute_path``. The masters are freed before returning."""
+    ``compute_path``. The masters are streamed: each master leaf is built
+    (as ``t_model.init(seed)`` builds it), exported and freed before the
+    next, so the peak is the largest leaf plus the shipped params, not the
+    whole tree (qwen1.5-32b: one 36 GB stacked MLP leaf of 140 GB)."""
     t_model = build_model(cfg, ModelContext(
         policy=cfg.tbn, mode=TRAIN, compute_dtype=compute_dtype, device=device))
     s_model = build_model(cfg, ModelContext(
         policy=cfg.tbn, mode=SERVE, compute_dtype=compute_dtype, device=device,
         compute_path=compute_path))
-    masters = t_model.init(seed)
-    master_b = serving_bytes(masters)
+    t_specs = t_model.specs()
+    masters = mod.LazyParams(t_specs, seed, t_model.device)
     with torch.no_grad():
-        sp = export_serving_params(t_model.specs(), s_model.specs(), masters,
-                                   cfg.tbn)
-    del masters
+        sp = export_serving_params(t_specs, s_model.specs(), masters, cfg.tbn)
     if s_model.device.type == "cuda":
         torch.cuda.empty_cache()
-    return s_model, sp, master_b
+    return s_model, sp, spec_bytes(t_specs)
 
 
 def synthetic_prompts(rng: np.random.Generator, n: int, vocab: int,

@@ -10,8 +10,9 @@ place, layer by layer, through views.
 Entry points: ``train_forward`` (next-token cross-entropy; each block is
 checkpointed under ``cfg.remat == "full"``), ``extend`` (chunked prefill
 of a (B, C) column block at per-slot offsets) and ``decode_step`` (one
-token per slot). Monolithic prefill, windowed rings, int8 KV and the
-other families wait for later slices.
+token per slot). The K/V pool is in the compute dtype, or int8 codes with
+f32 scales where ``cfg.kv_dtype == "int8"``. Monolithic prefill, windowed
+rings and the other families wait for later slices.
 """
 from __future__ import annotations
 
@@ -34,7 +35,6 @@ FAMILY_ITEM = ("ROADMAP.md queue A items 4-6 (the MoE, SSM/hybrid and "
                "encoder-decoder/VLM families)")
 WINDOW_ITEM = ("ROADMAP.md queue A item 5 (sliding-window rings and recurrent "
                "state, with the SSM and hybrid families)")
-INT8_KV_ITEM = "ROADMAP.md queue A item 1 (int8 KV, with the rest of the dense family)"
 DOTS_REMAT_ITEM = "ROADMAP.md queue A item 10 (leftovers: selective \"dots\" remat)"
 # _ce_sum chunks the batch when b % 32 == 0 and S * vocab reaches this
 CE_CHUNK_MIN_ELEMS = 2**26
@@ -58,9 +58,8 @@ class Block:
         if cfg.window:
             raise NotImplementedError(
                 f"sliding-window attention is not ported yet: {WINDOW_ITEM}")
-        if cfg.kv_dtype != "bf16":
-            raise NotImplementedError(
-                f"kv_dtype {cfg.kv_dtype!r} is not ported yet: {INT8_KV_ITEM}")
+        if cfg.kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"unknown kv_dtype {cfg.kv_dtype!r}")
         self.norm1 = _norm(cfg, ctx, d, f"{self.name}.norm1")
         self.mixer = Attention(
             d, cfg.n_heads, cfg.n_kv, ctx, head_dim=cfg.head_dim,
@@ -78,8 +77,16 @@ class Block:
 
     def init_cache(self, n_pages: int, page_tokens: int, dtype, device) -> dict:
         """Paged K/V pool: (n_pages + 1, page_tokens, K, hd), the extra page
-        being the scratch target of dropped writes (nn/attention.py)."""
-        shape = (n_pages + 1, page_tokens, self.cfg.n_kv, self.mixer.hd)
+        being the scratch target of dropped writes (nn/attention.py). Under
+        ``kv_dtype == "int8"`` the codes are int8 and their per-token, per-head
+        scales ``ks`` / ``vs`` are (n_pages + 1, page_tokens, K) f32."""
+        lead = (n_pages + 1, page_tokens, self.cfg.n_kv)
+        shape = (*lead, self.mixer.hd)
+        if self.cfg.kv_dtype == "int8":
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "ks": torch.zeros(lead, dtype=torch.float32, device=device),
+                    "vs": torch.zeros(lead, dtype=torch.float32, device=device)}
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -94,17 +101,27 @@ class Block:
 
     def decode_step(self, params, x, cache, *, lengths, page_table, active=None):
         h = self.norm1(params["norm1"], x)
-        h, ck, cv = self.mixer.decode_step(
-            params["mixer"], h, cache["k"], cache["v"], lengths,
-            page_table, active=active)
-        return self._ffn(params, x + h), {"k": ck, "v": cv}
+        if "ks" in cache:
+            h, cache = self.mixer.decode_step_quant(
+                params["mixer"], h, cache, lengths, page_table, active=active)
+        else:
+            h, ck, cv = self.mixer.decode_step(
+                params["mixer"], h, cache["k"], cache["v"], lengths,
+                page_table, active=active)
+            cache = {"k": ck, "v": cv}
+        return self._ffn(params, x + h), cache
 
     def extend(self, params, x, cache, *, positions, valid, page_table):
         h = self.norm1(params["norm1"], x)
-        h, ck, cv = self.mixer.extend(
-            params["mixer"], h, cache["k"], cache["v"], positions, valid,
-            page_table)
-        return self._ffn(params, x + h), {"k": ck, "v": cv}
+        if "ks" in cache:
+            h, cache = self.mixer.extend_quant(
+                params["mixer"], h, cache, positions, valid, page_table)
+        else:
+            h, ck, cv = self.mixer.extend(
+                params["mixer"], h, cache["k"], cache["v"], positions, valid,
+                page_table)
+            cache = {"k": ck, "v": cv}
+        return self._ffn(params, x + h), cache
 
 
 @dataclasses.dataclass
@@ -224,7 +241,8 @@ class DecoderLM:
     # serving
     # ------------------------------------------------------------------
     def init_caches(self, n_pages: int, page_tokens: int, dtype) -> list:
-        """One stacked paged pool per segment: {"k", "v"} each
+        """One stacked paged pool per segment: each leaf of
+        ``Block.init_cache`` with a leading layer axis, e.g. {"k", "v"}
         (n_layers, n_pages + 1, page_tokens, K, hd)."""
         caches = []
         for seg in self.segments:

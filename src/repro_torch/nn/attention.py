@@ -1,13 +1,15 @@
 """Multi-head attention: GQA, RoPE, the training call (full or
-query-chunked) and the paged bf16/f32 KV pool of serving (port of the
-causal self-attention half of ``repro/nn/attention.py``).
+query-chunked) and the paged KV pool of serving, in the compute dtype or
+as int8 codes with per-token, per-head f32 scales (port of the causal
+self-attention half of ``repro/nn/attention.py``).
 
 The softmax core is written in plain torch ops, as the reference writes it
-in jnp, so the parity tests compare like with like. The int8 KV path, the
-dense (unpaged) cache, sliding windows and cross attention wait for later
-slices.
+in jnp, so the parity tests compare like with like. The dense (unpaged)
+cache, sliding windows and cross attention wait for later slices.
 
-Paged pool layout: a cache leaf is ``(n_pages + 1, page_tokens, K, hd)``.
+Paged pool layout: a cache leaf is ``(n_pages + 1, page_tokens, K, hd)``
+(an int8 cache adds the scale pools ``ks`` / ``vs``, ``(n_pages + 1,
+page_tokens, K)`` f32, addressed through the same page table).
 Pages 0..n_pages-1 are addressed through the engine's page table exactly
 as in the reference; the extra last page is scratch. The reference drops
 invalid writes with ``.at[idx].set(mode="drop")`` on an out-of-range
@@ -31,6 +33,27 @@ from repro_torch.nn.norms import RMSNorm
 from repro_torch.nn.rotary import apply_rope
 
 NEG_INF = -1e30
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (..., hd) -> (int8 codes (..., hd), f32 scale (...)): symmetric,
+    per token and head, scale = max(amax, 1e-8) / 127. Requantizing an
+    unchanged row gives back its codes (max |code| is exactly 127), so
+    rows written again never drift. The f32 division (not a reciprocal
+    multiply) and ``torch.round``'s half to even give the reference's
+    codes."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1).clamp_min(1e-8)
+    # divided by a tensor: CUDA turns division by a Python scalar into a
+    # multiply by its reciprocal, whose rounding differs
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    return q.to(dtype) * scale[..., None].to(dtype)
 
 
 def gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -226,3 +249,65 @@ class Attention:
         scatter_pages(cache_v, page_table, positions, v, valid)
         y = self._attend_paged(params, q, cache_k, cache_v, page_table, positions)
         return y, cache_k, cache_v
+
+    # ------------------------------------------------------------------
+    # int8 KV: cache {"k", "v"} int8 codes, {"ks", "vs"} f32 scales
+    # ------------------------------------------------------------------
+    def _write_quant(self, cache: dict, page_table, positions, k, v, valid):
+        """Quantize the new K/V rows and scatter codes and scales through
+        the one page table; returns the per-slot views of all four pools."""
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        for name, rows in (("k", kq), ("v", vq), ("ks", ks), ("vs", vs)):
+            scatter_pages(cache[name], page_table, positions, rows, valid)
+        return [gather_pages(cache[name], page_table)
+                for name in ("k", "v", "ks", "vs")]
+
+    def _attend_quant(self, params, q, views, mask, cd):
+        """The reference's scale-factored attend, in its order of operations:
+        the scales are rank-1 along hd, so they factor out of both products
+        and no dequantized (B, T, K, hd) cache is built. Scores in f32,
+        times ks, times 1/sqrt(hd), masked, softmax, cast to ``cd``; the
+        probabilities times vs, then the product with the codes in ``cd``."""
+        vk, vv, vks, vvs = views
+        b, s = q.shape[:2]
+        scores = torch.einsum("bskgh,btkh->bkgst", self._group(q),
+                              vk.to(cd)).float()
+        scores = scores * vks.permute(0, 2, 1)[:, :, None, None, :]
+        scores = scores * (1.0 / math.sqrt(self.hd))
+        scores = torch.where(mask[:, None, None], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(cd)
+        pv = probs * vvs.permute(0, 2, 1)[:, :, None, None, :].to(cd)
+        out = torch.einsum("bkgst,btkh->bskgh", pv, vv.to(cd))
+        return self.wo(params["wo"], out.reshape(b, s, self.n_heads * self.hd))
+
+    def extend_quant(self, params: dict, x: torch.Tensor, cache: dict,
+                     positions: torch.Tensor, valid: torch.Tensor,
+                     page_table: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+        """Chunked-prefill step against the int8 pool: the new rows are
+        quantized per token and head (as a monolithic prefill would), padding
+        columns never write, and the queries attend causally."""
+        q, k, v = self._qkv(params, x, positions)
+        views = self._write_quant(cache, page_table, positions, k, v, valid)
+        b, t = x.shape[0], views[0].shape[1]
+        k_pos = torch.arange(t, device=x.device).expand(b, t)
+        mask = make_mask(positions, k_pos, causal=True)
+        return self._attend_quant(params, q, views, mask, v.dtype), cache
+
+    def decode_step_quant(self, params: dict, x: torch.Tensor, cache: dict,
+                          lengths: torch.Tensor, page_table: torch.Tensor,
+                          active: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, dict]:
+        """One-token step against the int8 pool: only the new token's row is
+        quantized; inactive slots drop their write."""
+        b = x.shape[0]
+        positions = lengths[:, None]
+        q, k, v = self._qkv(params, x, positions)
+        ok = (torch.ones((b,), dtype=torch.bool, device=x.device)
+              if active is None else active)[:, None]
+        views = self._write_quant(cache, page_table, positions, k, v, ok)
+        t = views[0].shape[1]
+        k_pos = torch.arange(t, device=x.device).expand(b, t)
+        mask = make_mask(positions, k_pos, causal=True,
+                         k_valid=k_pos <= lengths[:, None])
+        return self._attend_quant(params, q, views, mask, v.dtype), cache

@@ -96,15 +96,41 @@ def _path_seed(seed: int, path: Tuple[str, ...]) -> int:
     return int.from_bytes(digest[:8], "little") & (2**63 - 1)
 
 
+def init_leaf(spec: ParamSpec, seed: int, path: Tuple[str, ...],
+              device) -> torch.Tensor:
+    """The leaf at ``path`` of ``init_params(specs, seed, device)``."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(_path_seed(seed, path))
+    return spec.init(gen, spec.shape, spec.dtype, device)
+
+
 def init_params(specs: SpecTree, seed: int, device) -> dict:
     """Deterministic, path-seeded parameter initialization on ``device``."""
-    device = torch.device(device)
     out: dict = {}
     for path, spec in walk(specs):
-        gen = torch.Generator(device=device)
-        gen.manual_seed(_path_seed(seed, path))
-        set_path(out, path, spec.init(gen, spec.shape, spec.dtype, device))
+        set_path(out, path, init_leaf(spec, seed, path, device))
     return out
+
+
+class LazyParams:
+    """A read-only view of ``init_params(specs, seed, device)`` that builds a
+    leaf each time it is read and keeps none: a reader that drops each leaf
+    before it reads the next holds one leaf at a time. Offers what
+    ``export_serving_params`` reads of a param tree: ``[key]`` and ``get``."""
+
+    def __init__(self, specs: dict, seed: int, device, path=()):
+        self._specs, self._seed, self._device = specs, seed, device
+        self._path = tuple(path)
+
+    def __getitem__(self, key: str):
+        spec, path = self._specs[key], self._path + (key,)
+        if isinstance(spec, ParamSpec):
+            return init_leaf(spec, self._seed, path, self._device)
+        return LazyParams(spec, self._seed, self._device, path)
+
+    def get(self, key: str, default=None):
+        return self[key] if key in self._specs else default
 
 
 def stack_specs(specs: SpecTree, n: int) -> SpecTree:

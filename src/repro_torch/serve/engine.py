@@ -2,7 +2,10 @@
 prefill fused into the decode tick (port of the core tick of
 ``repro/serve/engine.py``).
 
-* ``n_slots`` sequences share a paged K/V pool. A request moves from
+* ``n_slots`` sequences share a paged K/V pool: in the compute dtype, or
+  int8 codes with per-token, per-head f32 scales where the config's
+  ``kv_dtype`` is "int8" (the model's ``init_caches`` decides; the engine
+  only carries the pools). A request moves from
   PREFILL (its prompt streamed into the caches ``chunk_tokens`` columns at
   a time by one fixed-shape ``(n_slots, chunk_tokens)`` ``model.extend``)
   to DECODE (one token per tick through the ``(n_slots, 1)`` decode step).
@@ -109,7 +112,8 @@ class BatchedEngine:
         self.pool = KVPool(n_pages, self.pt)
         self._ptab = np.zeros((cfg.n_slots, self.npp), np.int32)
         self._n_mapped = np.zeros((cfg.n_slots,), np.int64)
-        # the cache dtype is the model's compute dtype (reference engine)
+        # float pools take the model's compute dtype (reference engine); an
+        # int8 KV config allocates int8 codes and f32 scales whatever it is
         self.caches = model.init_caches(n_pages, self.pt, model.ctx.compute_dtype)
         self.lengths = torch.zeros((cfg.n_slots,), dtype=torch.int32,
                                    device=self.device)

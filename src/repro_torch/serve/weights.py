@@ -185,6 +185,13 @@ def serving_bytes(params) -> int:
     return sum(v.numel() * v.element_size() for _, v in mod.walk(params))
 
 
+def spec_bytes(specs) -> int:
+    """Exact bytes of the param tree a spec tree declares, without building
+    it."""
+    return sum(int(np.prod(spec.shape)) * spec.dtype.itemsize
+               for _, spec in mod.walk(specs))
+
+
 def tile_serving_bytes(params) -> int:
     """Bytes of the packed tile bits alone (``tile`` and ``tile_conv``)."""
     return sum(v.numel() * v.element_size() for path, v in mod.walk(params)

@@ -240,6 +240,43 @@ def test_xnor_body_matches_plain_exactly(cuda_device, body, reduce, m, n_in, r):
     assert torch.equal(x8.tiled_xnor_body(a, rows, body, n_in=n_in, reduce=reduce), got)
 
 
+# the (K, r) of qwen1.5-32b, starcoder2-7b and minitron-8b that granite-8b
+# has not (tests/test_torch_matvec_plan.py)
+DENSE_FAMILY = ((5120, 640), (5120, 3424), (27392, 640), (5120, 19008),
+                (4608, 576), (4608, 64), (4608, 2304), (18432, 576),
+                (4608, 6144), (4096, 2048), (16384, 512), (4096, 32000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4"])
+@pytest.mark.parametrize("k,r", DENSE_FAMILY)
+def test_dense_family_shapes_match_plain(cuda_device, kernel, k, r):
+    """The planners' picks at the new (K, r) of the dense family against the
+    plain version: B1 (bf16 and f32) at m in {1, 4, 32} and B2 at m in {33,
+    128} within RTOL, B3 / B4 at m in {1, 4, 32} exactly."""
+    if kernel in ("B1", "B2"):
+        fn, plain = ((tiled_matvec_unique, tiled_matvec_plain) if kernel == "B1"
+                     else (tiled_matmul_unique, tiled_matmul_plain))
+        for m in ((1, 4, 32) if kernel == "B1" else (33, 128)):
+            for dtype in (torch.bfloat16, torch.float32):
+                x, packed = _operands(cuda_device, m, k, r, dtype, m + k + r)
+                got = fn(x, packed)
+                want = plain(x, packed)
+                torch.testing.assert_close(got, want, rtol=RTOL,
+                                           atol=RTOL * float(want.abs().max()))
+        return
+    path = "xnor" if kernel == "B3" else "int8"
+    for m in (1, 4, 32):
+        a, rows = _int_operands(cuda_device, path, m, k, r, m * k + r)
+        if path == "xnor":
+            got = x8.tiled_xnor_matvec_unique(a, rows, n_in=k)
+            want = x8.xnor_matvec_words(a, rows, n_in=k)
+        else:
+            got = x8.tiled_int8_matvec_unique(a, rows)
+            want = x8.int8_matvec_packed(a, rows, n_in=k)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [9, 32])
 def test_xnor_past_every_tensor_core_plan_takes_popc(cuda_device, m):

@@ -25,7 +25,13 @@ SMS = 132
 # r = 500), and the edge cases of the card tests (ragged m and r, odd word
 # counts, one word)
 GRANITE = ((4096, 512), (4096, 128), (4096, 1792), (14336, 512), (4096, 6144))
+# the (K, r) of qwen1.5-32b, starcoder2-7b and minitron-8b that granite-8b
+# has not (tests/test_torch_matvec_plan.py); r = 3424 ends B2's tiles ragged
+DENSE_FAMILY = ((5120, 640), (5120, 3424), (27392, 640), (5120, 19008),
+                (4608, 576), (4608, 64), (4608, 2304), (18432, 576),
+                (4608, 6144), (4096, 2048), (16384, 512), (4096, 32000))
 MATMUL_CASES = ([(m, k, r) for m in (33, 128, 512, 2048) for k, r in GRANITE]
+                + [(m, k, r) for m in (33, 128, 512) for k, r in DENSE_FAMILY]
                 + [(64, 512, 500), (130, 96, 130), (65, 160, 65),
                    (200, 160, 64), (33, 96, 24), (2048, 96, 100), (40, 32, 1),
                    (128, 200 * 32, 24)])

@@ -30,6 +30,11 @@ SMS = 132
 # (K, r) of every tiled matmul of a full-width granite-8b layer: q/o, k/v,
 # gate/up, down, and the LM head
 GRANITE = ((4096, 512), (4096, 128), (4096, 1792), (14336, 512), (4096, 6144))
+# the (K, r) of qwen1.5-32b, starcoder2-7b and minitron-8b that granite-8b
+# has not: q/k/v/o, gate/up, down and lm_head, r = n_out / 8
+DENSE_FAMILY = ((5120, 640), (5120, 3424), (27392, 640), (5120, 19008),
+                (4608, 576), (4608, 64), (4608, 2304), (18432, 576),
+                (4608, 6144), (4096, 2048), (16384, 512), (4096, 32000))
 # the card tests' ragged shapes: odd word counts, one word, r not a
 # multiple of any filter tile
 RAGGED = ((32, 1), (96, 130), (160, 65), (1568, 100), (544, 24), (14336, 48))
@@ -75,7 +80,7 @@ def _check_plan(plan, m, r, words, x_bytes):
 
 
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
-@pytest.mark.parametrize("k,r", GRANITE)
+@pytest.mark.parametrize("k,r", GRANITE + DENSE_FAMILY)
 @pytest.mark.parametrize("m", MS)
 def test_plan_covers_k_fills_the_card_and_fits(kernel, m, k, r):
     plan_of, bodies, cost, x_bytes = KERNELS[kernel]
@@ -98,7 +103,7 @@ def test_every_forced_body_covers_k_and_fits(kernel, m, k, r):
 
 
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
-@pytest.mark.parametrize("k,r", GRANITE)
+@pytest.mark.parametrize("k,r", GRANITE + DENSE_FAMILY)
 @pytest.mark.parametrize("m", (1, 2, 4, 8, 16, 32))
 def test_plan_is_the_least_modelled_time(kernel, m, k, r):
     """The planner picks the body of least modelled time (the first such

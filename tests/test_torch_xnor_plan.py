@@ -42,6 +42,11 @@ SMS = 132
 # (K, r) of every tiled matmul of a full-width granite-8b layer: q/o, k/v,
 # gate/up, down, and the LM head
 GRANITE = ((4096, 512), (4096, 128), (4096, 1792), (14336, 512), (4096, 6144))
+# the (K, r) of qwen1.5-32b, starcoder2-7b and minitron-8b that granite-8b
+# has not (tests/test_torch_matvec_plan.py)
+DENSE_FAMILY = ((5120, 640), (5120, 3424), (27392, 640), (5120, 19008),
+                (4608, 576), (4608, 64), (4608, 2304), (18432, 576),
+                (4608, 6144), (4096, 2048), (16384, 512), (4096, 32000))
 # odd word counts, one word, words not a multiple of 8, r past every tile
 RAGGED = ((32, 1), (96, 130), (160, 65), (320, 24), (2080, 65), (14336, 48))
 MS = range(1, MATVEC_MAX_M + 1)
@@ -71,7 +76,7 @@ def _check_plan(plan, m, r, words):
     assert not plan.cluster or 1 < plan.splits <= XNOR_CLUSTER
 
 
-@pytest.mark.parametrize("k,r", GRANITE)
+@pytest.mark.parametrize("k,r", GRANITE + DENSE_FAMILY)
 @pytest.mark.parametrize("m", MS)
 def test_plan_covers_k_fits_and_is_the_least_modelled_time(m, k, r):
     words = k // 32
@@ -237,6 +242,28 @@ def _pad(a, axis, mult):
     w = [(0, 0)] * a.ndim
     w[axis] = (0, pad)
     return jnp.pad(a, w)
+
+
+@pytest.mark.parametrize("body,reduce", VARIANTS[1:])
+@pytest.mark.parametrize("m", (1, 8, 32))
+def test_tensor_core_arithmetic_at_qwen_down(m, body, reduce):
+    """qwen1.5-32b's down projection, K = 27,392 (856 words, 107 steps):
+    every tensor-core plan's emulation equals the plain version. K splits 8
+    times in a cluster for every body but the widest at m = 32, whose
+    stage of x and 128 filters leaves too little room; K whole fits only
+    the narrowest body at few rows. A variant the shape has not is
+    refused."""
+    n_in, r = 27392, 24
+    words = n_in // 32
+    plans = {p.reduce: p for p in xnor_plans(m, r, words, SMS, body)}
+    assert ("cluster" in plans) == (body != "bmma128" or m < 32)
+    if reduce not in plans:
+        with pytest.raises(ValueError, match="has no"):
+            plan_xnor(m, r, words, SMS, body, reduce)
+        return
+    px, rows = _operands(m, n_in, r, m + 1)
+    got = emulate_bmma(px, rows, n_in, plans[reduce])
+    assert torch.equal(got, xnor_matvec_words(px, rows, n_in=n_in))
 
 
 @pytest.mark.parametrize("m,n_in,r", EMU_CASES[:7])
