@@ -51,11 +51,19 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      "int8" on the same exported weights. Every launch counter is set to 0
      just before each run and read just after it; each run asserts that its
      decode kernel took every m <= 32 projection and that the kernels of the
-     other paths were not launched; then three decode-only ticks of each
-     path are traced with torch.profiler (device busy time vs the tick's
-     wall time, the decode kernel's share, top kernels), and one
-     decode-only tick of 32 slots (every projection at m = 32) under each
-     path;
+     other paths were not launched. Each (config, path) is then served warm:
+     a new engine, ``warmup()`` (the decode and extend ticks captured as
+     CUDA graphs; its warm-up runs and capture must launch exactly
+     WARM_RUNS + 1 ticks' worth of the path's kernels), the same requests;
+     the warm drain must launch nothing through the wrappers, leave the
+     engine's ``TRACE_COUNTS`` unchanged and emit the cold run's greedy
+     tokens at the same ticks, byte for byte; capture seconds, the graph
+     pool's device bytes and cold -> warm tick ms, tok/s, TTFT and ITL are
+     printed. Then three decode-only ticks of each path are traced with
+     torch.profiler, cold and warm (device busy time vs the tick's wall
+     time, the decode kernel's share, top kernels; in a replay the decode
+     kernel must be among the device events), and one decode-only tick of
+     32 slots (every projection at m = 32) under each path, cold and warm;
   4. the same exported weights at full width, 2 layers, f32: one extend and
      one decode_step on the card (kernels) against the CPU model (plain
      versions), float logits at rtol=atol=1e-3 (attention softmax and norms
@@ -70,10 +78,11 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      int8 KV cache, from masters built, exported and freed one leaf at a
      time (``build_serving``; the peak of device memory across the build
      is printed and must leave 10% of the card): the requests of phase 3
-     under "float", "xnor" and "int8" on one export, with the same counter
-     checks (own kernel = (7 L + 1) per decode tick + 1 per extend tick),
-     the K/V pools int8 codes with f32 scales, and one 4-slot decode tick
-     traced per path;
+     under "float", "xnor" and "int8" on one export, cold and warm, with
+     the same counter and token checks (own kernel = (7 L + 1) per decode
+     tick + 1 per extend tick), the K/V pools int8 codes with f32 scales,
+     and one 4-slot decode tick traced per path, cold and warm; each
+     engine and its graphs are freed before the next;
   4c. qwen1.5-32b at full width, 2 layers, f32: ``quantize_kv`` card
      against CPU on one K tensor (codes and scales equal); one extend and
      one decode step on the card against the CPU model, with float K/V
@@ -84,9 +93,9 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      from each device's own codes printed, finite);
   4d. minitron-8b and starcoder2-7b at their published width and depth (32
      layers each), built the same way, float path: 4 requests of 8 greedy
-     tokens each with the same counter checks (own kernel = (6 L + 1) per
-     decode tick + 1 per extend tick: their MLPs are not gated), first
-     tokens printed;
+     tokens each, cold and warm, with the same counter and token checks
+     (own kernel = (6 L + 1) per decode tick + 1 per extend tick: their
+     MLPs are not gated), first tokens printed;
   5. train granite-8b at published width, 4 layers (n_layers 36 -> 4: the
      masters, gradients and AdamW moments of all 36 do not fit one card),
      through ``launch.train.build_training`` as the CLI wires it but with
@@ -772,25 +781,70 @@ def dense_calls(cfg) -> int:
     return 4 + (3 if cfg.gated_mlp else 2)
 
 
-def serve_run(cfg, s_model, sp, path: str, requests: int = 8,
-              max_tokens: int = 16, profile_ticks: int = 3, wide: bool = True):
-    """Drive ``requests`` prompts of 3-100 tokens, ``max_tokens`` greedy
-    tokens each, through a BatchedEngine under ``path``: every launch
-    counter is 0 just before the run and read just after it. Asserts the
-    K/V pools' types (int8 codes and f32 scales under an int8 KV config),
-    that the path's decode kernel took every m <= 32 projection, B2 every
-    extend, and no other kernel ran. Then traces ``profile_ticks`` 4-slot
-    decode ticks and, with ``wide``, one of 32 slots. Returns the counts."""
+def serve_engine(s_model, sp, path: str, n_slots: int = N_SLOTS):
+    from repro_torch.serve.engine import BatchedEngine, ServeConfig
+
+    return BatchedEngine(s_model, sp, ServeConfig(
+        n_slots=n_slots, max_len=128, chunk_tokens=CHUNK, page_tokens=16,
+        compute_path=path))
+
+
+def release() -> None:
+    """Collect a dropped engine and its graphs (its tick functions and
+    graphs refer to each other, so it takes a collection) and return the
+    memory to the card."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def drive(eng, cfg, prompts, max_tokens: int):
+    """Submit ``prompts`` (``max_tokens`` greedy tokens each) and drain,
+    with every launch counter set to 0 just before and read just after.
+    Returns the measurements of the run."""
     import numpy as np
     import torch
 
-    from repro_torch.launch.serve import drain, latency_report, synthetic_prompts
-    from repro_torch.serve.engine import BatchedEngine, ServeConfig
+    from repro_torch.launch.serve import drain, latency_report
     from repro_torch.serve.sampling import SamplingParams
 
-    eng = BatchedEngine(s_model, sp, ServeConfig(
-        n_slots=N_SLOTS, max_len=128, chunk_tokens=CHUNK, page_tokens=16,
-        compute_path=path))
+    reqs = [eng.submit(p, SamplingParams(max_tokens=max_tokens)) for p in prompts]
+    zero_counters()
+    ticks, dt, tick_ends = drain(eng, reqs)
+    counts = read_counters()
+    torch.cuda.synchronize()
+    st = eng.stats()
+    ttfts, itls = latency_report(reqs, tick_ends)
+    if not all(r.done and len(r.output) == max_tokens for r in reqs):
+        fail(f"{cfg.name}: not every request finished with {max_tokens} tokens")
+    if not all(0 <= t < cfg.vocab for r in reqs for t in r.output):
+        fail(f"{cfg.name}: a sampled token is outside the vocabulary")
+    tok = sum(len(r.output) for r in reqs)
+    return dict(reqs=reqs, ticks=ticks, dt=dt, counts=counts, st=st, tok=tok,
+                tokens=[r.output for r in reqs],
+                steps=[r.token_steps for r in reqs],
+                ttft=1e3 * float(np.mean(ttfts)), ttft_max=1e3 * float(np.max(ttfts)),
+                itl=1e3 * float(np.mean(itls)), itl_max=1e3 * float(np.max(itls)))
+
+
+def serve_run(cfg, s_model, sp, path: str, requests: int = 8,
+              max_tokens: int = 16, profile_ticks: int = 3, wide: bool = True):
+    """Drive ``requests`` prompts of 3-100 tokens, ``max_tokens`` greedy
+    tokens each, through a BatchedEngine under ``path``, cold (eager ticks)
+    and then warm (a new engine, ``warmup()``, the same prompts: the ticks
+    replay CUDA graphs). Cold: every launch counter is 0 just before the run
+    and read just after it; asserts the K/V pools' types (int8 codes and f32
+    scales under an int8 KV config), that the path's decode kernel took every
+    m <= 32 projection, B2 every extend, and no other kernel ran. Warm: see
+    :func:`warm_run`. Then traces ``profile_ticks`` 4-slot decode ticks cold
+    and warm and, with ``wide``, one of 32 slots. Returns the cold counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import synthetic_prompts
+
+    eng = serve_engine(s_model, sp, path)
     pools = {k: v.dtype for k, v in eng.caches[0].items()}
     want = ({"k": torch.int8, "v": torch.int8, "ks": torch.float32,
              "vs": torch.float32} if cfg.kv_dtype == "int8" else
@@ -798,18 +852,12 @@ def serve_run(cfg, s_model, sp, path: str, requests: int = 8,
     if pools != want:
         fail(f"{cfg.name} {path}: K/V pools {pools}, expected {want}")
     rng = np.random.default_rng(0)
-    reqs = [eng.submit(p, SamplingParams(max_tokens=max_tokens))
-            for p in synthetic_prompts(rng, requests, cfg.vocab, 3, 101)]
-    zero_counters()
-    ticks, dt, tick_ends = drain(eng, reqs)
-    counts = read_counters()
-    st = eng.stats()
-    tok = sum(len(r.output) for r in reqs)
+    prompts = synthetic_prompts(rng, requests, cfg.vocab, 3, 101)
+    cold = drive(eng, cfg, prompts, max_tokens)
+    del eng
+    release()
+    counts, st = cold["counts"], cold["st"]
     label = f"{cfg.name} {path}"
-    if not all(r.done and len(r.output) == max_tokens for r in reqs):
-        fail(f"{label}: not every request finished with {max_tokens} tokens")
-    if not all(0 <= t < cfg.vocab for r in reqs for t in r.output):
-        fail(f"{label}: a sampled token is outside the vocabulary")
     if st["decode_ticks"] == 0 or st["extend_ticks"] == 0:
         fail(f"{label}: the run had {st['decode_ticks']} decode and "
              f"{st['extend_ticks']} extend ticks; both must run")
@@ -822,22 +870,84 @@ def serve_run(cfg, s_model, sp, path: str, requests: int = 8,
         fail(f"{label}: launch counters {counts}; need {own} = {need}, B2 >= "
              f"{st['extend_ticks']}, {others} = 0: the main path did not go "
              f"through the kernels")
-    ttfts, itls = latency_report(reqs, tick_ends)
-    torch.cuda.synchronize()
-    print(f"serve [{label}]: {len(reqs)} requests, {tok} tokens in {ticks} ticks "
-          f"({st['extend_ticks']} extend, {st['decode_ticks']} decode), {dt:.3f}s, "
-          f"{tok / dt:.1f} tok/s | TTFT mean {1e3 * np.mean(ttfts):.1f}ms max "
-          f"{1e3 * np.max(ttfts):.1f}ms | ITL mean {1e3 * np.mean(itls):.2f}ms max "
-          f"{1e3 * np.max(itls):.2f}ms | extend tick {st['extend_ms_mean']:.2f}ms "
-          f"decode tick {st['decode_ms_mean']:.2f}ms | launches "
-          + " ".join(f"{k}={v}" for k, v in counts.items()), flush=True)
-    print(f"serve [{label}]: first requests' tokens {[r.output for r in reqs[:2]]}")
+    print(f"serve [{label}] cold: {requests} requests, {cold['tok']} tokens in "
+          f"{cold['ticks']} ticks ({st['extend_ticks']} extend, {st['decode_ticks']} "
+          f"decode), {cold['dt']:.3f}s, {cold['tok'] / cold['dt']:.1f} tok/s | TTFT "
+          f"mean {cold['ttft']:.1f}ms max {cold['ttft_max']:.1f}ms | ITL mean "
+          f"{cold['itl']:.2f}ms max {cold['itl_max']:.2f}ms | extend tick "
+          f"{st['extend_ms_mean']:.2f}ms decode tick {st['decode_ms_mean']:.2f}ms | "
+          f"launches " + " ".join(f"{k}={v}" for k, v in counts.items()), flush=True)
+    print(f"serve [{label}]: first requests' tokens {cold['tokens'][:2]}")
+    warm = warm_run(cfg, s_model, sp, path, prompts, max_tokens, cold)
     if profile_ticks:
-        profile_decode(s_model, sp, cfg, st["decode_ms_mean"], path,
-                       n_ticks=profile_ticks)
+        for ms, is_warm in ((st["decode_ms_mean"], False),
+                            (warm["st"]["decode_ms_mean"], True)):
+            profile_decode(s_model, sp, cfg, ms, path, n_ticks=profile_ticks,
+                           warm=is_warm)
     if wide:   # the widest decode tick: every projection at m = 32
-        profile_decode(s_model, sp, cfg, None, path, n_ticks=1, n_slots=WIDE_SLOTS)
+        for is_warm in (False, True):
+            profile_decode(s_model, sp, cfg, None, path, n_ticks=1,
+                           n_slots=WIDE_SLOTS, warm=is_warm)
     return counts
+
+
+def warm_run(cfg, s_model, sp, path: str, prompts, max_tokens: int, cold):
+    """The cold run's prompts through a new engine after ``warmup()``. The
+    launch counters are zeroed before ``warmup()`` (its warm-up runs and
+    capture launch every kernel of both ticks: WARM_RUNS + 1 ticks of each)
+    and again after it: the warm drain must leave them at 0, and
+    ``TRACE_COUNTS`` where it was, since every tick replays a graph. Its
+    greedy tokens, their ticks and the tick count must equal the cold
+    run's. Prints capture seconds, the graph pool's device bytes and the
+    cold and warm tick times, tok/s, TTFT and ITL."""
+    import torch
+
+    from repro_torch.serve.engine import TRACE_COUNTS
+    from repro_torch.serve.graphs import WARM_RUNS
+
+    label = f"{cfg.name} {path}"
+    eng = serve_engine(s_model, sp, path)
+    torch.cuda.synchronize()
+    alloc, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    zero_counters()
+    timings = eng.warmup()
+    captured = read_counters()
+    alloc = torch.cuda.memory_allocated() - alloc
+    reserved = torch.cuda.memory_reserved() - reserved
+    own, per_layer = PATH_KERNEL[path], dense_calls(cfg) * cfg.n_layers
+    # decode: every projection and the head; extend: B2, its head on `own`
+    want = {k: 0 for k in captured}
+    want[own] = (WARM_RUNS + 1) * (per_layer + 2)
+    want["B2"] = (WARM_RUNS + 1) * per_layer
+    if captured != want or not eng.aot_warm:
+        fail(f"{label}: warmup launched {captured}, expected {want} "
+             f"({WARM_RUNS} warm-up runs and one capture of each tick)")
+    traces = TRACE_COUNTS.copy()
+    run = drive(eng, cfg, prompts, max_tokens)
+    st = run["st"]
+    del eng
+    release()
+    if any(run["counts"].values()) or TRACE_COUNTS != traces:
+        fail(f"{label} warm: the drain launched {run['counts']} through the "
+             f"wrappers and moved TRACE_COUNTS {dict(traces)} -> "
+             f"{dict(TRACE_COUNTS)}: a tick did not replay its graph")
+    if (run["tokens"], run["steps"], run["ticks"]) != (
+            cold["tokens"], cold["steps"], cold["ticks"]):
+        fail(f"{label} warm: greedy tokens or their ticks differ from the cold "
+             f"run's: {run['tokens'][:2]} vs {cold['tokens'][:2]}")
+    cst = cold["st"]
+    print(f"serve [{label}] warm: capture "
+          + ", ".join(f"{k} {v:.3f}s" for k, v in timings.items())
+          + f", graph pool {alloc / 1e6:+.1f} MB allocated ({reserved / 1e6:+.1f} "
+          f"MB reserved) | cold -> warm: decode tick {cst['decode_ms_mean']:.2f} -> "
+          f"{st['decode_ms_mean']:.2f}ms, extend tick {cst['extend_ms_mean']:.2f} -> "
+          f"{st['extend_ms_mean']:.2f}ms, {cold['tok'] / cold['dt']:.1f} -> "
+          f"{run['tok'] / run['dt']:.1f} tok/s, TTFT mean {cold['ttft']:.1f} -> "
+          f"{run['ttft']:.1f}ms (max {run['ttft_max']:.1f}), ITL mean "
+          f"{cold['itl']:.2f} -> {run['itl']:.2f}ms (max {run['itl_max']:.2f}) | "
+          f"greedy tokens byte-identical to cold over {run['ticks']} ticks; no "
+          f"launch and no TRACE_COUNTS move in the warm drain", flush=True)
+    return run
 
 
 def phase_serve(cfg):
@@ -893,22 +1003,23 @@ PATH_KERNEL_NAMES = {"float": ("matvec_kernel", "Bf16Op", "sum_splits_kernel<flo
 
 
 def profile_decode(s_model, sp, cfg, tick_ms, path: str, n_ticks: int = 3,
-                   n_slots: int = N_SLOTS):
+                   n_slots: int = N_SLOTS, warm: bool = False):
     """Trace ``n_ticks`` decode-only ticks of ``n_slots`` slots with
     torch.profiler: device busy time per tick (sum of kernel durations; one
     stream, so no overlap) beside the unprofiled decode tick of the serve
     run (``tick_ms``, None for a tick size the serve run does not have),
-    the decode kernel's share of it, and the top kernels."""
+    the decode kernel's share of it, and the top kernels. With ``warm`` the
+    engine is warmed up first, so the traced ticks replay its decode graph:
+    the decode kernel must then be among the device events."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serve.engine import BatchedEngine, ServeConfig
     from repro_torch.serve.sampling import SamplingParams
 
-    eng = BatchedEngine(s_model, sp, ServeConfig(
-        n_slots=n_slots, max_len=128, chunk_tokens=CHUNK, page_tokens=16,
-        compute_path=path))
+    eng = serve_engine(s_model, sp, path, n_slots)
+    if warm:
+        eng.warmup()
     rng = np.random.default_rng(2)
     prompt = max(1, CHUNK // n_slots)   # all prompts in one extend tick's budget
     for _ in range(n_slots):
@@ -923,15 +1034,20 @@ def profile_decode(s_model, sp, cfg, tick_ms, path: str, n_ticks: int = 3,
         torch.cuda.synchronize()
     if eng.stats()["extend_ticks"] != 1:
         fail("the profiled ticks were not decode-only")
+    del eng
+    release()
     events, by_name = device_time_by_name(prof)
     busy_ms = sum(t for t, _ in by_name.values()) / n_ticks
-    label = f"{cfg.name} {path}, {n_slots} slots"
+    label = f"{cfg.name} {path}, {n_slots} slots, {'warm' if warm else 'cold'}"
+    own = sum(t for k, (t, _) in by_name.items()
+              if any(f in k for f in PATH_KERNEL_NAMES[path])) / n_ticks
+    if warm and own == 0:
+        fail(f"profile [{label}]: no {PATH_KERNEL[path]} kernel among the "
+             f"{len(events)} device events of the replayed ticks")
     if not events:
         print(f"profile [{label}]: the profiler recorded no device events "
               f"(device time not measured)")
         return
-    own = sum(t for k, (t, _) in by_name.items()
-              if any(f in k for f in PATH_KERNEL_NAMES[path])) / n_ticks
     wall = ("" if tick_ms is None else f" of {tick_ms:.2f} ms wall (serve run) "
             f"-> device idle share {1 - busy_ms / tick_ms:.3f}")
     print(f"profile [{label}]: decode tick device busy {busy_ms:.3f} ms{wall}; "

@@ -8,6 +8,9 @@ runs on the GPU (kernels B1/B2); ``--device cpu`` runs the plain PyTorch
 versions on the host instead (there is no silent fallback: without a card
 and without ``--device cpu`` the CLI raises). ``--compute-path xnor`` or
 ``int8`` serves the decode ticks through the integer kernels B3 / B4.
+``--aot`` warms the engine up before the first request: its decode and
+extend ticks are captured as CUDA graphs and replayed from then on (on the
+CPU: one eager run of each, no graph).
 
 ``--arch`` takes any dense-family id: granite-8b, minitron-8b,
 starcoder2-7b, qwen1.5-32b (int8 KV cache); ``--reduced`` serves its tiny
@@ -120,6 +123,10 @@ def main(argv=None):
                          "XNOR+popcount on the packed tile words); the "
                          "integer paths apply to decode ticks and outputs "
                          "are approximate vs float")
+    ap.add_argument("--aot", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="capture the decode and extend ticks as CUDA "
+                         "graphs before serving (BatchedEngine.warmup)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
@@ -150,6 +157,9 @@ def main(argv=None):
         chunk_tokens=min(args.chunk_tokens, args.max_len),
         temperature=args.temperature, top_k=args.top_k, seed=args.seed,
         page_tokens=args.page_tokens, compute_path=args.compute_path))
+    if args.aot:
+        t = eng.warmup()
+        print(f"AOT warmup: {', '.join(f'{k} {v:.2f}s' for k, v in t.items())}")
     rng = np.random.default_rng(args.seed)
     reqs = [eng.submit(p, SamplingParams(max_tokens=args.max_tokens))
             for p in synthetic_prompts(rng, args.requests, cfg.vocab)]

@@ -15,12 +15,21 @@ prefill fused into the decode tick (port of the core tick of
   always getting at least one), then one extend call (m = n_slots *
   chunk_tokens rows -> kernel B2) and one decode call (m = n_slots rows ->
   kernel B1, or B3 / B4 under ``compute_path`` "xnor" / "int8").
-* The page table is host state; it rides into each call as an int32
-  tensor. Logits stay on the device; only the sampled token ids come back.
+* The page table is host state. Before each call it is copied into a
+  static device buffer, as are the tick's other inputs (the token block,
+  the per-slot new-token counts, the active mask). Logits stay on the
+  device; only the sampled token ids come back.
+* Each tick is a function over static tensors (``_decode_tick``,
+  ``_extend_tick``) that writes the pools and ``lengths`` in place; the host
+  side (pages, the schedule, sampling, emitting and retiring) stays eager.
+  ``warmup()`` captures both as CUDA graphs (``serve/graphs.py``), the
+  counterpart of the reference's AOT-compiled tick executables; every
+  later tick replays its graph. Sampling runs eagerly on the replayed
+  logits: it seeds a ``torch.Generator`` per stochastic row from host
+  seeds, which a replay cannot do.
 
 Waiting for later slices: the prefix trie, priorities and preemption, the
-ENCODE phase, telemetry, AOT warmup (CUDA-graph capture here) and mesh
-placement.
+ENCODE phase, telemetry and mesh placement.
 """
 from __future__ import annotations
 
@@ -35,11 +44,27 @@ import torch
 
 from repro_torch.kernels.ops import check_compute_path
 from repro_torch.nn import module as mod
+from repro_torch.serve.graphs import TickGraph
 from repro_torch.serve.kvpool import KVPool
 from repro_torch.serve.sampling import SamplingParams, row_seed, sample_logits_batch
 
 PREFILL = "prefill"
 DECODE = "decode"
+# Bumped in the Python body of each tick function. A replayed graph runs
+# none of it, so a warm engine that serves without moving these counters
+# started no new capture and no eager tick (the reference's trace probe).
+TRACE_COUNTS: "collections.Counter[str]" = collections.Counter()
+
+
+def _check_in_place(caches: list, returned: list, what: str) -> None:
+    """The paged pools are written in place (nn/attention.scatter_pages):
+    a model must hand back the very tensors the engine holds, which its
+    captured graphs read and write."""
+    for held, got in zip(caches, returned, strict=True):
+        if any(got[k] is not v for k, v in held.items()):
+            raise RuntimeError(f"{what}: the model returned new K/V pool "
+                               f"tensors; the engine's pools must be "
+                               f"written in place")
 
 
 @dataclasses.dataclass
@@ -119,6 +144,17 @@ class BatchedEngine:
                                    device=self.device)
         self.tokens = torch.zeros((cfg.n_slots, 1), dtype=torch.int64,
                                   device=self.device)
+        # the ticks' per-call inputs, filled in place before each call
+        self._ptab_t = torch.zeros((cfg.n_slots, self.npp), dtype=torch.int32,
+                                   device=self.device)
+        self._active_t = torch.zeros((cfg.n_slots,), dtype=torch.bool,
+                                     device=self.device)
+        self._block_t = torch.zeros((cfg.n_slots, cfg.chunk_tokens),
+                                    dtype=torch.int64, device=self.device)
+        self._n_new_t = torch.zeros((cfg.n_slots,), dtype=torch.int32,
+                                    device=self.device)
+        self._graphs: Dict[str, TickGraph] = {}
+        self._warm_s: Dict[str, float] = {}
         # per-slot sampling state, host side
         self._temps = np.zeros((cfg.n_slots,), np.float64)
         self._topks = np.zeros((cfg.n_slots,), np.int64)
@@ -157,7 +193,8 @@ class BatchedEngine:
         self._stats["prompt_tokens"] += len(req.prompt)
         self._offsets[slot] = 0
         self.lengths[slot] = 0
-        self.caches = self.model.reset_slot_caches(self.caches, slot, paged=True)
+        _check_in_place(self.caches, self.model.reset_slot_caches(
+            self.caches, slot, paged=True), "reset_slot")
         res = req.params.resolve(self.cfg.temperature, self.cfg.top_k)
         self._temps[slot] = res.temperature
         self._topks[slot] = res.top_k
@@ -241,15 +278,97 @@ class BatchedEngine:
                  for s in range(self.cfg.n_slots)]
         return sample_logits_batch(logits, self._temps, self._topks, seeds)
 
-    def _page_table(self) -> torch.Tensor:
-        return torch.from_numpy(self._ptab).to(self.device)
-
     def _emit(self, slot: int, req: Request, tok: int):
         req.output.append(tok)
         req.token_steps.append(self.steps)
         self._counts[slot] += 1
         self._stats["tokens_out"] += 1
 
+    # ------------------------------------------------------------------
+    # tick functions: static tensors in, logits out, state written in place
+    # ------------------------------------------------------------------
+    def _decode_tick(self) -> torch.Tensor:
+        """The (n_slots, 1) decode step for the ``active`` slots: pool writes
+        confined to them, then lengths = where(active, new, old). Returns
+        the (n_slots, vocab) logits."""
+        TRACE_COUNTS["decode_tick"] += 1
+        active = self._active_t
+        logits, new_caches, new_lengths = self.model.decode_step(
+            self.params, self.tokens, self.caches, self.lengths, self._ptab_t,
+            active=active)
+        _check_in_place(self.caches, self.model.merge_caches(
+            self.caches, new_caches, active, paged=True), "decode_tick")
+        self.lengths.copy_(torch.where(active, new_lengths, self.lengths))
+        return logits
+
+    def _extend_tick(self) -> torch.Tensor:
+        """One (n_slots, chunk_tokens) chunked-prefill step: each slot
+        advances by its ``n_new`` tokens of the block (0: untouched).
+        Returns each slot's last-column logits (n_slots, vocab)."""
+        TRACE_COUNTS["extend_tick"] += 1
+        logits, caches, lengths = self.model.extend(
+            self.params, self._block_t, self.caches, self.lengths,
+            self._n_new_t, self._ptab_t)
+        _check_in_place(self.caches, caches, "extend_tick")
+        self.lengths.copy_(lengths)
+        return logits
+
+    def _entry_points(self):
+        """name -> (tick function, the static tensors it reads or writes
+        besides the params)."""
+        pools = {f"caches[{i}].{k}": v for i, c in enumerate(self.caches)
+                 for k, v in c.items()}
+        return {
+            "decode_tick": (self._decode_tick, {
+                "tokens": self.tokens, "lengths": self.lengths,
+                "ptab": self._ptab_t, "active": self._active_t, **pools}),
+            "extend_tick": (self._extend_tick, {
+                "block": self._block_t, "lengths": self.lengths,
+                "n_new": self._n_new_t, "ptab": self._ptab_t, **pools}),
+        }
+
+    def _tick(self, name: str) -> torch.Tensor:
+        graph = self._graphs.get(name)
+        if graph is not None:
+            return graph.run()
+        return getattr(self, f"_{name}")()
+
+    def warmup(self) -> Dict[str, float]:
+        """Capture the decode tick and the extend tick for this engine's
+        shapes (a CUDA graph each, sharing one memory pool; on the CPU one
+        eager run each, no graph), so that serving replays them. Returns
+        the seconds per entry point, warm-up runs included.
+
+        The warm-up runs and the capture see every per-tick input zeroed:
+        no slot active, no new tokens. Every pool write then lands on the
+        scratch page and ``lengths`` and ``tokens`` stay as they were, so a
+        mid-flight warmup changes no request. A second call is a no-op that
+        returns the first call's seconds. Raises ``RuntimeError`` naming
+        the entry point and its buffers' shapes if a run or a capture
+        fails; the engine then stays cold (no quiet half warmup)."""
+        if self._graphs:
+            return dict(self._warm_s)
+        self._ptab_t.copy_(torch.from_numpy(self._ptab))
+        self._active_t.zero_()
+        self._block_t.zero_()
+        self._n_new_t.zero_()
+        pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
+                else None)
+        graphs, timings = {}, {}
+        with torch.no_grad():
+            for name, (fn, buffers) in self._entry_points().items():
+                graphs[name] = TickGraph(name, fn, buffers, self.device)
+                timings[name] = graphs[name].capture(pool)
+        self._graphs, self._warm_s = graphs, timings
+        return dict(timings)
+
+    @property
+    def aot_warm(self) -> bool:
+        return bool(self._graphs)
+
+    # ------------------------------------------------------------------
+    # host side of the ticks
+    # ------------------------------------------------------------------
     def _run_extend(self, takes: Dict[int, int]):
         cfg = self.cfg
         t0 = time.perf_counter()
@@ -260,11 +379,10 @@ class BatchedEngine:
             block[slot, :take] = self._live[slot].prompt[off:off + take]
             n_new[slot] = take
             self._ensure_pages(slot, off + take - 1)
-        logits, self.caches, self.lengths = self.model.extend(
-            self.params, torch.from_numpy(block).to(self.device), self.caches,
-            self.lengths, torch.from_numpy(n_new).to(self.device),
-            self._page_table())
-        toks = self._sample(logits)
+        self._block_t.copy_(torch.from_numpy(block))
+        self._n_new_t.copy_(torch.from_numpy(n_new))
+        self._ptab_t.copy_(torch.from_numpy(self._ptab))
+        toks = self._sample(self._tick("extend_tick"))
         toks_host = toks.tolist()
         for slot, take in takes.items():
             req = self._live[slot]
@@ -290,15 +408,11 @@ class BatchedEngine:
             pos = len(req.prompt) + len(req.output) - 1  # row this step writes
             if pos < self.cfg.max_len:
                 self._ensure_pages(slot, pos)
-        active_t = torch.from_numpy(active).to(self.device)
-        logits, new_caches, new_lengths = self.model.decode_step(
-            self.params, self.tokens, self.caches, self.lengths,
-            self._page_table(), active=active_t)
-        self.caches = self.model.merge_caches(self.caches, new_caches, active_t,
-                                              paged=True)
-        nxt = torch.where(active_t, self._sample(logits), self.tokens[:, 0])
-        self.lengths = torch.where(active_t, new_lengths, self.lengths)
-        self.tokens = nxt[:, None]
+        self._active_t.copy_(torch.from_numpy(active))
+        self._ptab_t.copy_(torch.from_numpy(self._ptab))
+        logits = self._tick("decode_tick")
+        nxt = torch.where(self._active_t, self._sample(logits), self.tokens[:, 0])
+        self.tokens.copy_(nxt[:, None])
         nxt_host = nxt.tolist()
         for slot in decoding:
             req = self._live[slot]
@@ -327,15 +441,17 @@ class BatchedEngine:
         self.steps += 1
 
     def stats(self) -> Dict[str, object]:
-        """Ticks, tokens, admissions, pool pages, the compute path, and the
-        mean wall time of the extend and decode phases (host clock; each
-        phase ends by copying its sampled tokens to the host, so it includes
-        the device work)."""
+        """Ticks, tokens, admissions, pool pages, the compute path, whether
+        the ticks replay captured graphs (``aot_warm``), and the mean wall
+        time of the extend and decode phases (host clock; each phase ends by
+        copying its sampled tokens to the host, so it includes the device
+        work)."""
         s = dict(self._stats)
         s["ticks"] = self.steps
         s["pool_pages"] = self.pool.n_pages
         s["pages_in_use"] = self.pool.used_pages
         s["compute_path"] = self.cfg.compute_path
+        s["aot_warm"] = self.aot_warm
         for phase in ("extend", "decode"):
             n = s[f"{phase}_ticks"]
             s[f"{phase}_ms_mean"] = 1e3 * self._phase_s[phase] / n if n else 0.0

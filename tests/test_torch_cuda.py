@@ -1,5 +1,6 @@
-"""Kernels B1-B6 on the card against their plain PyTorch versions, and the
-paths around them card against CPU.
+"""Kernels B1-B6 on the card against their plain PyTorch versions, the
+paths around them card against CPU, and the engine's ticks replayed from
+CUDA graphs (``BatchedEngine.warmup``) against its eager ticks.
 
 Imports neither jax nor the JAX package, so it runs on the GPU machine:
 
@@ -531,3 +532,83 @@ def test_resnet34_imagenet_serve_on_card_matches_cpu(cuda_device):
     n_tiled = sum(1 for path, _ in mod.walk(sp) if path[-1] == "tile_conv")
     assert n_tiled == 26 and tiled_conv_unique.launches - before == n_tiled
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+def _reduced_serving(arch, path):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_serving
+
+    cfg = get_config(arch).reduced()
+    model, sp, _ = build_serving(cfg, device="cuda", seed=0, compute_path=path)
+    return cfg, model, sp
+
+
+def _warm_engine_case(model, sp, path):
+    from repro_torch.serve.engine import BatchedEngine, ServeConfig
+
+    return BatchedEngine(model, sp, ServeConfig(
+        n_slots=2, max_len=48, chunk_tokens=8, page_tokens=8, compute_path=path))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["float", "xnor", "int8"])
+@pytest.mark.parametrize("arch", ["granite-8b", "qwen1.5-32b"])
+def test_warm_engine_replays_cold_tokens_on_card(cuda_device, arch, path):
+    """A reduced engine in bf16 on the card, cold and then warm (decode and
+    extend ticks replayed from CUDA graphs) on one export: equal greedy
+    tokens, token steps and ticks; in the warm drain neither the kernel
+    wrappers' launch counters nor TRACE_COUNTS move; a second warmup() is a
+    no-op (same graphs, same seconds, no capture)."""
+    import numpy as np
+
+    from repro_torch.serve.engine import TRACE_COUNTS
+    from repro_torch.serve.sampling import SamplingParams
+
+    cfg, model, sp = _reduced_serving(arch, path)
+    wrappers = (tiled_matvec_unique, tiled_matmul_unique,
+                x8.tiled_xnor_matvec_unique, x8.tiled_int8_matvec_unique,
+                tile_construct_kernel, tiled_conv_unique)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (5, 11, 19, 3)]
+    runs = []
+    for warm in (False, True):
+        eng = _warm_engine_case(model, sp, path)
+        if warm:
+            timings = eng.warmup()
+            graphs = dict(eng._graphs)
+            traces = TRACE_COUNTS.copy()
+            assert eng.warmup() == timings and TRACE_COUNTS == traces
+            assert all(eng._graphs[k] is g and g.graph is not None
+                       for k, g in graphs.items())
+        launches = [fn.launches for fn in wrappers]
+        traces = TRACE_COUNTS.copy()
+        reqs = [eng.submit(p, SamplingParams(max_tokens=6)) for p in prompts]
+        ticks = eng.run_until_drained()
+        moved = [fn.launches - n for fn, n in zip(wrappers, launches)]
+        if warm:
+            assert moved == [0] * len(wrappers) and TRACE_COUNTS == traces
+        else:
+            assert sum(moved) > 0 and TRACE_COUNTS != traces
+        assert eng.stats()["aot_warm"] is warm
+        runs.append(([r.output for r in reqs], [r.token_steps for r in reqs], ticks))
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,entry", [("decode_step", "decode_tick"),
+                                          ("extend", "extend_tick")])
+def test_failed_capture_raises_on_card(cuda_device, method, entry):
+    """A tick function that raises during warmup on a CUDA engine: a
+    RuntimeError naming the entry point and its shapes, and the engine stays
+    cold (it never falls back to eager ticks quietly)."""
+    _, model, sp = _reduced_serving("granite-8b", "float")
+
+    def boom(*args, **kwargs):
+        raise ValueError("no capture today")
+
+    eng = _warm_engine_case(model, sp, "float")
+    setattr(model, method, boom)
+    with pytest.raises(RuntimeError, match=rf"'{entry}' \(.*int32\[2,6\].*no "
+                                           rf"capture today"):
+        eng.warmup()
+    assert not eng.aot_warm
