@@ -91,11 +91,35 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      rtol 1e-5;
      decode logits from the card's pools at rtol=atol=1e-3; the logits
      from each device's own codes printed, finite);
-  4d. minitron-8b and starcoder2-7b at their published width and depth (32
-     layers each), built the same way, float path: 4 requests of 8 greedy
-     tokens each, cold and warm, with the same counter and token checks
-     (own kernel = (6 L + 1) per decode tick + 1 per extend tick: their
-     MLPs are not gated), first tokens printed;
+  4d. minitron-8b and starcoder2-7b at their published width, cut to
+     FAMILY_SERVE_LAYERS = 8 of their 32 layers, built the same way, float
+     path: 4 requests of 8 greedy tokens each, cold and warm, with the
+     same counter and token checks (own kernel = (6 L + 1) per decode tick
+     + 1 per extend tick: their MLPs are not gated), first tokens printed;
+  4e. serve qwen2-moe-a2.7b at its published width and all 24 layers
+     (60 routed experts top-4 plus 4 shared a layer), bf16, from masters
+     built, exported and freed one leaf at a time (the largest leaf is an
+     (L, E, 1408, 2048) f32 expert bank of 16.6 GB; the build's peak of
+     device memory is printed and must leave 10% of the card): the
+     requests of phase 3 under "float", "xnor" and "int8" on one export,
+     cold and warm, with the same counter and token checks (own kernel =
+     (7 L + 1) per decode tick + 1 per extend tick: q, k, v, o and the
+     shared experts' gate, up, down; the routed experts run as plain
+     batched products on banks rebuilt from their tiles and launch no
+     kernel), and one 4-slot decode tick traced per path, cold and warm,
+     with the routed experts' share of it: their rebuild and their
+     products timed alone at the tick's shape, and under their kernel
+     names in the trace;
+  4f. serve moonshot-v1-16b-a3b at its published width and all 48 layers
+     (a dense first layer, then 64 routed experts top-6 plus 2 shared),
+     int8 K/V cache, built the same way (largest leaf 34.7 GB): float path,
+     4 requests of 8 greedy tokens, cold and warm, the same checks, first
+     tokens printed, one decode tick traced cold and warm;
+  4g. qwen2-moe-a2.7b at full width, 2 layers, f32: one extend and one
+     decode step on the card against the CPU model; every MoE call's
+     top-k expert ids and dispatch positions must be equal (a difference
+     fails and names the token and the gap between its k-th and (k+1)-th
+     router probability), logits at rtol = atol = 1e-3;
   5. train granite-8b at published width, 4 layers (n_layers 36 -> 4: the
      masters, gradients and AdamW moments of all 36 do not fit one card),
      through ``launch.train.build_training`` as the CLI wires it but with
@@ -109,8 +133,9 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      (14 L + 1), B1 = B3 = B4 = 0. Then the steady step time and a
      torch.profiler trace of one step;
   6. the training CLI on the card (unfused default path): ``python -m
-     repro_torch.launch.train --arch granite-8b --reduced --steps 3`` must
-     exit 0 with "done: 3 steps";
+     repro_torch.launch.train --arch granite-8b --reduced --steps 3`` and
+     the same with ``--arch qwen2-moe-a2.7b`` (the MoE TRAIN dispatch) must
+     each exit 0 with "done: 3 steps";
   7. full width, 2 layers, f32, batch 1 x 64: fused ``train_forward`` and
      backward on the card (kernels) against the CPU (plain versions) on the
      same masters: the B5 words of every layer equal, the loss within rtol
@@ -146,6 +171,7 @@ last line is the JSON status line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -182,6 +208,19 @@ FAMILY_SHAPES = {
 }
 FAMILY_MS = (1, 4, 32)
 QWEN = "qwen1.5-32b"
+MOE, MOONSHOT = "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b"
+# tiled projections of one layer of the MoE configs (models/lm.py Block,
+# nn/moe.py MoE): q, k, v, o and the shared experts' MLP gate, up, down; in
+# moonshot's dense0 layer q, k, v, o and its MLP's gate, up, down. The
+# routed experts launch no kernel: their banks are rebuilt from the tiles
+# and run as plain batched products (torch.bmm), as the reference runs them
+# (jnp.einsum, no Pallas kernel)
+MOE_DENSE_CALLS = {MOE: 4 + 3, MOONSHOT: 4 + 3}
+MOE_CHECK_LAYERS = 2
+# phase 4d serves minitron-8b and starcoder2-7b at full width cut to 8 of
+# their 32 identical layers: the MoE phases 4e-4g made the run longer, and
+# the depth of the earliest-cut path goes first
+FAMILY_SERVE_LAYERS = 8
 B1_MS = (1, 4, 8, 16, 32)
 B2_MS = (33, 128, 512)
 INT_MS = (1, 4, 8, 16, 32)
@@ -777,7 +816,9 @@ def tick_totals(results, kname: str, m: int, n_layers: int, with_head: bool,
 
 def dense_calls(cfg) -> int:
     """Tiled projections of one layer: q, k, v, o and the MLP's (gate, up,
-    down, or up, down)."""
+    down, or up, down); an MoE config's are MOE_DENSE_CALLS."""
+    if cfg.family == "moe":
+        return MOE_DENSE_CALLS[cfg.name]
     return 4 + (3 if cfg.gated_mlp else 2)
 
 
@@ -1053,8 +1094,85 @@ def profile_decode(s_model, sp, cfg, tick_ms, path: str, n_ticks: int = 3,
     print(f"profile [{label}]: decode tick device busy {busy_ms:.3f} ms{wall}; "
           f"{PATH_KERNEL[path]} {own:.3f} ms ({own / busy_ms:.3f} of busy); "
           f"{len(events) / n_ticks:.0f} kernels/tick")
+    if cfg.family == "moe":
+        moe_shares(s_model, sp, cfg, n_slots, by_name, busy_ms, n_ticks)
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
         print(f"  {t / n_ticks:8.3f} ms/tick {n // n_ticks:5d}x  {name[:90]}")
+
+
+MOE_PARTS = {}
+
+
+def moe_parts(s_model, sp, n_slots: int):
+    """One MoE layer's routed-expert work at a decode tick of ``n_slots``
+    tokens (capacity n_slots * k a bank): device ms of the rebuild of its
+    three banks (``ExpertBank.effective``) and of its three batched products
+    (``torch.bmm``), each timed as a CUDA graph of 5 calls, median of 5
+    replays; and the kernel names each launches (one profiled call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.nn import module as mod
+
+    key = (s_model.cfg.name, n_slots)     # the same banks under every path
+    if key in MOE_PARTS:
+        return MOE_PARTS[key]
+    seg = len(s_model.segments) - 1
+    layer = s_model.segments[seg].block.ffn
+    p = mod.map_tree(lambda v: v[0], sp[f"seg{seg}"]["ffn"])
+    banks = ((layer.up, p["up"]), (layer.gate_bank, p["gate"]),
+             (layer.down, p["down"]))
+    cap, cd = n_slots * layer.top_k, s_model.ctx.compute_dtype
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    xbuf = torch.randn((layer.n_experts, cap, layer.d_model), generator=gen,
+                       device="cuda").to(cd)
+    h = torch.randn((layer.n_experts, cap, layer.d_ff), generator=gen,
+                    device="cuda").to(cd)
+    with torch.no_grad():
+        w = [bank.effective(q) for bank, q in banks]
+
+        def rebuild():
+            for bank, q in banks:
+                bank.effective(q)
+
+        def products():
+            torch.bmm(xbuf, w[0].transpose(1, 2))
+            torch.bmm(xbuf, w[1].transpose(1, 2))
+            torch.bmm(h, w[2].transpose(1, 2))
+
+        out = {"rebuild_ms": time_ms(rebuild, iters=5, reps=5),
+               "products_ms": time_ms(products, iters=5, reps=5)}
+        for name, fn in (("rebuild", rebuild), ("products", products)):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            out[name + "_names"] = set(device_time_by_name(prof)[1])
+    del w, xbuf, h
+    release()
+    MOE_PARTS[key] = out
+    return out
+
+
+def moe_shares(s_model, sp, cfg, n_slots: int, by_name, busy_ms: float,
+               n_ticks: int) -> None:
+    """The routed experts' share of a profiled decode tick, two ways: the
+    pieces of one layer timed alone (``moe_parts``) times the MoE layers,
+    over the tick's busy time; and the tick's device time under the kernel
+    names those pieces launch (an upper bound: the attention and norms may
+    launch kernels of the same names)."""
+    parts = moe_parts(s_model, sp, n_slots)
+    n_moe = cfg.n_layers - int(cfg.moe.first_dense)
+    line = []
+    for what in ("rebuild", "products"):
+        timed_ms = parts[what + "_ms"] * n_moe
+        named = sum(t for k, (t, _) in by_name.items()
+                    if k in parts[what + "_names"]) / n_ticks
+        line.append(f"{what} {timed_ms:.3f} ms timed alone x {n_moe} layers "
+                    f"({timed_ms / busy_ms:.3f} of busy), {named:.3f} ms under "
+                    f"its {len(parts[what + '_names'])} kernel names "
+                    f"({named / busy_ms:.3f})")
+    print(f"  routed experts: " + "; ".join(line), flush=True)
 
 
 def int_layers_card_vs_cpu(cfg):
@@ -1181,10 +1299,11 @@ def build_on_card(cfg):
     return s_model, sp, master_b
 
 
-def phase_serve_qwen(cfg):
-    """Phase 4b: qwen1.5-32b at its published width and all 64 layers, with
-    its int8 KV cache, under each compute path on one streamed export; one
-    4-slot decode tick traced per path. Returns (params, launch counts)."""
+def phase_serve_paths(cfg, phase: str):
+    """Phases 4b and 4e: ``cfg`` at its published width and depth (qwen1.5-32b
+    with its int8 KV cache; qwen2-moe-a2.7b) under each compute path on one
+    streamed export, cold and warm; one 4-slot decode tick traced per path.
+    Returns (params, launch counts)."""
     import torch
 
     from repro_torch.configs import build_model
@@ -1201,7 +1320,8 @@ def phase_serve_qwen(cfg):
         counts = serve_run(cfg, s_model, sp, path, profile_ticks=1, wide=False)
         for k in (PATH_KERNEL[path], "B2"):
             launches[k] += counts[k]
-    print(f"phase 4b ({cfg.name} serve): {time.perf_counter() - t0:.1f}s", flush=True)
+    print(f"phase {phase} ({cfg.name} serve): {time.perf_counter() - t0:.1f}s",
+          flush=True)
     return sp, launches
 
 
@@ -1317,24 +1437,136 @@ def phase_qwen_card_vs_cpu(cfg, sp):
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
 
-def phase_serve_family(arch: str):
-    """Phase 4d: ``arch`` at its published width and depth, float path,
-    4 requests of 8 greedy tokens, through the same counter checks.
-    Returns the launch counts."""
+def phase_serve_family(arch: str, phase: str = "4d", profile_ticks: int = 0,
+                       n_layers=None):
+    """Phases 4d and 4f: ``arch`` at its published width and depth (or
+    ``n_layers``), float path, 4 requests of 8 greedy tokens, through the
+    same counter checks, ``profile_ticks`` decode ticks traced cold and
+    warm. Returns the launch counts."""
     import torch
 
     from repro_torch.configs import get_config
 
     t0 = time.perf_counter()
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     s_model, sp, _ = build_on_card(cfg)
     counts = serve_run(cfg, s_model, sp, "float", requests=4, max_tokens=8,
-                       profile_ticks=0, wide=False)
+                       profile_ticks=profile_ticks, wide=False)
     del s_model, sp
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"phase 4d ({arch} serve): {time.perf_counter() - t0:.1f}s", flush=True)
+    print(f"phase {phase} ({arch} serve, L={cfg.n_layers}): "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
     return counts
+
+
+def moe_two_layers(cfg, sp, dev: str, calls: list):
+    """qwen2-moe-a2.7b cut to MOE_CHECK_LAYERS layers, f32, on ``dev``: one
+    extend of two slots (24 and 17 of 24 columns) and one decode step
+    through an 8-page table. Every MoE serve call appends its routing to
+    ``calls``. Returns (extend logits, decode logits) on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import build_model
+    from repro_torch.nn import module as mod
+    from repro_torch.nn.context import SERVE, ModelContext
+
+    n = MOE_CHECK_LAYERS
+    cfg2 = dataclasses.replace(cfg, n_layers=n)
+    params = dict(sp, seg0=mod.map_tree(lambda v: v[:n], sp["seg0"]))
+    params = mod.map_tree(lambda v: v.to(dev), params)
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 24))).to(dev)
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 1))).to(dev)
+    model = build_model(cfg2, ModelContext(policy=cfg.tbn, mode=SERVE,
+                                           compute_dtype=torch.float32, device=dev))
+    caches = model.init_caches(8, 16, torch.float32)
+    ptab = torch.arange(8, dtype=torch.int32, device=dev).reshape(2, 4)
+    lengths = torch.zeros(2, dtype=torch.int32, device=dev)
+    n_new = torch.tensor([24, 17], dtype=torch.int32, device=dev)
+    with torch.no_grad(), recording_routing(calls):
+        le, caches, lengths = model.extend(params, tokens, caches, lengths,
+                                           n_new, ptab)
+        ld, _, _ = model.decode_step(params, nxt, caches, lengths, ptab)
+    return le.cpu(), ld.cpu()
+
+
+@contextlib.contextmanager
+def recording_routing(calls: list):
+    """Within the block, every ``MoE`` serve call appends to ``calls`` its
+    router probabilities, expert ids and dispatch positions (on the CPU)."""
+    from repro_torch.nn import moe
+
+    route, dispatch = moe.MoE._route, moe.MoE._dispatch_serve
+
+    def rec_route(layer, router, xg):
+        out = route(layer, router, xg)
+        calls.append({"probs": out[0].cpu(), "ids": out[2].cpu()})
+        return out
+
+    def rec_dispatch(layer, xg, top_idx):
+        xbuf, meta = dispatch(layer, xg, top_idx)
+        calls[-1]["pos"] = meta[1].cpu()
+        return xbuf, meta
+
+    moe.MoE._route, moe.MoE._dispatch_serve = rec_route, rec_dispatch
+    try:
+        yield calls
+    finally:
+        moe.MoE._route, moe.MoE._dispatch_serve = route, dispatch
+
+
+def phase_moe_card_vs_cpu(cfg, sp):
+    """Phase 4g: qwen2-moe-a2.7b at full width, MOE_CHECK_LAYERS layers,
+    f32: one extend and one decode step on the card (kernels) against the
+    CPU model (plain versions). The routing of every MoE call (top-k expert
+    ids and dispatch positions) must be equal; where it is not, the phase
+    names the first token that differs and the gap between its k-th and
+    (k+1)-th router probability on the CPU. Logits at rtol = atol = 1e-3."""
+    import torch
+
+    t0 = time.perf_counter()
+    routes = {}
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        routes[dev] = []
+        logits[dev] = moe_two_layers(cfg, sp, dev, routes[dev])
+    k = cfg.moe.top_k
+    if len(routes["cuda"]) != len(routes["cpu"]) or not routes["cpu"]:
+        fail(f"{cfg.name}: {len(routes['cuda'])} MoE calls on the card, "
+             f"{len(routes['cpu'])} on the CPU")
+    n_tok = 0
+    for i, (a, b) in enumerate(zip(routes["cuda"], routes["cpu"])):
+        n_tok += a["ids"].shape[0]
+        for key in ("ids", "pos"):
+            if not torch.equal(a[key], b[key]):
+                bad = (a[key] != b[key]).reshape(a["ids"].shape[0], -1).any(-1)
+                t = int(bad.nonzero()[0, 0])
+                top = torch.sort(b["probs"][t], descending=True).values
+                fail(f"{cfg.name}: MoE call {i} ({'extend' if i < MOE_CHECK_LAYERS else 'decode'}"
+                     f", layer {i % MOE_CHECK_LAYERS}): {key} differ card vs CPU "
+                     f"first at token {t}: card ids {a['ids'][t].tolist()} vs CPU "
+                     f"{b['ids'][t].tolist()}; the CPU's k-th and (k+1)-th "
+                     f"probabilities {float(top[k - 1]):.9g} and {float(top[k]):.9g} "
+                     f"(gap {float(top[k - 1] - top[k]):.3e})")
+    gaps = min(float((torch.sort(c["probs"], descending=True).values[:, k - 1]
+                      - torch.sort(c["probs"], descending=True).values[:, k]).min())
+               for c in routes["cpu"])
+    errs = []
+    for what, a, b in zip(("extend", "decode"), logits["cuda"], logits["cpu"]):
+        err = float((a - b).abs().max())
+        errs.append(err)
+        if not torch.isfinite(a).all() or not torch.allclose(a, b, rtol=1e-3, atol=1e-3):
+            fail(f"{cfg.name} card vs CPU {what} logits differ: max|diff| {err:.3e}")
+    print(f"model card vs CPU [{cfg.name} float, L={MOE_CHECK_LAYERS}, full width, "
+          f"f32]: routing equal over {len(routes['cpu'])} MoE calls ({n_tok} "
+          f"token rows; expert ids and dispatch positions; smallest k-th to "
+          f"(k+1)-th probability gap {gaps:.3e}); extend max|diff| {errs[0]:.2e}, "
+          f"decode {errs[1]:.2e} (rtol=atol=1e-3) OK; "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def b5_per_step(n_layers: int):
@@ -1543,21 +1775,22 @@ def phase_train_fused(cfg):
                 per_step=per_step)
 
 
-def phase_train_cli():
+def phase_train_cli(arch: str):
     """Phase 6: the training CLI, unfused default path, on the card."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         t0 = time.perf_counter()
         out = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch", "granite-8b",
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
              "--reduced", "--steps", "3", "--ckpt-dir", tmp],
             capture_output=True, text=True, timeout=600, env=env, cwd=str(ROOT))
         dt = time.perf_counter() - t0
     if out.returncode != 0 or "done: 3 steps" not in out.stdout:
-        fail(f"train CLI exit {out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+        fail(f"train CLI ({arch}) exit {out.returncode}:\n{out.stdout[-2000:]}\n"
+             f"{out.stderr[-3000:]}")
     lines = out.stdout.strip().splitlines()
-    print(f"train CLI (--reduced --steps 3, card, unfused) exit 0 in {dt:.1f}s: "
-          f"{lines[0]} | {lines[-2]}", flush=True)
+    print(f"train CLI (--arch {arch} --reduced --steps 3, card, unfused) exit 0 "
+          f"in {dt:.1f}s: {lines[0]} | {lines[-2]}", flush=True)
 
 
 def phase_train_card_vs_cpu(cfg):
@@ -1963,18 +2196,27 @@ def main() -> None:
     phase_card_vs_cpu(cfg, sp)
     del sp
     qwen = get_config(QWEN)
-    sp, counts = phase_serve_qwen(qwen)
+    sp, counts = phase_serve_paths(qwen, "4b")
     phase_qwen_card_vs_cpu(qwen, sp)
     del sp
     for arch in ("minitron-8b", "starcoder2-7b"):
-        counts = {k: counts[k] + v for k, v in phase_serve_family(arch).items()
-                  if k in counts}
-    for k, v in counts.items():
-        launches[k] += v
+        counts = {k: counts[k] + v for k, v in phase_serve_family(
+            arch, n_layers=FAMILY_SERVE_LAYERS).items() if k in counts}
+    moe = get_config(MOE)
+    sp, moe_counts = phase_serve_paths(moe, "4e")
+    phase_moe_card_vs_cpu(moe, sp)
+    del sp
+    release()
+    moe_counts = {k: moe_counts[k] + v for k, v in phase_serve_family(
+        MOONSHOT, "4f", profile_ticks=1).items() if k in moe_counts}
+    for part in (counts, moe_counts):
+        for k, v in part.items():
+            launches[k] += v
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train_fused(cfg)
-    phase_train_cli()
+    for arch in ("granite-8b", MOE):
+        phase_train_cli(arch)
     phase_train_card_vs_cpu(cfg)
     conv = phase_conv(card)
     sp34, r34 = phase_resnet34()

@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> ArchConfig.
 
-The dense family is registered whole; the other arch ids of the reference
-registry raise ``NotImplementedError`` naming the ROADMAP item
-that ports them, as does ``build_model`` for any family but ``dense``.
+The dense and MoE families are registered whole; the other arch ids of
+the reference registry raise ``NotImplementedError`` naming the ROADMAP
+item that ports them, as does ``build_model`` for any other family.
 """
 from __future__ import annotations
 
@@ -16,13 +16,15 @@ _MODULES: Dict[str, str] = {
     "minitron-8b": "repro_torch.configs.minitron_8b",
     "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
     "qwen1.5-32b": "repro_torch.configs.qwen1p5_32b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2p7b",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
 }
 # The reference registry's other arch ids, ported with their families.
 _NOT_PORTED = (
-    "moonshot-v1-16b-a3b", "qwen2-moe-a2.7b", "mamba2-370m",
-    "recurrentgemma-2b", "seamless-m4t-large-v2", "chameleon-34b",
+    "mamba2-370m", "recurrentgemma-2b", "seamless-m4t-large-v2",
+    "chameleon-34b",
 )
-_FAMILY_ITEM = ("ROADMAP.md queue A items 4-6 (the MoE, SSM/hybrid and "
+_FAMILY_ITEM = ("ROADMAP.md queue A items 5-6 (the SSM/hybrid and "
                 "encoder-decoder/VLM families)")
 
 ARCH_IDS: List[str] = list(_MODULES)
@@ -39,10 +41,8 @@ def get_config(name: str) -> ArchConfig:
 
 
 def build_model(cfg: ArchConfig, ctx=None):
-    """Instantiate the model for a config; only the dense family builds."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet: {_FAMILY_ITEM}")
+    """Instantiate the model for a config; the dense and MoE families build
+    (``DecoderLM`` raises for the others)."""
     from repro_torch.models.lm import DecoderLM
 
     return DecoderLM(cfg, ctx)

@@ -1,7 +1,7 @@
-"""Architecture config schema (port of the dense-family and training
-fields of ``repro/configs/base.py``). Families other than ``dense`` and the fields
-only they read (MoE, SSM, hybrid pattern, enc-dec, sharding recipes) come
-with the slices that port those families."""
+"""Architecture config schema (port of the dense-family, MoE and training
+fields of ``repro/configs/base.py``). The other families and the fields
+only they read (SSM, hybrid pattern, enc-dec, sharding recipes) come with
+the slices that port those families."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,9 +11,18 @@ from repro_torch.core.policy import TBNPolicy, tbn_policy
 
 
 @dataclasses.dataclass(frozen=True)
+class MoESpec:
+    n_experts: int
+    top_k: int
+    n_shared: int = 0
+    d_ff_expert: int = 0
+    first_dense: bool = False      # moonlight/deepseek: layer 0 dense FFN
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # only "dense" builds in this port so far
+    family: str                    # "dense" | "moe" build in this port so far
     n_layers: int
     d_model: int
     n_heads: int
@@ -21,6 +30,7 @@ class ArchConfig:
     d_ff: int
     vocab: int
     head_dim: Optional[int] = None
+    moe: Optional[MoESpec] = None
     window: Optional[int] = None   # sliding-window attention (not ported)
     qkv_bias: bool = False
     qk_norm: bool = False
@@ -41,7 +51,7 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests (the reference's
-        ``reduced()`` for the dense family)."""
+        ``reduced()`` for the dense and MoE families)."""
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",
@@ -52,6 +62,15 @@ class ArchConfig:
             head_dim=16,
             d_ff=min(self.d_ff, 128),
             vocab=min(self.vocab, 512),
+            moe=None
+            if self.moe is None
+            else dataclasses.replace(
+                self.moe,
+                n_experts=min(self.moe.n_experts, 8),
+                top_k=min(self.moe.top_k, 2),
+                n_shared=min(self.moe.n_shared, 1),
+                d_ff_expert=min(self.moe.d_ff_expert or 64, 64),
+            ),
             window=None if self.window is None else min(self.window, 8),
             tbn=dataclasses.replace(self.tbn, min_size=1024),
             attn_chunk=64,

@@ -37,7 +37,8 @@ def pack_bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_bits(packed: torch.Tensor, q: int, dtype=torch.float32) -> torch.Tensor:
-    """int32 (..., ceil(q/32)) -> ±1 values (..., q) of ``dtype``."""
+    """int32 (..., ceil(q/32)) -> ±1 values (..., q) of ``dtype``; leading
+    axes (an expert bank's (E, r, words)) are batch axes."""
     shifts = torch.arange(LANE_BITS, dtype=torch.int32, device=packed.device)
     bits = (packed.to(torch.int32)[..., :, None] >> shifts) & 1
     flat = bits.reshape(*packed.shape[:-1], packed.shape[-1] * LANE_BITS)[..., :q]

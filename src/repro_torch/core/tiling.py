@@ -221,9 +221,15 @@ def export_tile(w: torch.Tensor, spec: TileSpec, a: Optional[torch.Tensor] = Non
 
 def reconstruct_from_tile(t: torch.Tensor, alpha: torch.Tensor, spec: TileSpec,
                           dtype=torch.float32) -> torch.Tensor:
-    """Rebuild the dense effective weight from (t, alpha) — reference path."""
-    b = t[None, :].expand(spec.p, spec.q).reshape(spec.shape)
-    return (b * expand_alpha(alpha.to(b.dtype), spec)).to(dtype)
+    """Rebuild the dense effective weight from (t, alpha) — reference path.
+    Leading axes of t (*lead, q) and alpha (*lead, n_alpha) are batch axes,
+    as over an expert bank: (E, q) -> (E, *spec.shape); the reference vmaps
+    over them."""
+    lead = tuple(t.shape[:-1])
+    b = t[..., None, :].expand(*lead, spec.p, spec.q)
+    a = alpha.to(b.dtype)
+    a = a.reshape(*lead, 1, 1) if spec.alpha_mode == "layer" else a[..., :, None]
+    return (b * a).reshape(*lead, *spec.shape).to(dtype)
 
 
 def tiled_matmul_reference(x: torch.Tensor, t: torch.Tensor,

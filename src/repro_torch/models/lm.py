@@ -1,10 +1,14 @@
-"""Decoder LM, dense family: training and serving entry points (port of
-the dense-family paths of ``repro/models/lm.py``).
+"""Decoder LM, dense and MoE families: training and serving entry points
+(port of the dense- and MoE-family paths of ``repro/models/lm.py``).
 
-The layer stack is one segment of ``n_layers`` identical blocks whose
-params are stacked on a leading layer axis (``seg0``), as in the
-reference; a Python loop walks the layers in place of ``lax.scan``. The
-paged K/V pool of each segment is stacked the same way and updated in
+The layer stack is organised into segments, as in the reference: a
+stacked segment holds ``n`` identical blocks whose params carry a leading
+layer axis, and a Python loop walks its layers in place of ``lax.scan``;
+an unstacked segment is one block without that axis (the MoE family's
+``first_dense`` layer, ``dense0``). The dense family is one stacked
+segment of ``n_layers`` blocks (``seg0``); the MoE family is a stacked
+segment of MoE blocks, after ``dense0`` where the config asks for it. The
+paged K/V pool of each segment has the same layout and is updated in
 place, layer by layer, through views.
 
 Entry points: ``train_forward`` (next-token cross-entropy; each block is
@@ -29,10 +33,12 @@ from repro_torch.nn.context import ModelContext
 from repro_torch.nn.embeddings import Embedding
 from repro_torch.nn.ffn import MLP
 from repro_torch.nn.linear import Dense
+from repro_torch.nn.moe import MoE
 from repro_torch.nn.norms import LayerNorm, RMSNorm
 
-FAMILY_ITEM = ("ROADMAP.md queue A items 4-6 (the MoE, SSM/hybrid and "
+FAMILY_ITEM = ("ROADMAP.md queue A items 5-6 (the SSM/hybrid and "
                "encoder-decoder/VLM families)")
+FAMILIES = ("dense", "moe")
 WINDOW_ITEM = ("ROADMAP.md queue A item 5 (sliding-window rings and recurrent "
                "state, with the SSM and hybrid families)")
 DOTS_REMAT_ITEM = "ROADMAP.md queue A item 10 (leftovers: selective \"dots\" remat)"
@@ -47,11 +53,12 @@ def _norm(cfg: ArchConfig, ctx: ModelContext, dim: int, name: str):
 
 @dataclasses.dataclass
 class Block:
-    """One pre-norm residual block: full attention + MLP."""
+    """One pre-norm residual block: full attention + (MLP | MoE)."""
 
     cfg: ArchConfig
     ctx: ModelContext
     name: str = "block"
+    use_moe: bool = False
 
     def __post_init__(self):
         cfg, ctx, d = self.cfg, self.ctx, self.cfg.d_model
@@ -68,8 +75,14 @@ class Block:
             rope_theta=cfg.rope_theta or 10_000.0, q_chunk=cfg.attn_chunk,
         )
         self.norm2 = _norm(cfg, ctx, d, f"{self.name}.norm2")
-        self.ffn = MLP(d, cfg.d_ff, ctx, name=f"{self.name}.mlp",
-                       gated=cfg.gated_mlp, activation=cfg.activation)
+        if self.use_moe:
+            m = cfg.moe
+            self.ffn = MoE(d, m.d_ff_expert or cfg.d_ff, m.n_experts, m.top_k,
+                           ctx, n_shared=m.n_shared, name=f"{self.name}.moe",
+                           gated=cfg.gated_mlp, activation=cfg.activation)
+        else:
+            self.ffn = MLP(d, cfg.d_ff, ctx, name=f"{self.name}.mlp",
+                           gated=cfg.gated_mlp, activation=cfg.activation)
 
     def specs(self) -> mod.SpecTree:
         return {"norm1": self.norm1.specs(), "mixer": self.mixer.specs(),
@@ -91,10 +104,16 @@ class Block:
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
     def _ffn(self, params, x):
-        return x + self.ffn(params["ffn"], self.norm2(params["norm2"], x))
+        """x + FFN(norm2(x)) and the FFN's aux loss (an MoE's load-balance
+        term; None for an MLP)."""
+        h = self.norm2(params["norm2"], x)
+        if self.use_moe:
+            h, aux = self.ffn(params["ffn"], h)
+            return x + h, aux
+        return x + self.ffn(params["ffn"], h), None
 
     def __call__(self, params, x, *, positions=None):
-        """Training forward of one block: x (B, S, d) -> (B, S, d)."""
+        """Training forward of one block: x (B, S, d) -> ((B, S, d), aux)."""
         h = self.mixer(params["mixer"], self.norm1(params["norm1"], x),
                        positions=positions)
         return self._ffn(params, x + h)
@@ -109,7 +128,7 @@ class Block:
                 params["mixer"], h, cache["k"], cache["v"], lengths,
                 page_table, active=active)
             cache = {"k": ck, "v": cv}
-        return self._ffn(params, x + h), cache
+        return self._ffn(params, x + h)[0], cache
 
     def extend(self, params, x, cache, *, positions, valid, page_table):
         h = self.norm1(params["norm1"], x)
@@ -121,35 +140,55 @@ class Block:
                 params["mixer"], h, cache["k"], cache["v"], positions, valid,
                 page_table)
             cache = {"k": ck, "v": cv}
-        return self._ffn(params, x + h), cache
+        return self._ffn(params, x + h)[0], cache
 
 
 @dataclasses.dataclass
 class Segment:
-    """A stack of ``n`` identical blocks with layer-stacked params."""
+    """A stack of ``n`` identical blocks with layer-stacked params, or one
+    unstacked block (``scanned`` False: params and caches without the
+    layer axis)."""
 
     block: Block
     n: int
+    scanned: bool = True
 
     def specs(self) -> mod.SpecTree:
-        return mod.stack_specs(self.block.specs(), self.n)
+        s = self.block.specs()
+        return mod.stack_specs(s, self.n) if self.scanned else s
+
+    def layers(self, tree):
+        """The per-layer views of a param or cache tree of this segment."""
+        if not self.scanned:
+            return [tree]
+        return [mod.map_tree(lambda v, j=j: v[j], tree) for j in range(self.n)]
 
 
 class DecoderLM:
     def __init__(self, cfg: ArchConfig, ctx: Optional[ModelContext] = None):
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"model family {cfg.family!r} is not ported yet: {FAMILY_ITEM}")
         self.cfg = cfg
         self.ctx = ctx or ModelContext(policy=cfg.tbn)
         c = self.ctx
         self.embed = Embedding(cfg.vocab, cfg.d_model, c, name="embed")
-        self.segments: List[Segment] = [
-            Segment(Block(cfg, c, name="block"), cfg.n_layers)]
+        self.segments: List[Segment] = self._build_segments()
         self.final_norm = _norm(cfg, c, cfg.d_model, "final_norm")
         if not cfg.tie_embeddings:
             self.head = Dense(cfg.d_model, cfg.vocab, c, name="lm_head",
                               kind="head")
+
+    def _build_segments(self) -> List[Segment]:
+        cfg, c = self.cfg, self.ctx
+        if cfg.family == "dense":
+            return [Segment(Block(cfg, c, name="block"), cfg.n_layers)]
+        segs, n = [], cfg.n_layers
+        if cfg.moe.first_dense:
+            segs.append(Segment(Block(cfg, c, name="dense0"), 1, scanned=False))
+            n -= 1
+        segs.append(Segment(Block(cfg, c, name="moe_block", use_moe=True), n))
+        return segs
 
     @property
     def device(self) -> torch.device:
@@ -188,15 +227,19 @@ class DecoderLM:
 
     def backbone(self, params, x, *, positions=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Blocks, then the final norm -> (h, aux). The dense family has no
-        auxiliary loss (aux is 0). Each stacked leaf is unbound into its
-        layers, so the layers' gradients stack back into the leaf."""
+        """Blocks, then the final norm -> (h, aux): aux sums the MoE layers'
+        load-balance terms (0 for the dense family). Each stacked leaf is
+        unbound into its layers, so the layers' gradients stack back into
+        the leaf."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, seg in enumerate(self.segments):
-            layers = mod.map_tree(lambda v: v.unbind(0), params[f"seg{i}"])
-            for j in range(seg.n):
-                pl = mod.map_tree(lambda v, j=j: v[j], layers)
-                x = self._remat_call(seg.block, pl, x, positions)
+            p = params[f"seg{i}"]
+            if seg.scanned:
+                p = mod.map_tree(lambda v: v.unbind(0), p)
+            for pl in seg.layers(p):
+                x, a = self._remat_call(seg.block, pl, x, positions)
+                if a is not None:
+                    aux = aux + a
         return self.final_norm(params["final_norm"], x), aux
 
     def train_forward(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -241,14 +284,16 @@ class DecoderLM:
     # serving
     # ------------------------------------------------------------------
     def init_caches(self, n_pages: int, page_tokens: int, dtype) -> list:
-        """One stacked paged pool per segment: each leaf of
-        ``Block.init_cache`` with a leading layer axis, e.g. {"k", "v"}
+        """One paged pool per segment: each leaf of ``Block.init_cache``,
+        with a leading layer axis for a stacked segment, e.g. {"k", "v"}
         (n_layers, n_pages + 1, page_tokens, K, hd)."""
         caches = []
         for seg in self.segments:
             c = seg.block.init_cache(n_pages, page_tokens, dtype, self.device)
-            caches.append({k: v[None].repeat(seg.n, *([1] * v.ndim))
-                           for k, v in c.items()})
+            if seg.scanned:
+                c = {k: v[None].repeat(seg.n, *([1] * v.ndim))
+                     for k, v in c.items()}
+            caches.append(c)
         return caches
 
     def _walk_segments(self, params, x, caches, step_fn):
@@ -256,10 +301,8 @@ class DecoderLM:
         layer. Layer params and caches are views into the stacked leaves,
         so the in-place pool writes land in the stacked cache."""
         for i, seg in enumerate(self.segments):
-            p, cache = params[f"seg{i}"], caches[i]
-            for j in range(seg.n):
-                pl = mod.map_tree(lambda v, j=j: v[j], p)
-                cl = {name: leaf[j] for name, leaf in cache.items()}
+            for pl, cl in zip(seg.layers(params[f"seg{i}"]),
+                              seg.layers(caches[i])):
                 x, _ = step_fn(seg.block, pl, x, cl)
         return x, caches
 

@@ -1,6 +1,7 @@
 """Kernels B1-B6 on the card against their plain PyTorch versions, the
-paths around them card against CPU, and the engine's ticks replayed from
-CUDA graphs (``BatchedEngine.warmup``) against its eager ticks.
+paths around them card against CPU (the MoE serve layer among them), and
+the engine's ticks replayed from CUDA graphs (``BatchedEngine.warmup``)
+against its eager ticks, dense and MoE.
 
 Imports neither jax nor the JAX package, so it runs on the GPU machine:
 
@@ -552,7 +553,8 @@ def _warm_engine_case(model, sp, path):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["float", "xnor", "int8"])
-@pytest.mark.parametrize("arch", ["granite-8b", "qwen1.5-32b"])
+@pytest.mark.parametrize("arch", ["granite-8b", "qwen1.5-32b", "qwen2-moe-a2.7b",
+                                  "moonshot-v1-16b-a3b"])
 def test_warm_engine_replays_cold_tokens_on_card(cuda_device, arch, path):
     """A reduced engine in bf16 on the card, cold and then warm (decode and
     extend ticks replayed from CUDA graphs) on one export: equal greedy
@@ -612,3 +614,95 @@ def test_failed_capture_raises_on_card(cuda_device, method, entry):
                                            rf"capture today"):
         eng.warmup()
     assert not eng.aot_warm
+
+
+def _recording_moe(monkeypatch):
+    """Record every MoE serve call's routing: (probs, expert ids, dispatch
+    positions), in call order."""
+    from repro_torch.nn import moe
+
+    calls = []
+    route, dispatch = moe.MoE._route, moe.MoE._dispatch_serve
+
+    def rec_route(self, router, xg):
+        out = route(self, router, xg)
+        calls.append({"probs": out[0].cpu(), "ids": out[2].cpu()})
+        return out
+
+    def rec_dispatch(self, xg, top_idx):
+        xbuf, meta = dispatch(self, xg, top_idx)
+        calls[-1]["pos"] = meta[1].cpu()
+        return xbuf, meta
+
+    monkeypatch.setattr(moe.MoE, "_route", rec_route)
+    monkeypatch.setattr(moe.MoE, "_dispatch_serve", rec_dispatch)
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("tokens", [(4, 1), (4, 16)])
+def test_moe_serve_call_on_card_matches_cpu(cuda_device, monkeypatch, arch, tokens):
+    """The reduced config's MoE layer in SERVE mode, f32, on a decode-sized
+    (4 x 1) and an extend-sized (4 x 16) input: expert ids and dispatch
+    positions equal card vs CPU, outputs at rtol = atol = 1e-5 (the shared
+    experts run B1 / B2 on the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import moe
+    from repro_torch.nn.context import SERVE, TRAIN, ModelContext
+    from repro_torch.nn import module as mod
+    from repro_torch.serve.weights import export_serving_params
+
+    torch.backends.cuda.matmul.allow_tf32 = True      # the router turns it off
+    cfg = get_config(arch).reduced()
+    m = cfg.moe
+
+    def layer(mode, dev):
+        ctx = ModelContext(policy=cfg.tbn, mode=mode, compute_dtype=torch.float32,
+                           device=dev)
+        return moe.MoE(cfg.d_model, m.d_ff_expert, m.n_experts, m.top_k, ctx,
+                       n_shared=m.n_shared, activation=cfg.activation)
+
+    tm = layer(TRAIN, "cpu")
+    sp = export_serving_params(tm.specs(), layer(SERVE, "cpu").specs(),
+                               mod.init_params(tm.specs(), 0, "cpu"), cfg.tbn)
+    x = torch.randn((*tokens, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    calls = _recording_moe(monkeypatch)
+    with torch.no_grad():
+        got = layer(SERVE, "cuda")(mod.map_tree(lambda v: v.cuda(), sp), x.cuda())[0]
+        want = layer(SERVE, "cpu")(sp, x)[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, cpu = calls
+    assert torch.equal(card["ids"], cpu["ids"]) and torch.equal(card["pos"], cpu["pos"])
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["float", "xnor", "int8"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "moonshot-v1-16b-a3b"])
+def test_moe_decode_tick_launch_counts(cuda_device, arch, path):
+    """One 2-slot decode tick of the reduced MoE config launches the path's
+    decode kernel once per tiled projection: 4 attention projections and
+    the 3 of the shared-expert MLP a layer (moonshot's dense0: its 3 MLP
+    projections), 2 layers, and the LM head: 15. The routed experts launch
+    no kernel (rebuilt banks, plain batched products), nor does B2."""
+    import numpy as np
+
+    from repro_torch.serve.sampling import SamplingParams
+
+    cfg, model, sp = _reduced_serving(arch, path)
+    eng = _warm_engine_case(model, sp, path)
+    for n in (3, 5):
+        eng.submit(np.arange(n), SamplingParams(max_tokens=4))
+    eng.step()                                   # the extend tick
+    own = {"float": tiled_matvec_unique, "xnor": x8.tiled_xnor_matvec_unique,
+           "int8": x8.tiled_int8_matvec_unique}[path]
+    wrappers = (tiled_matvec_unique, tiled_matmul_unique,
+                x8.tiled_xnor_matvec_unique, x8.tiled_int8_matvec_unique)
+    before = [fn.launches for fn in wrappers]
+    eng.step()                                   # one decode-only tick
+    torch.cuda.synchronize()
+    moved = {fn: fn.launches - n for fn, n in zip(wrappers, before)}
+    assert eng.stats()["decode_ticks"] == 1 and eng.stats()["extend_ticks"] == 1
+    assert moved[own] == (4 + 3) * cfg.n_layers + 1
+    assert all(v == 0 for fn, v in moved.items() if fn is not own)
