@@ -38,12 +38,14 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      ``torch.equal`` to the plain version, alpha at rtol 1e-5, timed beside
      the plain version and the bound (no single PyTorch call computes B5);
   2b. the planners' picks of B1-B4 (no body survey) at every (K, r) of
-     qwen1.5-32b, starcoder2-7b and minitron-8b that granite-8b has not:
-     B1 at m in {1, 4, 32} and B2 at m = 128, bf16 and f32, at the same
-     tolerance; B3 / B4 at m in {1, 4, 32}, equal; each timed beside the
-     plain version, the library yardstick and the bound, with the pick;
-     then qwen1.5-32b's totals per extend tick (448 calls) and per decode
-     tick at m = 4 and m = 32 (449 calls at L = 64);
+     qwen1.5-32b, starcoder2-7b, minitron-8b, mamba2-370m and
+     recurrentgemma-2b that granite-8b has not (r = 1096 and 12570 are no
+     multiple of 16, r = 32 is one filter tile): B1 at m in {1, 4, 32} and
+     B2 at m = 128, bf16 and f32, at the same tolerance; B3 / B4 at m in
+     {1, 4, 32}, equal; each timed beside the plain version, the library
+     yardstick and the bound, with the pick; then the totals of
+     qwen1.5-32b (L = 64), mamba2-370m (L = 48) and recurrentgemma-2b (L
+     = 26) per extend tick and per decode tick at m = 4 and m = 32;
   3. serve granite-8b at its published width through the user entry points
      (masters from a seed -> export -> BatchedEngine): 8 requests, prompts
      of 3-100 tokens, 16 greedy tokens each, 4 slots, 32-token chunks,
@@ -74,8 +76,9 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      model a reordered f32 sum upstream can flip one activation's sign or
      int8 rounding, so the integer paths' model-level max|d logit| is
      printed and only checked to be finite;
-  4b. serve qwen1.5-32b at its published width and all 64 layers, with its
-     int8 KV cache, from masters built, exported and freed one leaf at a
+  4b. serve qwen1.5-32b at its published width and QWEN_SERVE_LAYERS = 16
+     of its 64 layers (cut when the SSM and hybrid phases made the run
+     longer), with its int8 KV cache, from masters built, exported and freed one leaf at a
      time (``build_serving``; the peak of device memory across the build
      is printed and must leave 10% of the card): the requests of phase 3
      under "float", "xnor" and "int8" on one export, cold and warm, with
@@ -120,6 +123,27 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      top-k expert ids and dispatch positions must be equal (a difference
      fails and names the token and the gap between its k-th and (k+1)-th
      router probability), logits at rtol = atol = 1e-3;
+  4h. serve mamba2-370m at its published width and all 48 layers (SSD
+     state 128, no attention, no FFN), bf16, built the same way: the
+     requests of phase 3 under "float", "xnor" and "int8" on one export,
+     cold and warm, with the same counter and token checks (own kernel =
+     (2 L + 1) per decode tick + 1 per extend tick: in_proj and out_proj),
+     no page pool, f32 (h, conv) carries; the warmup captures the slot
+     reset too (``reset_slot``), and the warm drain must run no eager
+     reset; one 4-slot decode tick traced per path, cold and warm;
+  4i. serve recurrentgemma-2b at its published width and all 26 layers (8
+     cycles of rec, rec, attn, then two rec tails; MQA kv 1, head dim 256,
+     a 2048-token window ring), the same runs as 4h (own kernel = (8 rec +
+     7 attn per layer) + 1 per decode tick); then one request of a
+     2100-token prompt, longer than the window, on a 2304-token slot under
+     "float", cold and warm (the ring wraps at full width; warm tokens
+     equal cold);
+  4j. card against CPU, f32, full width: mamba2-370m at 2 layers and
+     recurrentgemma-2b at 5 (one cycle and both tails) on the shipped
+     weights of 4h / 4i: two slots extend ragged prompts in 512-token
+     chunks (recurrentgemma: 2100 and 300 tokens, so the ring wraps), then
+     three greedy decode steps; logits at rtol = atol = 1e-4 at every call
+     and the greedy tokens equal;
   5. train granite-8b at published width, 4 layers (n_layers 36 -> 4: the
      masters, gradients and AdamW moments of all 36 do not fit one card),
      through ``launch.train.build_training`` as the CLI wires it but with
@@ -205,7 +229,24 @@ FAMILY_SHAPES = {
     "minitron-8b": (("q/o", 4096, 512, 2), ("k/v", 4096, 128, 2),
                     ("up", 4096, 2048, 1), ("down", 16384, 512, 1),
                     ("lm_head", 4096, 32000, 0)),
+    # p = 4: r = n_out / 4
+    "mamba2-370m": (("in_proj", 1024, 1096, 1), ("out_proj", 2048, 256, 1),
+                    ("lm_head", 1024, 12570, 0)),
+    # calls per tick of the whole 26-layer stack (18 rec layers: in_x,
+    # in_gate, out, w_a, w_i; 8 attn layers: q, k, v, o; all: gate, up,
+    # down), so its FAMILY_TICK_LAYERS is 1
+    "recurrentgemma-2b": (("rec/q/o", 2560, 320, 18 * 5 + 8 * 2),
+                          ("k/v", 2560, 32, 8 * 2), ("gate/up", 2560, 960, 26 * 2),
+                          ("down", 7680, 320, 26), ("lm_head", 2560, 32000, 0)),
 }
+MAMBA, RECGEMMA = "mamba2-370m", "recurrentgemma-2b"
+# the layers that FAMILY_SHAPES' per-layer counts multiply in a tick
+FAMILY_TICK_LAYERS = {"qwen1.5-32b": 64, MAMBA: 48, RECGEMMA: 1}
+# phase 4i's window-wrapping request: a prompt longer than the 2048 window
+# on a slot of WRAP_MAX_LEN tokens; phase 4j's card-vs-CPU cut and chunk
+WRAP_PROMPT, WRAP_MAX_LEN = 2100, 2304
+SSM_CHECK_LAYERS = {MAMBA: 2, RECGEMMA: 5}
+SSM_CHECK_CHUNK = 512
 FAMILY_MS = (1, 4, 32)
 QWEN = "qwen1.5-32b"
 MOE, MOONSHOT = "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b"
@@ -221,6 +262,9 @@ MOE_CHECK_LAYERS = 2
 # their 32 identical layers: the MoE phases 4e-4g made the run longer, and
 # the depth of the earliest-cut path goes first
 FAMILY_SERVE_LAYERS = 8
+# phase 4b serves qwen1.5-32b at full width cut to 16 of its 64 identical
+# layers: phases 4h-4j made the run longer, and this depth is the next cut
+QWEN_SERVE_LAYERS = 16
 B1_MS = (1, 4, 8, 16, 32)
 B2_MS = (33, 128, 512)
 INT_MS = (1, 4, 8, 16, 32)
@@ -780,24 +824,27 @@ def phase_family_kernels(card: str, results) -> None:
                           f"{res['ms']:.4f}ms plain {res['plain_ms']:.4f}ms library "
                           f"{res['library_ms']:.4f}ms bound {res['bound_ms']:.4f}ms"
                           f"{bodies_line(res)}", flush=True)
-    shapes, n_layers = family_shapes(QWEN), 64
-    calls = sum(per for *_, per in shapes) * n_layers
-    m = N_SLOTS * CHUNK
-    tot = tick_totals(results, "B2", m, n_layers, False, shapes=shapes)
-    print(f"B2 {QWEN} per extend tick at L={n_layers}, m={m}, bf16 ({calls} calls): "
-          f"kernel {tot['ms']:.3f}ms library {tot['library_ms']:.3f}ms bound "
-          f"{tot['bound_ms']:.3f}ms", flush=True)
-    for kname, dtype in (("B1", "bfloat16"), ("B3", "int"), ("B4", "int")):
-        for m in (N_SLOTS, MATVEC_M):
-            tot = tick_totals(results, kname, m, n_layers, True, dtype, shapes)
-            print(f"{kname} {QWEN} per decode tick at L={n_layers}, m={m}, {dtype} "
-                  f"({calls + 1} calls): kernel {tot['ms']:.3f}ms (reps "
-                  f"{tot['ms_lo']:.3f}-{tot['ms_hi']:.3f}) library "
-                  f"{tot['library_ms']:.3f}ms (reps {tot['library_ms_lo']:.3f}-"
-                  f"{tot['library_ms_hi']:.3f}) bound {tot['bound_ms']:.3f}ms",
-                  flush=True)
+    for arch, n_layers in FAMILY_TICK_LAYERS.items():
+        shapes = family_shapes(arch)
+        calls = sum(per for *_, per in shapes) * n_layers
+        m = N_SLOTS * CHUNK
+        tot = tick_totals(results, "B2", m, n_layers, False, shapes=shapes)
+        print(f"B2 {arch} per extend tick, m={m}, bf16 ({calls} calls): "
+              f"kernel {tot['ms']:.3f}ms plain {tot['plain_ms']:.3f}ms library "
+              f"{tot['library_ms']:.3f}ms bound {tot['bound_ms']:.3f}ms", flush=True)
+        for kname, dtype in (("B1", "bfloat16"), ("B3", "int"), ("B4", "int")):
+            for m in (N_SLOTS, MATVEC_M):
+                tot = tick_totals(results, kname, m, n_layers, True, dtype, shapes)
+                print(f"{kname} {arch} per decode tick, m={m}, {dtype} "
+                      f"({calls + 1} calls): kernel {tot['ms']:.3f}ms (reps "
+                      f"{tot['ms_lo']:.3f}-{tot['ms_hi']:.3f}) plain "
+                      f"{tot['plain_ms']:.3f}ms library "
+                      f"{tot['library_ms']:.3f}ms (reps {tot['library_ms_lo']:.3f}-"
+                      f"{tot['library_ms_hi']:.3f}) bound {tot['bound_ms']:.3f}ms",
+                      flush=True)
     torch.cuda.empty_cache()
-    print(f"phase 2b (dense-family shapes): {time.perf_counter() - t0:.1f}s", flush=True)
+    print(f"phase 2b (dense, SSM and hybrid family shapes): "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def tick_totals(results, kname: str, m: int, n_layers: int, with_head: bool,
@@ -814,12 +861,42 @@ def tick_totals(results, kname: str, m: int, n_layers: int, with_head: bool,
     return tot
 
 
-def dense_calls(cfg) -> int:
-    """Tiled projections of one layer: q, k, v, o and the MLP's (gate, up,
-    down, or up, down); an MoE config's are MOE_DENSE_CALLS."""
+def layer_calls(cfg) -> int:
+    """Tiled projections of every layer of one decode tick (the LM head
+    apart): an attention layer's q, k, v, o, an RG-LRU layer's in_x,
+    in_gate, out, w_a, w_i, each with the MLP's (gate, up, down, or up,
+    down); a mamba2 layer's in_proj and out_proj; an MoE layer's
+    MOE_DENSE_CALLS."""
     if cfg.family == "moe":
-        return MOE_DENSE_CALLS[cfg.name]
-    return 4 + (3 if cfg.gated_mlp else 2)
+        return MOE_DENSE_CALLS[cfg.name] * cfg.n_layers
+    if cfg.family == "ssm":
+        return 2 * cfg.n_layers
+    mlp = 3 if cfg.gated_mlp else 2
+    kinds = ([cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+             if cfg.family == "hybrid" else ["attn"] * cfg.n_layers)
+    return sum((5 if k == "rec" else 4) + mlp for k in kinds)
+
+
+def check_caches(eng, cfg, label: str) -> None:
+    """The engine's caches by family: a page pool only with full attention;
+    K/V pools and rings in bf16 (int8 codes with f32 scales under an int8
+    KV config); recurrent carries f32."""
+    import torch
+
+    from repro_torch.nn import module as mod
+
+    if (eng.pool is not None) != eng.model.has_full_attn:
+        fail(f"{label}: page pool {eng.pool} with has_full_attn "
+             f"{eng.model.has_full_attn}")
+    int8 = cfg.kv_dtype == "int8"
+    want = {"k": torch.int8 if int8 else torch.bfloat16,
+            "v": torch.int8 if int8 else torch.bfloat16,
+            "ks": torch.float32, "vs": torch.float32,
+            "h": torch.float32, "conv": torch.float32}
+    got = {"/".join(p): v.dtype for c in eng.caches for p, v in mod.walk(c)}
+    bad = {k: v for k, v in got.items() if v != want[k.split("/")[-1]]}
+    if bad or not got:
+        fail(f"{label}: cache leaves of unexpected type {bad} (of {got})")
 
 
 def serve_engine(s_model, sp, path: str, n_slots: int = N_SLOTS):
@@ -875,23 +952,17 @@ def serve_run(cfg, s_model, sp, path: str, requests: int = 8,
     tokens each, through a BatchedEngine under ``path``, cold (eager ticks)
     and then warm (a new engine, ``warmup()``, the same prompts: the ticks
     replay CUDA graphs). Cold: every launch counter is 0 just before the run
-    and read just after it; asserts the K/V pools' types (int8 codes and f32
-    scales under an int8 KV config), that the path's decode kernel took every
+    and read just after it; asserts the caches' families and types
+    (:func:`check_caches`), that the path's decode kernel took every
     m <= 32 projection, B2 every extend, and no other kernel ran. Warm: see
     :func:`warm_run`. Then traces ``profile_ticks`` 4-slot decode ticks cold
     and warm and, with ``wide``, one of 32 slots. Returns the cold counts."""
     import numpy as np
-    import torch
 
     from repro_torch.launch.serve import synthetic_prompts
 
     eng = serve_engine(s_model, sp, path)
-    pools = {k: v.dtype for k, v in eng.caches[0].items()}
-    want = ({"k": torch.int8, "v": torch.int8, "ks": torch.float32,
-             "vs": torch.float32} if cfg.kv_dtype == "int8" else
-            {"k": torch.bfloat16, "v": torch.bfloat16})
-    if pools != want:
-        fail(f"{cfg.name} {path}: K/V pools {pools}, expected {want}")
+    check_caches(eng, cfg, f"{cfg.name} {path}")
     rng = np.random.default_rng(0)
     prompts = synthetic_prompts(rng, requests, cfg.vocab, 3, 101)
     cold = drive(eng, cfg, prompts, max_tokens)
@@ -903,7 +974,7 @@ def serve_run(cfg, s_model, sp, path: str, requests: int = 8,
         fail(f"{label}: the run had {st['decode_ticks']} decode and "
              f"{st['extend_ticks']} extend ticks; both must run")
     own = PATH_KERNEL[path]
-    need = ((dense_calls(cfg) * cfg.n_layers + 1) * st["decode_ticks"]
+    need = ((layer_calls(cfg) + 1) * st["decode_ticks"]
             + st["extend_ticks"])
     others = [k for k in ("B1", "B3", "B4", "B5", "B6") if k != own]
     if (counts[own] != need or counts["B2"] < st["extend_ticks"]
@@ -955,7 +1026,7 @@ def warm_run(cfg, s_model, sp, path: str, prompts, max_tokens: int, cold):
     captured = read_counters()
     alloc = torch.cuda.memory_allocated() - alloc
     reserved = torch.cuda.memory_reserved() - reserved
-    own, per_layer = PATH_KERNEL[path], dense_calls(cfg) * cfg.n_layers
+    own, per_layer = PATH_KERNEL[path], layer_calls(cfg)
     # decode: every projection and the head; extend: B2, its head on `own`
     want = {k: 0 for k in captured}
     want[own] = (WARM_RUNS + 1) * (per_layer + 2)
@@ -1244,7 +1315,8 @@ def phase_card_vs_cpu(cfg, sp):
             model = build_model(cfg2, ModelContext(policy=cfg.tbn, mode=SERVE,
                                                    compute_dtype=torch.float32,
                                                    device=dev, compute_path=path))
-            caches = model.init_caches(8, 16, torch.float32)
+            caches = model.init_caches(2, 64, torch.float32, page_tokens=16,
+                                        n_pages=8)
             ptab = torch.arange(8, dtype=torch.int32, device=dev).reshape(2, 4)
             lengths = torch.zeros(2, dtype=torch.int32, device=dev)
             n_new = torch.tensor([24, 17], dtype=torch.int32, device=dev)
@@ -1346,7 +1418,8 @@ def qwen_two_layers(cfg, sp, dev: str, kv_dtype: str, pools=None):
     nxt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 1))).to(dev)
     model = build_model(cfg2, ModelContext(policy=cfg.tbn, mode=SERVE,
                                            compute_dtype=torch.float32, device=dev))
-    caches = model.init_caches(8, 16, torch.float32)
+    caches = model.init_caches(2, 64, torch.float32, page_tokens=16,
+                                n_pages=8)
     ptab = torch.arange(8, dtype=torch.int32, device=dev).reshape(2, 4)
     lengths = torch.zeros(2, dtype=torch.int32, device=dev)
     n_new = torch.tensor([24, 17], dtype=torch.int32, device=dev)
@@ -1483,7 +1556,8 @@ def moe_two_layers(cfg, sp, dev: str, calls: list):
     nxt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 1))).to(dev)
     model = build_model(cfg2, ModelContext(policy=cfg.tbn, mode=SERVE,
                                            compute_dtype=torch.float32, device=dev))
-    caches = model.init_caches(8, 16, torch.float32)
+    caches = model.init_caches(2, 64, torch.float32, page_tokens=16,
+                                n_pages=8)
     ptab = torch.arange(8, dtype=torch.int32, device=dev).reshape(2, 4)
     lengths = torch.zeros(2, dtype=torch.int32, device=dev)
     n_new = torch.tensor([24, 17], dtype=torch.int32, device=dev)
@@ -1567,6 +1641,164 @@ def phase_moe_card_vs_cpu(cfg, sp):
           f"(k+1)-th probability gap {gaps:.3e}); extend max|diff| {errs[0]:.2e}, "
           f"decode {errs[1]:.2e} (rtol=atol=1e-3) OK; "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def phase_serve_recurrent(arch: str, phase: str):
+    """Phases 4h and 4i: ``arch`` (mamba2-370m, recurrentgemma-2b) at its
+    published width and depth under each compute path, as phase 4b, with
+    no page pool and the slot reset among the captured entry points; for
+    recurrentgemma-2b then the window-wrapping request (:func:`wrap_run`).
+    Returns (params, launch counts)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    sp, launches = phase_serve_paths(cfg, phase)
+    if cfg.window:
+        t0 = time.perf_counter()
+        for k, v in wrap_run(cfg, sp).items():
+            if k in launches:
+                launches[k] += v
+        print(f"phase {phase} ({arch} window wrap): {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    return sp, launches
+
+
+def wrap_run(cfg, sp):
+    """One request whose WRAP_PROMPT-token prompt is longer than the
+    attention window, beside a 40-token one, on WRAP_MAX_LEN-token slots
+    (rings of min(WRAP_MAX_LEN, window) rows), 16 greedy tokens each, float
+    path, cold and then warm: the same counter checks as phase 3 and the
+    warm tokens equal to the cold ones. Returns the cold counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import build_model
+    from repro_torch.nn import module as mod
+    from repro_torch.nn.context import SERVE, ModelContext
+    from repro_torch.serve.engine import TRACE_COUNTS, BatchedEngine, ServeConfig
+
+    s_model = build_model(cfg, ModelContext(policy=cfg.tbn, mode=SERVE,
+                                            compute_dtype=torch.bfloat16,
+                                            device="cuda"))
+    label = f"{cfg.name} float, {WRAP_PROMPT}-token prompt"
+    if WRAP_PROMPT <= cfg.window or WRAP_MAX_LEN < WRAP_PROMPT + 16:
+        fail(f"{label}: the prompt must pass the {cfg.window}-token window "
+             f"and fit a {WRAP_MAX_LEN}-token slot")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (WRAP_PROMPT, 40)]
+
+    def engine():
+        eng = BatchedEngine(s_model, sp, ServeConfig(
+            n_slots=N_SLOTS, max_len=WRAP_MAX_LEN, chunk_tokens=CHUNK,
+            page_tokens=16, compute_path="float"))
+        rings = [v.shape for c in eng.caches for p, v in mod.walk(c)
+                 if p[-1] == "k"]
+        if not rings or any(r[-3] != min(WRAP_MAX_LEN, cfg.window) for r in rings):
+            fail(f"{label}: ring caches {rings}, expected {cfg.window} rows")
+        return eng
+
+    cold = drive(engine(), cfg, prompts, 16)
+    release()
+    st, counts = cold["st"], cold["counts"]
+    need = (layer_calls(cfg) + 1) * st["decode_ticks"] + st["extend_ticks"]
+    if (counts["B1"] != need or counts["B2"] < st["extend_ticks"]
+            or any(counts[k] for k in ("B3", "B4", "B5", "B6"))):
+        fail(f"{label}: launch counters {counts}; need B1 = {need}, B2 >= "
+             f"{st['extend_ticks']}, the others 0")
+    eng = engine()
+    timings = eng.warmup()
+    traces = TRACE_COUNTS.copy()
+    warm = drive(eng, cfg, prompts, 16)
+    wst = warm["st"]
+    del eng
+    release()
+    if any(warm["counts"].values()) or TRACE_COUNTS != traces:
+        fail(f"{label} warm: the drain launched {warm['counts']} or moved "
+             f"TRACE_COUNTS: a tick did not replay its graph")
+    if (warm["tokens"], warm["steps"]) != (cold["tokens"], cold["steps"]):
+        fail(f"{label} warm: greedy tokens differ from the cold run's")
+    print(f"serve [{label}, window {cfg.window}, slots of {WRAP_MAX_LEN}]: the "
+          f"ring wraps; cold -> warm: {st['extend_ticks']} extend ticks "
+          f"{st['extend_ms_mean']:.2f} -> {wst['extend_ms_mean']:.2f}ms, decode "
+          f"tick {st['decode_ms_mean']:.2f} -> {wst['decode_ms_mean']:.2f}ms, "
+          f"TTFT mean {cold['ttft']:.1f} -> {warm['ttft']:.1f}ms, ITL mean "
+          f"{cold['itl']:.2f} -> {warm['itl']:.2f}ms; capture "
+          + ", ".join(f"{k} {v:.3f}s" for k, v in timings.items())
+          + f"; greedy tokens equal warm and cold; launches "
+          + " ".join(f"{k}={v}" for k, v in counts.items()), flush=True)
+    return counts
+
+
+def recurrent_layers(cfg, sp, dev: str, prompts):
+    """``cfg`` cut to SSM_CHECK_LAYERS layers (its stacked segments sliced,
+    its tails kept), f32, on ``dev``: two slots extend ``prompts`` in
+    SSM_CHECK_CHUNK-column chunks, then three greedy decode steps. Returns
+    (the logits of every call, the decode steps' greedy tokens)."""
+    import torch
+
+    from repro_torch.configs import build_model
+    from repro_torch.nn import module as mod
+    from repro_torch.nn.context import SERVE, ModelContext
+
+    cfg2 = dataclasses.replace(cfg, n_layers=SSM_CHECK_LAYERS[cfg.name])
+    model = build_model(cfg2, ModelContext(policy=cfg.tbn, mode=SERVE,
+                                           compute_dtype=torch.float32,
+                                           device=dev))
+    params = dict(sp)
+    for i, seg in enumerate(model.segments):
+        leaves = sp[f"seg{i}"]
+        params[f"seg{i}"] = (mod.map_tree(lambda v, n=seg.n: v[:n], leaves)
+                             if seg.scanned else leaves)
+    params = mod.map_tree(lambda v: v.to(dev), params)
+    caches = model.init_caches(2, WRAP_MAX_LEN, torch.float32)
+    lengths = torch.zeros(2, dtype=torch.int32, device=dev)
+    logits, toks = [], []
+    c = SSM_CHECK_CHUNK
+    with torch.no_grad():
+        for at in range(0, max(len(p) for p in prompts), c):
+            block = torch.zeros((2, c), dtype=torch.long)
+            n_new = torch.zeros(2, dtype=torch.int32)
+            for s, p in enumerate(prompts):
+                seg = torch.from_numpy(p[at:at + c])
+                block[s, :len(seg)] = seg
+                n_new[s] = len(seg)
+            lg, caches, lengths = model.extend(params, block.to(dev), caches,
+                                               lengths, n_new.to(dev))
+            logits.append(lg.cpu()[n_new > 0])
+        tok = lg.argmax(-1)[:, None]
+        for _ in range(3):
+            lg, caches, lengths = model.decode_step(params, tok, caches, lengths)
+            logits.append(lg.cpu())
+            tok = lg.argmax(-1)[:, None]
+            toks.append(tok.cpu())
+    return logits, torch.cat(toks, 1)
+
+
+def phase_recurrent_card_vs_cpu(cfg, sp, lens):
+    """Phase 4j: ``cfg`` at full width, f32, card (kernels) against CPU
+    (plain versions): logits of every extend and decode call at rtol = atol
+    = 1e-4, the greedy decode tokens equal."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in lens]
+    (lg_card, tok_card), (lg_cpu, tok_cpu) = (
+        recurrent_layers(cfg, sp, dev, prompts) for dev in ("cuda", "cpu"))
+    errs = [float((a - b).abs().max()) for a, b in zip(lg_card, lg_cpu)]
+    for i, (a, b) in enumerate(zip(lg_card, lg_cpu)):
+        if not torch.isfinite(a).all() or not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
+            fail(f"{cfg.name} card vs CPU: call {i} logits differ, max|diff| "
+                 f"{errs[i]:.3e}")
+    if not torch.equal(tok_card, tok_cpu):
+        fail(f"{cfg.name} card vs CPU: greedy tokens {tok_card.tolist()} vs "
+             f"{tok_cpu.tolist()}")
+    print(f"model card vs CPU [{cfg.name} float, L={SSM_CHECK_LAYERS[cfg.name]}, "
+          f"full width, f32]: prompts {list(lens)} in {SSM_CHECK_CHUNK}-token "
+          f"chunks, then 3 decode steps: logits max|diff| {max(errs):.2e} over "
+          f"{len(errs)} calls (rtol=atol=1e-4), greedy tokens {tok_card.tolist()} "
+          f"equal; {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def b5_per_step(n_layers: int):
@@ -2196,7 +2428,8 @@ def main() -> None:
     phase_card_vs_cpu(cfg, sp)
     del sp
     qwen = get_config(QWEN)
-    sp, counts = phase_serve_paths(qwen, "4b")
+    sp, counts = phase_serve_paths(
+        dataclasses.replace(qwen, n_layers=QWEN_SERVE_LAYERS), "4b")
     phase_qwen_card_vs_cpu(qwen, sp)
     del sp
     for arch in ("minitron-8b", "starcoder2-7b"):
@@ -2209,7 +2442,15 @@ def main() -> None:
     release()
     moe_counts = {k: moe_counts[k] + v for k, v in phase_serve_family(
         MOONSHOT, "4f", profile_ticks=1).items() if k in moe_counts}
-    for part in (counts, moe_counts):
+    rec_counts = dict.fromkeys(moe_counts, 0)
+    for arch, phase, lens in ((MAMBA, "4h", (600, 200)),
+                              (RECGEMMA, "4i", (WRAP_PROMPT, 300))):
+        sp, part = phase_serve_recurrent(arch, phase)
+        rec_counts = {k: rec_counts[k] + part[k] for k in rec_counts}
+        phase_recurrent_card_vs_cpu(get_config(arch), sp, lens)
+        del sp
+        release()
+    for part in (counts, moe_counts, rec_counts):
         for k, v in part.items():
             launches[k] += v
     gc.collect()

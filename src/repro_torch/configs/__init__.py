@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> ArchConfig.
 
-The dense and MoE families are registered whole; the other arch ids of
-the reference registry raise ``NotImplementedError`` naming the ROADMAP
-item that ports them, as does ``build_model`` for any other family.
+The dense, MoE, SSM and hybrid families are registered whole; the other
+arch ids of the reference registry raise ``NotImplementedError`` naming
+the ROADMAP item that ports them, as does ``build_model`` for any other
+family.
 """
 from __future__ import annotations
 
@@ -18,14 +19,13 @@ _MODULES: Dict[str, str] = {
     "qwen1.5-32b": "repro_torch.configs.qwen1p5_32b",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2p7b",
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 # The reference registry's other arch ids, ported with their families.
-_NOT_PORTED = (
-    "mamba2-370m", "recurrentgemma-2b", "seamless-m4t-large-v2",
-    "chameleon-34b",
-)
-_FAMILY_ITEM = ("ROADMAP.md queue A items 5-6 (the SSM/hybrid and "
-                "encoder-decoder/VLM families)")
+_NOT_PORTED = ("seamless-m4t-large-v2", "chameleon-34b")
+_FAMILY_ITEM = ("ROADMAP.md queue A item 6 (the encoder-decoder and VLM "
+                "families)")
 
 ARCH_IDS: List[str] = list(_MODULES)
 
@@ -41,8 +41,8 @@ def get_config(name: str) -> ArchConfig:
 
 
 def build_model(cfg: ArchConfig, ctx=None):
-    """Instantiate the model for a config; the dense and MoE families build
-    (``DecoderLM`` raises for the others)."""
+    """Instantiate the model for a config; the dense, MoE, SSM and hybrid
+    families build (``DecoderLM`` raises for the others)."""
     from repro_torch.models.lm import DecoderLM
 
     return DecoderLM(cfg, ctx)

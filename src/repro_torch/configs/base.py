@@ -1,11 +1,10 @@
-"""Architecture config schema (port of the dense-family, MoE and training
-fields of ``repro/configs/base.py``). The other families and the fields
-only they read (SSM, hybrid pattern, enc-dec, sharding recipes) come with
-the slices that port those families."""
+"""Architecture config schema (port of the dense, MoE, SSM and hybrid
+fields and the training fields of ``repro/configs/base.py``). The enc-dec
+fields and the sharding recipes come with the slices that port them."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 from repro_torch.core.policy import TBNPolicy, tbn_policy
 
@@ -20,9 +19,19 @@ class MoESpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMSpec:
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    n_groups: int = 1
+    conv_width: int = 4
+    chunk: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # "dense" | "moe" build in this port so far
+    family: str                    # dense | moe | ssm | hybrid build here
     n_layers: int
     d_model: int
     n_heads: int
@@ -31,7 +40,9 @@ class ArchConfig:
     vocab: int
     head_dim: Optional[int] = None
     moe: Optional[MoESpec] = None
-    window: Optional[int] = None   # sliding-window attention (not ported)
+    ssm: Optional[SSMSpec] = None
+    pattern: Tuple[str, ...] = ()  # hybrid block cycle, e.g. ("rec","rec","attn")
+    window: Optional[int] = None   # sliding-window attention size
     qkv_bias: bool = False
     qk_norm: bool = False
     activation: str = "silu"
@@ -51,11 +62,12 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests (the reference's
-        ``reduced()`` for the dense and MoE families)."""
+        ``reduced()`` for the dense, MoE, SSM and hybrid families)."""
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",
-            n_layers=min(self.n_layers, 2),
+            n_layers=min(self.n_layers,
+                         2 if not self.pattern else len(self.pattern)),
             d_model=min(self.d_model, 64),
             n_heads=min(self.n_heads, 4),
             n_kv=min(self.n_kv, 2),
@@ -71,6 +83,9 @@ class ArchConfig:
                 n_shared=min(self.moe.n_shared, 1),
                 d_ff_expert=min(self.moe.d_ff_expert or 64, 64),
             ),
+            ssm=None
+            if self.ssm is None
+            else dataclasses.replace(self.ssm, d_state=16, head_dim=16, chunk=8),
             window=None if self.window is None else min(self.window, 8),
             tbn=dataclasses.replace(self.tbn, min_size=1024),
             attn_chunk=64,

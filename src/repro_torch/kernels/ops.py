@@ -98,9 +98,11 @@ def _dense_unique_local(xm: torch.Tensor, packed_rows: torch.Tensor,
     MATVEC_MAX_M takes the integer path when ``compute_path`` asks for one,
     else B1; larger m takes B2. For the float kernels x is padded with zero
     columns to words*32 (pad bits unpack to -1 but only ever meet those
-    zero columns)."""
+    zero columns). The kernels take contiguous rows, whatever strides x
+    came with (an einsum's output may be transposed)."""
     if compute_path != "float" and xm.shape[0] <= MATVEC_MAX_M:
-        return _dense_unique_int_local(xm, packed_rows, compute_path)
+        return _dense_unique_int_local(xm.contiguous(), packed_rows,
+                                       compute_path)
     words = packed_rows.shape[1]
     pad = words * LANE_BITS - xm.shape[1]
     xp = F.pad(xm, (0, pad)) if pad else xm.contiguous()

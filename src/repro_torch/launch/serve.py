@@ -12,9 +12,12 @@ and without ``--device cpu`` the CLI raises). ``--compute-path xnor`` or
 extend ticks are captured as CUDA graphs and replayed from then on (on the
 CPU: one eager run of each, no graph).
 
-``--arch`` takes any dense-family id: granite-8b, minitron-8b,
-starcoder2-7b, qwen1.5-32b (int8 KV cache); ``--reduced`` serves its tiny
-same-family config.
+``--arch`` takes every id the port registers: the dense family
+(granite-8b, minitron-8b, starcoder2-7b, qwen1.5-32b with its int8 KV
+cache), the MoE family (qwen2-moe-a2.7b, moonshot-v1-16b-a3b), the SSM
+family (mamba2-370m) and the hybrid family (recurrentgemma-2b); a model
+without full attention gets no page pool, and ``--aot`` then captures the
+slot reset too. ``--reduced`` serves its tiny same-family config.
 
 Flow: build the TRAIN masters on the device one leaf at a time, export
 each to the SERVE form (packed tile rows + alpha) and free it, stand up

@@ -11,7 +11,9 @@ checkpoint) and the straggler watchdog. It runs on the GPU; ``--device
 cpu`` runs on the host instead (without a card and without it, the CLI
 raises). Tiled layers train through the materialized effective weight;
 the fused path through kernel B5 is ``ModelContext(fused_train=True)``,
-which ``chip_smoke.py`` drives.
+which ``chip_smoke.py`` drives. ``--arch`` takes every registered id;
+the SSM and hybrid families (mamba2-370m, recurrentgemma-2b) are trained
+here at ``--reduced`` size on the host, not yet on the card.
 """
 from __future__ import annotations
 

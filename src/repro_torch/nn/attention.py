@@ -1,11 +1,14 @@
-"""Multi-head attention: GQA, RoPE, the training call (full or
-query-chunked) and the paged KV pool of serving, in the compute dtype or
-as int8 codes with per-token, per-head f32 scales (port of the causal
-self-attention half of ``repro/nn/attention.py``).
+"""Multi-head attention: GQA, RoPE, sliding windows, the training call
+(full or query-chunked), the monolithic prefill, and the serving caches:
+the paged KV pool, in the compute dtype or as int8 codes with per-token,
+per-head f32 scales, and the dense per-slot cache a monolithic prefill
+hands to ``decode_step`` (port of the causal self-attention half of
+``repro/nn/attention.py``). The windowed ring cache of serving lives in
+``models/lm.py``, as in the reference.
 
 The softmax core is written in plain torch ops, as the reference writes it
-in jnp, so the parity tests compare like with like. The dense (unpaged)
-cache, sliding windows and cross attention wait for later slices.
+in jnp, so the parity tests compare like with like. Cross attention waits
+for a later slice.
 
 Paged pool layout: a cache leaf is ``(n_pages + 1, page_tokens, K, hd)``
 (an int8 cache adds the scale pools ``ks`` / ``vs``, ``(n_pages + 1,
@@ -125,6 +128,7 @@ class Attention:
     rope: bool = True
     rope_theta: float = 10_000.0
     q_chunk: int = 1024                 # chunked training path query block
+    window: Optional[int] = None        # sliding-window size (recurrentgemma)
 
     def __post_init__(self):
         self.hd = self.head_dim or self.d_model // self.n_heads
@@ -183,7 +187,8 @@ class Attention:
             out = self._chunked(q, k, v, positions, scale)
         else:
             out = _attend_core(self._group(q), k, v,
-                               make_mask(positions, positions), scale)
+                               make_mask(positions, positions,
+                                         window=self.window), scale)
         return self.wo(params["wo"], out.reshape(b, s, self.n_heads * self.hd))
 
     def _chunked(self, q, k, v, positions, scale):
@@ -197,12 +202,54 @@ class Attention:
         qg = self._group(q)
 
         def step(qi, qpi):
-            return _attend_core(qi, k, v, make_mask(qpi, positions), scale)
+            return _attend_core(qi, k, v, make_mask(qpi, positions,
+                                                    window=self.window), scale)
 
         return torch.cat([
             checkpoint(step, qg[:, i:i + c], positions[:, i:i + c],
                        use_reentrant=False)
             for i in range(0, s, c)], dim=1)
+
+    def prefill(self, params: dict, x: torch.Tensor,
+                positions: Optional[torch.Tensor] = None):
+        """Forward over the whole prompt -> (y, (k, v)), k and v (B, S, K,
+        hd) being the cache content."""
+        b, s, _ = x.shape
+        if positions is None:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+        q, k, v = self._qkv(params, x, positions)
+        scale = 1.0 / math.sqrt(self.hd)
+        if s >= 4 * self.q_chunk:
+            out = self._chunked(q, k, v, positions, scale)
+        else:
+            out = _attend_core(self._group(q), k, v,
+                               make_mask(positions, positions,
+                                         window=self.window), scale)
+        y = self.wo(params["wo"], out.reshape(b, s, self.n_heads * self.hd))
+        return y, (k, v)
+
+    def _decode_dense(self, params, q, cache, lengths, rows):
+        """Dense per-slot cache: write each slot's new ``rows`` at
+        ``lengths`` into a copy of every leaf of ``cache`` ((B, T, ...)),
+        then attend over it. Returns (y, the new cache)."""
+        b = q.shape[0]
+        idx = torch.arange(b, device=q.device)
+        new = {}
+        for name, leaf in cache.items():
+            leaf = leaf.clone()
+            leaf[idx, lengths.long()] = rows[name].to(leaf.dtype)
+            new[name] = leaf
+        t = new["k"].shape[1]
+        k_pos = torch.arange(t, device=q.device).expand(b, t)
+        mask = make_mask(lengths[:, None], k_pos, causal=True,
+                         window=self.window, k_valid=k_pos <= lengths[:, None])
+        if "ks" in new:
+            views = [new[n] for n in ("k", "v", "ks", "vs")]
+            return self._attend_quant(params, q, views, mask,
+                                      self.ctx.compute_dtype), new
+        out = _attend_core(self._group(q), new["k"], new["v"], mask,
+                           1.0 / math.sqrt(self.hd))
+        return self.wo(params["wo"], out.reshape(b, 1, self.n_heads * self.hd)), new
 
     def _attend_paged(self, params, q, cache_k, cache_v, page_table, positions,
                       k_valid=None):
@@ -211,22 +258,30 @@ class Attention:
         b, s = q.shape[:2]
         t = view_k.shape[1]
         k_pos = torch.arange(t, device=q.device).expand(b, t)
-        mask = make_mask(positions, k_pos, causal=True, k_valid=k_valid)
+        mask = make_mask(positions, k_pos, causal=True, window=self.window,
+                         k_valid=k_valid)
         out = _attend_core(self._group(q), view_k, view_v, mask,
                            1.0 / math.sqrt(self.hd))
         return self.wo(params["wo"], out.reshape(b, s, self.n_heads * self.hd))
 
     def decode_step(self, params: dict, x: torch.Tensor, cache_k: torch.Tensor,
                     cache_v: torch.Tensor, lengths: torch.Tensor,
-                    page_table: torch.Tensor,
+                    page_table: Optional[torch.Tensor],
                     active: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """One-token step: x (B, 1, d) at position ``lengths``; the new K/V
         row scatters through the table (inactive slots drop their write)
-        and the attend runs over the gathered per-slot view."""
+        and the attend runs over the gathered per-slot view. With
+        ``page_table`` None the caches are dense (B, T, K, hd) slot rows (a
+        monolithic prefill's): every slot writes its row into new tensors,
+        which are returned."""
         b = x.shape[0]
         positions = lengths[:, None]
         q, k, v = self._qkv(params, x, positions)
+        if page_table is None:
+            y, new = self._decode_dense(params, q, {"k": cache_k, "v": cache_v},
+                                        lengths, {"k": k[:, 0], "v": v[:, 0]})
+            return y, new["k"], new["v"]
         ok = (torch.ones((b,), dtype=torch.bool, device=x.device)
               if active is None else active)[:, None]
         scatter_pages(cache_k, page_table, positions, k, ok)
@@ -291,23 +346,31 @@ class Attention:
         views = self._write_quant(cache, page_table, positions, k, v, valid)
         b, t = x.shape[0], views[0].shape[1]
         k_pos = torch.arange(t, device=x.device).expand(b, t)
-        mask = make_mask(positions, k_pos, causal=True)
+        mask = make_mask(positions, k_pos, causal=True, window=self.window)
         return self._attend_quant(params, q, views, mask, v.dtype), cache
 
     def decode_step_quant(self, params: dict, x: torch.Tensor, cache: dict,
-                          lengths: torch.Tensor, page_table: torch.Tensor,
+                          lengths: torch.Tensor,
+                          page_table: Optional[torch.Tensor],
                           active: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, dict]:
         """One-token step against the int8 pool: only the new token's row is
-        quantized; inactive slots drop their write."""
+        quantized; inactive slots drop their write. With ``page_table`` None
+        the codes and scales are dense (B, T, ...) slot rows, as in
+        ``decode_step``."""
         b = x.shape[0]
         positions = lengths[:, None]
         q, k, v = self._qkv(params, x, positions)
+        if page_table is None:
+            kq, ks = quantize_kv(k[:, 0])
+            vq, vs = quantize_kv(v[:, 0])
+            return self._decode_dense(params, q, cache, lengths,
+                                      {"k": kq, "v": vq, "ks": ks, "vs": vs})
         ok = (torch.ones((b,), dtype=torch.bool, device=x.device)
               if active is None else active)[:, None]
         views = self._write_quant(cache, page_table, positions, k, v, ok)
         t = views[0].shape[1]
         k_pos = torch.arange(t, device=x.device).expand(b, t)
-        mask = make_mask(positions, k_pos, causal=True,
+        mask = make_mask(positions, k_pos, causal=True, window=self.window,
                          k_valid=k_pos <= lengths[:, None])
         return self._attend_quant(params, q, views, mask, v.dtype), cache

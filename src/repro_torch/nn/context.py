@@ -3,6 +3,7 @@
 dispatch follows the tensor's device."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -41,3 +42,15 @@ class ModelContext:
 
     def note(self, name, shape, *, kind, spec, macs=0):
         self.ledger.note(name, shape, kind=kind, spec=spec, macs=macs)
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """f32 products in full f32: TF32 off for the duration (the reference's
+    f32 dots run at full precision)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

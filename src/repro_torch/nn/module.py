@@ -40,6 +40,11 @@ def normal(stddev: float = 0.02) -> Initializer:
         shape, generator=gen, dtype=dtype, device=device)
 
 
+def constant_init(v: float) -> Initializer:
+    return lambda gen, shape, dtype, device: torch.full(shape, v, dtype=dtype,
+                                                        device=device)
+
+
 def zeros_init() -> Initializer:
     return lambda gen, shape, dtype, device: torch.zeros(shape, dtype=dtype,
                                                          device=device)
@@ -89,6 +94,22 @@ def map_tree(fn, tree):
     if isinstance(tree, dict):
         return {k: map_tree(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+# Per-slot state slicing, shared by every serving cache family that keeps a
+# slot axis (SSM / RG-LRU carries, windowed-attention rings): one slot's
+# rows as a standalone tree, and its inverse. ``axis`` is the slot axis (1
+# in a layer-stacked segment). ``slot`` is an int or a 0-d index tensor.
+def slice_slot_rows(tree, slot, axis: int = 0):
+    return map_tree(lambda v: v.select(axis, slot).clone(), tree)
+
+
+def set_slot_rows(tree, slot, rows, axis: int = 0):
+    """Write ``rows`` (a tree of ``tree``'s keys) into the slot's rows of
+    ``tree`` in place; returns ``tree``."""
+    for path, v in walk(tree):
+        v.select(axis, slot).copy_(get_path(rows, path))
+    return tree
 
 
 def _path_seed(seed: int, path: Tuple[str, ...]) -> int:

@@ -27,7 +27,6 @@ an ``MLP`` of tiled ``Dense`` layers (kernels B1-B4 on the card).
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Optional, Tuple
@@ -43,20 +42,9 @@ from repro_torch.core.tiling import (
     tiled_weight_rows,
 )
 from repro_torch.nn import module as mod
-from repro_torch.nn.context import SERVE, ModelContext
+from repro_torch.nn.context import SERVE, ModelContext, full_f32_matmul
 from repro_torch.nn.ffn import ACTIVATIONS, MLP
 from repro_torch.nn.linear import bwnn_weight
-
-
-@contextlib.contextmanager
-def _full_f32_matmul():
-    """The router's f32 product in full f32: TF32 off for its duration."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def top_k_lower_first(probs: torch.Tensor, k: int
@@ -188,7 +176,7 @@ class MoE:
     def _route(self, router: torch.Tensor, xg: torch.Tensor):
         """f32 router over the last axis of xg (..., d) -> (probs (..., E),
         gates (..., k) renormalised to sum 1, expert ids (..., k))."""
-        with _full_f32_matmul():
+        with full_f32_matmul():
             logits = xg.float() @ router.T
         probs = torch.softmax(logits, dim=-1)
         gate_vals, top_idx = top_k_lower_first(probs, self.top_k)

@@ -2,10 +2,14 @@
 prefill fused into the decode tick (port of the core tick of
 ``repro/serve/engine.py``).
 
-* ``n_slots`` sequences share a paged K/V pool: in the compute dtype, or
-  int8 codes with per-token, per-head f32 scales where the config's
-  ``kv_dtype`` is "int8" (the model's ``init_caches`` decides; the engine
-  only carries the pools). A request moves from
+* ``n_slots`` sequences share a paged K/V pool when the model has full
+  attention: in the compute dtype, or int8 codes with per-token, per-head
+  f32 scales where the config's ``kv_dtype`` is "int8" (the model's
+  ``init_caches`` decides; the engine only carries the pools). The other
+  cache families are per slot (SSM and RG-LRU carries, sliding-window
+  rings): a model with no full attention (mamba2-370m, recurrentgemma-2b)
+  gets no pool and no pages at all, and admission zeroes the slot's
+  per-slot rows (``reset_slot``). A request moves from
   PREFILL (its prompt streamed into the caches ``chunk_tokens`` columns at
   a time by one fixed-shape ``(n_slots, chunk_tokens)`` ``model.extend``)
   to DECODE (one token per tick through the ``(n_slots, 1)`` decode step).
@@ -20,9 +24,11 @@ prefill fused into the decode tick (port of the core tick of
   the per-slot new-token counts, the active mask). Logits stay on the
   device; only the sampled token ids come back.
 * Each tick is a function over static tensors (``_decode_tick``,
-  ``_extend_tick``) that writes the pools and ``lengths`` in place; the host
-  side (pages, the schedule, sampling, emitting and retiring) stays eager.
-  ``warmup()`` captures both as CUDA graphs (``serve/graphs.py``), the
+  ``_extend_tick``, and ``_reset_slot`` for a model with per-slot caches)
+  that writes the caches and ``lengths`` in place; the host side (pages,
+  the schedule, sampling, emitting and retiring) stays eager. A decode
+  tick leaves every inactive slot's per-slot rows bit-identical.
+  ``warmup()`` captures each as a CUDA graph (``serve/graphs.py``), the
   counterpart of the reference's AOT-compiled tick executables; every
   later tick replays its graph. Sampling runs eagerly on the replayed
   logits: it seeds a ``torch.Generator`` per stochastic row from host
@@ -57,14 +63,18 @@ TRACE_COUNTS: "collections.Counter[str]" = collections.Counter()
 
 
 def _check_in_place(caches: list, returned: list, what: str) -> None:
-    """The paged pools are written in place (nn/attention.scatter_pages):
-    a model must hand back the very tensors the engine holds, which its
-    captured graphs read and write."""
+    """Every cache is written in place (the pools by nn/attention.
+    scatter_pages, the per-slot leaves by the model's layer walk): a model
+    must hand back the very tensors the engine holds, which its captured
+    graphs read and write. Walks nested (pattern) caches."""
     for held, got in zip(caches, returned, strict=True):
-        if any(got[k] is not v for k, v in held.items()):
-            raise RuntimeError(f"{what}: the model returned new K/V pool "
-                               f"tensors; the engine's pools must be "
-                               f"written in place")
+        got_leaves = dict(mod.walk(got))
+        for path, v in mod.walk(held):
+            if got_leaves.get(path) is not v:
+                raise RuntimeError(f"{what}: the model returned a new "
+                                   f"{'/'.join(path)} cache tensor; the "
+                                   f"engine's caches must be written in "
+                                   f"place")
 
 
 @dataclasses.dataclass
@@ -134,12 +144,17 @@ class BatchedEngine:
         self.pt = cfg.page_tokens
         self.npp = cfg.max_len // self.pt
         n_pages = cfg.n_slots * self.npp
-        self.pool = KVPool(n_pages, self.pt)
+        # a page pool only for full attention (reference engine)
+        self.pool = KVPool(n_pages, self.pt) if model.has_full_attn else None
         self._ptab = np.zeros((cfg.n_slots, self.npp), np.int32)
         self._n_mapped = np.zeros((cfg.n_slots,), np.int64)
-        # float pools take the model's compute dtype (reference engine); an
-        # int8 KV config allocates int8 codes and f32 scales whatever it is
-        self.caches = model.init_caches(n_pages, self.pt, model.ctx.compute_dtype)
+        # float pools and rings take the model's compute dtype (reference
+        # engine); an int8 KV config allocates int8 codes and f32 scales
+        # whatever it is, and recurrent carries are f32
+        self.caches = model.init_caches(cfg.n_slots, cfg.max_len,
+                                        model.ctx.compute_dtype,
+                                        page_tokens=self.pt, n_pages=n_pages)
+        self._stateful = model.has_recurrent_state
         self.lengths = torch.zeros((cfg.n_slots,), dtype=torch.int32,
                                    device=self.device)
         self.tokens = torch.zeros((cfg.n_slots, 1), dtype=torch.int64,
@@ -153,6 +168,9 @@ class BatchedEngine:
                                     dtype=torch.int64, device=self.device)
         self._n_new_t = torch.zeros((cfg.n_slots,), dtype=torch.int32,
                                     device=self.device)
+        # the slot that reset_slot zeroes; n_slots (no slot) outside a reset
+        self._slot_t = torch.full((), cfg.n_slots, dtype=torch.int64,
+                                  device=self.device)
         self._graphs: Dict[str, TickGraph] = {}
         self._warm_s: Dict[str, float] = {}
         # per-slot sampling state, host side
@@ -193,8 +211,10 @@ class BatchedEngine:
         self._stats["prompt_tokens"] += len(req.prompt)
         self._offsets[slot] = 0
         self.lengths[slot] = 0
-        _check_in_place(self.caches, self.model.reset_slot_caches(
-            self.caches, slot, paged=True), "reset_slot")
+        if self._stateful:
+            # the paged pools need no device work at admission
+            self._slot_t.fill_(slot)
+            self._tick("reset_slot")
         res = req.params.resolve(self.cfg.temperature, self.cfg.top_k)
         self._temps[slot] = res.temperature
         self._topks[slot] = res.top_k
@@ -223,8 +243,9 @@ class BatchedEngine:
         return True
 
     def _release_slot(self, slot: int):
-        for i in range(int(self._n_mapped[slot])):
-            self.pool.release(int(self._ptab[slot, i]))
+        if self.pool is not None:
+            for i in range(int(self._n_mapped[slot])):
+                self.pool.release(int(self._ptab[slot, i]))
         self._n_mapped[slot] = 0
         self._live.pop(slot, None)
         self._free.append(slot)
@@ -247,7 +268,10 @@ class BatchedEngine:
 
     def _ensure_pages(self, slot: int, last_pos: int):
         """Grow the slot's page table to cover ``last_pos``; positions past
-        the table's reach are dropped by the scatter."""
+        the table's reach are dropped by the scatter. A model without a
+        pool maps no pages."""
+        if self.pool is None:
+            return
         need = min(last_pos // self.pt, self.npp - 1)
         while self._n_mapped[slot] <= need:
             self._ptab[slot, self._n_mapped[slot]] = self._alloc_page()
@@ -313,19 +337,32 @@ class BatchedEngine:
         self.lengths.copy_(lengths)
         return logits
 
+    def _reset_slot(self) -> None:
+        """Zero the per-slot cache rows of slot ``_slot_t`` (recurrent
+        carries must restart from zeros; rings are cleared too); the paged
+        pools are left alone. A slot index of n_slots zeroes nothing."""
+        TRACE_COUNTS["reset_slot"] += 1
+        _check_in_place(self.caches, self.model.reset_slot_caches(
+            self.caches, self._slot_t, paged=True), "reset_slot")
+
     def _entry_points(self):
         """name -> (tick function, the static tensors it reads or writes
-        besides the params)."""
-        pools = {f"caches[{i}].{k}": v for i, c in enumerate(self.caches)
-                 for k, v in c.items()}
-        return {
+        besides the params). ``reset_slot`` only for a model with per-slot
+        caches."""
+        caches = {f"caches[{i}].{'.'.join(p)}": v
+                  for i, c in enumerate(self.caches) for p, v in mod.walk(c)}
+        points = {
             "decode_tick": (self._decode_tick, {
                 "tokens": self.tokens, "lengths": self.lengths,
-                "ptab": self._ptab_t, "active": self._active_t, **pools}),
+                "ptab": self._ptab_t, "active": self._active_t, **caches}),
             "extend_tick": (self._extend_tick, {
                 "block": self._block_t, "lengths": self.lengths,
-                "n_new": self._n_new_t, "ptab": self._ptab_t, **pools}),
+                "n_new": self._n_new_t, "ptab": self._ptab_t, **caches}),
         }
+        if self._stateful:
+            points["reset_slot"] = (self._reset_slot,
+                                    {"slot": self._slot_t, **caches})
+        return points
 
     def _tick(self, name: str) -> torch.Tensor:
         graph = self._graphs.get(name)
@@ -334,15 +371,17 @@ class BatchedEngine:
         return getattr(self, f"_{name}")()
 
     def warmup(self) -> Dict[str, float]:
-        """Capture the decode tick and the extend tick for this engine's
-        shapes (a CUDA graph each, sharing one memory pool; on the CPU one
-        eager run each, no graph), so that serving replays them. Returns
-        the seconds per entry point, warm-up runs included.
+        """Capture the decode tick, the extend tick and, for a model with
+        per-slot caches, the slot reset, for this engine's shapes (a CUDA
+        graph each, sharing one memory pool; on the CPU one eager run each,
+        no graph), so that serving replays them. Returns the seconds per
+        entry point, warm-up runs included.
 
         The warm-up runs and the capture see every per-tick input zeroed:
-        no slot active, no new tokens. Every pool write then lands on the
-        scratch page and ``lengths`` and ``tokens`` stay as they were, so a
-        mid-flight warmup changes no request. A second call is a no-op that
+        no slot active, no new tokens, no slot to reset. Every pool write
+        then lands on the scratch page, every per-slot row keeps its value,
+        and ``lengths`` and ``tokens`` stay as they were, so a mid-flight
+        warmup changes no request. A second call is a no-op that
         returns the first call's seconds. Raises ``RuntimeError`` naming
         the entry point and its buffers' shapes if a run or a capture
         fails; the engine then stays cold (no quiet half warmup)."""
@@ -352,6 +391,7 @@ class BatchedEngine:
         self._active_t.zero_()
         self._block_t.zero_()
         self._n_new_t.zero_()
+        self._slot_t.fill_(self.cfg.n_slots)
         pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
                 else None)
         graphs, timings = {}, {}
@@ -448,8 +488,8 @@ class BatchedEngine:
         work)."""
         s = dict(self._stats)
         s["ticks"] = self.steps
-        s["pool_pages"] = self.pool.n_pages
-        s["pages_in_use"] = self.pool.used_pages
+        s["pool_pages"] = self.pool.n_pages if self.pool is not None else 0
+        s["pages_in_use"] = self.pool.used_pages if self.pool is not None else 0
         s["compute_path"] = self.cfg.compute_path
         s["aot_warm"] = self.aot_warm
         for phase in ("extend", "decode"):

@@ -1,7 +1,8 @@
 """Kernels B1-B6 on the card against their plain PyTorch versions, the
-paths around them card against CPU (the MoE serve layer among them), and
-the engine's ticks replayed from CUDA graphs (``BatchedEngine.warmup``)
-against its eager ticks, dense and MoE.
+paths around them card against CPU (the MoE serve layer, the SSM and
+RG-LRU steps and the sliding-window ring among them), and the engine's
+ticks replayed from CUDA graphs (``BatchedEngine.warmup``) against its
+eager ticks, for the dense, MoE, SSM and hybrid families.
 
 Imports neither jax nor the JAX package, so it runs on the GPU machine:
 
@@ -249,6 +250,13 @@ DENSE_FAMILY = ((5120, 640), (5120, 3424), (27392, 640), (5120, 19008),
                 (4608, 6144), (4096, 2048), (16384, 512), (4096, 32000))
 
 
+# the (K, r) of mamba2-370m and recurrentgemma-2b
+# (tests/test_torch_matvec_plan.py); r = 1096 and 12570 are not multiples
+# of 16
+SSM_HYBRID = ((1024, 1096), (2048, 256), (1024, 12570), (2560, 320),
+              (2560, 32), (2560, 960), (7680, 320), (2560, 32000))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4"])
 @pytest.mark.parametrize("k,r", DENSE_FAMILY)
@@ -256,6 +264,18 @@ def test_dense_family_shapes_match_plain(cuda_device, kernel, k, r):
     """The planners' picks at the new (K, r) of the dense family against the
     plain version: B1 (bf16 and f32) at m in {1, 4, 32} and B2 at m in {33,
     128} within RTOL, B3 / B4 at m in {1, 4, 32} exactly."""
+    _check_picks_against_plain(cuda_device, kernel, k, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B1", "B2", "B3", "B4"])
+@pytest.mark.parametrize("k,r", SSM_HYBRID)
+def test_ssm_hybrid_shapes_match_plain(cuda_device, kernel, k, r):
+    """The same at the (K, r) of mamba2-370m and recurrentgemma-2b."""
+    _check_picks_against_plain(cuda_device, kernel, k, r)
+
+
+def _check_picks_against_plain(cuda_device, kernel, k, r):
     if kernel in ("B1", "B2"):
         fn, plain = ((tiled_matvec_unique, tiled_matvec_plain) if kernel == "B1"
                      else (tiled_matmul_unique, tiled_matmul_plain))
@@ -706,3 +726,152 @@ def test_moe_decode_tick_launch_counts(cuda_device, arch, path):
     assert eng.stats()["decode_ticks"] == 1 and eng.stats()["extend_ticks"] == 1
     assert moved[own] == (4 + 3) * cfg.n_layers + 1
     assert all(v == 0 for fn, v in moved.items() if fn is not own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["float", "xnor", "int8"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-2b"])
+def test_ssm_hybrid_warm_engine_replays_cold_tokens_on_card(cuda_device, arch, path):
+    """The SSM and hybrid families in bf16 on the card, cold and then warm
+    (decode tick, extend tick and slot reset replayed from CUDA graphs):
+    no page pool; equal greedy tokens, token steps and ticks (prompts of up
+    to 19 tokens wrap recurrentgemma's reduced 8-token window); the warm
+    drain moves no launch counter and no TRACE_COUNTS, reset_slot
+    included."""
+    import numpy as np
+
+    from repro_torch.serve.engine import TRACE_COUNTS
+    from repro_torch.serve.sampling import SamplingParams
+
+    cfg, model, sp = _reduced_serving(arch, path)
+    wrappers = (tiled_matvec_unique, tiled_matmul_unique,
+                x8.tiled_xnor_matvec_unique, x8.tiled_int8_matvec_unique)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (5, 11, 19, 3)]
+    runs = []
+    for warm in (False, True):
+        eng = _warm_engine_case(model, sp, path)
+        assert eng.pool is None
+        if warm:
+            assert set(eng.warmup()) == {"decode_tick", "extend_tick", "reset_slot"}
+        launches = [fn.launches for fn in wrappers]
+        traces = TRACE_COUNTS.copy()
+        reqs = [eng.submit(p, SamplingParams(max_tokens=6)) for p in prompts]
+        ticks = eng.run_until_drained()
+        moved = [fn.launches - n for fn, n in zip(wrappers, launches)]
+        if warm:
+            assert moved == [0] * len(wrappers) and TRACE_COUNTS == traces
+        else:
+            assert sum(moved) > 0 and TRACE_COUNTS["reset_slot"] > traces["reset_slot"]
+        runs.append(([r.output for r in reqs], [r.token_steps for r in reqs], ticks))
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["float", "xnor", "int8"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-2b"])
+def test_ssm_hybrid_decode_tick_launch_counts(cuda_device, arch, path):
+    """One 2-slot decode tick launches the path's decode kernel once per
+    tiled projection of every layer and the LM head, and no other kernel."""
+    import numpy as np
+
+    from repro_torch.nn import module as mod
+    from repro_torch.serve.sampling import SamplingParams
+
+    cfg, model, sp = _reduced_serving(arch, path)
+    n_tiled = sum(v.shape[0] if v.ndim == 3 else 1
+                  for p, v in mod.walk(sp) if p[-1] == "tile")
+    eng = _warm_engine_case(model, sp, path)
+    for n in (3, 5):
+        eng.submit(np.arange(n), SamplingParams(max_tokens=4))
+    eng.step()                                   # the extend tick
+    own = {"float": tiled_matvec_unique, "xnor": x8.tiled_xnor_matvec_unique,
+           "int8": x8.tiled_int8_matvec_unique}[path]
+    wrappers = (tiled_matvec_unique, tiled_matmul_unique,
+                x8.tiled_xnor_matvec_unique, x8.tiled_int8_matvec_unique)
+    before = [fn.launches for fn in wrappers]
+    eng.step()                                   # one decode-only tick
+    torch.cuda.synchronize()
+    moved = {fn: fn.launches - n for fn, n in zip(wrappers, before)}
+    assert moved[own] == n_tiled
+    assert all(v == 0 for fn, v in moved.items() if fn is not own)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-2b"])
+def test_ssm_hybrid_model_on_card_matches_cpu(cuda_device, arch):
+    """The reduced SERVE model in f32, card against CPU on one export: two
+    slots stream 20- and 13-token prompts in chunks of 7 (recurrentgemma's
+    8-token ring wraps), then three decode steps; logits and every cache
+    leaf (carries, conv tails, ring rows) within 1e-4."""
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.nn import module as mod
+    from repro_torch.nn.context import SERVE, ModelContext
+    from repro_torch.launch.serve import build_serving
+
+    cfg = get_config(arch).reduced()
+    _, sp, _ = build_serving(cfg, device="cpu", seed=0,
+                             compute_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen) for n in (20, 13)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, ModelContext(policy=cfg.tbn, mode=SERVE,
+                                              compute_dtype=torch.float32,
+                                              device=dev))
+        params = mod.map_tree(lambda v: v.to(dev), sp)
+        caches = model.init_caches(2, 32, torch.float32)
+        lengths = torch.zeros(2, dtype=torch.int32, device=dev)
+        logits = []
+        with torch.no_grad():
+            for at in range(0, 20, 7):
+                block = torch.zeros((2, 7), dtype=torch.long)
+                n_new = torch.zeros(2, dtype=torch.int32)
+                for s, p in enumerate(prompts):
+                    seg = p[at:at + 7]
+                    block[s, :len(seg)] = seg
+                    n_new[s] = len(seg)
+                lg, caches, lengths = model.extend(params, block.to(dev), caches,
+                                                   lengths, n_new.to(dev))
+                logits.append(lg[n_new.to(dev) > 0].cpu())
+            tok = torch.tensor([[1], [2]], device=dev)
+            for _ in range(3):
+                lg, caches, lengths = model.decode_step(params, tok, caches, lengths)
+                logits.append(lg.cpu())
+        out[dev] = (logits, [v.cpu() for c in caches for _, v in mod.walk(c)])
+    for got, want in zip(out["cuda"][0] + out["cuda"][1],
+                         out["cpu"][0] + out["cpu"][1]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ssm", "rec"])
+def test_mamba2_and_rglru_steps_on_card_match_cpu(cuda_device, kind):
+    """One f32 mixer (TRAIN-mode weights: no kernel) at recurrentgemma's /
+    mamba2's full widths, card against CPU: ``extend`` over 8 ragged
+    columns from a random carry, then ``decode_step``, outputs and carries
+    within 1e-4."""
+    from repro_torch.nn import module as mod
+    from repro_torch.nn.context import TRAIN, ModelContext
+    from repro_torch.nn.rglru import RGLRUBlock
+    from repro_torch.nn.ssm import Mamba2Block
+
+    d = 1024 if kind == "ssm" else 2560
+    res = {}
+    for dev in ("cuda", "cpu"):
+        gen = torch.Generator().manual_seed(3)
+        ctx = ModelContext(mode=TRAIN, compute_dtype=torch.float32, device=dev)
+        blk = Mamba2Block(d, ctx) if kind == "ssm" else RGLRUBlock(d, ctx)
+        params = mod.init_params(blk.specs(), 0, "cpu")
+        params = mod.map_tree(lambda v: v.to(dev), params)
+        st = mod.map_tree(lambda v: v.to(dev), mod.map_tree(
+            lambda v: 0.1 * torch.randn(v.shape, generator=gen),
+            blk.init_state(3)))
+        u = torch.randn((3, 8, d), generator=gen).to(dev)
+        valid = (torch.arange(8)[None, :] < torch.tensor([8, 5, 0])[:, None]).to(dev)
+        with torch.no_grad():
+            y1, st = blk.extend(params, u, st, valid)
+            y2, st = blk.decode_step(params, u[:, :1], st)
+        res[dev] = [y1.cpu(), y2.cpu()] + [v.cpu() for _, v in mod.walk(st)]
+    for got, want in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -92,7 +92,7 @@ def test_int8_kv_config_builds_int8_pools():
     cfg = get_config("qwen1.5-32b").reduced()
     sm = build_model(cfg, ModelContext(policy=cfg.tbn, mode=SERVE,
                                        compute_dtype=torch.float32, device="cpu"))
-    (cache,) = sm.init_caches(5, 8, torch.float32)
+    (cache,) = sm.init_caches(1, 40, torch.float32, page_tokens=8, n_pages=5)
     hd = cfg.head_dim
     assert {k: (tuple(v.shape), v.dtype) for k, v in cache.items()} == {
         "k": ((2, 6, 8, 2, hd), torch.int8), "v": ((2, 6, 8, 2, hd), torch.int8),
@@ -254,7 +254,7 @@ def test_model_extend_and_decode_match_reference(arch, path):
     ld_j, caches_j, _ = sm_j.decode_step(sp_j, jnp.asarray(nxt), caches_j, len_j,
                                          page_table=jnp.asarray(ptab))
     t = torch.from_numpy
-    caches = sm.init_caches(12, 8, torch.float32)
+    caches = sm.init_caches(2, 48, torch.float32, page_tokens=8, n_pages=12)
     le, caches, lengths = sm.extend(sp, t(tokens).long(), caches,
                                     torch.zeros((2,), dtype=torch.int32),
                                     t(n_new), t(ptab))
@@ -287,7 +287,7 @@ def test_decode_parity_bf16_vs_int8_kv():
     for kvd in ("bf16", "int8"):
         cfg, sm_j, sp_j = _j_serve("granite-8b", 0, kv_dtype=kvd)
         sm, sp = _t_serve("granite-8b", sp_j, kv_dtype=kvd)
-        caches = sm.init_caches(2, 8, torch.float32)
+        caches = sm.init_caches(1, 16, torch.float32, page_tokens=8, n_pages=2)
         ptab = torch.arange(2, dtype=torch.int32)[None]
         logits, caches, lengths = sm.extend(
             sp, torch.tensor([[1, 2, 3, 4]]), caches,

@@ -30,8 +30,14 @@ GRANITE = ((4096, 512), (4096, 128), (4096, 1792), (14336, 512), (4096, 6144))
 DENSE_FAMILY = ((5120, 640), (5120, 3424), (27392, 640), (5120, 19008),
                 (4608, 576), (4608, 64), (4608, 2304), (18432, 576),
                 (4608, 6144), (4096, 2048), (16384, 512), (4096, 32000))
+# the (K, r) of mamba2-370m (p = 4: in_proj, out_proj, lm_head) and of
+# recurrentgemma-2b (p = 8: q/o and the RG-LRU projections, k/v, gate/up,
+# down, lm_head); r = 1096 and 12570 are not multiples of 16
+SSM_HYBRID = ((1024, 1096), (2048, 256), (1024, 12570), (2560, 320),
+              (2560, 32), (2560, 960), (7680, 320), (2560, 32000))
 MATMUL_CASES = ([(m, k, r) for m in (33, 128, 512, 2048) for k, r in GRANITE]
                 + [(m, k, r) for m in (33, 128, 512) for k, r in DENSE_FAMILY]
+                + [(m, k, r) for m in (33, 128, 512) for k, r in SSM_HYBRID]
                 + [(64, 512, 500), (130, 96, 130), (65, 160, 65),
                    (200, 160, 64), (33, 96, 24), (2048, 96, 100), (40, 32, 1),
                    (128, 200 * 32, 24)])

@@ -317,7 +317,7 @@ def test_decode_step_logits_match_reference(path):
     ld_j, _, _ = sm_j.decode_step(sp_j, jnp.asarray(nxt), caches_j, len_j,
                                   page_table=jnp.asarray(ptab))
     t = torch.from_numpy
-    caches = sm.init_caches(12, 8, torch.float32)
+    caches = sm.init_caches(2, 48, torch.float32, page_tokens=8, n_pages=12)
     le, caches, lengths = sm.extend(sp, t(tokens).long(), caches,
                                     torch.zeros((2,), dtype=torch.int32),
                                     t(n_new), t(ptab))

@@ -35,6 +35,11 @@ GRANITE = ((4096, 512), (4096, 128), (4096, 1792), (14336, 512), (4096, 6144))
 DENSE_FAMILY = ((5120, 640), (5120, 3424), (27392, 640), (5120, 19008),
                 (4608, 576), (4608, 64), (4608, 2304), (18432, 576),
                 (4608, 6144), (4096, 2048), (16384, 512), (4096, 32000))
+# the (K, r) of mamba2-370m (p = 4: in_proj, out_proj, lm_head) and of
+# recurrentgemma-2b (p = 8: q/o and the RG-LRU projections, k/v, gate/up,
+# down, lm_head); r = 1096 and 12570 are not multiples of 16
+SSM_HYBRID = ((1024, 1096), (2048, 256), (1024, 12570), (2560, 320),
+              (2560, 32), (2560, 960), (7680, 320), (2560, 32000))
 # the card tests' ragged shapes: odd word counts, one word, r not a
 # multiple of any filter tile
 RAGGED = ((32, 1), (96, 130), (160, 65), (1568, 100), (544, 24), (14336, 48))
@@ -80,7 +85,7 @@ def _check_plan(plan, m, r, words, x_bytes):
 
 
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
-@pytest.mark.parametrize("k,r", GRANITE + DENSE_FAMILY)
+@pytest.mark.parametrize("k,r", GRANITE + DENSE_FAMILY + SSM_HYBRID)
 @pytest.mark.parametrize("m", MS)
 def test_plan_covers_k_fills_the_card_and_fits(kernel, m, k, r):
     plan_of, bodies, cost, x_bytes = KERNELS[kernel]
@@ -103,7 +108,7 @@ def test_every_forced_body_covers_k_and_fits(kernel, m, k, r):
 
 
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
-@pytest.mark.parametrize("k,r", GRANITE + DENSE_FAMILY)
+@pytest.mark.parametrize("k,r", GRANITE + DENSE_FAMILY + SSM_HYBRID)
 @pytest.mark.parametrize("m", (1, 2, 4, 8, 16, 32))
 def test_plan_is_the_least_modelled_time(kernel, m, k, r):
     """The planner picks the body of least modelled time (the first such

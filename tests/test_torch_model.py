@@ -70,7 +70,8 @@ def test_extend_then_decode_logits_match_reference(n_new):
                                   page_table=jnp.asarray(ptab),
                                   active=jnp.asarray(active))
 
-    caches = sm.init_caches(N_PAGES, PT, torch.float32)
+    caches = sm.init_caches(B, NPP * PT, torch.float32, page_tokens=PT,
+                           n_pages=N_PAGES)
     lengths = torch.zeros((B,), dtype=torch.int32)
     t = torch.from_numpy
     le, caches, lengths = sm.extend(sp, t(tokens).long(), caches, lengths,

@@ -430,7 +430,8 @@ def test_extend_then_decode_logits_match_reference(arch):
     ld_j, _, _ = sm_j.decode_step(sp_j, jnp.asarray(nxt), caches_j, len_j,
                                   page_table=jnp.asarray(ptab))
     t = torch.from_numpy
-    caches = sm.init_caches(n_pages, pt, torch.float32)
+    caches = sm.init_caches(b, npp * pt, torch.float32, page_tokens=pt,
+                           n_pages=n_pages)
     if cfg.moe.first_dense:      # dense0's pool carries no layer axis
         assert caches[0]["k"].ndim == caches[1]["k"].ndim - 1
     with torch.no_grad():

@@ -47,10 +47,10 @@ def test_granite_config_matches_reference(reduced):
 
 
 def test_unported_configs_and_families_raise():
-    with pytest.raises(NotImplementedError, match="items 5-6"):
-        get_config("mamba2-370m")
-    cfg = dataclasses.replace(get_config("granite-8b").reduced(), family="ssm")
-    with pytest.raises(NotImplementedError, match="items 5-6"):
+    with pytest.raises(NotImplementedError, match="item 6"):
+        get_config("seamless-m4t-large-v2")
+    cfg = dataclasses.replace(get_config("granite-8b").reduced(), family="encdec")
+    with pytest.raises(NotImplementedError, match="item 6"):
         build_model(cfg, ModelContext(policy=cfg.tbn, device="cpu"))
 
 

@@ -47,6 +47,11 @@ GRANITE = ((4096, 512), (4096, 128), (4096, 1792), (14336, 512), (4096, 6144))
 DENSE_FAMILY = ((5120, 640), (5120, 3424), (27392, 640), (5120, 19008),
                 (4608, 576), (4608, 64), (4608, 2304), (18432, 576),
                 (4608, 6144), (4096, 2048), (16384, 512), (4096, 32000))
+# the (K, r) of mamba2-370m (p = 4: in_proj, out_proj, lm_head) and of
+# recurrentgemma-2b (p = 8: q/o and the RG-LRU projections, k/v, gate/up,
+# down, lm_head); r = 1096 and 12570 are not multiples of 16
+SSM_HYBRID = ((1024, 1096), (2048, 256), (1024, 12570), (2560, 320),
+              (2560, 32), (2560, 960), (7680, 320), (2560, 32000))
 # odd word counts, one word, words not a multiple of 8, r past every tile
 RAGGED = ((32, 1), (96, 130), (160, 65), (320, 24), (2080, 65), (14336, 48))
 MS = range(1, MATVEC_MAX_M + 1)
@@ -76,7 +81,7 @@ def _check_plan(plan, m, r, words):
     assert not plan.cluster or 1 < plan.splits <= XNOR_CLUSTER
 
 
-@pytest.mark.parametrize("k,r", GRANITE + DENSE_FAMILY)
+@pytest.mark.parametrize("k,r", GRANITE + DENSE_FAMILY + SSM_HYBRID)
 @pytest.mark.parametrize("m", MS)
 def test_plan_covers_k_fits_and_is_the_least_modelled_time(m, k, r):
     words = k // 32
