@@ -38,14 +38,18 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      ``torch.equal`` to the plain version, alpha at rtol 1e-5, timed beside
      the plain version and the bound (no single PyTorch call computes B5);
   2b. the planners' picks of B1-B4 (no body survey) at every (K, r) of
-     qwen1.5-32b, starcoder2-7b, minitron-8b, mamba2-370m and
-     recurrentgemma-2b that granite-8b has not (r = 1096 and 12570 are no
-     multiple of 16, r = 32 is one filter tile): B1 at m in {1, 4, 32} and
-     B2 at m = 128, bf16 and f32, at the same tolerance; B3 / B4 at m in
-     {1, 4, 32}, equal; each timed beside the plain version, the library
-     yardstick and the bound, with the pick; then the totals of
-     qwen1.5-32b (L = 64), mamba2-370m (L = 48) and recurrentgemma-2b (L
-     = 26) per extend tick and per decode tick at m = 4 and m = 32;
+     qwen1.5-32b, starcoder2-7b, minitron-8b, mamba2-370m,
+     recurrentgemma-2b, chameleon-34b and seamless-m4t-large-v2 that
+     granite-8b has not (r = 1096 and 12570 are no multiple of 16, r = 32
+     is one filter tile): B1 at m in {1, 4, 32} and B2 at m = 128 (and at
+     seamless's encode tick's m = 256), bf16 and f32, at the same
+     tolerance; B3 / B4 at m in {1, 4, 32}, equal; each timed beside the
+     plain version, the library yardstick and the bound, with the pick;
+     then the totals of qwen1.5-32b (L = 64), mamba2-370m (L = 48),
+     recurrentgemma-2b (L = 26), chameleon-34b (L = 48) and seamless (24
+     decoder layers; its head launches no kernel) per extend tick and per
+     decode tick at m = 4 and m = 32, head included, and seamless's per
+     encode tick (193 calls at m = 256);
   3. serve granite-8b at its published width through the user entry points
      (masters from a seed -> export -> BatchedEngine): 8 requests, prompts
      of 3-100 tokens, 16 greedy tokens each, 4 slots, 32-token chunks,
@@ -113,9 +117,10 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      with the routed experts' share of it: their rebuild and their
      products timed alone at the tick's shape, and under their kernel
      names in the trace;
-  4f. serve moonshot-v1-16b-a3b at its published width and all 48 layers
-     (a dense first layer, then 64 routed experts top-6 plus 2 shared),
-     int8 K/V cache, built the same way (largest leaf 34.7 GB): float path,
+  4f. serve moonshot-v1-16b-a3b at its published width, cut to
+     MOONSHOT_SERVE_LAYERS = 16 of its 48 layers when phases 4k-4m made
+     the run longer (a dense first layer, then 64 routed experts top-6
+     plus 2 shared), int8 K/V cache, built the same way: float path,
      4 requests of 8 greedy tokens, cold and warm, the same checks, first
      tokens printed, one decode tick traced cold and warm;
   4g. qwen2-moe-a2.7b at full width, 2 layers, f32: one extend and one
@@ -130,7 +135,9 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      (2 L + 1) per decode tick + 1 per extend tick: in_proj and out_proj),
      no page pool, f32 (h, conv) carries; the warmup captures the slot
      reset too (``reset_slot``), and the warm drain must run no eager
-     reset; one 4-slot decode tick traced per path, cold and warm;
+     reset; one 4-slot decode tick traced per path, warm (the cold traces,
+     each behind a cold per-token extend tick, were cut when phases 4k-4m
+     made the run longer);
   4i. serve recurrentgemma-2b at its published width and all 26 layers (8
      cycles of rec, rec, attn, then two rec tails; MQA kv 1, head dim 256,
      a 2048-token window ring), the same runs as 4h (own kernel = (8 rec +
@@ -144,6 +151,32 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      chunks (recurrentgemma: 2100 and 300 tokens, so the ring wraps), then
      three greedy decode steps; logits at rtol = atol = 1e-4 at every call
      and the greedy tokens equal;
+  4k. serve seamless-m4t-large-v2 at its published width and depth (24
+     encoder + 24 decoder layers, d 1024, vocab 256206, p = 4), bf16,
+     built the same way (peak printed, must leave 10% of the card): phase
+     3's 8 requests, each with its own synthetic clip of 40-256 frames, on
+     256-token slots whose encode tick pads to ENC_TOKENS = 256 frames,
+     under "float", "xnor" and "int8" on one export, cold and warm, with
+     the same checks: own kernel = 8 L per decode tick (self q, k, v, o,
+     cross q, o, up, down; the head, vocab 256206 no multiple of p, ships
+     as sign bits rebuilt densely at every call and launches no kernel),
+     B2 = 8 L per extend tick + (1 + 6 L + 2 L) per encode tick, exactly;
+     one encode a request; the warm drain replays the encode tick too
+     (no launch, no TRACE_COUNTS move). The encode ticks and one encode
+     tick's ms cold and warm, and one 4-slot decode tick traced per path
+     with the LM head's share of busy time (timed alone as a CUDA graph:
+     the whole head and the dense rebuild) and one head call's graph pool;
+  4l. serve chameleon-34b at its published width and all
+     CHAMELEON_SERVE_LAYERS = 48 layers (d 8192, GQA 64/8, d_ff 22016,
+     QK-norm, p = 8), bf16, built the same way (peak printed): float path,
+     4 requests of 8 greedy tokens, cold and warm, own kernel = (7 L + 1)
+     per decode tick, first tokens printed, one decode tick traced cold and
+     warm;
+  4m. card against CPU, f32, full width: seamless at 2 + 2 layers on 4k's
+     shipped weights (two slots encode 200 and 57 frames through their
+     cross rows, then one extend and one decode step: logits and the cross
+     pool's rows at rtol = atol = 1e-3); chameleon at 2 layers on 4l's (one
+     extend and one decode step, the QK-norm path, logits at 1e-3);
   5. train granite-8b at published width, 4 layers (n_layers 36 -> 4: the
      masters, gradients and AdamW moments of all 36 do not fit one card),
      through ``launch.train.build_training`` as the CLI wires it but with
@@ -158,7 +191,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      torch.profiler trace of one step;
   6. the training CLI on the card (unfused default path): ``python -m
      repro_torch.launch.train --arch granite-8b --reduced --steps 3`` and
-     the same with ``--arch qwen2-moe-a2.7b`` (the MoE TRAIN dispatch) must
+     the same with ``--arch qwen2-moe-a2.7b`` (the MoE TRAIN dispatch) and
+     ``--arch seamless-m4t-large-v2`` (synthetic frames, the encoder) must
      each exit 0 with "done: 3 steps";
   7. full width, 2 layers, f32, batch 1 x 64: fused ``train_forward`` and
      backward on the card (kernels) against the CPU (plain versions) on the
@@ -238,10 +272,36 @@ FAMILY_SHAPES = {
     "recurrentgemma-2b": (("rec/q/o", 2560, 320, 18 * 5 + 8 * 2),
                           ("k/v", 2560, 32, 8 * 2), ("gate/up", 2560, 960, 26 * 2),
                           ("down", 7680, 320, 26), ("lm_head", 2560, 32000, 0)),
+    # p = 8: r = n_out / 8
+    "chameleon-34b": (("q/o", 8192, 1024, 2), ("k/v", 8192, 128, 2),
+                      ("gate/up", 8192, 2752, 2), ("down", 22016, 1024, 1),
+                      ("lm_head", 8192, 8192, 0)),
+    # p = 4; calls per decoder layer of a decode or extend tick: self q, k,
+    # v, o and cross q, o, then the FFN's up and down. The head (vocab
+    # 256206, no multiple of p) ships as sign bits and launches no kernel
+    "seamless-m4t-large-v2": (("q/k/v/o", 1024, 256, 6), ("up", 1024, 2048, 1),
+                              ("down", 8192, 256, 1)),
 }
 MAMBA, RECGEMMA = "mamba2-370m", "recurrentgemma-2b"
+SEAMLESS, CHAMELEON = "seamless-m4t-large-v2", "chameleon-34b"
 # the layers that FAMILY_SHAPES' per-layer counts multiply in a tick
-FAMILY_TICK_LAYERS = {"qwen1.5-32b": 64, MAMBA: 48, RECGEMMA: 1}
+FAMILY_TICK_LAYERS = {"qwen1.5-32b": 64, MAMBA: 48, RECGEMMA: 1, CHAMELEON: 48,
+                      SEAMLESS: 24}
+# phase 4k serves seamless on 256-token slots; each request brings a clip of
+# ENC_FRAMES frames, padded to ENC_TOKENS by the encode tick (m = 256 -> B2
+# on every path). ENCODE_CALLS: the B2 calls of one encode tick by (K, r):
+# frame_proj and each encoder layer's q, k, v, o; its up; its down; and
+# each decoder layer's cross k, v (with the (1024, 256) ones)
+ENC_TOKENS, ENC_MAX_LEN, ENC_FRAMES = 256, 256, (40, 257)
+ENCODE_CALLS = {"K1024 r256": 1 + 4 * 24 + 2 * 24, "K1024 r2048": 24,
+                "K8192 r256": 24}
+# phase 4m: seamless cut to 2 + 2 layers, chameleon to 2, card vs CPU
+ENCDEC_CHECK_LAYERS = 2
+# phase 4l serves chameleon-34b at full width and depth (a cut would go here)
+CHAMELEON_SERVE_LAYERS = 48
+# phase 4f serves moonshot-v1-16b-a3b at full width cut to 16 of its 48
+# layers: phases 4k-4m made the run longer, and this depth was the next cut
+MOONSHOT_SERVE_LAYERS = 16
 # phase 4i's window-wrapping request: a prompt longer than the 2048 window
 # on a slot of WRAP_MAX_LEN tokens; phase 4j's card-vs-CPU cut and chunk
 WRAP_PROMPT, WRAP_MAX_LEN = 2100, 2304
@@ -765,10 +825,10 @@ def planner_host_cost() -> None:
           f"calls, median of 5): " + "; ".join(parts), flush=True)
 
 
-def family_shapes(arch: str):
-    """FAMILY_SHAPES[arch] keyed as phase 2b stores its measurements (by
-    (K, r), so that two configs' equal shapes are one measurement)."""
-    return tuple((f"K{k} r{r}", k, r, per) for _, k, r, per in FAMILY_SHAPES[arch])
+def shape_key(k: int, r: int) -> str:
+    """Where phase 2b stores the measurements of a FAMILY_SHAPES entry: by
+    (K, r), so that two configs' equal shapes are one measurement."""
+    return f"K{k} r{r}"
 
 
 def phase_family_kernels(card: str, results) -> None:
@@ -791,14 +851,17 @@ def phase_family_kernels(card: str, results) -> None:
     ks = kernels()
     seen = {(k, r) for _, k, r, _ in SHAPES}
     for arch in FAMILY_SHAPES:
-        for (key, k, r, _), (name, *_) in zip(family_shapes(arch), FAMILY_SHAPES[arch]):
+        for name, k, r, _ in FAMILY_SHAPES[arch]:
+            key = shape_key(k, r)
             if (k, r) in seen:
                 continue
             seen.add((k, r))
             packed = torch.randint(0, 2**32, (r, k // 32), generator=gen,
                                    device="cuda", dtype=torch.int64).to(torch.int32)
+            b2_ms = ((N_SLOTS * CHUNK, ENC_TOKENS) if arch == SEAMLESS
+                     else (N_SLOTS * CHUNK,))
             for kname, plain, ms in (("B1", tiled_matvec_plain, FAMILY_MS),
-                                     ("B2", tiled_matmul_plain, (N_SLOTS * CHUNK,))):
+                                     ("B2", tiled_matmul_plain, b2_ms)):
                 for dtype, peak in ((torch.bfloat16, bf16_peak),
                                     (torch.float32, f32_peak)):
                     dt = str(dtype).split(".")[-1]
@@ -825,37 +888,48 @@ def phase_family_kernels(card: str, results) -> None:
                           f"{res['library_ms']:.4f}ms bound {res['bound_ms']:.4f}ms"
                           f"{bodies_line(res)}", flush=True)
     for arch, n_layers in FAMILY_TICK_LAYERS.items():
-        shapes = family_shapes(arch)
+        shapes = FAMILY_SHAPES[arch]
         calls = sum(per for *_, per in shapes) * n_layers
+        head = int(any(name == "lm_head" for name, *_ in shapes))
         m = N_SLOTS * CHUNK
-        tot = tick_totals(results, "B2", m, n_layers, False, shapes=shapes)
+        tot = tick_totals(results, "B2", m, n_layers, False, shapes=shapes,
+                          family=True)
         print(f"B2 {arch} per extend tick, m={m}, bf16 ({calls} calls): "
               f"kernel {tot['ms']:.3f}ms plain {tot['plain_ms']:.3f}ms library "
               f"{tot['library_ms']:.3f}ms bound {tot['bound_ms']:.3f}ms", flush=True)
         for kname, dtype in (("B1", "bfloat16"), ("B3", "int"), ("B4", "int")):
             for m in (N_SLOTS, MATVEC_M):
-                tot = tick_totals(results, kname, m, n_layers, True, dtype, shapes)
+                tot = tick_totals(results, kname, m, n_layers, True, dtype, shapes,
+                                  family=True)
                 print(f"{kname} {arch} per decode tick, m={m}, {dtype} "
-                      f"({calls + 1} calls): kernel {tot['ms']:.3f}ms (reps "
+                      f"({calls + head} calls): kernel {tot['ms']:.3f}ms (reps "
                       f"{tot['ms_lo']:.3f}-{tot['ms_hi']:.3f}) plain "
                       f"{tot['plain_ms']:.3f}ms library "
                       f"{tot['library_ms']:.3f}ms (reps {tot['library_ms_lo']:.3f}-"
                       f"{tot['library_ms_hi']:.3f}) bound {tot['bound_ms']:.3f}ms",
                       flush=True)
+    enc = {key: sum(results[("B2", ENC_TOKENS, "bfloat16", k)][key] * n
+                    for k, n in ENCODE_CALLS.items())
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"B2 {SEAMLESS} per encode tick, m={ENC_TOKENS}, bf16 "
+          f"({sum(ENCODE_CALLS.values())} calls): kernel {enc['ms']:.3f}ms plain "
+          f"{enc['plain_ms']:.3f}ms library {enc['library_ms']:.3f}ms bound "
+          f"{enc['bound_ms']:.3f}ms", flush=True)
     torch.cuda.empty_cache()
-    print(f"phase 2b (dense, SSM and hybrid family shapes): "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    print(f"phase 2b (dense, SSM, hybrid, VLM and encoder-decoder family "
+          f"shapes): {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def tick_totals(results, kname: str, m: int, n_layers: int, with_head: bool,
-                dtype: str = "bfloat16", shapes=SHAPES):
-    """Sum the per-shape measurements over the calls of one engine tick."""
+                dtype: str = "bfloat16", shapes=SHAPES, family: bool = False):
+    """Sum the per-shape measurements over the calls of one engine tick
+    (``family``: FAMILY_SHAPES entries, measured under their (K, r) key)."""
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                bytes_ms=0.0, ops_ms=0.0, ms_lo=0.0, ms_hi=0.0,
                library_ms_lo=0.0, library_ms_hi=0.0)
-    for name, _, _, per_layer in shapes:
+    for name, k, r, per_layer in shapes:
         n = per_layer * n_layers + (1 if name == "lm_head" and with_head else 0)
-        res = results[(kname, m, dtype, name)]
+        res = results[(kname, m, dtype, shape_key(k, r) if family else name)]
         for key in tot:
             tot[key] += n * res[key]
     return tot
@@ -866,15 +940,34 @@ def layer_calls(cfg) -> int:
     apart): an attention layer's q, k, v, o, an RG-LRU layer's in_x,
     in_gate, out, w_a, w_i, each with the MLP's (gate, up, down, or up,
     down); a mamba2 layer's in_proj and out_proj; an MoE layer's
-    MOE_DENSE_CALLS."""
+    MOE_DENSE_CALLS; a seamless decoder layer's self q, k, v, o, cross q,
+    o, up and down."""
     if cfg.family == "moe":
         return MOE_DENSE_CALLS[cfg.name] * cfg.n_layers
     if cfg.family == "ssm":
         return 2 * cfg.n_layers
+    if cfg.family == "encdec":
+        return 8 * cfg.dec_layers
     mlp = 3 if cfg.gated_mlp else 2
     kinds = ([cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
              if cfg.family == "hybrid" else ["attn"] * cfg.n_layers)
     return sum((5 if k == "rec" else 4) + mlp for k in kinds)
+
+
+def head_calls(cfg) -> int:
+    """Kernel calls of the LM head in a tick: seamless's head (vocab
+    256206, no multiple of p = 4) ships as sign bits that every call
+    rebuilds to the dense weight, as in the reference: no kernel."""
+    return 0 if cfg.family == "encdec" else 1
+
+
+def encode_calls(cfg) -> int:
+    """B2 calls of one encode tick (m = ENC_TOKENS): frame_proj, each
+    encoder layer's q, k, v, o, up, down and each decoder layer's cross k,
+    v; 0 without an encoder."""
+    if cfg.family != "encdec":
+        return 0
+    return 1 + 6 * cfg.enc_layers + 2 * cfg.dec_layers
 
 
 def check_caches(eng, cfg, label: str) -> None:
@@ -893,18 +986,33 @@ def check_caches(eng, cfg, label: str) -> None:
             "v": torch.int8 if int8 else torch.bfloat16,
             "ks": torch.float32, "vs": torch.float32,
             "h": torch.float32, "conv": torch.float32}
-    got = {"/".join(p): v.dtype for c in eng.caches for p, v in mod.walk(c)}
+    trees = eng.caches if isinstance(eng.caches, list) else [eng.caches]
+    got = {"/".join(p): v.dtype for c in trees for p, v in mod.walk(c)}
     bad = {k: v for k, v in got.items() if v != want[k.split("/")[-1]]}
     if bad or not got:
         fail(f"{label}: cache leaves of unexpected type {bad} (of {got})")
 
 
 def serve_engine(s_model, sp, path: str, n_slots: int = N_SLOTS):
+    """The serve runs' engine: 128-token slots; an encoder-decoder model's
+    ENC_MAX_LEN-token slots with ENC_TOKENS-frame encodes."""
     from repro_torch.serve.engine import BatchedEngine, ServeConfig
 
+    cross = s_model.has_cross_attn
     return BatchedEngine(s_model, sp, ServeConfig(
-        n_slots=n_slots, max_len=128, chunk_tokens=CHUNK, page_tokens=16,
-        compute_path=path))
+        n_slots=n_slots, max_len=ENC_MAX_LEN if cross else 128,
+        chunk_tokens=CHUNK, page_tokens=16, compute_path=path,
+        enc_tokens=ENC_TOKENS if cross else None))
+
+
+def synthetic_frames(cfg, rng, n: int):
+    """An encoder-decoder model's source clips (ENC_FRAMES frames each),
+    one a request; None for any other model."""
+    from repro_torch.launch.serve import synthetic_clips
+
+    if cfg.family != "encdec":
+        return None
+    return synthetic_clips(rng, n, cfg.d_model, *ENC_FRAMES)
 
 
 def release() -> None:
@@ -917,17 +1025,20 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
-def drive(eng, cfg, prompts, max_tokens: int):
-    """Submit ``prompts`` (``max_tokens`` greedy tokens each) and drain,
-    with every launch counter set to 0 just before and read just after.
-    Returns the measurements of the run."""
+def drive(eng, cfg, prompts, max_tokens: int, frames=None):
+    """Submit ``prompts`` (``max_tokens`` greedy tokens each; with
+    ``frames``, each request's source clip) and drain, with every launch
+    counter set to 0 just before and read just after. Returns the
+    measurements of the run."""
     import numpy as np
     import torch
 
     from repro_torch.launch.serve import drain, latency_report
     from repro_torch.serve.sampling import SamplingParams
 
-    reqs = [eng.submit(p, SamplingParams(max_tokens=max_tokens)) for p in prompts]
+    reqs = [eng.submit(p, SamplingParams(max_tokens=max_tokens),
+                       frames=None if frames is None else frames[i])
+            for i, p in enumerate(prompts)]
     zero_counters()
     ticks, dt, tick_ends = drain(eng, reqs)
     counts = read_counters()
@@ -947,7 +1058,8 @@ def drive(eng, cfg, prompts, max_tokens: int):
 
 
 def serve_run(cfg, s_model, sp, path: str, requests: int = 8,
-              max_tokens: int = 16, profile_ticks: int = 3, wide: bool = True):
+              max_tokens: int = 16, profile_ticks: int = 3, wide: bool = True,
+              cold_profile: bool = True):
     """Drive ``requests`` prompts of 3-100 tokens, ``max_tokens`` greedy
     tokens each, through a BatchedEngine under ``path``, cold (eager ticks)
     and then warm (a new engine, ``warmup()``, the same prompts: the ticks
@@ -956,7 +1068,8 @@ def serve_run(cfg, s_model, sp, path: str, requests: int = 8,
     (:func:`check_caches`), that the path's decode kernel took every
     m <= 32 projection, B2 every extend, and no other kernel ran. Warm: see
     :func:`warm_run`. Then traces ``profile_ticks`` 4-slot decode ticks cold
-    and warm and, with ``wide``, one of 32 slots. Returns the cold counts."""
+    and warm (warm only without ``cold_profile``) and, with ``wide``, one of
+    32 slots. Returns the cold counts."""
     import numpy as np
 
     from repro_torch.launch.serve import synthetic_prompts
@@ -965,7 +1078,9 @@ def serve_run(cfg, s_model, sp, path: str, requests: int = 8,
     check_caches(eng, cfg, f"{cfg.name} {path}")
     rng = np.random.default_rng(0)
     prompts = synthetic_prompts(rng, requests, cfg.vocab, 3, 101)
-    cold = drive(eng, cfg, prompts, max_tokens)
+    frames = synthetic_frames(cfg, rng, requests)
+    cold = drive(eng, cfg, prompts, max_tokens, frames)
+    enc_ms = encode_tick_ms(eng) if frames else None
     del eng
     release()
     counts, st = cold["counts"], cold["st"]
@@ -973,15 +1088,22 @@ def serve_run(cfg, s_model, sp, path: str, requests: int = 8,
     if st["decode_ticks"] == 0 or st["extend_ticks"] == 0:
         fail(f"{label}: the run had {st['decode_ticks']} decode and "
              f"{st['extend_ticks']} extend ticks; both must run")
-    own = PATH_KERNEL[path]
-    need = ((layer_calls(cfg) + 1) * st["decode_ticks"]
-            + st["extend_ticks"])
+    own, head = PATH_KERNEL[path], head_calls(cfg)
+    need = ((layer_calls(cfg) + head) * st["decode_ticks"]
+            + head * st["extend_ticks"])
+    # an encoder-decoder run: every projection of its extend and encode
+    # ticks through B2, exactly; the other families: at least one a tick
+    b2 = (layer_calls(cfg) * st["extend_ticks"]
+          + encode_calls(cfg) * st["encode_ticks"]) if frames else None
     others = [k for k in ("B1", "B3", "B4", "B5", "B6") if k != own]
     if (counts[own] != need or counts["B2"] < st["extend_ticks"]
+            or (b2 is not None and (counts["B2"] != b2
+                                    or st["encode_ticks"] != requests))
             or any(counts[k] for k in others)):
-        fail(f"{label}: launch counters {counts}; need {own} = {need}, B2 >= "
-             f"{st['extend_ticks']}, {others} = 0: the main path did not go "
-             f"through the kernels")
+        fail(f"{label}: launch counters {counts}, {st['encode_ticks']} encode "
+             f"ticks; need {own} = {need}, B2 "
+             f"{'= ' + str(b2) if b2 is not None else '>= ' + str(st['extend_ticks'])}, "
+             f"{others} = 0: the main path did not go through the kernels")
     print(f"serve [{label}] cold: {requests} requests, {cold['tok']} tokens in "
           f"{cold['ticks']} ticks ({st['extend_ticks']} extend, {st['decode_ticks']} "
           f"decode), {cold['dt']:.3f}s, {cold['tok'] / cold['dt']:.1f} tok/s | TTFT "
@@ -990,10 +1112,18 @@ def serve_run(cfg, s_model, sp, path: str, requests: int = 8,
           f"{st['extend_ms_mean']:.2f}ms decode tick {st['decode_ms_mean']:.2f}ms | "
           f"launches " + " ".join(f"{k}={v}" for k, v in counts.items()), flush=True)
     print(f"serve [{label}]: first requests' tokens {cold['tokens'][:2]}")
-    warm = warm_run(cfg, s_model, sp, path, prompts, max_tokens, cold)
+    if frames:
+        fam = ", ".join(f"{k} {v['pages']} pages" for k, v in
+                        st["cache_families"].items())
+        print(f"serve [{label}] cold: {st['encode_ticks']} encode ticks of "
+              f"{ENC_TOKENS} frames (clips of {min(map(len, frames))}-"
+              f"{max(map(len, frames))}), {encode_calls(cfg)} B2 calls each; "
+              f"one encode tick {enc_ms:.2f} ms (eager, host to device done); "
+              f"cache families {fam}", flush=True)
+    warm = warm_run(cfg, s_model, sp, path, prompts, max_tokens, cold, frames)
     if profile_ticks:
-        for ms, is_warm in ((st["decode_ms_mean"], False),
-                            (warm["st"]["decode_ms_mean"], True)):
+        runs = ((st["decode_ms_mean"], False), (warm["st"]["decode_ms_mean"], True))
+        for ms, is_warm in runs if cold_profile else runs[1:]:
             profile_decode(s_model, sp, cfg, ms, path, n_ticks=profile_ticks,
                            warm=is_warm)
     if wide:   # the widest decode tick: every projection at m = 32
@@ -1003,7 +1133,29 @@ def serve_run(cfg, s_model, sp, path: str, requests: int = 8,
     return counts
 
 
-def warm_run(cfg, s_model, sp, path: str, prompts, max_tokens: int, cold):
+def encode_tick_ms(eng, n: int = 5) -> float:
+    """Median wall ms of ``n`` encode ticks of a drained engine (eager, or
+    a graph replay once warm), each from its launch to the device's end:
+    all frames masked, so every cross write lands on the scratch page (the
+    work is the same at the tick's one shape)."""
+    import torch
+
+    eng._frames_t.zero_()
+    eng._valid_t.zero_()
+    eng._xrow_t.zero_()
+    times = []
+    with torch.no_grad():
+        for _ in range(n + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._tick("encode_tick")
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times[1:])
+
+
+def warm_run(cfg, s_model, sp, path: str, prompts, max_tokens: int, cold,
+             frames=None):
     """The cold run's prompts through a new engine after ``warmup()``. The
     launch counters are zeroed before ``warmup()`` (its warm-up runs and
     capture launch every kernel of both ticks: WARM_RUNS + 1 ticks of each)
@@ -1026,17 +1178,19 @@ def warm_run(cfg, s_model, sp, path: str, prompts, max_tokens: int, cold):
     captured = read_counters()
     alloc = torch.cuda.memory_allocated() - alloc
     reserved = torch.cuda.memory_reserved() - reserved
-    own, per_layer = PATH_KERNEL[path], layer_calls(cfg)
-    # decode: every projection and the head; extend: B2, its head on `own`
+    own, per_layer, head = PATH_KERNEL[path], layer_calls(cfg), head_calls(cfg)
+    # decode: every projection and the head; extend: B2, its head on `own`;
+    # encode: B2
     want = {k: 0 for k in captured}
-    want[own] = (WARM_RUNS + 1) * (per_layer + 2)
-    want["B2"] = (WARM_RUNS + 1) * per_layer
+    want[own] = (WARM_RUNS + 1) * (per_layer + 2 * head)
+    want["B2"] = (WARM_RUNS + 1) * (per_layer + encode_calls(cfg))
     if captured != want or not eng.aot_warm:
         fail(f"{label}: warmup launched {captured}, expected {want} "
              f"({WARM_RUNS} warm-up runs and one capture of each tick)")
     traces = TRACE_COUNTS.copy()
-    run = drive(eng, cfg, prompts, max_tokens)
+    run = drive(eng, cfg, prompts, max_tokens, frames)
     st = run["st"]
+    enc_ms = encode_tick_ms(eng) if frames else None
     del eng
     release()
     if any(run["counts"].values()) or TRACE_COUNTS != traces:
@@ -1059,6 +1213,10 @@ def warm_run(cfg, s_model, sp, path: str, prompts, max_tokens: int, cold):
           f"{cold['itl']:.2f} -> {run['itl']:.2f}ms (max {run['itl_max']:.2f}) | "
           f"greedy tokens byte-identical to cold over {run['ticks']} ticks; no "
           f"launch and no TRACE_COUNTS move in the warm drain", flush=True)
+    if frames:
+        print(f"serve [{label}] warm: {st['encode_ticks']} encode ticks replayed; "
+              f"one encode tick {enc_ms:.2f} ms (replay, host to device done)",
+              flush=True)
     return run
 
 
@@ -1129,22 +1287,30 @@ def profile_decode(s_model, sp, cfg, tick_ms, path: str, n_ticks: int = 3,
 
     from repro_torch.serve.sampling import SamplingParams
 
+    from repro_torch.serve.engine import DECODE
+
     eng = serve_engine(s_model, sp, path, n_slots)
     if warm:
         eng.warmup()
     rng = np.random.default_rng(2)
     prompt = max(1, CHUNK // n_slots)   # all prompts in one extend tick's budget
-    for _ in range(n_slots):
+    frames = synthetic_frames(cfg, rng, n_slots)
+    for i in range(n_slots):
         eng.submit(rng.integers(0, cfg.vocab, size=prompt),
-                   SamplingParams(max_tokens=n_ticks + 3))
+                   SamplingParams(max_tokens=n_ticks + 3 + n_slots),
+                   frames=None if frames is None else frames[i])
+    # step until every slot decodes (one extend tick; an encoder-decoder
+    # model first encodes one request a tick), then one decode tick more
+    while any(ph != DECODE for ph in eng._phase):
+        eng.step()
     eng.step()
-    eng.step()
+    before = {k: eng.stats()[k] for k in ("extend_ticks", "encode_ticks")}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_ticks):
             eng.step()
         torch.cuda.synchronize()
-    if eng.stats()["extend_ticks"] != 1:
+    if {k: eng.stats()[k] for k in before} != before:
         fail("the profiled ticks were not decode-only")
     del eng
     release()
@@ -1167,8 +1333,50 @@ def profile_decode(s_model, sp, cfg, tick_ms, path: str, n_ticks: int = 3,
           f"{len(events) / n_ticks:.0f} kernels/tick")
     if cfg.family == "moe":
         moe_shares(s_model, sp, cfg, n_slots, by_name, busy_ms, n_ticks)
+    if cfg.family == "encdec":
+        head_share(s_model, sp, n_slots, busy_ms)
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
         print(f"  {t / n_ticks:8.3f} ms/tick {n // n_ticks:5d}x  {name[:90]}")
+
+
+HEAD_PARTS = {}
+
+
+def head_share(s_model, sp, n_slots: int, busy_ms: float) -> None:
+    """Seamless's LM head in a decode tick of ``n_slots`` rows: its sign
+    bits (256206, 32 words) rebuilt to the dense bf16 weight times alpha
+    (``Dense``'s BWNN branch, as in the reference), then the product. The
+    whole head and the rebuild alone, each timed as a CUDA graph of 5
+    calls, median of 5 replays, against the tick's busy time; and the bytes
+    a graph of one head call takes in its own pool."""
+    import torch
+
+    from repro_torch.core.packing import unpack_bits
+
+    head, p = s_model.head, sp["head"]
+    key = (s_model.cfg.name, n_slots)     # the same head under every path
+    if key not in HEAD_PARTS:
+        cd = s_model.ctx.compute_dtype
+        x = torch.randn((n_slots, 1, head.n_in), device="cuda").to(cd)
+        with torch.no_grad():
+            head_ms = time_ms(lambda: head(p, x), iters=5, reps=5)
+            rebuild_ms = time_ms(lambda: unpack_bits(p["wbits"], head.n_in, dtype=cd)
+                                 * p["alpha"].to(cd), iters=5, reps=5)
+            release()
+            before = torch.cuda.memory_reserved()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle()):
+                head(p, x)
+            pool = torch.cuda.memory_reserved() - before
+        del graph
+        release()
+        HEAD_PARTS[key] = head_ms, rebuild_ms, pool
+    head_ms, rebuild_ms, pool = HEAD_PARTS[key]
+    print(f"  LM head ({head.n_out} x {head.n_in} sign bits, no kernel): "
+          f"{head_ms:.3f} ms a tick timed alone ({head_ms / busy_ms:.3f} of busy), "
+          f"of which the dense rebuild {rebuild_ms:.3f} ms "
+          f"({rebuild_ms / busy_ms:.3f}); one head call's graph pool "
+          f"{pool / 1e9:.2f} GB", flush=True)
 
 
 MOE_PARTS = {}
@@ -1293,8 +1501,10 @@ def int_layers_card_vs_cpu(cfg):
               f"max rel err {worst:.2e} (rtol={INT_RTOL}) OK", flush=True)
 
 
-def phase_card_vs_cpu(cfg, sp):
-    """Phase 4: full width, 2 layers, f32, card model vs CPU model."""
+def phase_card_vs_cpu(cfg, sp, paths=tuple(PATH_KERNEL)):
+    """Phase 4: full width, 2 layers, f32, card model vs CPU model under
+    ``paths`` (the integer ones also at the layer level); phase 4m runs it
+    for chameleon-34b on the float path (its QK-norm)."""
     import numpy as np
     import torch
 
@@ -1302,14 +1512,15 @@ def phase_card_vs_cpu(cfg, sp):
     from repro_torch.nn import module as mod
     from repro_torch.nn.context import SERVE, ModelContext
 
-    int_layers_card_vs_cpu(cfg)
+    if paths != ("float",):
+        int_layers_card_vs_cpu(cfg)
     cfg2 = dataclasses.replace(cfg, n_layers=2)
     sp2 = dict(sp, seg0=mod.map_tree(lambda v: v[:2].contiguous(), sp["seg0"]))
     rng = np.random.default_rng(1)
     tokens = rng.integers(0, cfg.vocab, size=(2, 24))
     nxt = rng.integers(0, cfg.vocab, size=(2, 1))
     params = {dev: mod.map_tree(lambda v: v.to(dev), sp2) for dev in ("cuda", "cpu")}
-    for path in PATH_KERNEL:
+    for path in paths:
         out = {}
         for dev in ("cuda", "cpu"):
             model = build_model(cfg2, ModelContext(policy=cfg.tbn, mode=SERVE,
@@ -1338,9 +1549,81 @@ def phase_card_vs_cpu(cfg, sp):
         verdict = ("(rtol=atol=1e-3) OK" if path == "float" else
                    "(finite; not held to a tolerance: one flipped sign or "
                    "int8 rounding upstream moves the logits)")
-        print(f"model card vs CPU [{path}] (L=2, full width, f32): extend "
+        print(f"model card vs CPU [{cfg.name} {path}] (L=2, full width, f32): extend "
               f"max|diff| {errs[0]:.2e}, decode max|diff| {errs[1]:.2e} "
               f"{verdict}", flush=True)
+
+
+def phase_encdec_card_vs_cpu(cfg, sp):
+    """Phase 4m (seamless-m4t-large-v2): ENCDEC_CHECK_LAYERS encoder and
+    decoder layers at full width, f32, on the card (kernels) against the
+    CPU model (plain versions), from the shipped params of 4k: each of two
+    slots' ENCODE (``encode_serve`` of 200 and 57 frames padded to
+    ENC_TOKENS, ``write_cross`` through its cross table row), then one
+    extend (24 and 17 of 24 columns) and one decode step; logits and the
+    cross pool's rows at rtol = atol = 1e-3."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import build_model
+    from repro_torch.nn import module as mod
+    from repro_torch.nn.context import SERVE, ModelContext
+
+    t0 = time.perf_counter()
+    n = ENCDEC_CHECK_LAYERS
+    cfg2 = dataclasses.replace(cfg, enc_layers=n, dec_layers=n, n_layers=2 * n)
+    sp2 = dict(sp, **{k: mod.map_tree(lambda v: v[:n].contiguous(), sp[k])
+                      for k in ("enc", "dec")})
+    rng = np.random.default_rng(1)
+    enc_lens = np.array([200, 57], np.int32)
+    frames = rng.standard_normal((2, ENC_TOKENS, cfg.d_model)).astype(np.float32)
+    valid = np.arange(ENC_TOKENS)[None, :] < enc_lens[:, None]
+    frames *= valid[..., None]
+    x_npp = ENC_TOKENS // 16
+    xptab = np.arange(2 * x_npp, dtype=np.int32).reshape(2, x_npp)[:, ::-1].copy()
+    tokens = rng.integers(0, cfg.vocab, size=(2, 24))
+    nxt = rng.integers(0, cfg.vocab, size=(2, 1))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = mod.map_tree(lambda v: v.to(dev), sp2)
+        model = build_model(cfg2, ModelContext(policy=cfg.tbn, mode=SERVE,
+                                               compute_dtype=torch.float32,
+                                               device=dev))
+        caches = model.init_caches(2, 64, torch.float32, page_tokens=16,
+                                   n_pages=8, cross_pages=2 * x_npp)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in (
+            ("frames", frames), ("valid", valid), ("xptab", xptab),
+            ("enc_lens", enc_lens), ("tokens", tokens), ("nxt", nxt))}
+        pos = torch.arange(ENC_TOKENS, device=dev)[None, :]
+        ptab = torch.arange(8, dtype=torch.int32, device=dev).reshape(2, 4)
+        lengths = torch.zeros(2, dtype=torch.int32, device=dev)
+        n_new = torch.tensor([24, 17], dtype=torch.int32, device=dev)
+        cross = dict(cross_page_table=t["xptab"], enc_lens=t["enc_lens"])
+        with torch.no_grad():
+            for b in range(2):
+                mem = model.encode_serve(params, t["frames"][b:b + 1],
+                                         t["valid"][b:b + 1])
+                model.write_cross(params, mem, caches, t["xptab"][b:b + 1], pos,
+                                  t["valid"][b:b + 1])
+            le, caches, lengths = model.extend(params, t["tokens"], caches, lengths,
+                                               n_new, ptab, **cross)
+            ld, _, _ = model.decode_step(params, t["nxt"], caches, lengths, ptab,
+                                         **cross)
+        out[dev] = [v.cpu() for v in (le, ld, caches["cross"]["k"][:, :-1],
+                                      caches["cross"]["v"][:, :-1])]
+        del params, model, caches
+        release()
+    errs = []
+    for name, a, b in zip(("extend logits", "decode logits", "cross K rows",
+                           "cross V rows"), out["cuda"], out["cpu"]):
+        if not torch.isfinite(a).all():
+            fail(f"{cfg.name} card {name} are not finite")
+        errs.append(f"{name} max|diff| {float((a - b).abs().max()):.2e}")
+        if not torch.allclose(a, b, rtol=1e-3, atol=1e-3):
+            fail(f"{cfg.name} card vs CPU {name} differ: {errs[-1]}")
+    print(f"model card vs CPU [{cfg.name} float] (L={n}+{n}, full width, f32; two "
+          f"encodes of 200 and 57 frames, extend, decode): {', '.join(errs)} "
+          f"(rtol=atol=1e-3) OK; {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def build_on_card(cfg):
@@ -1359,7 +1642,9 @@ def build_on_card(cfg):
     s_model, sp, master_b = build_serving(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     peak, card = torch.cuda.max_memory_allocated(), torch.cuda.mem_get_info()[1]
-    print(f"serve {cfg.name}: L={cfg.n_layers} d={cfg.d_model} heads={cfg.n_heads}/"
+    depth = (f"{cfg.enc_layers}+{cfg.dec_layers}" if cfg.family == "encdec"
+             else cfg.n_layers)
+    print(f"serve {cfg.name}: L={depth} d={cfg.d_model} heads={cfg.n_heads}/"
           f"{cfg.n_kv} d_ff={cfg.d_ff} vocab={cfg.vocab} p={cfg.tbn.p} kv "
           f"{cfg.kv_dtype} bf16: masters {master_b / 1e9:.2f}GB -> shipped "
           f"{serving_bytes(sp) / 1e9:.3f}GB, built one master leaf at a time in "
@@ -1371,7 +1656,7 @@ def build_on_card(cfg):
     return s_model, sp, master_b
 
 
-def phase_serve_paths(cfg, phase: str):
+def phase_serve_paths(cfg, phase: str, cold_profile: bool = True):
     """Phases 4b and 4e: ``cfg`` at its published width and depth (qwen1.5-32b
     with its int8 KV cache; qwen2-moe-a2.7b) under each compute path on one
     streamed export, cold and warm; one 4-slot decode tick traced per path.
@@ -1389,7 +1674,8 @@ def phase_serve_paths(cfg, phase: str):
             s_model = build_model(cfg, ModelContext(
                 policy=cfg.tbn, mode=SERVE, compute_dtype=torch.bfloat16,
                 device="cuda", compute_path=path))
-        counts = serve_run(cfg, s_model, sp, path, profile_ticks=1, wide=False)
+        counts = serve_run(cfg, s_model, sp, path, profile_ticks=1, wide=False,
+                           cold_profile=cold_profile)
         for k in (PATH_KERNEL[path], "B2"):
             launches[k] += counts[k]
     print(f"phase {phase} ({cfg.name} serve): {time.perf_counter() - t0:.1f}s",
@@ -1512,10 +1798,10 @@ def phase_qwen_card_vs_cpu(cfg, sp):
 
 def phase_serve_family(arch: str, phase: str = "4d", profile_ticks: int = 0,
                        n_layers=None):
-    """Phases 4d and 4f: ``arch`` at its published width and depth (or
+    """Phases 4d, 4f and 4l: ``arch`` at its published width and depth (or
     ``n_layers``), float path, 4 requests of 8 greedy tokens, through the
     same counter checks, ``profile_ticks`` decode ticks traced cold and
-    warm. Returns the launch counts."""
+    warm. Returns (params, launch counts)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1527,12 +1813,11 @@ def phase_serve_family(arch: str, phase: str = "4d", profile_ticks: int = 0,
     s_model, sp, _ = build_on_card(cfg)
     counts = serve_run(cfg, s_model, sp, "float", requests=4, max_tokens=8,
                        profile_ticks=profile_ticks, wide=False)
-    del s_model, sp
-    gc.collect()
-    torch.cuda.empty_cache()
+    del s_model
+    release()
     print(f"phase {phase} ({arch} serve, L={cfg.n_layers}): "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    return counts
+    return sp, counts
 
 
 def moe_two_layers(cfg, sp, dev: str, calls: list):
@@ -1652,7 +1937,9 @@ def phase_serve_recurrent(arch: str, phase: str):
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    sp, launches = phase_serve_paths(cfg, phase)
+    # mamba2's cold profiles (each a cold per-token extend tick first) went
+    # when phases 4k-4m made the run longer
+    sp, launches = phase_serve_paths(cfg, phase, cold_profile=arch != MAMBA)
     if cfg.window:
         t0 = time.perf_counter()
         for k, v in wrap_run(cfg, sp).items():
@@ -2434,14 +2721,15 @@ def main() -> None:
     del sp
     for arch in ("minitron-8b", "starcoder2-7b"):
         counts = {k: counts[k] + v for k, v in phase_serve_family(
-            arch, n_layers=FAMILY_SERVE_LAYERS).items() if k in counts}
+            arch, n_layers=FAMILY_SERVE_LAYERS)[1].items() if k in counts}
     moe = get_config(MOE)
     sp, moe_counts = phase_serve_paths(moe, "4e")
     phase_moe_card_vs_cpu(moe, sp)
     del sp
     release()
     moe_counts = {k: moe_counts[k] + v for k, v in phase_serve_family(
-        MOONSHOT, "4f", profile_ticks=1).items() if k in moe_counts}
+        MOONSHOT, "4f", profile_ticks=1,
+        n_layers=MOONSHOT_SERVE_LAYERS)[1].items() if k in moe_counts}
     rec_counts = dict.fromkeys(moe_counts, 0)
     for arch, phase, lens in ((MAMBA, "4h", (600, 200)),
                               (RECGEMMA, "4i", (WRAP_PROMPT, 300))):
@@ -2450,13 +2738,24 @@ def main() -> None:
         phase_recurrent_card_vs_cpu(get_config(arch), sp, lens)
         del sp
         release()
-    for part in (counts, moe_counts, rec_counts):
+    seamless = get_config(SEAMLESS)
+    sp, enc_counts = phase_serve_paths(seamless, "4k")
+    phase_encdec_card_vs_cpu(seamless, sp)
+    del sp
+    release()
+    sp, part = phase_serve_family(CHAMELEON, "4l", profile_ticks=1,
+                                  n_layers=CHAMELEON_SERVE_LAYERS)
+    enc_counts = {k: enc_counts[k] + part.get(k, 0) for k in enc_counts}
+    phase_card_vs_cpu(get_config(CHAMELEON), sp, paths=("float",))
+    del sp
+    release()
+    for part in (counts, moe_counts, rec_counts, enc_counts):
         for k, v in part.items():
             launches[k] += v
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train_fused(cfg)
-    for arch in ("granite-8b", MOE):
+    for arch in ("granite-8b", MOE, SEAMLESS):
         phase_train_cli(arch)
     phase_train_card_vs_cpu(cfg)
     conv = phase_conv(card)

@@ -1,10 +1,7 @@
-"""Architecture registry: ``--arch <id>`` -> ArchConfig.
-
-The dense, MoE, SSM and hybrid families are registered whole; the other
-arch ids of the reference registry raise ``NotImplementedError`` naming
-the ROADMAP item that ports them, as does ``build_model`` for any other
-family.
-"""
+"""Architecture registry: ``--arch <id>`` -> ArchConfig. Every arch id of
+the reference registry is registered; ``build_model`` builds the
+encoder-decoder family as ``EncDecModel`` and every other family as
+``DecoderLM``."""
 from __future__ import annotations
 
 import importlib
@@ -21,28 +18,26 @@ _MODULES: Dict[str, str] = {
     "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
+    "chameleon-34b": "repro_torch.configs.chameleon_34b",
 }
-# The reference registry's other arch ids, ported with their families.
-_NOT_PORTED = ("seamless-m4t-large-v2", "chameleon-34b")
-_FAMILY_ITEM = ("ROADMAP.md queue A item 6 (the encoder-decoder and VLM "
-                "families)")
 
 ARCH_IDS: List[str] = list(_MODULES)
 
 
 def get_config(name: str) -> ArchConfig:
     key = name.replace("_", "-")
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: {_FAMILY_ITEM}")
     if key not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     return importlib.import_module(_MODULES[key]).CONFIG
 
 
 def build_model(cfg: ArchConfig, ctx=None):
-    """Instantiate the model for a config; the dense, MoE, SSM and hybrid
-    families build (``DecoderLM`` raises for the others)."""
+    """Instantiate the right model family for a config."""
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import EncDecModel
+
+        return EncDecModel(cfg, ctx)
     from repro_torch.models.lm import DecoderLM
 
     return DecoderLM(cfg, ctx)

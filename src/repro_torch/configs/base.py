@@ -1,6 +1,6 @@
-"""Architecture config schema (port of the dense, MoE, SSM and hybrid
-fields and the training fields of ``repro/configs/base.py``). The enc-dec
-fields and the sharding recipes come with the slices that port them."""
+"""Architecture config schema (port of the model and training fields of
+``repro/configs/base.py``). The sharding recipes and the shape cells come
+with the slice that ports the mesh."""
 from __future__ import annotations
 
 import dataclasses
@@ -31,7 +31,7 @@ class SSMSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # dense | moe | ssm | hybrid build here
+    family: str                    # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -50,6 +50,11 @@ class ArchConfig:
     norm: str = "rmsnorm"
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0
+    # enc-dec
+    enc_layers: int = 0
+    dec_layers: int = 0
+    dec_ratio: int = 4             # dec tokens = seq_len // dec_ratio (audio)
+    modality: str = "text"         # text | audio | vlm
     tbn: TBNPolicy = dataclasses.field(
         default_factory=lambda: tbn_policy(
             p=4, min_size=150_000, alpha_source="W", alpha_mode="tile"
@@ -62,7 +67,7 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests (the reference's
-        ``reduced()`` for the dense, MoE, SSM and hybrid families)."""
+        ``reduced()``)."""
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",
@@ -86,6 +91,8 @@ class ArchConfig:
             ssm=None
             if self.ssm is None
             else dataclasses.replace(self.ssm, d_state=16, head_dim=16, chunk=8),
+            enc_layers=min(self.enc_layers, 2),
+            dec_layers=min(self.dec_layers, 2),
             window=None if self.window is None else min(self.window, 8),
             tbn=dataclasses.replace(self.tbn, min_size=1024),
             attn_chunk=64,

@@ -15,9 +15,15 @@ CPU: one eager run of each, no graph).
 ``--arch`` takes every id the port registers: the dense family
 (granite-8b, minitron-8b, starcoder2-7b, qwen1.5-32b with its int8 KV
 cache), the MoE family (qwen2-moe-a2.7b, moonshot-v1-16b-a3b), the SSM
-family (mamba2-370m) and the hybrid family (recurrentgemma-2b); a model
-without full attention gets no page pool, and ``--aot`` then captures the
-slot reset too. ``--reduced`` serves its tiny same-family config.
+family (mamba2-370m), the hybrid family (recurrentgemma-2b), the VLM
+family (chameleon-34b, token prompts) and the encoder-decoder family
+(seamless-m4t-large-v2); a model without full attention gets no page
+pool, and ``--aot`` then captures the slot reset too. An encoder-decoder
+request carries a synthetic source clip of enc_tokens / 2 to
+``--enc-tokens`` frames (``--enc-sources`` distinct clips, cycled over
+the requests) that the engine encodes before its prompt prefills; ``--aot``
+then captures the encode tick too. ``--reduced`` serves its tiny
+same-family config.
 
 Flow: build the TRAIN masters on the device one leaf at a time, export
 each to the SERVE form (packed tile rows + alpha) and free it, stand up
@@ -82,6 +88,13 @@ def synthetic_prompts(rng: np.random.Generator, n: int, vocab: int,
             for _ in range(n)]
 
 
+def synthetic_clips(rng: np.random.Generator, n: int, d: int, lo: int, hi: int):
+    """``n`` random source clips (frames, d), standard normal f32, of lo <=
+    frames < hi."""
+    return [rng.standard_normal((int(rng.integers(lo, hi)), d)).astype(np.float32)
+            for _ in range(n)]
+
+
 def latency_report(reqs, tick_ends):
     """Per-request TTFT and inter-token latencies from the engine's
     token_steps tick indices + the caller's per-tick wall clock
@@ -118,6 +131,12 @@ def main(argv=None):
                          "(clamped to --max-len)")
     ap.add_argument("--page-tokens", type=int, default=16,
                     help="attention KV pool page size (must divide --max-len)")
+    ap.add_argument("--enc-tokens", type=int, default=None,
+                    help="encoder capacity in source frames (encdec "
+                         "family only; default --max-len)")
+    ap.add_argument("--enc-sources", type=int, default=2,
+                    help="distinct synthetic source clips cycled over the "
+                         "requests (encdec family)")
     ap.add_argument("--compute-path", default="float",
                     choices=COMPUTE_PATHS,
                     help="dense serve compute: float (byte-parity "
@@ -145,6 +164,9 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    encdec = cfg.family == "encdec"
+    if encdec and args.enc_sources < 1:
+        raise SystemExit(f"--enc-sources must be >= 1: {args.enc_sources}")
     s_model, sp, master_b = build_serving(cfg, device=device, seed=args.seed,
                                           compute_path=args.compute_path)
     if args.compute_path != "float":
@@ -159,13 +181,19 @@ def main(argv=None):
         n_slots=args.slots, max_len=args.max_len,
         chunk_tokens=min(args.chunk_tokens, args.max_len),
         temperature=args.temperature, top_k=args.top_k, seed=args.seed,
-        page_tokens=args.page_tokens, compute_path=args.compute_path))
+        page_tokens=args.page_tokens, compute_path=args.compute_path,
+        enc_tokens=args.enc_tokens if encdec else None))
     if args.aot:
         t = eng.warmup()
         print(f"AOT warmup: {', '.join(f'{k} {v:.2f}s' for k, v in t.items())}")
     rng = np.random.default_rng(args.seed)
-    reqs = [eng.submit(p, SamplingParams(max_tokens=args.max_tokens))
-            for p in synthetic_prompts(rng, args.requests, cfg.vocab)]
+    prompts = synthetic_prompts(rng, args.requests, cfg.vocab)
+    clips = (synthetic_clips(rng, args.enc_sources, cfg.d_model,
+                             max(1, eng.enc_tokens // 2), eng.enc_tokens + 1)
+             if encdec else None)
+    reqs = [eng.submit(p, SamplingParams(max_tokens=args.max_tokens),
+                       frames=clips[i % len(clips)] if encdec else None)
+            for i, p in enumerate(prompts)]
     ticks, dt, tick_ends = drain(eng, reqs)
     tok = sum(len(r.output) for r in reqs)
     label = device_label(device)
@@ -180,6 +208,13 @@ def main(argv=None):
             line += (f" | ITL mean {1e3 * np.mean(itls):.1f}ms "
                      f"max {1e3 * np.max(itls):.1f}ms")
         print(f"latency on {label} (chunk={eng.cfg.chunk_tokens}): {line}")
+    if encdec:
+        st = eng.stats()
+        pools = ", ".join(f"{name} {f['in_use']}/{f['pages']} pages"
+                          for name, f in st["cache_families"].items())
+        print(f"encode phase: {st['encode_ticks']} encode ticks of "
+              f"{eng.enc_tokens} frames ({len(clips)} sources); {pools} "
+              f"after the drain")
     for r in reqs[:3]:
         print(f"  req {r.rid}: prompt[{len(r.prompt)}] -> {r.output}")
     return reqs

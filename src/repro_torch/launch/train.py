@@ -11,9 +11,10 @@ checkpoint) and the straggler watchdog. It runs on the GPU; ``--device
 cpu`` runs on the host instead (without a card and without it, the CLI
 raises). Tiled layers train through the materialized effective weight;
 the fused path through kernel B5 is ``ModelContext(fused_train=True)``,
-which ``chip_smoke.py`` drives. ``--arch`` takes every registered id;
-the SSM and hybrid families (mamba2-370m, recurrentgemma-2b) are trained
-here at ``--reduced`` size on the host, not yet on the card.
+which ``chip_smoke.py`` drives. ``--arch`` takes every registered id:
+the encoder-decoder family (seamless-m4t-large-v2) trains on synthetic
+frames (``frames_batch``), the VLM family (chameleon-34b) on token batches
+with an all-text image mask, as the reference's CLI feeds them.
 """
 from __future__ import annotations
 
@@ -25,10 +26,12 @@ import tempfile
 import time
 from typing import Any, Callable, Optional
 
+import torch
+
 from repro_torch.configs import ArchConfig, build_model, get_config
 from repro_torch.core.policy import bwnn_policy, fp32_policy
 from repro_torch.data.pipeline import DataPipeline
-from repro_torch.data.synthetic import lm_batch
+from repro_torch.data.synthetic import frames_batch, lm_batch
 from repro_torch.device import resolve_device
 from repro_torch.ft.checkpoint import CheckpointManager
 from repro_torch.ft.recovery import RecoveryManager
@@ -49,6 +52,23 @@ def make_policy(cfg: ArchConfig, mode: str, tbn_p: Optional[int]):
     return dataclasses.replace(cfg.tbn, p=tbn_p or cfg.tbn.p)
 
 
+def batch_fn(cfg: ArchConfig, seed: int, batch: int, seq: int):
+    """step -> the training batch of ``cfg``'s family: frames and decoder
+    tokens (encdec), tokens with an empty image mask and zero image
+    embeddings (vlm), or tokens."""
+    def gen(step):
+        if cfg.family == "encdec":
+            return frames_batch(seed, step, batch, seq, cfg)
+        b = lm_batch(seed, step, batch, seq, cfg.vocab)
+        if cfg.modality == "vlm":
+            b["image_mask"] = torch.zeros((batch, seq), dtype=torch.bool)
+            b["image_embeds"] = torch.zeros((batch, seq, cfg.d_model),
+                                            dtype=torch.bfloat16)
+        return b
+
+    return gen
+
+
 @dataclasses.dataclass
 class Training:
     """A model, its train step and the recovery loop around them."""
@@ -63,8 +83,9 @@ def build_training(cfg: ArchConfig, ctx: ModelContext, *, seed: int, batch: int,
                    seq: int, lr: float, warmup: int, total_steps: int,
                    grad_accum: int, ckpt_dir, ckpt_every: int) -> Training:
     """Wire model, AdamW(cosine(lr, warmup, total_steps), wd 0.1), the
-    clipped train step, the data pipeline over ``lm_batch``, checkpoints
-    and the recovery manager, as the CLI runs them."""
+    clipped train step, the data pipeline over the family's synthetic
+    batches (``batch_fn``), checkpoints and the recovery manager, as the
+    CLI runs them."""
     model = build_model(cfg, ctx)
     opt = adamw(cosine_with_warmup(lr, warmup, total_steps), weight_decay=0.1)
     step_fn = build_train_step(model.train_forward, opt, grad_accum=grad_accum)
@@ -73,8 +94,8 @@ def build_training(cfg: ArchConfig, ctx: ModelContext, *, seed: int, batch: int,
         return init_state(model.init(seed), opt)
 
     def make_data(start):
-        return DataPipeline(lambda step: lm_batch(seed, step, batch, seq, cfg.vocab),
-                            start_step=start, prefetch=2)
+        return DataPipeline(batch_fn(cfg, seed, batch, seq), start_step=start,
+                            prefetch=2)
 
     ckpt = CheckpointManager(ckpt_dir, save_every=ckpt_every, max_to_keep=3)
     rm = RecoveryManager(ckpt, make_state=make_state, make_data=make_data,

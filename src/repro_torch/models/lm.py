@@ -1,12 +1,14 @@
-"""Decoder LM, dense, MoE, SSM and hybrid families: training and serving
-entry points (port of the decoder-only paths of ``repro/models/lm.py``).
+"""Decoder LM, dense, MoE, SSM, hybrid and VLM families: training and
+serving entry points (port of ``repro/models/lm.py``).
 
 The layer stack is organised into segments, as in the reference: a
 stacked segment holds ``n`` identical blocks whose params carry a leading
 layer axis, and a Python loop walks its layers in place of ``lax.scan``;
 an unstacked segment is one block without that axis (the MoE family's
 ``first_dense`` layer ``dense0``, the hybrid family's tails). The dense
-family is one stacked segment of attention blocks; the MoE family a
+family is one stacked segment of attention blocks, and so is the VLM
+family (chameleon: early fusion, image positions of the input carry
+precomputed embeddings in place of token rows); the MoE family a
 stacked segment of MoE blocks, after ``dense0`` where the config asks for
 it; the SSM family one stacked segment of mamba2 blocks (each the whole
 layer, no FFN); the hybrid family a stacked segment of pattern
@@ -54,13 +56,38 @@ from repro_torch.nn.moe import MoE
 from repro_torch.nn.norms import LayerNorm, RMSNorm
 from repro_torch.nn.rglru import RGLRUBlock, _lru_scan
 from repro_torch.nn.ssm import Mamba2Block
+from repro_torch.serve.servable import CacheFamily
 
-FAMILY_ITEM = ("ROADMAP.md queue A item 6 (the encoder-decoder and VLM "
-               "families)")
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the encoder-decoder family is models/encdec.py's EncDecModel
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 DOTS_REMAT_ITEM = "ROADMAP.md queue A item 10 (leftovers: selective \"dots\" remat)"
 # _ce_sum chunks the batch when b % 32 == 0 and S * vocab reaches this
 CE_CHUNK_MIN_ELEMS = 2**26
+
+
+def nll_sum(logits, targets, mask) -> torch.Tensor:
+    """Summed token NLL of logits (B, S, vocab) against targets (B, S),
+    weighted by ``mask``, in f32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return ((logz - gold) * mask).sum()
+
+
+def ce_sum(chunk_sum, h, targets, mask, vocab: int) -> torch.Tensor:
+    """``chunk_sum(h, targets, mask)`` (a summed NLL) over the batch.
+    Batch-chunked, each chunk checkpointed, when the (B, S, V) f32 logits
+    would be large: the backward then recomputes one sub-batch's logits at
+    a time."""
+    b = h.shape[0]
+    big = h.shape[1] * vocab >= CE_CHUNK_MIN_ELEMS
+    nb = b // 32 if (b % 32 == 0 and big) else 1
+    if nb <= 1:
+        return chunk_sum(h, targets, mask)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for hc, tc, mc in zip(h.chunk(nb), targets.chunk(nb), mask.chunk(nb)):
+        tot = tot + checkpoint(chunk_sum, hc, tc, mc, use_reentrant=False)
+    return tot
 
 
 def _norm(cfg: ArchConfig, ctx: ModelContext, dim: int, name: str):
@@ -427,8 +454,8 @@ class Segment:
 class DecoderLM:
     def __init__(self, cfg: ArchConfig, ctx: Optional[ModelContext] = None):
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"model family {cfg.family!r} is not ported yet: {FAMILY_ITEM}")
+            raise ValueError(f"DecoderLM builds the families {FAMILIES}, not "
+                             f"{cfg.family!r}")
         self.cfg = cfg
         self.ctx = ctx or ModelContext(policy=cfg.tbn)
         c = self.ctx
@@ -441,7 +468,7 @@ class DecoderLM:
 
     def _build_segments(self) -> List[Segment]:
         cfg, c = self.cfg, self.ctx
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm"):
             return [Segment(Block(cfg, c, name="block"), cfg.n_layers)]
         if cfg.family == "ssm":
             return [Segment(Block(cfg, c, name="ssm_block", kind="ssm"),
@@ -481,6 +508,16 @@ class DecoderLM:
             return self.embed.attend(params["embed"], h)
         return self.head(params["head"], h)
 
+    def _embed_inputs(self, params, batch) -> torch.Tensor:
+        """Token embeddings; under the VLM modality with ``image_embeds``
+        in the batch (early fusion), the positions of ``image_mask`` (B, S)
+        take the precomputed image embeddings (B, S, d) instead."""
+        x = self.embed(params["embed"], batch["tokens"].to(self.device).long())
+        if self.cfg.modality == "vlm" and "image_embeds" in batch:
+            m = batch["image_mask"].to(self.device)[..., None]
+            x = torch.where(m, batch["image_embeds"].to(self.device, x.dtype), x)
+        return x
+
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
@@ -513,12 +550,13 @@ class DecoderLM:
         return self.final_norm(params["final_norm"], x), aux
 
     def train_forward(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """Next-token CE loss. batch: tokens (B, S) [+ loss_mask (B, S)],
-        moved to the model's device here."""
+        """Next-token CE loss. batch: tokens (B, S) [+ loss_mask (B, S)]
+        [+ the VLM's image_mask / image_embeds], moved to the model's device
+        here."""
         tokens = batch["tokens"].to(self.device).long()
         b, s = tokens.shape
         positions = torch.arange(s, device=self.device).expand(b, s)
-        x = self.embed(params["embed"], tokens)
+        x = self._embed_inputs(params, batch)
         h, aux = self.backbone(params, x, positions=positions)
         # full-sequence logits; the shifted last position is masked out
         targets = torch.roll(tokens, -1, dims=1)
@@ -530,25 +568,11 @@ class DecoderLM:
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def _ce_sum(self, params, h, targets, mask) -> torch.Tensor:
-        """Summed token NLL. Batch-chunked, each chunk checkpointed, when the
-        (B, S, V) f32 logits would be large: the backward then recomputes
-        one sub-batch's logits at a time."""
-        b = h.shape[0]
-        big = h.shape[1] * self.cfg.vocab >= CE_CHUNK_MIN_ELEMS
-        nb = b // 32 if (b % 32 == 0 and big) else 1
-        if nb <= 1:
-            return self._ce_sum_chunk(params, h, targets, mask)
-        tot = torch.zeros((), dtype=torch.float32, device=h.device)
-        for hc, tc, mc in zip(h.chunk(nb), targets.chunk(nb), mask.chunk(nb)):
-            tot = tot + checkpoint(self._ce_sum_chunk, params, hc, tc, mc,
-                                   use_reentrant=False)
-        return tot
+        return ce_sum(lambda *c: self._ce_sum_chunk(params, *c), h, targets,
+                      mask, self.cfg.vocab)
 
     def _ce_sum_chunk(self, params, h, targets, mask) -> torch.Tensor:
-        logits = self.logits(params, h).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-        return ((logz - gold) * mask).sum()
+        return nll_sum(self.logits(params, h), targets, mask)
 
     # ------------------------------------------------------------------
     # serving
@@ -589,6 +613,20 @@ class DecoderLM:
         """Any cache that cannot be paged (SSM / RG-LRU carries, windowed
         rings): admission must zero the slot's rows."""
         return any(not _paged_attn(b) for b in self._leaf_blocks())
+
+    # decoder-only: no encoder memory, no read-only cross-attention pool
+    has_cross_attn = False
+
+    def cache_families(self):
+        """The ServableModel cache families: the paged self-attention K/V
+        where there is full attention, per-slot rows where there is any
+        other cache."""
+        fams = []
+        if self.has_full_attn:
+            fams.append(CacheFamily("self_attn", paged=True))
+        if self.has_recurrent_state:
+            fams.append(CacheFamily("recurrent", paged=False))
+        return tuple(fams)
 
     def _per_slot(self, caches, fn, *others):
         """``fn(leaf_block, cache subtree, *other subtrees, slot_axis)`` over
@@ -673,7 +711,7 @@ class DecoderLM:
         tokens = batch["tokens"].to(self.device).long()
         b, s = tokens.shape
         positions = torch.arange(s, device=self.device).expand(b, s)
-        x = self.embed(params["embed"], tokens)
+        x = self._embed_inputs(params, batch)
         caches = []
         for i, seg in enumerate(self.segments):
             per_layer = []

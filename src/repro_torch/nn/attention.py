@@ -1,14 +1,19 @@
 """Multi-head attention: GQA, RoPE, sliding windows, the training call
-(full or query-chunked), the monolithic prefill, and the serving caches:
-the paged KV pool, in the compute dtype or as int8 codes with per-token,
-per-head f32 scales, and the dense per-slot cache a monolithic prefill
-hands to ``decode_step`` (port of the causal self-attention half of
-``repro/nn/attention.py``). The windowed ring cache of serving lives in
-``models/lm.py``, as in the reference.
+(causal or not, full or query-chunked, self or cross attention over an
+encoder memory with a key mask), the monolithic prefill, and the serving
+caches: the paged KV pool, in the compute dtype or as int8 codes with
+per-token, per-head f32 scales, the dense per-slot cache a monolithic
+prefill hands to ``decode_step``, and the read-only cross-attention pool of
+the encoder-decoder family (``cross_kv`` writes its rows once a request,
+``cross_attend`` reads them) (port of ``repro/nn/attention.py``). The
+windowed ring cache of serving lives in ``models/lm.py``, as in the
+reference.
 
 The softmax core is written in plain torch ops, as the reference writes it
-in jnp, so the parity tests compare like with like. Cross attention waits
-for a later slice.
+in jnp, so the parity tests compare like with like. A masked key gets
+``NEG_INF`` = -1e30, not -inf: its softmax weight underflows to exactly 0,
+and a row whose keys are all masked (a padded encoder frame, a free slot's
+cross attend) stays finite instead of turning NaN.
 
 Paged pool layout: a cache leaf is ``(n_pages + 1, page_tokens, K, hd)``
 (an int8 cache adds the scale pools ``ks`` / ``vs``, ``(n_pages + 1,
@@ -129,6 +134,8 @@ class Attention:
     rope_theta: float = 10_000.0
     q_chunk: int = 1024                 # chunked training path query block
     window: Optional[int] = None        # sliding-window size (recurrentgemma)
+    causal: bool = True
+    cross: bool = False                 # encoder-decoder cross attention
 
     def __post_init__(self):
         self.hd = self.head_dim or self.d_model // self.n_heads
@@ -154,17 +161,23 @@ class Attention:
             out["knorm"] = self.knorm.specs()
         return out
 
-    def _qkv(self, params, x, positions):
+    def _qkv(self, params, x, positions, kv_src=None, kv_positions=None):
+        """q from x; k, v from ``kv_src`` (a cross layer's memory) or x.
+        RoPE at ``positions`` / ``kv_positions`` (default: ``positions``),
+        never on a cross layer."""
         b, s, _ = x.shape
+        src = x if kv_src is None else kv_src
+        t = src.shape[1]
         q = self.wq(params["wq"], x).reshape(b, s, self.n_heads, self.hd)
-        k = self.wk(params["wk"], x).reshape(b, s, self.n_kv, self.hd)
-        v = self.wv(params["wv"], x).reshape(b, s, self.n_kv, self.hd)
+        k = self.wk(params["wk"], src).reshape(b, t, self.n_kv, self.hd)
+        v = self.wv(params["wv"], src).reshape(b, t, self.n_kv, self.hd)
         if self.qk_norm:
             q = self.qnorm(params["qnorm"], q)
             k = self.knorm(params["knorm"], k)
-        if self.rope:
+        if self.rope and not self.cross:
             q = apply_rope(q, positions, self.rope_theta)
-            k = apply_rope(k, positions, self.rope_theta)
+            k = apply_rope(k, positions if kv_positions is None else kv_positions,
+                           self.rope_theta)
         return q, k, v
 
     def _group(self, q):
@@ -173,25 +186,38 @@ class Attention:
 
     def __call__(self, params: dict, x: torch.Tensor, *,
                  positions: Optional[torch.Tensor] = None,
+                 kv_src: Optional[torch.Tensor] = None,
+                 kv_valid: Optional[torch.Tensor] = None,
                  chunked: Optional[bool] = None) -> torch.Tensor:
-        """Causal self-attention over x (B, S, d), as in training. Queries
-        are processed in chunks of ``q_chunk`` once S >= 4 * q_chunk."""
+        """Attention over x (B, S, d), as in training: self-attention, or
+        cross attention over the memory ``kv_src`` (B, T, d) (key positions
+        0..T-1). ``kv_valid`` (B, T) masks keys (padded encoder frames).
+        Causal unless ``causal`` is False or the layer is a cross layer.
+        Queries are processed in chunks of ``q_chunk`` once S >= 4 *
+        q_chunk."""
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
-        q, k, v = self._qkv(params, x, positions)
+        if kv_src is None:
+            kv_positions = positions
+        else:
+            t = kv_src.shape[1]
+            kv_positions = torch.arange(t, device=x.device).expand(b, t)
+        q, k, v = self._qkv(params, x, positions, kv_src, kv_positions)
         scale = 1.0 / math.sqrt(self.hd)
         if chunked is None:
             chunked = s >= 4 * self.q_chunk
         if chunked:
-            out = self._chunked(q, k, v, positions, scale)
+            out = self._chunked(q, k, v, positions, kv_positions, scale, kv_valid)
         else:
             out = _attend_core(self._group(q), k, v,
-                               make_mask(positions, positions,
-                                         window=self.window), scale)
+                               make_mask(positions, kv_positions,
+                                         causal=self.causal and not self.cross,
+                                         window=self.window, k_valid=kv_valid),
+                               scale)
         return self.wo(params["wo"], out.reshape(b, s, self.n_heads * self.hd))
 
-    def _chunked(self, q, k, v, positions, scale):
+    def _chunked(self, q, k, v, q_pos, k_pos, scale, k_valid=None):
         """A loop over query chunks; score memory is (chunk, T) per step.
         Each chunk is checkpointed, so the backward recomputes one chunk's
         scores at a time instead of keeping all of them."""
@@ -200,13 +226,15 @@ class Attention:
         while s % c:
             c -= 1
         qg = self._group(q)
+        causal = self.causal and not self.cross
 
         def step(qi, qpi):
-            return _attend_core(qi, k, v, make_mask(qpi, positions,
-                                                    window=self.window), scale)
+            return _attend_core(qi, k, v, make_mask(
+                qpi, k_pos, causal=causal, window=self.window,
+                k_valid=k_valid), scale)
 
         return torch.cat([
-            checkpoint(step, qg[:, i:i + c], positions[:, i:i + c],
+            checkpoint(step, qg[:, i:i + c], q_pos[:, i:i + c],
                        use_reentrant=False)
             for i in range(0, s, c)], dim=1)
 
@@ -220,7 +248,7 @@ class Attention:
         q, k, v = self._qkv(params, x, positions)
         scale = 1.0 / math.sqrt(self.hd)
         if s >= 4 * self.q_chunk:
-            out = self._chunked(q, k, v, positions, scale)
+            out = self._chunked(q, k, v, positions, positions, scale)
         else:
             out = _attend_core(self._group(q), k, v,
                                make_mask(positions, positions,
@@ -304,6 +332,48 @@ class Attention:
         scatter_pages(cache_v, page_table, positions, v, valid)
         y = self._attend_paged(params, q, cache_k, cache_v, page_table, positions)
         return y, cache_k, cache_v
+
+    # ------------------------------------------------------------------
+    # cross attention (encoder-decoder serving)
+    # ------------------------------------------------------------------
+    def cross_kv(self, params: dict, memory: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Encoder memory (B, T, d) -> cross-attention rows k, v (B, T, K,
+        hd): computed once a request in the engine's ENCODE phase and
+        written into the read-only cross pool. No RoPE (cross attention is
+        position-free); ``knorm`` under ``qk_norm``, as in ``_qkv``."""
+        b, t, _ = memory.shape
+        k = self.wk(params["wk"], memory).reshape(b, t, self.n_kv, self.hd)
+        v = self.wv(params["wv"], memory).reshape(b, t, self.n_kv, self.hd)
+        if self.qk_norm:
+            k = self.knorm(params["knorm"], k)
+        return k, v
+
+    def cross_attend(self, params: dict, x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     kv_lens: torch.Tensor,
+                     page_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Read-only cross attention: the queries of x (B, S, d) attend
+        every valid memory row (row t of slot b iff ``t < kv_lens[b]``), no
+        causal mask, no write. With ``page_table`` the caches are the cross
+        pool, gathered per slot; rows past ``kv_lens`` (the last page's
+        tail, stale rows) get exactly 0 weight, so the result is that of
+        attending the unpadded memory."""
+        b, s, _ = x.shape
+        q = self.wq(params["wq"], x).reshape(b, s, self.n_heads, self.hd)
+        if self.qk_norm:
+            q = self.qnorm(params["qnorm"], q)
+        if page_table is None:
+            view_k, view_v = cache_k, cache_v
+        else:
+            view_k = gather_pages(cache_k, page_table)
+            view_v = gather_pages(cache_v, page_table)
+        t = view_k.shape[1]
+        mask = (torch.arange(t, device=x.device)[None, :]
+                < kv_lens[:, None])[:, None, :].expand(b, s, t)
+        out = _attend_core(self._group(q), view_k, view_v, mask,
+                           1.0 / math.sqrt(self.hd))
+        return self.wo(params["wo"], out.reshape(b, s, self.n_heads * self.hd))
 
     # ------------------------------------------------------------------
     # int8 KV: cache {"k", "v"} int8 codes, {"ks", "vs"} f32 scales

@@ -18,13 +18,17 @@ import numpy as np
 class KVPool:
     """Refcounted free-list allocator over ``n_pages`` KV pages."""
 
-    def __init__(self, n_pages: int, page_tokens: int):
+    def __init__(self, n_pages: int, page_tokens: int,
+                 family: str = "self_attn"):
         if n_pages <= 0:
             raise ValueError(f"n_pages must be positive: {n_pages}")
         if page_tokens <= 0:
             raise ValueError(f"page_tokens must be positive: {page_tokens}")
         self.n_pages = n_pages
         self.page_tokens = page_tokens
+        # the ServableModel cache family this pool backs ("self_attn" or
+        # "cross_attn"), for stats; the allocator itself ignores it
+        self.family = family
         self.refcounts = np.zeros((n_pages,), np.int64)
         # LIFO free list: a just-freed page is reused first
         self._free: List[int] = list(range(n_pages - 1, -1, -1))

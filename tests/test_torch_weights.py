@@ -47,10 +47,15 @@ def test_granite_config_matches_reference(reduced):
 
 
 def test_unported_configs_and_families_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        get_config("seamless-m4t-large-v2")
-    cfg = dataclasses.replace(get_config("granite-8b").reduced(), family="encdec")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """Every reference arch id is ported: the last two build, and only an
+    unknown id or family raises."""
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("seamless-m4t-large-v3")
+    for arch in ("seamless-m4t-large-v2", "chameleon-34b"):
+        cfg = get_config(arch).reduced()
+        assert build_model(cfg, ModelContext(policy=cfg.tbn, device="cpu")).cfg is cfg
+    cfg = dataclasses.replace(get_config("granite-8b").reduced(), family="rnn")
+    with pytest.raises(ValueError, match="not 'rnn'"):
         build_model(cfg, ModelContext(policy=cfg.tbn, device="cpu"))
 
 
