@@ -177,6 +177,27 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      cross rows, then one extend and one decode step: logits and the cross
      pool's rows at rtol = atol = 1e-3); chameleon at 2 layers on 4l's (one
      extend and one decode step, the QK-norm path, logits at 1e-3);
+  4n. the engine's reuse and scheduling features on phase 3's granite-8b
+     export (full width, 36 layers, float, warm engines): the prefix trie
+     (8 requests of one 96-token prefix and a 3-12-token tail, the first
+     drained alone: >= 7 hits skipping 96 tokens each, extend ticks and the
+     later requests' TTFT against the cache-off run, equal tokens);
+     telemetry on against off (equal tokens, the warm decode and extend
+     tick ms, no eager tick in a warm drain, the trace ring's events);
+     preemption (4 batch requests of 64-token prompts, 2 interactive ones
+     10 ticks later: preempts = resumes >= 1, per-class TTFT, tokens equal
+     to preempt=False); abort of a live and of a parked request, then
+     abort_all mid-flight (``KVPool.check()``, 0 pages in use outside the
+     trie, on_finish once a request);
+  4o. mamba2-370m on 4h's export (full width, 48 layers, float, warm):
+     the prefix trie with the slot snapshot and restore captured, 4
+     requests of one 64-token prefix: the hits restore through the
+     replayed graph (no TRACE_COUNTS move, no launch through a wrapper),
+     tokens equal to the cache-off run, the bytes the trie's snapshots
+     hold;
+  4p. seamless-m4t-large-v2 on 4k's export (24 + 24 layers, float, cold):
+     8 requests over 2 source clips: 2 encode ticks with the EncoderCache,
+     8 without, equal tokens;
   5. train granite-8b at published width, 4 layers (n_layers 36 -> 4: the
      masters, gradients and AdamW moments of all 36 do not fit one card),
      through ``launch.train.build_training`` as the CLI wires it but with
@@ -1720,6 +1741,338 @@ def qwen_two_layers(cfg, sp, dev: str, kv_dtype: str, pools=None):
     return le.cpu(), ld.cpu(), own
 
 
+# phases 4n-4p: the engine's reuse and scheduling features
+FEATURE_PREFIX, FEATURE_TAILS = 96, (3, 13)   # shared prefix, tail lengths
+FEATURE_REQUESTS, FEATURE_TOKENS = 8, 8
+
+
+def features_engine(s_model, sp, warm: bool = True, **kw):
+    """A 4-slot engine on ``s_model`` (128-token slots; an encoder-decoder
+    model's ENC_MAX_LEN ones with ENC_TOKENS-frame encodes), warmed up
+    (its ticks then replay CUDA graphs) unless ``warm`` is False."""
+    from repro_torch.serve.engine import BatchedEngine, ServeConfig
+
+    cross = s_model.has_cross_attn
+    eng = BatchedEngine(s_model, sp, ServeConfig(**{**dict(
+        n_slots=N_SLOTS, max_len=ENC_MAX_LEN if cross else 128,
+        chunk_tokens=CHUNK, page_tokens=16,
+        enc_tokens=ENC_TOKENS if cross else None), **kw}))
+    if warm:
+        eng.warmup()
+    return eng
+
+
+def feature_prompts(cfg, n: int = FEATURE_REQUESTS, prefix: int = FEATURE_PREFIX):
+    """``n`` prompts of one shared ``prefix``-token prefix and a random tail
+    of FEATURE_TAILS tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(23)
+    shared = rng.integers(0, cfg.vocab, size=prefix)
+    return [np.concatenate([shared, rng.integers(
+        0, cfg.vocab, size=int(rng.integers(*FEATURE_TAILS)))]).astype(np.int32)
+        for _ in range(n)]
+
+
+def drain_in_turns(eng, turns):
+    """Submit each turn's (prompt, params[, frames]) and drain it before the
+    next. Returns (requests, ticks, drain seconds, tick end times: the end of
+    engine tick i, in drain seconds summed over the turns)."""
+    from repro_torch.launch.serve import drain
+
+    reqs, ticks, secs, ends = [], 0, 0.0, []
+    for turn in turns:
+        reqs += [eng.submit(*job) for job in turn]
+        n, dt, tick_ends = drain(eng, reqs[-len(turn):])
+        ends += [secs + t for t in tick_ends]
+        ticks, secs = ticks + n, secs + dt
+    return reqs, ticks, secs, ends
+
+
+def ttft_ms(reqs, tick_ends):
+    """Mean TTFT of ``reqs`` from their submission: in ms (``tick_ends[i]``:
+    the end of engine tick i) and in ticks."""
+    import numpy as np
+
+    ms = [1e3 * (tick_ends[r.token_steps[0]]
+                 - (tick_ends[r.submit_step - 1] if r.submit_step else 0.0))
+          for r in reqs]
+    return float(np.mean(ms)), float(np.mean([r.token_steps[0] - r.submit_step
+                                               for r in reqs]))
+
+
+def phase_features_granite(cfg, sp):
+    """Phase 4n: granite-8b at full width and depth on phase 3's export,
+    float, warm engines: the prefix trie (8 requests of one 96-token prefix,
+    the first drained alone; hits, skipped tokens, extend ticks and a hit's
+    TTFT against the cache-off run, equal tokens), preemption (4 batch
+    requests of 64-token prompts, then, 10 ticks later, 2 interactive:
+    preempts = resumes,
+    per-class TTFT, tokens equal to preempt=False), abort of a live and a
+    parked request and abort_all mid-flight (the pool checks out, 0 pages
+    in use outside the trie), telemetry on against off (equal tokens, the
+    warm decode tick's ms, no eager tick through the warm drains, the trace
+    ring's events)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import build_model
+    from repro_torch.nn.context import SERVE, ModelContext
+    from repro_torch.serve.engine import TRACE_COUNTS
+    from repro_torch.serve.sampling import SamplingParams
+
+    t0 = time.perf_counter()
+    s_model = build_model(cfg, ModelContext(policy=cfg.tbn, mode=SERVE,
+                                            compute_dtype=torch.bfloat16,
+                                            device="cuda"))
+    label = f"{cfg.name} float"
+    greedy = SamplingParams(max_tokens=FEATURE_TOKENS)
+    prompts = feature_prompts(cfg)
+    turns = [[(prompts[0], greedy)], [(p, greedy) for p in prompts[1:]]]
+    runs, moved = {}, {}
+    for name, kw in (("trie", dict(prefix_cache=True, trace_events=256)),
+                     ("no trie", dict(prefix_cache=False)),
+                     ("no telemetry", dict(prefix_cache=False, telemetry=False))):
+        eng = features_engine(s_model, sp, **kw)
+        traces = TRACE_COUNTS.copy()
+        zero_counters()
+        reqs, ticks, dt, ends = drain_in_turns(eng, turns)
+        st = eng.stats()
+        if TRACE_COUNTS != traces:
+            moved[name] = {k: TRACE_COUNTS[k] - traces[k] for k in TRACE_COUNTS}
+        runs[name] = dict(tokens=[r.output for r in reqs], st=st, ticks=ticks,
+                          counts=read_counters(), ttft=ttft_ms(reqs[1:], ends),
+                          hits=[r.prefix_hit_tokens for r in reqs],
+                          events=len(eng.tel.ring) if eng.tel and eng.tel.ring else 0)
+        if eng.pool is not None:
+            eng.pool.check()
+            if eng.pool.used_pages != (len(eng.trie.held_pages()) if eng.trie else 0):
+                fail(f"{label} {name}: {eng.pool.used_pages} pages in use after the "
+                     f"drain, outside the trie")
+        del eng
+        release()
+    on, off, quiet = runs["trie"], runs["no trie"], runs["no telemetry"]
+    if moved or any(r["counts"][k] for r in runs.values() for k in r["counts"]):
+        fail(f"{label}: a warm drain ran a tick eagerly: TRACE_COUNTS moved "
+             f"{moved}, launches {[r['counts'] for r in runs.values()]}")
+    if not on["tokens"] == off["tokens"] == quiet["tokens"]:
+        fail(f"{label}: greedy tokens differ with the prefix cache or the "
+             f"telemetry on and off: {on['tokens'][:2]} / {off['tokens'][:2]} / "
+             f"{quiet['tokens'][:2]}")
+    hits, skipped = on["st"]["prefix_hits"], on["st"]["prefix_tokens"]
+    if hits < FEATURE_REQUESTS - 1 or skipped != FEATURE_PREFIX * hits:
+        fail(f"{label}: {hits} prefix hits skipping {skipped} tokens; want >= "
+             f"{FEATURE_REQUESTS - 1} hits of {FEATURE_PREFIX} tokens")
+    if on["st"]["retraces"] or off["st"]["retraces"] or not on["events"]:
+        fail(f"{label}: the eager-tick detector counted {on['st']['retraces']} / "
+             f"{off['st']['retraces']}; {on['events']} trace-ring events")
+    print(f"serve [{label}] prefix trie, warm: {hits}/{FEATURE_REQUESTS} "
+          f"admissions hit, {skipped} of {on['st']['prompt_tokens']} prompt tokens "
+          f"skipped, {on['st']['trie_nodes']} trie nodes; extend ticks "
+          f"{on['st']['extend_ticks']} (cache off {off['st']['extend_ticks']}), "
+          f"ticks {on['ticks']} ({off['ticks']}); the 7 later requests' TTFT mean "
+          f"{on['ttft'][0]:.2f} ms, {on['ttft'][1]:.2f} ticks (cache off "
+          f"{off['ttft'][0]:.2f} ms, {off['ttft'][1]:.2f} ticks); greedy tokens "
+          f"equal on and off", flush=True)
+    print(f"serve [{label}] telemetry, warm: decode tick {off['st']['decode_ms_mean']:.3f}"
+          f" ms on, {quiet['st']['decode_ms_mean']:.3f} ms off; extend tick "
+          f"{off['st']['extend_ms_mean']:.3f} / {quiet['st']['extend_ms_mean']:.3f} ms; "
+          f"tokens equal on and off; eager ticks after warmup 0 (no TRACE_COUNTS "
+          f"move, no launch through a wrapper); trace ring {on['events']} events; "
+          f"latency p50 ttft {on['st']['latency']['ttft_ms']['p50']} ms, itl "
+          f"{on['st']['latency']['itl_ms']['p50']} ms (histograms)", flush=True)
+
+    # preemption: 4 batch requests fill the slots, 2 interactive arrive
+    rng = np.random.default_rng(5)
+    batch = [rng.integers(0, cfg.vocab, size=64).astype(np.int32) for _ in range(4)]
+    inter = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32) for n in (9, 14)]
+    pre = {}
+    for preempt in (True, False):
+        eng = features_engine(s_model, sp, priorities=True, preempt=preempt)
+        reqs = [eng.submit(p, SamplingParams(max_tokens=24, priority="batch"))
+                for p in batch]
+        t_run = time.perf_counter()
+        ends = []
+        for _ in range(10):      # the batch requests are decoding by now
+            eng.step()
+            ends.append(time.perf_counter() - t_run)
+        reqs += [eng.submit(p, SamplingParams(max_tokens=FEATURE_TOKENS,
+                                              priority="interactive")) for p in inter]
+        eng.run_until_drained(on_tick=lambda _: ends.append(time.perf_counter() - t_run))
+        st = eng.stats()
+        pre[preempt] = dict(tokens=[r.output for r in reqs], st=st,
+                            ttft={c: ttft_ms([r for r in reqs if r.priority == c],
+                                             ends)[0]
+                                  for c in ("batch", "interactive")})
+        eng.pool.check()
+        if eng.pool.used_pages:
+            fail(f"{label} preempt={preempt}: {eng.pool.used_pages} pages in use")
+        del eng
+        release()
+    st = pre[True]["st"]
+    if pre[True]["tokens"] != pre[False]["tokens"]:
+        fail(f"{label}: greedy tokens differ with preemption on and off")
+    if not st["resumes"] == st["preempts"] >= 1:
+        fail(f"{label}: {st['preempts']} preempts, {st['resumes']} resumes")
+    print(f"serve [{label}] preemption, warm: {st['preempts']} preempts, "
+          f"{st['resumes']} resumes, {st['preempted_tokens']} context tokens parked; "
+          f"TTFT interactive {st['class_ttft_ticks']['interactive']} ticks / "
+          f"{pre[True]['ttft']['interactive']:.1f} ms, batch "
+          f"{st['class_ttft_ticks']['batch']} ticks / {pre[True]['ttft']['batch']:.1f}"
+          f" ms (preempt off: interactive "
+          f"{pre[False]['st']['class_ttft_ticks']['interactive']} ticks / "
+          f"{pre[False]['ttft']['interactive']:.1f} ms, batch "
+          f"{pre[False]['st']['class_ttft_ticks']['batch']} ticks / "
+          f"{pre[False]['ttft']['batch']:.1f} ms); greedy tokens equal to "
+          f"preempt=False", flush=True)
+
+    # abort: one live, one parked, then abort_all mid-flight
+    eng = features_engine(s_model, sp, prefix_cache=True, priorities=True,
+                          preempt=True)
+    finished = []
+    eng.on_finish = finished.append
+    reqs = [eng.submit(p, SamplingParams(max_tokens=24)) for p in prompts[:6]]
+    for _ in range(3):
+        eng.step()
+    live = list(eng._live)
+    eng.abort(eng._live[live[0]])
+    parked = eng._live[live[1]]
+    eng.preempt_slot(live[1])
+    eng.abort(parked)
+    for _ in range(2):
+        eng.step()
+    eng.preempt_slot(next(iter(eng._live)))
+    n = eng.abort_all()
+    eng.pool.check()
+    outside = eng.pool.used_pages - len(eng.trie.held_pages())
+    eng.trie.clear()
+    eng.pool.check()
+    if (outside or eng.pool.used_pages or eng.has_work or len(finished) != len(reqs)
+            or not all(r.done for r in reqs)):
+        fail(f"{label} abort: {outside} pages in use outside the trie, "
+             f"{eng.pool.used_pages} after clearing it, {len(finished)} of "
+             f"{len(reqs)} finished")
+    print(f"serve [{label}] abort: one live and one parked request aborted, then "
+          f"abort_all ended {n} (live, parked, queued); on_finish fired "
+          f"{len(finished)} times for {len(reqs)} requests; KVPool.check() passes, "
+          f"0 pages in use outside the trie", flush=True)
+    del eng
+    release()
+    print(f"phase 4n ({cfg.name} engine features): {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+
+def phase_features_mamba(cfg, sp):
+    """Phase 4o: mamba2-370m at full width and all 48 layers on 4h's
+    export, float, warm: the prefix trie with the slot snapshot and restore
+    captured; 4 requests of one 64-token prefix (the first drained alone):
+    the hits restore through the replayed graph (no eager tick, no
+    TRACE_COUNTS move), tokens equal to the cache-off run, and the bytes
+    the trie's snapshots hold."""
+    import torch
+
+    from repro_torch.configs import build_model
+    from repro_torch.nn.context import SERVE, ModelContext
+    from repro_torch.serve.engine import TRACE_COUNTS
+    from repro_torch.serve.sampling import SamplingParams
+
+    t0 = time.perf_counter()
+    s_model = build_model(cfg, ModelContext(policy=cfg.tbn, mode=SERVE,
+                                            compute_dtype=torch.bfloat16,
+                                            device="cuda"))
+    label = f"{cfg.name} float"
+    greedy = SamplingParams(max_tokens=FEATURE_TOKENS)
+    prompts = feature_prompts(cfg, 4, 64)
+    turns = [[(prompts[0], greedy)], [(p, greedy) for p in prompts[1:]]]
+    runs = {}
+    for on in (True, False):
+        eng = features_engine(s_model, sp, prefix_cache=on)
+        timings = eng._warm_s
+        traces = TRACE_COUNTS.copy()
+        zero_counters()
+        reqs, ticks, dt, ends = drain_in_turns(eng, turns)
+        counts = read_counters()
+        if TRACE_COUNTS != traces or any(counts.values()):
+            fail(f"{label} prefix_cache={on}: the warm drain ran a tick eagerly: "
+                 f"TRACE_COUNTS {dict(traces)} -> {dict(TRACE_COUNTS)}, {counts}")
+        torch.cuda.synchronize()
+        runs[on] = dict(tokens=[r.output for r in reqs], st=eng.stats(),
+                        timings=dict(timings), ticks=ticks, dt=dt)
+        del eng
+        release()
+    st = runs[True]["st"]
+    if runs[True]["tokens"] != runs[False]["tokens"]:
+        fail(f"{label}: greedy tokens differ with the prefix cache on and off")
+    if (not {"snapshot_slot", "restore_slot"} <= set(runs[True]["timings"])
+            or st["prefix_hits"] < 3 or st["retraces"]):
+        fail(f"{label}: warmup {sorted(runs[True]['timings'])}, "
+             f"{st['prefix_hits']} hits, {st['retraces']} eager ticks")
+    print(f"serve [{label}] prefix trie, warm: snapshot_slot "
+          f"{runs[True]['timings']['snapshot_slot']:.3f}s and restore_slot "
+          f"{runs[True]['timings']['restore_slot']:.3f}s captured; {st['prefix_hits']}"
+          f"/4 admissions hit, {st['prefix_tokens']} prompt tokens skipped; the "
+          f"warm drain with its restores moved no TRACE_COUNTS and launched "
+          f"nothing through a wrapper; extend ticks {st['extend_ticks']} (cache off "
+          f"{runs[False]['st']['extend_ticks']}), {runs[True]['dt']:.2f}s "
+          f"({runs[False]['dt']:.2f}s); {st['trie_nodes']} trie nodes hold "
+          f"{st['trie_snapshot_bytes'] / 1e6:.1f} MB of snapshots; greedy tokens "
+          f"equal on and off", flush=True)
+    print(f"phase 4o ({cfg.name} prefix trie): {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+
+def phase_features_seamless(cfg, sp):
+    """Phase 4p: seamless-m4t-large-v2 at full width and depth on 4k's
+    export, float, cold engines: 8 requests over 2 source clips; 2 encode
+    ticks with the EncoderCache, 8 without, equal greedy tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import build_model
+    from repro_torch.launch.serve import synthetic_prompts
+    from repro_torch.nn.context import SERVE, ModelContext
+    from repro_torch.serve.sampling import SamplingParams
+
+    t0 = time.perf_counter()
+    s_model = build_model(cfg, ModelContext(policy=cfg.tbn, mode=SERVE,
+                                            compute_dtype=torch.bfloat16,
+                                            device="cuda"))
+    label = f"{cfg.name} float"
+    rng = np.random.default_rng(3)
+    clips = synthetic_frames(cfg, rng, 2)
+    prompts = synthetic_prompts(rng, FEATURE_REQUESTS, cfg.vocab)
+    runs = {}
+    for on in (True, False):
+        eng = features_engine(s_model, sp, warm=False, prefix_cache=on)
+        reqs, ticks, dt, _ = drain_in_turns(eng, [[
+            (p, SamplingParams(max_tokens=FEATURE_TOKENS), clips[i % 2])
+            for i, p in enumerate(prompts)]])
+        st = eng.stats()
+        runs[on] = dict(tokens=[r.output for r in reqs], st=st, ticks=ticks, dt=dt)
+        eng.xpool.check()
+        held = len(eng.enc_cache.held_pages()) if eng.enc_cache else 0
+        if eng.xpool.used_pages != held:
+            fail(f"{label}: {eng.xpool.used_pages} cross pages in use, {held} "
+                 f"held by the EncoderCache")
+        del eng
+        release()
+    on, off = runs[True], runs[False]
+    if on["tokens"] != off["tokens"]:
+        fail(f"{label}: greedy tokens differ with the EncoderCache on and off")
+    if (on["st"]["encode_ticks"], off["st"]["encode_ticks"]) != (2, FEATURE_REQUESTS):
+        fail(f"{label}: {on['st']['encode_ticks']} encode ticks with the "
+             f"EncoderCache and {off['st']['encode_ticks']} without; want 2 and "
+             f"{FEATURE_REQUESTS}")
+    print(f"serve [{label}] EncoderCache, cold: {FEATURE_REQUESTS} requests over 2 "
+          f"sources ({len(clips[0])} and {len(clips[1])} frames): "
+          f"{on['st']['encode_ticks']} encode ticks and {on['st']['enc_cache_hits']} "
+          f"cache hits ({off['st']['encode_ticks']} encode ticks without), "
+          f"{on['ticks']} ticks in {on['dt']:.2f}s ({off['ticks']} in "
+          f"{off['dt']:.2f}s); greedy tokens equal on and off", flush=True)
+    print(f"phase 4p ({cfg.name} EncoderCache): {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+
 def phase_qwen_card_vs_cpu(cfg, sp):
     """Phase 4c: qwen1.5-32b at full width, 2 layers, f32, on the card
     (kernels) against the CPU (plain versions).
@@ -2713,6 +3066,7 @@ def main() -> None:
     cfg = get_config("granite-8b")
     sp, launches = phase_serve(cfg)
     phase_card_vs_cpu(cfg, sp)
+    phase_features_granite(cfg, sp)
     del sp
     qwen = get_config(QWEN)
     sp, counts = phase_serve_paths(
@@ -2736,11 +3090,14 @@ def main() -> None:
         sp, part = phase_serve_recurrent(arch, phase)
         rec_counts = {k: rec_counts[k] + part[k] for k in rec_counts}
         phase_recurrent_card_vs_cpu(get_config(arch), sp, lens)
+        if arch == MAMBA:
+            phase_features_mamba(get_config(arch), sp)
         del sp
         release()
     seamless = get_config(SEAMLESS)
     sp, enc_counts = phase_serve_paths(seamless, "4k")
     phase_encdec_card_vs_cpu(seamless, sp)
+    phase_features_seamless(seamless, sp)
     del sp
     release()
     sp, part = phase_serve_family(CHAMELEON, "4l", profile_ticks=1,

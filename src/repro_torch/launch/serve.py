@@ -25,7 +25,22 @@ the requests) that the engine encodes before its prompt prefills; ``--aot``
 then captures the encode tick too. ``--reduced`` serves its tiny
 same-family config.
 
-Flow: build the TRAIN masters on the device one leaf at a time, export
+The engine's reuse and scheduling features: ``--prefix-cache`` (on by
+default; ``--no-prefix-cache`` turns it off) shares prompt prefixes through
+the radix trie, and for the encdec family reuses the encoder output of a
+repeated source (``--enc-sources`` clips shared by the requests);
+``--shared-prefix N`` prepends N common tokens to every prompt;
+``--pool-pages`` sizes the K/V pool (LRU trie leaves are evicted under
+pressure); ``--priorities`` orders admission by class (every 4th request is
+interactive) and ``--preempt`` lets a waiting interactive request park a
+batch slot and resume it later; ``--telemetry`` (on by default) keeps
+request spans and tick phase histograms, and ``--trace-log FILE`` writes
+the trace-event ring (``--trace-events`` events) to FILE as JSON lines.
+``--ckpt-dir`` restores the TRAIN masters of a ``repro_torch.launch.train``
+checkpoint before the export.
+
+Flow: build the TRAIN masters on the device one leaf at a time (or read
+them from the checkpoint), export
 each to the SERVE form (packed tile rows + alpha) and free it, stand up
 the ``BatchedEngine`` and drain a batch of synthetic prompts, timing every
 tick. Prints the compression of the shipped weights, the throughput, a
@@ -35,12 +50,14 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Dict
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ArchConfig, build_model, get_config
 from repro_torch.device import resolve_device
+from repro_torch.ft.checkpoint import latest_step, restore_checkpoint
 from repro_torch.kernels.tiled_xnor import COMPUTE_PATHS
 from repro_torch.nn import module as mod
 from repro_torch.nn.context import SERVE, TRAIN, ModelContext
@@ -59,14 +76,54 @@ def device_label(device: torch.device) -> str:
     return str(device).upper()
 
 
+class CheckpointMasters:
+    """A read-only view of the TRAIN masters stored in a checkpoint (the
+    ``params`` of a train CLI's state, or a bare master tree), offering what
+    ``export_serving_params`` reads of a param tree (``[key]``, ``get``):
+    each leaf is moved to ``device`` when read and kept nowhere."""
+
+    def __init__(self, flat: Dict[str, np.ndarray], specs: dict, device,
+                 prefix: str = ""):
+        self._flat, self._specs, self._device = flat, specs, device
+        self._prefix = prefix
+
+    def __getitem__(self, key: str):
+        spec, path = self._specs[key], f"{self._prefix}{key}"
+        if isinstance(spec, mod.ParamSpec):
+            if path not in self._flat:
+                raise KeyError(f"checkpoint has no master leaf {path}")
+            arr = self._flat[path]
+            if tuple(arr.shape) != tuple(spec.shape):
+                raise ValueError(f"master {path}: stored shape {arr.shape} != "
+                                 f"{tuple(spec.shape)}")
+            return torch.from_numpy(arr).to(self._device, spec.dtype)
+        return CheckpointMasters(self._flat, spec, self._device, f"{path}/")
+
+    def get(self, key: str, default=None):
+        return self[key] if key in self._specs else default
+
+
+def checkpoint_masters(ckpt_dir, specs: dict, device):
+    """(step, :class:`CheckpointMasters`) of the latest checkpoint under
+    ``ckpt_dir``, or None when it holds none."""
+    if latest_step(ckpt_dir) is None:
+        return None
+    step, flat, _ = restore_checkpoint(ckpt_dir)
+    prefix = "params/" if any(k.startswith("params/") for k in flat) else ""
+    return step, CheckpointMasters(flat, specs, torch.device(device), prefix)
+
+
 def build_serving(cfg: ArchConfig, *, device, seed: int,
-                  compute_dtype=torch.bfloat16, compute_path: str = "float"):
-    """Random TRAIN masters from ``seed`` -> (SERVE model, SERVE params,
-    master bytes). The SERVE model applies its dense layers through
+                  compute_dtype=torch.bfloat16, compute_path: str = "float",
+                  ckpt_dir=None):
+    """TRAIN masters -> (SERVE model, SERVE params, master bytes): random
+    ones from ``seed``, or the latest checkpoint's under ``ckpt_dir``
+    where it holds one. The SERVE model applies its dense layers through
     ``compute_path``. The masters are streamed: each master leaf is built
-    (as ``t_model.init(seed)`` builds it), exported and freed before the
-    next, so the peak is the largest leaf plus the shipped params, not the
-    whole tree (qwen1.5-32b: one 36 GB stacked MLP leaf of 140 GB)."""
+    (as ``t_model.init(seed)`` builds it) or read, exported and freed
+    before the next, so the peak is the largest leaf plus the shipped
+    params, not the whole tree (qwen1.5-32b: one 36 GB stacked MLP leaf of
+    140 GB)."""
     t_model = build_model(cfg, ModelContext(
         policy=cfg.tbn, mode=TRAIN, compute_dtype=compute_dtype, device=device))
     s_model = build_model(cfg, ModelContext(
@@ -74,6 +131,11 @@ def build_serving(cfg: ArchConfig, *, device, seed: int,
         compute_path=compute_path))
     t_specs = t_model.specs()
     masters = mod.LazyParams(t_specs, seed, t_model.device)
+    restored = (checkpoint_masters(ckpt_dir, t_specs, t_model.device)
+                if ckpt_dir else None)
+    if restored is not None:
+        print(f"restored masters at step {restored[0]}")
+        masters = restored[1]
     with torch.no_grad():
         sp = export_serving_params(t_specs, s_model.specs(), masters, cfg.tbn)
     if s_model.device.type == "cuda":
@@ -131,6 +193,42 @@ def main(argv=None):
                          "(clamped to --max-len)")
     ap.add_argument("--page-tokens", type=int, default=16,
                     help="attention KV pool page size (must divide --max-len)")
+    ap.add_argument("--pool-pages", type=int, default=None,
+                    help="KV pool capacity in pages (default: the "
+                         "dense-equivalent slots * max_len / page_tokens)")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="radix-trie shared-prefix reuse across admissions; "
+                         "encoder-output reuse for the encdec family "
+                         "(--no-prefix-cache disables)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend this many common tokens to every prompt "
+                         "(a synthetic system prompt for the prefix cache)")
+    ap.add_argument("--priorities", action="store_true",
+                    help="class-aware admission (interactive > batch, "
+                         "prefix-aware queue jumping, aging floor) instead "
+                         "of FIFO; every 4th synthetic request is interactive")
+    ap.add_argument("--preempt", action="store_true",
+                    help="preempt-and-resume: a waiting interactive request "
+                         "may park a batch slot (snapshot and retained "
+                         "pages, restored byte-exactly); implies --priorities")
+    ap.add_argument("--default-priority", default="batch",
+                    help="class of requests that set none (interactive | batch)")
+    ap.add_argument("--telemetry", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="serving telemetry: metric registry, request spans, "
+                         "tick phase timing, eager-tick detector "
+                         "(--no-telemetry; tokens are the same either way)")
+    ap.add_argument("--trace-log", default=None, metavar="FILE",
+                    help="write the trace-event ring (submit / admit / "
+                         "preempt / resume / finish / retrace) to FILE as "
+                         "JSON lines after the drain")
+    ap.add_argument("--trace-events", type=int, default=4096,
+                    help="trace-event ring capacity (with --trace-log; the "
+                         "oldest events drop past it)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore the TRAIN masters of the latest checkpoint "
+                         "here (the train CLI's --ckpt-dir) before the export")
     ap.add_argument("--enc-tokens", type=int, default=None,
                     help="encoder capacity in source frames (encdec "
                          "family only; default --max-len)")
@@ -156,9 +254,15 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
-    if args.max_len < 12:
+    if args.shared_prefix < 0:
+        raise SystemExit(f"--shared-prefix must be >= 0: {args.shared_prefix}")
+    if args.max_len < args.shared_prefix + 12:
         raise SystemExit(f"--max-len {args.max_len} is below the longest "
-                         f"synthetic prompt (11 tokens)")
+                         f"synthetic prompt ({args.shared_prefix} shared + 11 "
+                         f"tokens)")
+    if args.trace_log and not args.telemetry:
+        raise SystemExit("--trace-log requires --telemetry (the ring is fed "
+                         "from the telemetry call sites)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -168,7 +272,8 @@ def main(argv=None):
     if encdec and args.enc_sources < 1:
         raise SystemExit(f"--enc-sources must be >= 1: {args.enc_sources}")
     s_model, sp, master_b = build_serving(cfg, device=device, seed=args.seed,
-                                          compute_path=args.compute_path)
+                                          compute_path=args.compute_path,
+                                          ckpt_dir=args.ckpt_dir)
     if args.compute_path != "float":
         print(f"compute path: {args.compute_path} (decode ticks quantize "
               f"activations and accumulate on the packed tile words; "
@@ -181,8 +286,13 @@ def main(argv=None):
         n_slots=args.slots, max_len=args.max_len,
         chunk_tokens=min(args.chunk_tokens, args.max_len),
         temperature=args.temperature, top_k=args.top_k, seed=args.seed,
-        page_tokens=args.page_tokens, compute_path=args.compute_path,
-        enc_tokens=args.enc_tokens if encdec else None))
+        page_tokens=args.page_tokens, pool_pages=args.pool_pages,
+        prefix_cache=args.prefix_cache, priorities=args.priorities or args.preempt,
+        preempt=args.preempt, default_priority=args.default_priority,
+        compute_path=args.compute_path,
+        enc_tokens=args.enc_tokens if encdec else None,
+        telemetry=args.telemetry,
+        trace_events=args.trace_events if args.trace_log else 0))
     if args.aot:
         t = eng.warmup()
         print(f"AOT warmup: {', '.join(f'{k} {v:.2f}s' for k, v in t.items())}")
@@ -191,8 +301,15 @@ def main(argv=None):
     clips = (synthetic_clips(rng, args.enc_sources, cfg.d_model,
                              max(1, eng.enc_tokens // 2), eng.enc_tokens + 1)
              if encdec else None)
-    reqs = [eng.submit(p, SamplingParams(max_tokens=args.max_tokens),
-                       frames=clips[i % len(clips)] if encdec else None)
+    if args.shared_prefix:
+        shared = rng.integers(0, cfg.vocab, size=args.shared_prefix)
+        prompts = [np.concatenate([shared, p]).astype(np.int32) for p in prompts]
+    reqs = [eng.submit(p, SamplingParams(
+                max_tokens=args.max_tokens,
+                # under --priorities every 4th request is interactive
+                priority="interactive" if eng.cfg.priorities and i % 4 == 3
+                else None),
+                frames=clips[i % len(clips)] if encdec else None)
             for i, p in enumerate(prompts)]
     ticks, dt, tick_ends = drain(eng, reqs)
     tok = sum(len(r.output) for r in reqs)
@@ -208,13 +325,45 @@ def main(argv=None):
             line += (f" | ITL mean {1e3 * np.mean(itls):.1f}ms "
                      f"max {1e3 * np.max(itls):.1f}ms")
         print(f"latency on {label} (chunk={eng.cfg.chunk_tokens}): {line}")
+    st = eng.stats()
     if encdec:
-        st = eng.stats()
         pools = ", ".join(f"{name} {f['in_use']}/{f['pages']} pages"
                           for name, f in st["cache_families"].items())
         print(f"encode phase: {st['encode_ticks']} encode ticks of "
-              f"{eng.enc_tokens} frames ({len(clips)} sources); {pools} "
-              f"after the drain")
+              f"{eng.enc_tokens} frames ({len(clips)} sources), "
+              f"{st['enc_cache_hits']}/{st['admitted']} admissions reused a "
+              f"cached encoder output; {pools} after the drain")
+    elif eng.cfg.prefix_cache:
+        line = (f"hit rate {100 * st['hit_rate']:.0f}% ({st['prefix_hits']}/"
+                f"{st['admitted']} admissions), {st['prefix_tokens']}/"
+                f"{st['prompt_tokens']} prefill tokens skipped, "
+                f"{st['trie_nodes']} trie nodes")
+        if eng.pool is not None:
+            line += (f", pool {st['pages_in_use']}/{st['pool_pages']} pages "
+                     f"({100 * st['page_utilization']:.0f}%)")
+        print(f"prefix cache (page={eng.cfg.page_tokens}): {line}")
+    else:
+        print("prefix cache: disabled")
+    if eng.cfg.priorities:
+        per_cls = ", ".join(f"{cls} {t} ticks (n={st['class_counts'][cls]})"
+                            for cls, t in st["class_ttft_ticks"].items())
+        print(f"scheduler ({'priority+preempt' if eng.cfg.preempt else 'priority'}"
+              f"): {st['preempts']} preempts / {st['resumes']} resumes, "
+              f"{st['preempted_tokens']} context tokens parked, preempt-free "
+              f"tick rate {st['preempt_free_tick_rate']:.2f}; TTFT "
+              f"{per_cls or 'n/a'}")
+    if "latency" in st:
+        print("telemetry: " + " ".join(
+            f"{k} p50={v['p50']}ms p99={v['p99']}ms"
+            for k, v in st["latency"].items()
+            if v["count"] and k in ("ttft_ms", "itl_ms", "tick_ms"))
+            + f" | eager ticks after warmup={st['retraces']}")
+    if args.trace_log and eng.tel is not None and eng.tel.ring is not None:
+        n = eng.tel.ring.write_jsonl(args.trace_log)
+        dropped = eng.tel.ring.dropped
+        print(f"trace log: {n} events -> {args.trace_log}"
+              + (f" ({dropped} older events dropped by the "
+                 f"{eng.cfg.trace_events}-event ring)" if dropped else ""))
     for r in reqs[:3]:
         print(f"  req {r.rid}: prompt[{len(r.prompt)}] -> {r.output}")
     return reqs

@@ -100,7 +100,17 @@ def map_tree(fn, tree):
 # slot axis (SSM / RG-LRU carries, windowed-attention rings): one slot's
 # rows as a standalone tree, and its inverse. ``axis`` is the slot axis (1
 # in a layer-stacked segment). ``slot`` is an int or a 0-d index tensor.
+# A tensor slot never leaves the device (a captured graph reads it at each
+# replay): it is clamped into range and a slot outside [0, n_slots) reads
+# the last slot's rows and writes them back unchanged.
+def _slot_index(slot: torch.Tensor, n: int) -> torch.Tensor:
+    return slot.clamp(0, n - 1).reshape(1)
+
+
 def slice_slot_rows(tree, slot, axis: int = 0):
+    if isinstance(slot, torch.Tensor):
+        return map_tree(lambda v: v.index_select(
+            axis, _slot_index(slot, v.shape[axis])).squeeze(axis), tree)
     return map_tree(lambda v: v.select(axis, slot).clone(), tree)
 
 
@@ -108,7 +118,15 @@ def set_slot_rows(tree, slot, rows, axis: int = 0):
     """Write ``rows`` (a tree of ``tree``'s keys) into the slot's rows of
     ``tree`` in place; returns ``tree``."""
     for path, v in walk(tree):
-        v.select(axis, slot).copy_(get_path(rows, path))
+        new = get_path(rows, path)
+        if isinstance(slot, torch.Tensor):
+            n = v.shape[axis]
+            idx = _slot_index(slot, n)
+            new = torch.where((slot >= 0) & (slot < n), new.unsqueeze(axis).to(v.dtype),
+                              v.index_select(axis, idx))
+            v.index_copy_(axis, idx, new)
+        else:
+            v.select(axis, slot).copy_(new)
     return tree
 
 

@@ -3,10 +3,16 @@ copy of ``repro/serve/kvpool.py``, which is numpy-only; the port keeps its
 own).
 
 A free-list allocator with per-page refcounts over ``n_pages`` pages of
-``page_tokens`` cache rows each (sharing a page between slots, and so
-``retain``, comes with the prefix trie). Page id i addresses the same physical
-page in every layer's pool tensor, so one page table (n_slots,
+``page_tokens`` cache rows each. Page id i addresses the same physical page
+in every layer's pool tensor, so one page table (n_slots,
 max_len // page_tokens) translates a slot's positions for the whole stack.
+Only complete pages are ever shared (the prefix trie pins page-aligned runs,
+a parked request keeps its run, the EncoderCache pins a source's cross
+pages), so a shared page is read-only and sharing is pure refcounting: a
+slot mapping a page holds one reference, the trie or the EncoderCache one
+per page it pins, and a page returns to the free list when the last drops.
+Invalid paged writes land on the pools' scratch page (index n_pages), which
+this allocator never hands out.
 """
 from __future__ import annotations
 
@@ -42,6 +48,12 @@ class KVPool:
         self.refcounts[pid] = 1
         return pid
 
+    def retain(self, pid: int) -> None:
+        """Add a reference to a live page (prefix-hit mapping, trie pin)."""
+        if self.refcounts[pid] <= 0:
+            raise ValueError(f"retain of unreferenced page {pid}")
+        self.refcounts[pid] += 1
+
     def release(self, pid: int) -> None:
         """Drop one reference; the page returns to the free list at zero."""
         if self.refcounts[pid] <= 0:
@@ -57,6 +69,12 @@ class KVPool:
     @property
     def used_pages(self) -> int:
         return self.n_pages - len(self._free)
+
+    @property
+    def utilization(self) -> float:
+        """Referenced fraction of the pool in [0, 1] (the telemetry gauge
+        serve_pool_utilization samples it at scrape time)."""
+        return (self.n_pages - len(self._free)) / self.n_pages
 
     def check(self) -> None:
         """Refcounts never negative; free list and referenced pages exactly

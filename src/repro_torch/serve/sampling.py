@@ -24,6 +24,10 @@ class SamplingParams:
     max_tokens: int = 64
     eos_id: int = -1                     # -1 -> never stops on a token
     seed: Optional[int] = None           # explicit per-request stream seed
+    priority: Optional[str] = None       # scheduling class ("interactive" |
+    # "batch"; engine.PRIORITY_RANKS) or None for ServeConfig.default_priority.
+    # It orders admission and picks preemption victims and never touches
+    # sampling: a request's tokens are the same at any priority
 
     def resolve(self, default_temperature: float,
                 default_top_k: Optional[int]) -> "ResolvedSampling":
@@ -34,7 +38,8 @@ class SamplingParams:
         return ResolvedSampling(
             temperature=float(t), top_k=int(k) if k is not None else 0,
             eos_id=int(self.eos_id),
-            seed=int(self.seed) if self.seed is not None else None)
+            seed=int(self.seed) if self.seed is not None else None,
+            priority=self.priority)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +48,7 @@ class ResolvedSampling:
     top_k: int
     eos_id: int
     seed: Optional[int] = None
+    priority: Optional[str] = None       # as given: the engine resolves it
 
 
 def row_seed(stream: Tuple[int, ...], t: int) -> int:

@@ -253,7 +253,10 @@ def test_serve_cli_serves_encdec(capsys):
                            "--max-len", "48", "--enc-tokens", "16", "--aot"])
     out = capsys.readouterr().out
     assert f"arch={ARCH}-smoke" in out and "encode_tick" in out
-    assert "encode phase: 3 encode ticks of 16 frames (2 sources)" in out
+    # the CLI's prefix cache is on: the third request's source is the
+    # first's, which the EncoderCache holds, so it maps in without an encode
+    assert ("encode phase: 2 encode ticks of 16 frames (2 sources), 1/3 "
+            "admissions reused a cached encoder output") in out
     assert all(r.done and len(r.output) == 4 for r in reqs)
     assert all(8 <= len(r.frames) <= 16 for r in reqs)
 

@@ -8,7 +8,9 @@ after its own ``warmup()`` (the exported params of ``PRNGKey(1)`` masters,
 as tests/test_torch_dense_engine.py builds them); a mid-flight warmup
 changes no engine state; stochastic rows repeat warm and cold; a failed
 warmup names its entry point and shapes and leaves the engine cold; the
-serve CLI's ``--aot``.
+serve CLI's ``--aot``; with the prefix trie on a stateful model, the slot
+snapshot and restore among the warmed entry points, a prefix hit after
+warmup, and a mid-flight warmup that changes no cache row.
 """
 import functools
 import re
@@ -236,3 +238,72 @@ def test_serve_cli_aot_flag(capsys):
                      r"\d+\.\d\ds$", out, re.M), out
     assert [r.output for r in warm] == [r.output for r in cold]
     assert all(len(r.output) == 3 for r in warm)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-2b"])
+def test_stateful_warmup_captures_snapshot_restore_and_serves_a_hit(arch):
+    """A stateful model with the prefix cache on also warms the slot
+    snapshot and restore (tests/test_warmup.py's stateful case). After
+    warmup a prefix hit restores through the warmed entry point: every tick
+    body ran as a warmed entry point's run (on this host its stand-in for a
+    replay), the eager-tick detector stays at 0, and the tokens, token
+    steps and hits equal a cold engine's and the JAX engine's after its own
+    warmup."""
+    from test_torch_prefix_cache import JAX, PORT
+    from test_torch_prefix_cache import engine as make
+
+    shared = [5, 6, 7, 8, 9, 10, 11, 12]
+
+    def run(pkg, warm):
+        eng = make(pkg, arch, prefix_cache=True)
+        if warm:
+            assert {"snapshot_slot", "restore_slot", "reset_slot"} <= set(eng.warmup())
+        before = dict(TRACE_COUNTS)
+        reqs = []
+        for tail in ([1], [2], [3, 4]):
+            reqs.append(eng.submit(np.asarray(shared + tail, np.int32),
+                                   pkg.Params(max_tokens=3)))
+            eng.run_until_drained()
+        return eng, before, ([r.output for r in reqs], [r.token_steps for r in reqs],
+                             [r.prefix_hit_tokens for r in reqs])
+
+    eng, before, warm = run(PORT, True)
+    assert warm[2] == [0, 8, 8]                     # two 4-token pages restored
+    moved = sum(TRACE_COUNTS.values()) - sum(before.values())
+    assert moved == eng._stand_in_runs > 0
+    assert TRACE_COUNTS["restore_slot"] - before.get("restore_slot", 0) == 2
+    assert eng.stats()["retraces"] == 0
+    assert warm == run(PORT, False)[2] == run(JAX, True)[2]
+
+
+def test_stateful_midflight_warmup_with_the_trie_changes_no_state():
+    """Warming a mamba2 engine with the trie on in mid-flight (slots
+    prefilling and decoding, snapshots pinned) runs the snapshot and restore
+    entry points on no slot: every cache row, the lengths and the tokens
+    are unchanged, and the drain emits a cold engine's tokens."""
+    from test_torch_prefix_cache import PORT
+    from test_torch_prefix_cache import engine as make
+
+    prompts = [np.arange(n, dtype=np.int32) % 50 + 3 for n in (21, 9, 14)]
+
+    def serve(warm_at):
+        eng = make(PORT, "mamba2-370m", prefix_cache=True)
+        reqs = [eng.submit(p, SamplingParams(max_tokens=5)) for p in prompts]
+        for i in range(warm_at or 0):
+            eng.step()
+        if warm_at:
+            before = [t.clone() for t in _cache_tensors(eng)]
+            assert {"snapshot_slot", "restore_slot"} <= set(eng.warmup())
+            after = _cache_tensors(eng)
+            assert all(torch.equal(a, b) for a, b in zip(before, after, strict=True))
+        eng.run_until_drained()
+        return [r.output for r in reqs], [r.token_steps for r in reqs]
+
+    assert serve(3) == serve(None)
+
+
+def _cache_tensors(eng):
+    from repro_torch.nn import module as mod
+
+    return ([v for c in eng.caches for _, v in mod.walk(c)]
+            + [eng.lengths, eng.tokens])
