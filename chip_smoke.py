@@ -198,6 +198,30 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
   4p. seamless-m4t-large-v2 on 4k's export (24 + 24 layers, float, cold):
      8 requests over 2 source clips: 2 encode ticks with the EncoderCache,
      8 without, equal tokens;
+  4q. the HTTP/SSE serving shell on phase 3's granite-8b export (full
+     width, 36 layers, float): an ``EngineServer`` over a fresh engine of
+     phase 3's ServeConfig, ``start(aot=True)`` (the ticks captured as CUDA
+     graphs in a worker thread before the socket is bound), 127.0.0.1 port
+     0. Phase 3's 8 prompts stream over SSE in a seed-shuffled order, 5 ms
+     apart, 16 greedy tokens each: every stream's tokens must equal a warm
+     engine's in-process drain, its text ``decode_all`` of them, and one
+     non-streaming request its stream; ``stats()["retraces"]`` 0, no
+     TRACE_COUNTS move and no launch through a wrapper, ``/metrics`` with
+     ``serve_tick_seconds_count`` > 0 and the /generate histogram counting
+     every request. Then one long request held live after its 3rd token
+     (the tick thread waits in the token hook until ``close()`` stops it)
+     and ``close()``: a final ``aborted`` event with the deltas' text, both
+     threads joined, 0 live slots, 0 pages outside the trie,
+     ``KVPool.check()``. Then ``python -m repro_torch.launch.serve --arch
+     granite-8b --reduced --serve --port 0 --stats-interval 0.5`` on the
+     card: the readiness line with ``(aot=on)``, one 4-token stream,
+     ``/stats`` (``aot_warm``), ``/metrics``, one ``[stats]`` line, then
+     SIGINT with a connection open that never sends its request: exit 0
+     within 60 s (the stop cuts the silent connection after
+     ``drain_timeout``) with ``server closed`` and no traceback. Prints the
+     client's TTFT and ITL (mean, p50) beside the drain's, the warm decode
+     tick ms inside the server beside the drain's, the detokenize
+     backlog's peak and the phase's seconds;
   5. train granite-8b at published width, 4 layers (n_layers 36 -> 4: the
      masters, gradients and AdamW moments of all 36 do not fit one card),
      through ``launch.train.build_training`` as the CLI wires it but with
@@ -1073,9 +1097,11 @@ def drive(eng, cfg, prompts, max_tokens: int, frames=None):
     tok = sum(len(r.output) for r in reqs)
     return dict(reqs=reqs, ticks=ticks, dt=dt, counts=counts, st=st, tok=tok,
                 tokens=[r.output for r in reqs],
-                steps=[r.token_steps for r in reqs],
+                steps=[r.token_steps for r in reqs], tick_ends=tick_ends,
                 ttft=1e3 * float(np.mean(ttfts)), ttft_max=1e3 * float(np.max(ttfts)),
-                itl=1e3 * float(np.mean(itls)), itl_max=1e3 * float(np.max(itls)))
+                ttft_p50=1e3 * float(np.median(ttfts)),
+                itl=1e3 * float(np.mean(itls)), itl_max=1e3 * float(np.max(itls)),
+                itl_p50=1e3 * float(np.median(itls)))
 
 
 def serve_run(cfg, s_model, sp, path: str, requests: int = 8,
@@ -1959,6 +1985,253 @@ def phase_features_granite(cfg, sp):
     del eng
     release()
     print(f"phase 4n ({cfg.name} engine features): {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+
+# phase 4q: the HTTP shell's workload (phase 3's prompts and tokens), the
+# stagger between stream starts, and the long request the shutdown holds
+HTTP_HOST, HTTP_STAGGER_S, HTTP_SHUFFLE_SEED = "127.0.0.1", 0.005, 24
+HTTP_HOLD_AFTER, HTTP_LONG_TOKENS = 3, 64
+
+
+def serve_cli_http(timeout: float = 240.0):
+    """The serve CLI's HTTP mode on the card, as a subprocess: the readiness
+    line, one 4-token stream, /stats, /metrics, one [stats] line, then SIGINT
+    with a connection open that never sends its request. Returns (seconds to
+    the readiness line, seconds from SIGINT to exit, the CLI's output)."""
+    import asyncio
+    import queue
+    import signal
+    import socket
+    import threading
+
+    from repro_torch.serve.client import request_json, request_text, sse_generate
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "granite-8b",
+         "--reduced", "--serve", "--port", "0", "--stats-interval", "0.5"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        cwd=str(ROOT))
+    lines: "queue.Queue" = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                              daemon=True)
+    reader.start()
+    seen = []
+
+    def next_line(pred, what: str):
+        while True:
+            try:
+                line = lines.get(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            except queue.Empty:
+                fail(f"serve CLI --serve: no {what} within {timeout:.0f}s:\n"
+                     + "".join(seen)[-3000:])
+            seen.append(line)
+            if pred(line):
+                return line
+
+    try:
+        ready = next_line(lambda ln: ln.startswith("serving on http://"),
+                          "readiness line")
+        boot = time.perf_counter() - t0
+        if not ready.strip().endswith("(aot=on)"):
+            fail(f"serve CLI --serve: readiness line {ready.strip()!r} without "
+                 f"(aot=on)")
+        port = int(ready.split(":")[2].split()[0])
+
+        async def go():
+            st, ev, _ = await sse_generate(HTTP_HOST, port, {
+                "prompt": [1, 2, 3], "max_tokens": 4})
+            return (st, ev, await request_json(HTTP_HOST, port, "GET", "/stats"),
+                    await request_text(HTTP_HOST, port, "GET", "/metrics"))
+        st, ev, (_, stats), (mst, mtext) = asyncio.run(go())
+        if (st != 200 or sum("token" in e for e in ev) != 4
+                or ev[-1].get("finish_reason") != "length"
+                or stats.get("aot_warm") is not True or stats.get("retraces")
+                or mst != 200 or "serve_tick_seconds_count" not in mtext):
+            fail(f"serve CLI --serve: stream {st} {ev}, stats aot_warm "
+                 f"{stats.get('aot_warm')} retraces {stats.get('retraces')}, "
+                 f"/metrics {mst}")
+        next_line(lambda ln: ln.startswith("[stats]"), "[stats] line")
+        # a connection that never sends its request: the graceful stop cuts
+        # it after ServerConfig.drain_timeout instead of waiting on it
+        silent = socket.create_connection((HTTP_HOST, port))
+        time.sleep(0.2)
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            fail("serve CLI --serve: still serving 60 s after SIGINT with a "
+                 "silent connection open")
+        stop_s = time.perf_counter() - t_sig
+        silent.close()
+        reader.join(10)
+        while not lines.empty():
+            seen.append(lines.get())
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = "".join(seen)
+    if rc != 0 or "server closed" not in out or "Traceback" in out:
+        fail(f"serve CLI --serve exit {rc} after SIGINT:\n{out[-3000:]}")
+    return boot, stop_s, out
+
+
+def phase_http_granite(cfg, sp):
+    """Phase 4q: granite-8b at full width and depth on phase 3's export,
+    float, served through the HTTP/SSE shell (see the module docstring)."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import build_model
+    from repro_torch.launch.serve import synthetic_prompts
+    from repro_torch.nn.context import SERVE, ModelContext
+    from repro_torch.serve.client import request_json, request_text, sse_generate
+    from repro_torch.serve.detok import PieceCodec, decode_all
+    from repro_torch.serve.engine import TRACE_COUNTS
+    from repro_torch.serve.server import EngineServer, ServerConfig
+    from repro_torch.serve.testing import hold_after, read_to_eof, sse_until
+
+    t0 = time.perf_counter()
+    label = f"{cfg.name} float"
+    s_model = build_model(cfg, ModelContext(policy=cfg.tbn, mode=SERVE,
+                                            compute_dtype=torch.bfloat16,
+                                            device="cuda"))
+    prompts = synthetic_prompts(np.random.default_rng(0), 8, cfg.vocab, 3, 101)
+    max_tokens = 16
+    eng = serve_engine(s_model, sp, "float")
+    eng.warmup()
+    drained = drive(eng, cfg, prompts, max_tokens)
+    del eng
+    release()
+
+    eng = serve_engine(s_model, sp, "float")
+    srv = EngineServer(eng, ServerConfig(host=HTTP_HOST, port=0))
+    order = [int(i) for i in np.random.default_rng(HTTP_SHUFFLE_SEED).permutation(8)]
+
+    async def streams():
+        port = await srv.start(aot=True)
+        traces = TRACE_COUNTS.copy()
+        zero_counters()
+        try:
+            async def one(i, k):
+                await asyncio.sleep(HTTP_STAGGER_S * k)
+                t_send = time.perf_counter()
+                return i, t_send, await sse_generate(HTTP_HOST, port, {
+                    "prompt": [int(t) for t in prompts[i]],
+                    "max_tokens": max_tokens})
+            got = await asyncio.gather(*(one(i, k) for k, i in enumerate(order)))
+            single = await request_json(HTTP_HOST, port, "POST", "/generate", {
+                "prompt": [int(t) for t in prompts[0]], "max_tokens": max_tokens,
+                "stream": False})
+            counts = read_counters()
+            metrics = await request_text(HTTP_HOST, port, "GET", "/metrics")
+            return got, single, metrics, srv.stats(), counts, TRACE_COUNTS == traces
+        finally:
+            await srv.close()
+
+    got, single, (mst, mtext), st, counts, still = asyncio.run(streams())
+    codec = PieceCodec()
+    ttft, itl, by_req = [], [], {}
+    for i, t_send, (status, events, times) in got:
+        toks = [e["token"] for e in events if "token" in e]
+        text = "".join(e["text"] for e in events if "token" in e)
+        done = events[-1]
+        if (status != 200 or toks != drained["tokens"][i]
+                or done.get("finish_reason") != "length"
+                or not text == done["text"] == decode_all(codec, toks)):
+            fail(f"{label} HTTP: stream of request {i} gave status {status}, "
+                 f"tokens {toks} (drain {drained['tokens'][i]}), final {done}")
+        tok_times = [t for e, t in zip(events, times) if "token" in e]
+        by_req[i] = 1e3 * (tok_times[0] - t_send)
+        ttft.append(by_req[i])
+        itl += [1e3 * (b - a) for a, b in zip(tok_times, tok_times[1:])]
+    s_stream = next(ev for i, _, (_, ev, _) in got if i == 0)
+    if single[0] != 200 or single[1]["tokens"] != [e["token"] for e in s_stream
+                                                   if "token" in e]:
+        fail(f"{label} HTTP: the non-streaming request gave {single}")
+    gen_count = [ln for ln in mtext.splitlines() if ln.startswith(
+        'serve_http_request_seconds_count{route="/generate"}')]
+    tick_count = [ln for ln in mtext.splitlines()
+                  if ln.startswith("serve_tick_seconds_count")]
+    if (st["retraces"] or not still or any(counts.values()) or mst != 200
+            or not tick_count or int(tick_count[0].split()[-1]) <= 0
+            or not gen_count or int(gen_count[0].split()[-1]) != len(prompts) + 1):
+        fail(f"{label} HTTP: retraces {st['retraces']}, TRACE_COUNTS unchanged "
+             f"{still}, launches {counts}, /metrics {mst} {tick_count} {gen_count}")
+
+    # mid-flight shutdown: a new server on the same warm engine (warmup() is
+    # then a no-op), one long request held live after its 3rd token
+    srv = EngineServer(eng, ServerConfig(host=HTTP_HOST, port=0))
+    held = hold_after(srv, HTTP_HOLD_AFTER)
+
+    async def shutdown():
+        port = await srv.start(aot=True)
+        reader, writer, events, buf = await sse_until(HTTP_HOST, port, {
+            "prompt": [int(t) for t in prompts[1]],
+            "max_tokens": HTTP_LONG_TOKENS}, HTTP_HOLD_AFTER)
+        try:
+            await srv.close()
+            return await read_to_eof(reader, buf, events)
+        finally:
+            writer.close()
+
+    events = asyncio.run(shutdown())
+    toks = [e for e in events if "token" in e]
+    done = events[-1]
+    outside = eng.pool.used_pages - (len(eng.trie.held_pages()) if eng.trie else 0)
+    eng.pool.check()
+    if (not held.is_set() or done.get("finish_reason") != "aborted"
+            or len(toks) != HTTP_HOLD_AFTER
+            or done["text"] != "".join(e["text"] for e in toks)
+            or srv.detok.alive or srv._tick_thread.is_alive()
+            or srv._tick_error is not None or eng.stats()["live_slots"]
+            or outside):
+        fail(f"{label} HTTP close mid-flight: {len(toks)} token events, final "
+             f"{done}; detok alive {srv.detok.alive}, tick alive "
+             f"{srv._tick_thread.is_alive()}, error {srv._tick_error!r}, live "
+             f"{eng.stats()['live_slots']}, {outside} pages outside the trie")
+    del srv, eng
+    release()
+    boot, stop_s, out = serve_cli_http()
+
+    card = card_line()
+    dst = drained["st"]
+    print(f"serve [{label}] HTTP/SSE shell, warm, on {card}: 8 streams "
+          f"(shuffled, {1e3 * HTTP_STAGGER_S:.0f} ms apart, 16 greedy tokens) "
+          f"equal to the warm in-process drain, text = decode_all, one "
+          f"non-streaming request = its stream; retraces 0, no TRACE_COUNTS move, "
+          f"no launch through a wrapper; /metrics tick count "
+          f"{tick_count[0].split()[-1]}, /generate {gen_count[0].split()[-1]}",
+          flush=True)
+    print(f"serve [{label}] HTTP client vs in-process drain: TTFT mean "
+          f"{np.mean(ttft):.2f} ms p50 {np.median(ttft):.2f} ms (drain "
+          f"{drained['ttft']:.2f} / {drained['ttft_p50']:.2f}) | ITL mean "
+          f"{np.mean(itl):.2f} ms p50 {np.median(itl):.2f} ms (drain "
+          f"{drained['itl']:.2f} / {drained['itl_p50']:.2f}) | warm decode tick "
+          f"in the server {st['decode_ms_mean']:.3f} ms, drain "
+          f"{dst['decode_ms_mean']:.3f} ms; extend tick {st['extend_ms_mean']:.3f}"
+          f" / {dst['extend_ms_mean']:.3f} ms | detok backlog peak "
+          f"{st['detok_backlog_peak']}", flush=True)
+    drain_ttft = {r: 1e3 * drained["tick_ends"][q.token_steps[0]]
+                  for r, q in enumerate(drained["reqs"])}
+    print(f"serve [{label}] HTTP TTFT per request (client / drain, ms): "
+          + ", ".join(f"{i}: {by_req[i]:.1f} / {drain_ttft[i]:.1f}"
+                      for i in sorted(by_req)), flush=True)
+    print(f"serve [{label}] HTTP close mid-flight: held after {HTTP_HOLD_AFTER} "
+          f"tokens, final event aborted with their text, both threads joined, "
+          f"0 live slots, 0 pages outside the trie, KVPool.check() passes",
+          flush=True)
+    print(f"serve CLI --serve (--arch granite-8b --reduced, card): ready in "
+          f"{boot:.1f}s (aot=on), one stream, /stats, /metrics, [stats], SIGINT "
+          f"with a silent connection open -> exit 0 in {stop_s:.1f}s, server "
+          f"closed", flush=True)
+    print(f"phase 4q ({cfg.name} HTTP shell): {time.perf_counter() - t0:.1f}s",
           flush=True)
 
 
@@ -3067,6 +3340,7 @@ def main() -> None:
     sp, launches = phase_serve(cfg)
     phase_card_vs_cpu(cfg, sp)
     phase_features_granite(cfg, sp)
+    phase_http_granite(cfg, sp)
     del sp
     qwen = get_config(QWEN)
     sp, counts = phase_serve_paths(

@@ -39,6 +39,22 @@ the trace-event ring (``--trace-events`` events) to FILE as JSON lines.
 ``--ckpt-dir`` restores the TRAIN masters of a ``repro_torch.launch.train``
 checkpoint before the export.
 
+``--serve`` boots the asyncio HTTP/SSE front end (``serve/server.py``:
+``POST /generate``, ``GET /stats``, ``GET /metrics``, ``GET /healthz``)
+over the engine instead of draining a synthetic batch, and stops on SIGINT
+or SIGTERM:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
+        --serve --port 8000
+
+It prints ``serving on http://HOST:PORT (aot=on|off)`` once it accepts
+connections (``--port 0``: the port the OS picked). ``--aot`` is on by
+default there (the ticks are captured before the socket is bound) and off
+in the batch mode; ``--max-queued`` bounds the admission queue (a full one
+answers HTTP 429); ``--stats-interval S`` prints a ``[stats]`` line every S
+seconds. The encoder-decoder family is refused under ``--serve``: its
+requests need source frames, which the HTTP body does not carry.
+
 Flow: build the TRAIN masters on the device one leaf at a time (or read
 them from the checkpoint), export
 each to the SERVE form (packed tile rows + alpha) and free it, stand up
@@ -180,6 +196,25 @@ def drain(eng: BatchedEngine, reqs):
     return ticks, (tick_ends[-1] if tick_ends else 0.0), tick_ends
 
 
+def serve_http(eng: BatchedEngine, args, aot: bool) -> None:
+    """Run the HTTP/SSE front end over ``eng`` until SIGINT or SIGTERM; the
+    readiness line is printed (and flushed) once it accepts connections."""
+    import asyncio
+
+    from repro_torch.serve.server import ServerConfig, run_server
+
+    def ready(_srv, port):
+        print(f"serving on http://{args.host}:{port} "
+              f"(aot={'on' if aot else 'off'})", flush=True)
+
+    try:
+        asyncio.run(run_server(eng, ServerConfig(host=args.host, port=args.port),
+                               aot=aot, ready=ready,
+                               stats_interval=args.stats_interval))
+    except KeyboardInterrupt:
+        pass
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="granite-8b")
@@ -244,9 +279,22 @@ def main(argv=None):
                          "integer paths apply to decode ticks and outputs "
                          "are approximate vs float")
     ap.add_argument("--aot", action=argparse.BooleanOptionalAction,
-                    default=False,
+                    default=None,
                     help="capture the decode and extend ticks as CUDA "
-                         "graphs before serving (BatchedEngine.warmup)")
+                         "graphs before serving (BatchedEngine.warmup; "
+                         "default: on with --serve, off otherwise)")
+    ap.add_argument("--serve", action="store_true",
+                    help="boot the async HTTP/SSE front end instead of "
+                         "draining a synthetic batch")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8000,
+                    help="HTTP port (0 = OS-assigned, printed at startup)")
+    ap.add_argument("--max-queued", type=int, default=64,
+                    help="admission-queue capacity; a full queue returns "
+                         "HTTP 429 (--serve mode)")
+    ap.add_argument("--stats-interval", type=float, default=0.0,
+                    help="print a one-line telemetry report every S "
+                         "seconds (--serve mode; 0 disables)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
@@ -254,6 +302,8 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
+    if args.stats_interval < 0:
+        raise SystemExit(f"--stats-interval must be >= 0: {args.stats_interval}")
     if args.shared_prefix < 0:
         raise SystemExit(f"--shared-prefix must be >= 0: {args.shared_prefix}")
     if args.max_len < args.shared_prefix + 12:
@@ -264,11 +314,16 @@ def main(argv=None):
         raise SystemExit("--trace-log requires --telemetry (the ring is fed "
                          "from the telemetry call sites)")
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     encdec = cfg.family == "encdec"
+    if encdec and args.serve:
+        raise SystemExit(
+            "--serve (HTTP front-end) carries token prompts only; the "
+            "encdec family needs per-request source frames — drive it "
+            "with the synthetic batch (drop --serve)")
+    device = resolve_device(args.device)
     if encdec and args.enc_sources < 1:
         raise SystemExit(f"--enc-sources must be >= 1: {args.enc_sources}")
     s_model, sp, master_b = build_serving(cfg, device=device, seed=args.seed,
@@ -291,9 +346,25 @@ def main(argv=None):
         preempt=args.preempt, default_priority=args.default_priority,
         compute_path=args.compute_path,
         enc_tokens=args.enc_tokens if encdec else None,
+        max_queued=args.max_queued if args.serve else None,
         telemetry=args.telemetry,
         trace_events=args.trace_events if args.trace_log else 0))
-    if args.aot:
+    aot = args.aot if args.aot is not None else args.serve
+
+    def flush_trace_log():
+        if args.trace_log and eng.tel is not None and eng.tel.ring is not None:
+            n = eng.tel.ring.write_jsonl(args.trace_log)
+            dropped = eng.tel.ring.dropped
+            print(f"trace log: {n} events -> {args.trace_log}"
+                  + (f" ({dropped} older events dropped by the "
+                     f"{eng.cfg.trace_events}-event ring)" if dropped else ""))
+
+    if args.serve:
+        serve_http(eng, args, aot)
+        flush_trace_log()
+        print("server closed", flush=True)
+        return []
+    if aot:
         t = eng.warmup()
         print(f"AOT warmup: {', '.join(f'{k} {v:.2f}s' for k, v in t.items())}")
     rng = np.random.default_rng(args.seed)
@@ -358,12 +429,7 @@ def main(argv=None):
             for k, v in st["latency"].items()
             if v["count"] and k in ("ttft_ms", "itl_ms", "tick_ms"))
             + f" | eager ticks after warmup={st['retraces']}")
-    if args.trace_log and eng.tel is not None and eng.tel.ring is not None:
-        n = eng.tel.ring.write_jsonl(args.trace_log)
-        dropped = eng.tel.ring.dropped
-        print(f"trace log: {n} events -> {args.trace_log}"
-              + (f" ({dropped} older events dropped by the "
-                 f"{eng.cfg.trace_events}-event ring)" if dropped else ""))
+    flush_trace_log()
     for r in reqs[:3]:
         print(f"  req {r.rid}: prompt[{len(r.prompt)}] -> {r.output}")
     return reqs

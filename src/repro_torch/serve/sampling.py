@@ -1,6 +1,11 @@
 """Token sampling: greedy / temperature / top-k (port of
 ``repro/serve/sampling.py``).
 
+``sample_logits_batch`` samples each row with its own temperature, top-k
+and seed, as the engine's ticks need; ``sample_logits`` is the scalar form
+for single-stream callers: one temperature, one top-k and one seed for the
+whole batch.
+
 Greedy is ``argmax`` and matches the reference token for token. A
 stochastic row draws its Gumbel noise from a ``torch.Generator`` seeded
 from (its request's key stream, token index), so a request's tokens never
@@ -40,6 +45,40 @@ class SamplingParams:
             eos_id=int(self.eos_id),
             seed=int(self.seed) if self.seed is not None else None,
             priority=self.priority)
+
+    # ---- HTTP handoff -------------------------------------------------
+    _JSON_FIELDS = ("temperature", "top_k", "max_tokens", "eos_id", "seed",
+                    "priority")
+
+    @classmethod
+    def from_json(cls, body: dict) -> "SamplingParams":
+        """Build params from a decoded request body. Keys that are not
+        sampling fields (``prompt``, ``stream``, ...) are ignored, and only
+        the documented field names bind: a misspelt field is not guessed
+        at."""
+        kw = {}
+        for f in cls._JSON_FIELDS:
+            if body.get(f) is not None:
+                kw[f] = body[f]
+        if "temperature" in kw:
+            kw["temperature"] = float(kw["temperature"])
+        for f in ("top_k", "max_tokens", "eos_id", "seed"):
+            if f in kw:
+                kw[f] = int(kw[f])
+        if "priority" in kw:
+            kw["priority"] = str(kw["priority"])
+        return cls(**kw)
+
+    def to_json(self) -> dict:
+        """The inverse handoff (client helpers, replays): only the fields
+        that differ from the defaults, so a replayed request is exactly the
+        submitted one."""
+        out = {}
+        for f in self._JSON_FIELDS:
+            v = getattr(self, f)
+            if v is not None and v != getattr(type(self)(), f):
+                out[f] = v
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,3 +123,16 @@ def sample_logits_batch(logits: torch.Tensor, temperature: Sequence[float],
         gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
         out[i] = (row + gumbel).argmax()
     return out
+
+
+def sample_logits(logits: torch.Tensor, seed: int = 0, *,
+                  temperature: float = 0.0,
+                  top_k: Optional[int] = None) -> torch.Tensor:
+    """logits (B, V) -> token ids (B,) int64 under one sampler config for
+    every row. Greedy (``temperature <= 0``) is ``argmax``; otherwise row i
+    draws its noise from ``row_seed((seed,), i)``, so rows are independent
+    and the call is reproducible from ``seed``."""
+    b = logits.shape[0]
+    return sample_logits_batch(
+        logits, [float(temperature)] * b, [int(top_k or 0)] * b,
+        [row_seed((int(seed),), i) for i in range(b)])
