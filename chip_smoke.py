@@ -128,8 +128,10 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      top-k expert ids and dispatch positions must be equal (a difference
      fails and names the token and the gap between its k-th and (k+1)-th
      router probability), logits at rtol = atol = 1e-3;
-  4h. serve mamba2-370m at its published width and all 48 layers (SSD
-     state 128, no attention, no FFN), bf16, built the same way: the
+  4h. serve mamba2-370m at its published width, cut to
+     MAMBA_SERVE_LAYERS = 24 of its 48 layers when phase 4r made the run
+     longer (SSD state 128, no attention, no FFN), bf16, built the same
+     way: the
      requests of phase 3 under "float", "xnor" and "int8" on one export,
      cold and warm, with the same counter and token checks (own kernel =
      (2 L + 1) per decode tick + 1 per extend tick: in_proj and out_proj),
@@ -166,9 +168,9 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      tick's ms cold and warm, and one 4-slot decode tick traced per path
      with the LM head's share of busy time (timed alone as a CUDA graph:
      the whole head and the dense rebuild) and one head call's graph pool;
-  4l. serve chameleon-34b at its published width and all
-     CHAMELEON_SERVE_LAYERS = 48 layers (d 8192, GQA 64/8, d_ff 22016,
-     QK-norm, p = 8), bf16, built the same way (peak printed): float path,
+  4l. serve chameleon-34b at its published width, cut to
+     CHAMELEON_SERVE_LAYERS = 16 of its 48 layers when phase 4r made the
+     run longer (d 8192, GQA 64/8, d_ff 22016, QK-norm, p = 8), bf16, built the same way (peak printed): float path,
      4 requests of 8 greedy tokens, cold and warm, own kernel = (7 L + 1)
      per decode tick, first tokens printed, one decode tick traced cold and
      warm;
@@ -189,7 +191,7 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      to preempt=False); abort of a live and of a parked request, then
      abort_all mid-flight (``KVPool.check()``, 0 pages in use outside the
      trie, on_finish once a request);
-  4o. mamba2-370m on 4h's export (full width, 48 layers, float, warm):
+  4o. mamba2-370m on 4h's export (full width, 24 layers, float, warm):
      the prefix trie with the slot snapshot and restore captured, 4
      requests of one 64-token prefix: the hits restore through the
      replayed graph (no TRACE_COUNTS move, no launch through a wrapper),
@@ -222,6 +224,31 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      client's TTFT and ITL (mean, p50) beside the drain's, the warm decode
      tick ms inside the server beside the drain's, the detokenize
      backlog's peak and the phase's seconds;
+  4r. (runs last, after phase 10) tensor- and expert-parallel serving under
+     a ("data", "model") mesh of ranks that share cuda:0 over gloo (ranks
+     sharing one card: no multi-card figure). Phase 3's granite-8b export
+     (full width and depth), 4e's qwen2-moe-a2.7b export cut to
+     TP_MOE_LAYERS = 2 of its 24 layers and phase 9's ResNet-34 export are
+     saved to a temp dir and loaded by 2 ranks (mesh (1, 2)) and then 4
+     ((2, 2)), each rank this script run as ``--tp-rank JOB_DIR``. On each
+     rank: every per-shard tile of granite's layer 0 and head (r/TP rows)
+     through B1 (m = 4), B2 (m = 128), B3 and B4 against the plain
+     versions (phase 2's tolerances); in f32 at all 36 layers, prefill of
+     one prompt and 4 decode steps within 1e-4 x max|logit| of the single
+     card's on the same export; the tile bytes a rank x TP =
+     ``tile_serving_bytes``. The engines run granite cut to TP_LAYERS = 2
+     of its 36 layers (for the run's time: every rank runs cold eager
+     ticks, and each gather stages through the host): phase 3's 8 prompts
+     x 16 greedy tokens under float, xnor and int8 give the single-card
+     engine's tokens at the same ticks, each rank's launch counters equal
+     the single card's and no plain version runs. Under (1, 2) also:
+     qwen2-moe (E/TP experts a rank) logits within 1e-4 and engine tokens
+     equal; ResNet-34 N = 2 f32 logits within phase 10's 1e-3 (B6 per
+     shard, 18 launches a rank); the cold bf16 decode tick at TP_LAYERS
+     against one card's and the gathers' share of it (information). Then
+     the serve CLI
+     under ``torch.distributed.run --nproc-per-node 2 ... --reduced --mesh
+     1x2``: exit 0, ``backend=gloo``, ``2.0x sharding``;
   5. train granite-8b at published width, 4 layers (n_layers 36 -> 4: the
      masters, gradients and AdamW moments of all 36 do not fit one card),
      through ``launch.train.build_training`` as the CLI wires it but with
@@ -274,6 +301,7 @@ last line is the JSON status line.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -342,8 +370,11 @@ ENCODE_CALLS = {"K1024 r256": 1 + 4 * 24 + 2 * 24, "K1024 r2048": 24,
                 "K8192 r256": 24}
 # phase 4m: seamless cut to 2 + 2 layers, chameleon to 2, card vs CPU
 ENCDEC_CHECK_LAYERS = 2
-# phase 4l serves chameleon-34b at full width and depth (a cut would go here)
-CHAMELEON_SERVE_LAYERS = 48
+# phase 4l serves chameleon-34b at full width cut to 16 of its 48 layers,
+# and phases 4h / 4o mamba2-370m to 24 of its 48 (its cold per-token extend
+# ticks): phase 4r made the run longer, and these depths were the next cuts
+CHAMELEON_SERVE_LAYERS = 16
+MAMBA_SERVE_LAYERS = 24
 # phase 4f serves moonshot-v1-16b-a3b at full width cut to 16 of its 48
 # layers: phases 4k-4m made the run longer, and this depth was the next cut
 MOONSHOT_SERVE_LAYERS = 16
@@ -403,6 +434,18 @@ CONV_SHAPES = (("s2.entry 28x28x128 s2", 28, 128, 128, 2, 1),
 CONV_NS = (1, 64)
 R34_BATCH, R34_TIMED = 64, 10
 R34_LEDGER = (21_779_648, 11.646, 0.5347)   # params, Mbit, bits/param
+# phase 4r: the meshes (data, model) of its two jobs; granite-8b's engines
+# and timed ticks cut to TP_LAYERS of its 36 layers (its logits check runs
+# all 36) and qwen2-moe-a2.7b to TP_MOE_LAYERS of 24 (the run's time: every
+# rank runs cold eager ticks with a gather per tiled layer), the prompt of the logits check, the tokens a request, the
+# tolerances (logits: of max|logit|; ResNet-34: phase 10's), the decode
+# ticks timed, and a job's time limit; TP_DIR holds the saved exports
+TP_MESHES = ((1, 2), (2, 2))
+TP_LAYERS, TP_MOE_LAYERS = 2, MOE_CHECK_LAYERS
+TP_PROMPT, TP_DECODE_STEPS, TP_MAX_TOKENS = [5, 3, 2, 7, 1, 4, 6, 2], 4, 16
+TP_LOGIT_RTOL, TP_R34_TOL = 1e-4, 1e-3
+TP_TIMED_TICKS, TP_JOB_TIMEOUT = 5, 300
+TP_DIR = None
 
 
 def fail(msg: str) -> None:
@@ -2236,7 +2279,7 @@ def phase_http_granite(cfg, sp):
 
 
 def phase_features_mamba(cfg, sp):
-    """Phase 4o: mamba2-370m at full width and all 48 layers on 4h's
+    """Phase 4o: mamba2-370m at full width and MAMBA_SERVE_LAYERS on 4h's
     export, float, warm: the prefix trie with the slot snapshot and restore
     captured; 4 requests of one 64-token prefix (the first drained alone):
     the hits restore through the replayed graph (no eager tick, no
@@ -2556,13 +2599,16 @@ def phase_moe_card_vs_cpu(cfg, sp):
 
 def phase_serve_recurrent(arch: str, phase: str):
     """Phases 4h and 4i: ``arch`` (mamba2-370m, recurrentgemma-2b) at its
-    published width and depth under each compute path, as phase 4b, with
+    published width and depth (mamba2: MAMBA_SERVE_LAYERS) under each
+    compute path, as phase 4b, with
     no page pool and the slot reset among the captured entry points; for
     recurrentgemma-2b then the window-wrapping request (:func:`wrap_run`).
     Returns (params, launch counts)."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
+    if arch == MAMBA:
+        cfg = dataclasses.replace(cfg, n_layers=MAMBA_SERVE_LAYERS)
     # mamba2's cold profiles (each a cold per-token extend tick first) went
     # when phases 4k-4m made the run longer
     sp, launches = phase_serve_paths(cfg, phase, cold_profile=arch != MAMBA)
@@ -3307,7 +3353,514 @@ def phase_resnet34_card_vs_cpu(sp):
           f"OK; CPU forward {dt:.1f}s", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 4r: tensor- and expert-parallel serving under a ("data", "model")
+# mesh of ranks that share cuda:0 over gloo
+# --------------------------------------------------------------------------
+def tp_cut(sp, n_layers: int):
+    """``sp`` cut to its first ``n_layers`` layers (every stacked segment
+    leaf's leading axis; views, no copy)."""
+    from repro_torch.nn import module as mod
+
+    return {k: mod.map_tree(lambda v: v[:n_layers], v) if k.startswith("seg")
+            else v for k, v in sp.items()}
+
+
+def tp_save(name: str, sp, n_layers=None) -> None:
+    """Keep ``sp`` for phase 4r on the host in TP_DIR, cut to its first
+    ``n_layers`` layers if given."""
+    import torch
+
+    from repro_torch.nn import module as mod
+
+    sp = tp_cut(sp, n_layers) if n_layers else sp
+    torch.save(mod.map_tree(lambda v: v.cpu(), sp), TP_DIR / f"{name}.pt")
+
+
+def tp_load(name: str):
+    """A tree that :func:`tp_save` kept, on cuda:0."""
+    import torch
+
+    return torch.load(TP_DIR / f"{name}.pt", map_location="cuda", weights_only=True)
+
+
+@contextlib.contextmanager
+def counting_plain(counts: dict):
+    """Within the block, every call of a kernel's plain version (B1-B4, B6)
+    adds one to ``counts[name]``: on card tensors a wrapper launches its
+    kernel or raises, and this shows no plain version ran instead."""
+    from repro_torch.kernels import tiled_conv, tiled_matmul, tiled_matvec, tiled_xnor
+
+    spots = [(tiled_matvec, "tiled_matvec_plain"), (tiled_matmul, "tiled_matmul_plain"),
+             (tiled_xnor, "xnor_matvec_words"), (tiled_xnor, "int8_matvec_packed"),
+             (tiled_conv, "tiled_conv_plain")]
+    saved = [(m, n, getattr(m, n)) for m, n in spots]
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*a, **kw)
+        return run
+
+    for m, n, fn in saved:
+        setattr(m, n, counted(n, fn))
+    try:
+        yield counts
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def tp_models(cfg, n_layers: int, dtype, paths=tuple(PATH_KERNEL)):
+    """{path: SERVE model} of ``cfg`` cut to ``n_layers`` on cuda:0."""
+    from repro_torch.configs import build_model
+    from repro_torch.nn.context import SERVE, ModelContext
+
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    return {p: build_model(cut, ModelContext(policy=cfg.tbn, mode=SERVE,
+                                             compute_dtype=dtype, device="cuda",
+                                             compute_path=p)) for p in paths}
+
+
+def tp_logits(model, sp, mesh=None):
+    """Prefill of TP_PROMPT, then TP_DECODE_STEPS greedy decode steps (under
+    the mesh's rules with a mesh); the logits of each call on the CPU."""
+    import torch
+
+    from repro_torch.distributed.sharding import axis_rules
+
+    rules = axis_rules(mesh) if mesh is not None else contextlib.nullcontext()
+    with torch.no_grad(), rules:
+        lg, c, lens = model.prefill(sp, {"tokens": torch.tensor(
+            [TP_PROMPT], device="cuda")}, 64)
+        out = [lg.cpu()]
+        for _ in range(TP_DECODE_STEPS):
+            lg, c, lens = model.decode_step(sp, lg.argmax(-1)[:, None], c, lens)
+            out.append(lg.cpu())
+    return out
+
+
+def tp_engine(model, sp, mesh=None):
+    """A cold engine of phase 3's shape (under ``mesh``: this rank's)."""
+    from repro_torch.serve.engine import BatchedEngine, ServeConfig
+
+    return BatchedEngine(model, sp, ServeConfig(
+        n_slots=N_SLOTS, max_len=128, chunk_tokens=CHUNK, page_tokens=16,
+        compute_path=model.ctx.compute_path), mesh=mesh)
+
+
+def tp_drain(model, sp, cfg, prompts, max_tokens: int, mesh=None):
+    """A cold engine of phase 3's shape over ``prompts`` (greedy), with the
+    launch counters zeroed just before the drain and read just after, and
+    every plain version counted. Returns (tokens, token steps, launches,
+    plain calls)."""
+    from repro_torch.serve.sampling import SamplingParams
+
+    eng = tp_engine(model, sp, mesh)
+    reqs = [eng.submit(p, SamplingParams(max_tokens=max_tokens)) for p in prompts]
+    plain = {}
+    zero_counters()
+    with counting_plain(plain):
+        eng.run_until_drained()
+    counts = read_counters()
+    if not all(r.done and len(r.output) == max_tokens for r in reqs):
+        fail(f"{cfg.name}: not every request finished with {max_tokens} tokens")
+    return [r.output for r in reqs], [r.token_steps for r in reqs], counts, plain
+
+
+def tp_tick_ms(eng, timed_gathers: bool = False):
+    """Median ms of TP_TIMED_TICKS cold decode ticks of an engine, after one
+    more (every slot inactive: the work of a 4-slot tick, and no state
+    moves), each synchronized;
+    with ``timed_gathers`` also the share of them spent in the tiled layers'
+    gathers (each gather synchronized before and after)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    spent = [0.0]
+    gather = ops.gather_blocks
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gather(*a, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    times = []
+    eng._active_t.zero_()
+    if timed_gathers:
+        ops.gather_blocks = timed
+    try:
+        with torch.no_grad(), eng._mesh_ctx():
+            for _ in range(TP_TIMED_TICKS + 1):
+                torch.cuda.synchronize()
+                spent[0] = 0.0
+                t0 = time.perf_counter()
+                eng._tick("decode_tick")
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0, spent[0]))
+    finally:
+        ops.gather_blocks = gather
+    times = times[1:]
+    tick = statistics.median(t for t, _ in times)
+    share = sum(g for _, g in times) / sum(t for t, _ in times)
+    return 1e3 * tick, share
+
+
+def tp_shard_kernels(placed, mesh_label: str):
+    """Each per-shard tile of a granite layer (layer 0's q, k, v, o, gate,
+    up, down and the head, r/TP rows each) through B1 (m = 4), B2 (m = 128),
+    B3 and B4 (m = 4) against the plain versions on the same card inputs,
+    at phase 2's tolerances (B3 / B4: equal). Returns the checks made."""
+    import torch
+
+    from repro_torch.kernels.tiled_matmul import tiled_matmul_plain
+    from repro_torch.kernels.tiled_matvec import tiled_matvec_plain
+    from repro_torch.kernels.tiled_xnor import (
+        int8_matvec_packed,
+        quantize_int8,
+        quantize_sign,
+        xnor_matvec_words,
+    )
+    from repro_torch.nn import module as mod
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    ks = kernels()
+    n = 0
+    for path, leaf in mod.walk(placed):
+        if path[-1] != "tile":
+            continue
+        packed = leaf[0] if path[0].startswith("seg") else leaf
+        k = packed.shape[1] * 32
+        name = "/".join(path[:-1])
+        for kname, m, plain in (("B1", 4, tiled_matvec_plain),
+                                ("B2", 128, tiled_matmul_plain)):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            got, want = ks[kname](x, packed), plain(x, packed)
+            if not torch.allclose(got, want, rtol=RTOL,
+                                  atol=RTOL * float(want.abs().max())):
+                fail(f"{mesh_label} {name}: {kname} per shard ({tuple(packed.shape)}) "
+                     f"max|err| {float((got - want).abs().max()):.3e}")
+            n += 1
+        x = torch.randn((4, k), generator=gen, device="cuda").to(torch.bfloat16)
+        a, _ = quantize_sign(x, k)
+        q, _ = quantize_int8(x, k)
+        for kname, got, want in (
+                ("B3", ks["B3"](a, packed, n_in=k), xnor_matvec_words(a, packed, n_in=k)),
+                ("B4", ks["B4"](q, packed), int8_matvec_packed(q, packed, n_in=k))):
+            if not torch.equal(got, want):
+                fail(f"{mesh_label} {name}: {kname} per shard ({tuple(packed.shape)}) "
+                     f"int32 accumulator differs from the plain version")
+            n += 1
+    return n
+
+
+def tp_rank_main(job_dir: str) -> None:
+    """One rank of a phase 4r job (``chip_smoke.py --tp-rank JOB_DIR`` with
+    RANK and WORLD_SIZE set): joins the gloo job through a FileStore in the
+    job directory on cuda:0, builds the job's mesh, serves each part of the
+    job under it and saves the results to rank<i>.pt there."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import place_params
+    from repro_torch.nn import module as mod
+    from repro_torch.serve.weights import per_device_tile_bytes
+
+    global TP_DIR
+    TP_DIR = Path(job_dir).parent
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    job = torch.load(Path(job_dir) / "job.pt", weights_only=False)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(job_dir) / "store"), world), rank=rank, world_size=world)
+    mesh = init_device_mesh("cuda", tuple(job["mesh"]), mesh_dim_names=("data", "model"))
+    label = f"rank {rank} of mesh {job['mesh']}"
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(what):
+        nonlocal t0
+        out["seconds"][what] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    granite = get_config("granite-8b")
+    full = tp_load("granite")
+    model = tp_models(granite, granite.n_layers, torch.float32, ("float",))["float"]
+    placed = place_params(full, mod.logical_axes(model.specs()), mesh)
+    lap("load")
+    out["tile_bytes"] = per_device_tile_bytes(placed, mesh)
+    out["shard_checks"] = tp_shard_kernels(placed, label)
+    out["logits"] = tp_logits(model, placed, mesh)
+    sp = tp_cut(full, TP_LAYERS)
+    del full, placed, model
+    lap("checks")
+    models = tp_models(granite, TP_LAYERS, torch.float32)
+    for path, model in models.items():
+        tokens, steps, counts, plain = tp_drain(model, sp, granite, job["prompts"],
+                                                TP_MAX_TOKENS, mesh)
+        out[path] = dict(tokens=tokens, steps=steps, counts=counts, plain=plain)
+        lap(path)
+    if "bf16" in job["parts"]:
+        model = tp_models(granite, TP_LAYERS, torch.bfloat16, ("float",))["float"]
+        eng = tp_engine(model, sp, mesh)
+        out["bf16_tick_ms"] = tp_tick_ms(eng)[0]
+        out["bf16_gather_share"] = tp_tick_ms(eng, timed_gathers=True)[1]
+        del eng
+        lap("bf16")
+    del sp, models
+    if "moe" in job["parts"]:
+        moe = get_config(MOE)
+        msp = tp_load("moe")
+        model = tp_models(moe, TP_MOE_LAYERS, torch.float32, ("float",))["float"]
+        mplaced = place_params(msp, mod.logical_axes(model.specs()), mesh)
+        out["moe_logits"] = tp_logits(model, mplaced, mesh)
+        tokens, _, counts, plain = tp_drain(model, msp, moe, job["prompts"],
+                                            TP_MAX_TOKENS, mesh)
+        out["moe"] = dict(tokens=tokens, counts=counts, plain=plain,
+                          experts_held=int(mplaced["seg0"]["ffn"]["up"]["tile"].shape[1]))
+        del mplaced
+        lap("moe")
+        del msp, model
+    if "r34" in job["parts"]:
+        from repro_torch.distributed.sharding import axis_rules
+
+        _, sms, _, _ = resnet34_models(torch.float32)
+        sp34 = tp_load("r34")
+        placed = place_params(sp34, mod.logical_axes(sms["cuda"].specs()), mesh)
+        x = torch.load(TP_DIR / "r34_x.pt", map_location="cuda")
+        with axis_rules(mesh):
+            y, _, counts = r34_forwards(sms["cuda"], placed, x, 1)
+        out["r34"] = dict(logits=y.cpu(), counts=counts)
+        lap("r34")
+    torch.save(out, Path(job_dir) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_job(dims, parts, prompts):
+    """Run a phase 4r job on prod(dims) ranks of this script sharing cuda:0;
+    returns each rank's results and the job's wall seconds."""
+    import torch
+
+    job_dir = TP_DIR / f"job{dims[0]}x{dims[1]}"
+    job_dir.mkdir()
+    torch.save(dict(mesh=dims, parts=parts, prompts=prompts), job_dir / "job.pt")
+    world = dims[0] * dims[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), WORLD_SIZE=str(world),
+               OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank",
+                               str(job_dir)], env=dict(env, RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                outs.append(p.communicate(timeout=TP_JOB_TIMEOUT)[0])
+            except subprocess.TimeoutExpired:
+                fail(f"phase 4r mesh {dims}: rank {r} still running after "
+                     f"{TP_JOB_TIMEOUT}s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            fail(f"phase 4r mesh {dims}: rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    return ([torch.load(job_dir / f"rank{r}.pt", weights_only=False)
+             for r in range(world)], time.perf_counter() - t0)
+
+
+def tp_close(label: str, got, want, tol: float) -> float:
+    """The largest |got - want| of a list of logits, failing past
+    ``tol`` * max|want| (or on a non-finite value)."""
+    import torch
+
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        err = float((g - w).abs().max())
+        worst = max(worst, err / float(w.abs().max()))
+        if not torch.isfinite(g).all() or err > tol * float(w.abs().max()):
+            fail(f"{label}: call {i} logits max|diff| {err:.3e} over "
+                 f"{tol} * max|logit| {float(w.abs().max()):.3e}")
+    return worst
+
+
+def tp_mesh_cli_start():
+    """Start the serve CLI under torch.distributed.run, 2 ranks on the card:
+    ``--arch granite-8b --reduced --mesh 1x2``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.serve", "--arch",
+         "granite-8b", "--reduced", "--mesh", "1x2", "--requests", "4",
+         "--max-tokens", "8"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env, cwd=str(ROOT))
+
+
+def tp_mesh_cli_finish(started, card: str):
+    """Wait for the CLI of :func:`tp_mesh_cli_start`: exit 0, the gloo
+    backend and 2.0x sharding of the tile bits."""
+    t0, proc = started
+    try:
+        text, err = proc.communicate(timeout=TP_JOB_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"serve CLI --mesh 1x2 still running after {TP_JOB_TIMEOUT}s")
+    dt = time.perf_counter() - t0
+    if (proc.returncode != 0 or "backend=gloo" not in text
+            or "(2.0x sharding)" not in text or "Traceback" in err):
+        fail(f"serve CLI --mesh 1x2 exit {proc.returncode}:\n{text[-2000:]}\n"
+             f"{err[-2000:]}")
+    line = next(ln for ln in text.splitlines() if "backend=" in ln)
+    print(f"serve CLI --mesh 1x2 (--arch granite-8b --reduced, 2 ranks sharing one "
+          f"card, {card}; beside the (2, 2) job): exit 0 in {dt:.1f}s; {line.strip()}; "
+          + next(ln for ln in text.splitlines() if "sharding" in ln).strip(), flush=True)
+
+
+def phase_tp(card: str, sp34):
+    """Phase 4r: the exports of phases 3, 4e and 9 (granite-8b whole, its
+    engines cut to TP_LAYERS; qwen2-moe-a2.7b cut to TP_MOE_LAYERS;
+    ResNet-34 whole) served by 2 and then 4 ranks that share cuda:0 over
+    gloo, against the single card on the same exports."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import synthetic_prompts
+    from repro_torch.serve.weights import tile_serving_bytes
+
+    t0 = time.perf_counter()
+    granite, moe = get_config("granite-8b"), get_config(MOE)
+    prompts = synthetic_prompts(np.random.default_rng(0), 8, granite.vocab, 3, 101)
+    # the single card's references on the same exports, f32
+    full = tp_load("granite")
+    total_tile = tile_serving_bytes(full)
+    model = tp_models(granite, granite.n_layers, torch.float32, ("float",))["float"]
+    ref = {"logits": tp_logits(model, full)}
+    sp = tp_cut(full, TP_LAYERS)
+    del full, model
+    models = tp_models(granite, TP_LAYERS, torch.float32)
+    for path, model in models.items():
+        tokens, steps, counts, _ = tp_drain(model, sp, granite, prompts, TP_MAX_TOKENS)
+        ref[path] = dict(tokens=tokens, steps=steps, counts=counts)
+    model = tp_models(granite, TP_LAYERS, torch.bfloat16, ("float",))["float"]
+    eng = tp_engine(model, sp)
+    ref["bf16_tick_ms"] = tp_tick_ms(eng)[0]
+    del sp, models, model, eng
+    msp = tp_load("moe")
+    model = tp_models(moe, TP_MOE_LAYERS, torch.float32, ("float",))["float"]
+    ref["moe_logits"] = tp_logits(model, msp)
+    ref["moe"] = dict(zip(("tokens", "steps", "counts"), tp_drain(
+        model, msp, moe, prompts, TP_MAX_TOKENS)[:3]))
+    del msp, model
+    _, sms, _, _ = resnet34_models(torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    x = torch.randn((2, 224, 224, 3), generator=gen, device="cuda")
+    torch.save(x.cpu(), TP_DIR / "r34_x.pt")
+    tp_save("r34", sp34)
+    ref["r34"], _, _ = r34_forwards(sms["cuda"], sp34, x, 1)
+    ref["r34"] = ref["r34"].cpu()
+    del sms, x
+    release()
+    t_ref = time.perf_counter() - t0
+    print(f"phase 4r single-card references (granite-8b L={granite.n_layers} "
+          f"logits, L={TP_LAYERS} engines; {MOE} L={TP_MOE_LAYERS}, f32; resnet34 "
+          f"N=2): {t_ref:.1f}s", flush=True)
+
+    cli = None
+    for dims, parts in ((TP_MESHES[0], ("bf16", "moe", "r34")), (TP_MESHES[1], ())):
+        if not parts:       # the CLI runs beside the job that times nothing
+            cli = tp_mesh_cli_start()
+        ranks, dt = tp_job(dims, parts, prompts)
+        tp = dims[1]
+        label = f"mesh {dims} ({len(ranks)} ranks sharing one card, {card})"
+        for r, res in enumerate(ranks):
+            who = f"{label} rank {r}"
+            worst = tp_close(f"{who} granite-8b L={granite.n_layers} f32", res["logits"],
+                             ref["logits"], TP_LOGIT_RTOL)
+            for path in PATH_KERNEL:
+                got, want = res[path], ref[path]
+                if (got["tokens"], got["steps"]) != (want["tokens"], want["steps"]):
+                    fail(f"{who} {path}: engine tokens differ from the single card's: "
+                         f"{got['tokens'][:2]} vs {want['tokens'][:2]}")
+                if got["counts"] != want["counts"] or got["plain"]:
+                    fail(f"{who} {path}: launches {got['counts']} (single card "
+                         f"{want['counts']}), plain versions run {got['plain']}")
+            per_rank = res["tile_bytes"]
+            if len(per_rank) != len(ranks) or any(
+                    v * tp != total_tile for v in per_rank.values()):
+                fail(f"{who}: tile bytes per rank {per_rank} x TP={tp} != "
+                     f"{total_tile}")
+            if "moe" in parts:
+                mw = tp_close(f"{who} {MOE} L={TP_MOE_LAYERS} f32", res["moe_logits"],
+                              ref["moe_logits"], TP_LOGIT_RTOL)
+                got = res["moe"]
+                if (got["tokens"] != ref["moe"]["tokens"]
+                        or got["counts"] != ref["moe"]["counts"] or got["plain"]
+                        or got["experts_held"] != moe.moe.n_experts // tp):
+                    fail(f"{who} {MOE}: tokens {got['tokens'][:2]} vs "
+                         f"{ref['moe']['tokens'][:2]}, launches {got['counts']} vs "
+                         f"{ref['moe']['counts']}, plain {got['plain']}, "
+                         f"{got['experts_held']} experts held")
+            if "r34" in parts:
+                y, counts = res["r34"]["logits"], res["r34"]["counts"]
+                err = r34_err = float((y - ref["r34"]).abs().max())
+                if (counts["B6"] != 18 or counts["B1"] != 1
+                        or not torch.allclose(y, ref["r34"], rtol=TP_R34_TOL,
+                                              atol=TP_R34_TOL)):
+                    fail(f"{who} resnet34 N=2: logits max|diff| {err:.3e}, "
+                         f"launches {counts}")
+        res = ranks[0]
+        print(f"phase 4r [{label}]: {res['shard_checks']} per-shard kernel checks "
+              f"a rank (B1/B2 at rtol=1e-4, B3/B4 equal); granite-8b (full width, "
+              f"L={granite.n_layers}, f32) prefill + {TP_DECODE_STEPS} decode logits "
+              f"within {worst:.2e} x max|logit| of the single card; engine tokens "
+              f"(L={TP_LAYERS}, 8 x {TP_MAX_TOKENS} greedy) equal under float / xnor / "
+              f"int8 with each "
+              f"rank's launches equal to the single card's ("
+              + ", ".join(f"{p} {ref[p]['counts'][k]} {k}"
+                          for p, k in PATH_KERNEL.items())
+              + f"), no plain version run; tile bytes {total_tile / 1e6:.3f} MB, "
+              f"{max(res['tile_bytes'].values()) / 1e6:.3f} MB a rank "
+              f"({total_tile / max(res['tile_bytes'].values()):.1f}x); job {dt:.1f}s "
+              f"(rank 0: " + ", ".join(f"{k} {v:.1f}s" for k, v in res["seconds"].items())
+              + ")", flush=True)
+        if "moe" in parts:
+            print(f"phase 4r [{label}]: {MOE} (full width, L={TP_MOE_LAYERS}, f32, "
+                  f"{moe.moe.n_experts // tp} of {moe.moe.n_experts} experts a rank) "
+                  f"logits within {mw:.2e} x max|logit|, tokens equal, launches "
+                  f"{res['moe']['counts']}; resnet34 N=2 f32 logits max|diff| "
+                  f"{r34_err:.2e} (rtol=atol={TP_R34_TOL}; B6 per shard, 18 launches "
+                  f"a rank)",
+                  flush=True)
+        if "bf16" in parts:
+            print(f"phase 4r [{label}]: cold bf16 decode tick (granite-8b full width, "
+                  f"L={TP_LAYERS}, {N_SLOTS} slots, median of {TP_TIMED_TICKS}) "
+                  f"{res['bf16_tick_ms']:.2f} ms on the mesh against "
+                  f"{ref['bf16_tick_ms']:.2f} ms on one card; the gathers take "
+                  f"{res['bf16_gather_share']:.3f} of a tick (each synchronized; "
+                  f"information, not a multi-card figure)", flush=True)
+    tp_mesh_cli_finish(cli, card)
+    print(f"phase 4r (TP/EP serving, ranks sharing one card): "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+
 def main() -> None:
+    global TP_DIR
     try:
         import torch
     except ImportError as e:
@@ -3322,8 +3875,12 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 means f32 here
     torch.backends.cudnn.allow_tf32 = False
 
+    t_run = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
+    # phase 4r's saved exports; removed however the run ends
+    TP_DIR = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    atexit.register(shutil.rmtree, TP_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     _build.build()
     print(f"kernel build: {time.perf_counter() - t0:.1f}s", flush=True)
@@ -3332,7 +3889,6 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     check_tensor_core_sass(_build)
-
     results = phase_kernels(card)
     phase_family_kernels(card, results)
     b5 = phase_b5(card)
@@ -3341,6 +3897,7 @@ def main() -> None:
     phase_card_vs_cpu(cfg, sp)
     phase_features_granite(cfg, sp)
     phase_http_granite(cfg, sp)
+    tp_save("granite", sp)
     del sp
     qwen = get_config(QWEN)
     sp, counts = phase_serve_paths(
@@ -3353,6 +3910,7 @@ def main() -> None:
     moe = get_config(MOE)
     sp, moe_counts = phase_serve_paths(moe, "4e")
     phase_moe_card_vs_cpu(moe, sp)
+    tp_save("moe", sp, TP_MOE_LAYERS)
     del sp
     release()
     moe_counts = {k: moe_counts[k] + v for k, v in phase_serve_family(
@@ -3365,7 +3923,8 @@ def main() -> None:
         rec_counts = {k: rec_counts[k] + part[k] for k in rec_counts}
         phase_recurrent_card_vs_cpu(get_config(arch), sp, lens)
         if arch == MAMBA:
-            phase_features_mamba(get_config(arch), sp)
+            phase_features_mamba(dataclasses.replace(
+                get_config(arch), n_layers=MAMBA_SERVE_LAYERS), sp)
         del sp
         release()
     seamless = get_config(SEAMLESS)
@@ -3392,6 +3951,7 @@ def main() -> None:
     conv = phase_conv(card)
     sp34, r34 = phase_resnet34()
     phase_resnet34_card_vs_cpu(sp34)
+    phase_tp(card, sp34)
     del sp34
 
     entries = []
@@ -3449,6 +4009,8 @@ def main() -> None:
         "library_ms": b6_tot["library_ms"],
         "per": f"one ResNet-34 ImageNet forward at N={R34_BATCH}, bf16 (18 calls)",
     })
+    print(f"chip_smoke: {time.perf_counter() - t_run:.1f}s, the build and every "
+          f"phase", flush=True)
     print(f"card: {card_line()}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
@@ -3457,4 +4019,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank_main(sys.argv[2])
+    else:
+        main()

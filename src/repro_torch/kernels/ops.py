@@ -7,8 +7,19 @@
 rule, ``resolve_conv_padding``) and to whole 32-channel words, runs the
 conv against the r = c_out/p unique filters of the conv-layout tile
 (kernel B6, ``kernels/tiled_conv.py``) and broadcasts the p replicas with
-their alphas. The tensor-parallel ``shard_map`` branch of the reference
-waits for the mesh work (ROADMAP.md queue A item 9).
+their alphas.
+
+Under an active mesh (``distributed.sharding.axis_rules``) both serve ops
+are tensor-parallel, as the reference's ``shard_map`` branches are: the
+tile's unique rows (filters) are split over the "tile_rows" axis, each rank
+runs the same kernel on its r/TP rows (and its block of the batch over
+"data" where that axis divides it) and all_gathers its block of unique
+rows (over "model" along the rows, then over "data" along the batch);
+every rank then replicates the whole rows with the whole alpha, so a
+gather carries 1/p of the layer's output. Flat tiles never engage it. A rank dispatches on the whole batch's m and its float kernels
+plan for the whole (m, r), so it runs the kernel, the compute path and the
+summation order that one card would: its block equals that card's rows bit
+for bit.
 
 ``tbn_dense_train`` is the fused training forward: ``tile_construct``
 (kernel B5) builds the packed tile and alpha from the masters, then
@@ -49,6 +60,12 @@ from repro_torch.core.tiling import (
     plan_conv_tiling,
     tiled_matmul_reference,
     tiled_weight,
+)
+from repro_torch.distributed.sharding import (
+    batch_shard_axes,
+    gather_blocks,
+    local_block,
+    tile_sharding,
 )
 from repro_torch.kernels.tile_construct import tile_construct_kernel
 from repro_torch.kernels.tiled_conv import tiled_conv_unique
@@ -93,22 +110,35 @@ def _dense_unique_int_local(xm: torch.Tensor, packed_rows: torch.Tensor,
 
 
 def _dense_unique_local(xm: torch.Tensor, packed_rows: torch.Tensor,
-                        compute_path: str = "float") -> torch.Tensor:
+                        compute_path: str = "float",
+                        whole: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """u = x @ T^T (m, r) float32 against a row-packed tile. m <=
     MATVEC_MAX_M takes the integer path when ``compute_path`` asks for one,
-    else B1; larger m takes B2. For the float kernels x is padded with zero
-    columns to words*32 (pad bits unpack to -1 but only ever meet those
-    zero columns). The kernels take contiguous rows, whatever strides x
-    came with (an einsum's output may be transposed)."""
-    if compute_path != "float" and xm.shape[0] <= MATVEC_MAX_M:
+    else B1; larger m takes B2. ``whole`` (m, r) is the call a rank holds a
+    block of: the dispatch reads its m and the float kernels plan for it,
+    so the rank's elements equal one card's bit for bit. For the float
+    kernels x is padded with zero columns to words*32 (pad bits unpack to
+    -1 but only ever meet those zero columns). The kernels take contiguous
+    rows, whatever strides x came with (an einsum's output may be
+    transposed)."""
+    m = xm.shape[0] if whole is None else whole[0]
+    if compute_path != "float" and m <= MATVEC_MAX_M:
         return _dense_unique_int_local(xm.contiguous(), packed_rows,
                                        compute_path)
     words = packed_rows.shape[1]
     pad = words * LANE_BITS - xm.shape[1]
     xp = F.pad(xm, (0, pad)) if pad else xm.contiguous()
-    if xp.shape[0] <= MATVEC_MAX_M:
-        return tiled_matvec_unique(xp, packed_rows)
-    return tiled_matmul_unique(xp, packed_rows)
+    if m <= MATVEC_MAX_M:
+        return tiled_matvec_unique(xp, packed_rows, whole)
+    return tiled_matmul_unique(xp, packed_rows, whole)
+
+
+def _check_shard_rows(packed_rows: int, r: int, extent: int, what: str) -> None:
+    if packed_rows * extent != r:
+        raise ValueError(f"{what} holds {packed_rows} unique rows; under a "
+                         f"model axis of {extent} a rank holds r / TP = "
+                         f"{r // extent} of r = {r} (place the params with "
+                         f"distributed.sharding.place_params)")
 
 
 def _replicate_dense_out(u: torch.Tensor, alpha: torch.Tensor, spec: TileSpec
@@ -137,21 +167,30 @@ def tiled_dense_infer(x: torch.Tensor, packed: torch.Tensor,
     r = spec.rows_per_tile
     lead = x.shape[:-1]
     xm = x.reshape(-1, n_in)
-    if packed.ndim != 2:
-        if x.device.type == "cpu":
-            t = unpack_bits(packed, spec.q, dtype=x.dtype)
-            y = tiled_matmul_reference(xm, t, alpha, spec)
-            return y.reshape(*lead, n_out).to(x.dtype)
-        if n_in % LANE_BITS:
-            raise FlatTileLayoutError(
-                f"flat-form packed tile cannot be viewed as packed rows: "
-                f"n_in={n_in} is not a multiple of 32 (spec.shape="
-                f"{spec.shape}), so row boundaries fall mid-word. Ship the "
-                f"row-packed (r, ceil(n_in/32)) serve form for the kernel "
-                f"path.")
-        packed = packed.reshape(r, n_in // LANE_BITS)
-    y3 = _replicate_dense_out(_dense_unique_local(xm, packed, compute_path),
-                              alpha, spec)
+    tp = tile_sharding(r) if packed.ndim == 2 else None
+    if tp is not None:
+        mesh, ax, extent = tp
+        _check_shard_rows(packed.shape[0], r, extent, "the tile")
+        m_ax = batch_shard_axes(ax, xm.shape[0])
+        u = _dense_unique_local(local_block(xm, mesh, m_ax, 0), packed,
+                                compute_path, whole=(xm.shape[0], r))
+        u = gather_blocks(gather_blocks(u, mesh, ax, 1), mesh, m_ax, 0)
+    else:
+        if packed.ndim != 2:
+            if x.device.type == "cpu":
+                t = unpack_bits(packed, spec.q, dtype=x.dtype)
+                y = tiled_matmul_reference(xm, t, alpha, spec)
+                return y.reshape(*lead, n_out).to(x.dtype)
+            if n_in % LANE_BITS:
+                raise FlatTileLayoutError(
+                    f"flat-form packed tile cannot be viewed as packed rows: "
+                    f"n_in={n_in} is not a multiple of 32 (spec.shape="
+                    f"{spec.shape}), so row boundaries fall mid-word. Ship "
+                    f"the row-packed (r, ceil(n_in/32)) serve form for the "
+                    f"kernel path.")
+            packed = packed.reshape(r, n_in // LANE_BITS)
+        u = _dense_unique_local(xm, packed, compute_path)
+    y3 = _replicate_dense_out(u, alpha, spec)
     return y3.reshape(*lead, n_out).to(x.dtype)
 
 
@@ -241,8 +280,18 @@ def tiled_conv_infer(x: torch.Tensor, packed: torch.Tensor,
     widths = (0, cpad, pads[1][0], wp - w - pads[1][0], pads[0][0],
               hp - h - pads[0][0])
     xin = F.pad(x, widths) if any(widths) else x.contiguous()
-    u = tiled_conv_unique(xin, packed, kernel=(kh, kw), stride=(sh, sw),
-                          out_hw=(oh, ow))
+    tp = tile_sharding(plan.r)
+    if tp is None:
+        u = tiled_conv_unique(xin, packed, kernel=(kh, kw), stride=(sh, sw),
+                              out_hw=(oh, ow))
+    else:
+        mesh, ax, extent = tp
+        _check_shard_rows(packed.shape[1], plan.r, extent, "the conv tile")
+        n_ax = batch_shard_axes(ax, n)
+        u = tiled_conv_unique(local_block(xin, mesh, n_ax, 0).contiguous(),
+                              packed, kernel=(kh, kw), stride=(sh, sw),
+                              out_hw=(oh, ow))
+        u = gather_blocks(gather_blocks(u, mesh, ax, 3), mesh, n_ax, 0)
     y5 = _replicate_conv_out(u, alpha, spec)
     return y5.reshape(n, oh, ow, spec.p * plan.r).to(x.dtype)
 

@@ -208,14 +208,17 @@ def _launcher():
     return lib, fn
 
 
-def tiled_matmul_unique(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+def tiled_matmul_unique(x: torch.Tensor, packed: torch.Tensor,
+                        plan_shape=None) -> torch.Tensor:
     """u = x @ T^T for a row-packed tile: x (m, words*32) bf16/f32, packed
     (r, words) int32 -> (m, r) float32. Launches kernel B2 for CUDA tensors
-    as :func:`plan_matmul` plans it; CPU tensors take the plain version."""
+    as :func:`plan_matmul` plans it for (m, r), or for ``plan_shape`` (M, R)
+    >= (m, r) (a rank's block of a larger call, summed in the order one card
+    would sum the whole); CPU tensors take the plain version."""
     check_operands(x, packed, "tiled_matmul_unique")
     if x.device.type == "cpu":
         return tiled_matmul_plain(x, packed)
-    return _launch(x, packed, None)
+    return _launch(x, packed, None, plan_shape)
 
 
 def tiled_matmul_body(x: torch.Tensor, packed: torch.Tensor,
@@ -230,11 +233,13 @@ def tiled_matmul_body(x: torch.Tensor, packed: torch.Tensor,
     return _launch(x, packed, body)
 
 
-def _launch(x: torch.Tensor, packed: torch.Tensor, body) -> torch.Tensor:
+def _launch(x: torch.Tensor, packed: torch.Tensor, body,
+            plan_shape=None) -> torch.Tensor:
     out, stream = cuda_args(x, packed, "tiled_matmul_unique")
     m, (r, words) = x.shape[0], packed.shape
     bf16 = x.dtype == torch.bfloat16
-    plan = plan_matmul(m, r, words, _sm_count(out.device.index), bf16, body)
+    pm, pr = plan_shape or (m, r)
+    plan = plan_matmul(pm, pr, words, _sm_count(out.device.index), bf16, body)
     work = (torch.empty((plan.splits, m, r), dtype=torch.float32,
                         device=x.device) if plan.splits > 1 else None)
     lib, launch = _launcher()

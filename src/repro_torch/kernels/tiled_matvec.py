@@ -237,15 +237,19 @@ def _check_m(x: torch.Tensor, what: str) -> None:
                          f"MATVEC_MAX_M={MATVEC_MAX_M}")
 
 
-def tiled_matvec_unique(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+def tiled_matvec_unique(x: torch.Tensor, packed: torch.Tensor,
+                        plan_shape=None) -> torch.Tensor:
     """u = x @ T^T at decode-sized m: x (m <= 32, words*32) bf16/f32, packed
     (r, words) int32 -> (m, r) float32. Launches kernel B1 for CUDA tensors
-    as :func:`plan_matvec` plans it; CPU tensors take the plain version."""
+    as :func:`plan_matvec` plans it for (m, r), or for ``plan_shape`` (M, R)
+    >= (m, r): a rank of a mesh that holds a block of a larger call plans
+    as one card would for the whole, so its elements are summed in that
+    card's order, bit for bit. CPU tensors take the plain version."""
     check_operands(x, packed, "tiled_matvec_unique")
     _check_m(x, "tiled_matvec_unique")
     if x.device.type == "cpu":
         return tiled_matvec_plain(x, packed)
-    return _launch(x, packed, None)
+    return _launch(x, packed, None, plan_shape)
 
 
 def tiled_matvec_body(x: torch.Tensor, packed: torch.Tensor,
@@ -263,11 +267,13 @@ def tiled_matvec_body(x: torch.Tensor, packed: torch.Tensor,
     return _launch(x, packed, body)
 
 
-def _launch(x: torch.Tensor, packed: torch.Tensor, body) -> torch.Tensor:
+def _launch(x: torch.Tensor, packed: torch.Tensor, body,
+            plan_shape=None) -> torch.Tensor:
     out, stream = cuda_args(x, packed, "tiled_matvec_unique")
     m, (r, words) = x.shape[0], packed.shape
     bf16 = x.dtype == torch.bfloat16
-    plan = plan_matvec(m, r, words, _sm_count(out.device.index), bf16, body)
+    pm, pr = plan_shape or (m, r)
+    plan = plan_matvec(pm, pr, words, _sm_count(out.device.index), bf16, body)
     work = (torch.empty((plan.splits, m, r), dtype=torch.float32,
                         device=x.device) if plan.splits > 1 else None)
     lib, launch = _launcher()

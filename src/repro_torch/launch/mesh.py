@@ -1,0 +1,109 @@
+"""Serving meshes for the port (port of ``parse_mesh_arg`` and
+``make_host_mesh`` of ``repro/launch/mesh.py``).
+
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with dim names
+("data", "model") over the ranks of one ``torch.distributed`` job:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.serve --arch granite-8b --reduced --mesh 1x4
+
+``init_mesh`` reads the ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` /
+``LOCAL_WORLD_SIZE`` that ``torch.distributed.run`` sets and picks the
+backend by a stated rule (``mesh_backend``), never by trying one and
+falling back: ``nccl`` on ``cuda:LOCAL_RANK`` when every rank has a card of
+its own (a node's ranks no more than its cards), ``gloo`` when
+ranks share a card or run on the CPU (gloo stages CUDA tensors through
+the host for its collectives). ``make_host_mesh`` builds the mesh of a
+job whose gloo group is already initialized, on the CPU (tests).
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import DeviceLike, resolve_device
+
+MESH_DIMS = ("data", "model")
+
+
+def parse_mesh_arg(spec: str, world_size: Optional[int] = None
+                   ) -> Optional[Tuple[int, int]]:
+    """CLI '--mesh DPxTP' (e.g. '1x4') -> (dp, tp); None for 1x1. The job
+    must have dp * tp ranks (``world_size``, default the ``WORLD_SIZE``
+    that ``torch.distributed.run`` sets, 1 outside it)."""
+    try:
+        dp, tp = (int(v) for v in spec.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh wants DPxTP (e.g. 1x4), got {spec!r}")
+    if dp < 1 or tp < 1:
+        raise SystemExit(f"--mesh dims must be >= 1, got {spec!r}")
+    if dp * tp == 1:
+        return None
+    if world_size is None:
+        world_size = int(os.environ.get("WORLD_SIZE", "1"))
+    if dp * tp != world_size:
+        raise SystemExit(
+            f"--mesh {spec} needs {dp * tp} devices, have {world_size} ranks "
+            f"(run it under python -m torch.distributed.run --nproc-per-node "
+            f"{dp * tp})")
+    return dp, tp
+
+
+def mesh_backend(local_ranks: int, device_type: str, n_cards: int
+                 ) -> Tuple[str, str]:
+    """(backend, why): ``nccl`` when the ranks run on CUDA and each has a
+    card of its own, that is the ranks of a node (``local_ranks``, the
+    ``LOCAL_WORLD_SIZE`` of ``torch.distributed.run``) are no more than its
+    cards (``n_cards``); else ``gloo``."""
+    if device_type == "cuda" and local_ranks <= n_cards:
+        return "nccl", (f"{local_ranks} ranks on this node's {n_cards} "
+                        f"cards: one card per rank")
+    if device_type == "cuda":
+        return "gloo", (f"{local_ranks} ranks share this node's {n_cards} card"
+                        f"{'s' if n_cards != 1 else ''}: NCCL takes one card "
+                        f"per rank")
+    return "gloo", f"{local_ranks} ranks on the CPU"
+
+
+def rank_device(device_type: str, local_rank: int, n_cards: int) -> torch.device:
+    """The device a rank runs on: ``cuda:LOCAL_RANK`` (ranks that share
+    cards take them in turn), or the CPU."""
+    if device_type == "cuda":
+        return torch.device("cuda", local_rank % n_cards)
+    return torch.device("cpu")
+
+
+def make_host_mesh(data: int = 2, model: int = 4):
+    """The ("data", "model") mesh of an initialized job of data * model
+    ranks, for tensors on the CPU."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh("cpu", (data, model), mesh_dim_names=MESH_DIMS)
+
+
+def init_mesh(dp: int, tp: int, device: DeviceLike = None):
+    """Join the job that ``torch.distributed.run`` started (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` /
+    ``MASTER_PORT``) with
+    the backend of ``mesh_backend`` and build its (dp, tp) mesh. Returns
+    (mesh, this rank's device, backend, why)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != dp * tp:
+        raise SystemExit(f"--mesh {dp}x{tp} needs {dp * tp} devices, have "
+                         f"{world} ranks")
+    kind = resolve_device(device).type
+    n_cards = torch.cuda.device_count() if kind == "cuda" else 0
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+    backend, why = mesh_backend(local, kind, n_cards)
+    dev = rank_device(kind, int(os.environ.get("LOCAL_RANK", "0")), n_cards)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group(backend, init_method="env://")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh(dev.type, (dp, tp), mesh_dim_names=MESH_DIMS)
+    return mesh, dev, backend, why

@@ -55,6 +55,21 @@ answers HTTP 429); ``--stats-interval S`` prints a ``[stats]`` line every S
 seconds. The encoder-decoder family is refused under ``--serve``: its
 requests need source frames, which the HTTP body does not carry.
 
+``--mesh DPxTP`` serves tensor- and expert-parallel over DP * TP ranks
+(``distributed/sharding.py``: each tiled layer's tile rows split over the
+"model" axis, a MoE bank's experts too, the batch over "data" where it
+divides), started by ``torch.distributed.run``:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.serve --arch granite-8b \
+        --reduced --mesh 1x2
+
+The backend follows ``launch/mesh.mesh_backend``: NCCL when each rank has a
+card of its own, gloo when the ranks share one (or run on the CPU, with
+``--device cpu``); the first rank prints it with the reason, the mesh's
+tile bytes per rank, and the reports. ``--serve`` and ``--aot`` are refused
+under a mesh (``MESH_GRAPH_ITEM``).
+
 Flow: build the TRAIN masters on the device one leaf at a time (or read
 them from the checkpoint), export
 each to the SERVE form (packed tile rows + alpha) and free it, stand up
@@ -65,24 +80,30 @@ TTFT / inter-token-latency line, and the first requests' tokens.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import time
 from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ArchConfig, build_model, get_config
 from repro_torch.device import resolve_device
 from repro_torch.ft.checkpoint import latest_step, restore_checkpoint
 from repro_torch.kernels.tiled_xnor import COMPUTE_PATHS
+from repro_torch.launch.mesh import init_mesh, parse_mesh_arg
 from repro_torch.nn import module as mod
 from repro_torch.nn.context import SERVE, TRAIN, ModelContext
-from repro_torch.serve.engine import BatchedEngine, ServeConfig
+from repro_torch.serve.engine import MESH_GRAPH_ITEM, BatchedEngine, ServeConfig
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.weights import (
     export_serving_params,
+    per_device_tile_bytes,
     serving_bytes,
     spec_bytes,
+    tile_serving_bytes,
 )
 
 
@@ -301,6 +322,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DPxTP serving mesh, e.g. 1x2 (default single "
+                         "device); run under python -m torch.distributed.run "
+                         "--nproc-per-node DP*TP")
     args = ap.parse_args(argv)
     if args.stats_interval < 0:
         raise SystemExit(f"--stats-interval must be >= 0: {args.stats_interval}")
@@ -313,7 +338,27 @@ def main(argv=None):
     if args.trace_log and not args.telemetry:
         raise SystemExit("--trace-log requires --telemetry (the ring is fed "
                          "from the telemetry call sites)")
+    dims = parse_mesh_arg(args.mesh)
+    if dims is not None and (args.serve or args.aot):
+        raise SystemExit(f"--mesh with {'--serve' if args.serve else '--aot'} "
+                         f"is not ported yet: {MESH_GRAPH_ITEM}")
+    if dims is None:
+        return _serve_main(args, None, None)
+    mesh, device, backend, why = init_mesh(*dims, args.device)
+    first = dist.get_rank() == int(mesh.mesh.flatten()[0])
+    try:
+        # the first rank reports; the others run the same schedule quietly
+        with (contextlib.nullcontext() if first
+              else contextlib.redirect_stdout(io.StringIO())):
+            print(f"mesh {args.mesh}: {dist.get_world_size()} ranks, "
+                  f"backend={backend} ({why})", flush=True)
+            return _serve_main(args, mesh, device)
+    finally:
+        dist.destroy_process_group()
 
+
+def _serve_main(args, mesh, device):
+    """The CLI's run on one device, or on this rank of ``mesh``."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -323,7 +368,7 @@ def main(argv=None):
             "--serve (HTTP front-end) carries token prompts only; the "
             "encdec family needs per-request source frames — drive it "
             "with the synthetic batch (drop --serve)")
-    device = resolve_device(args.device)
+    device = device or resolve_device(args.device)
     if encdec and args.enc_sources < 1:
         raise SystemExit(f"--enc-sources must be >= 1: {args.enc_sources}")
     s_model, sp, master_b = build_serving(cfg, device=device, seed=args.seed,
@@ -348,8 +393,17 @@ def main(argv=None):
         enc_tokens=args.enc_tokens if encdec else None,
         max_queued=args.max_queued if args.serve else None,
         telemetry=args.telemetry,
-        trace_events=args.trace_events if args.trace_log else 0))
+        trace_events=args.trace_events if args.trace_log else 0), mesh=mesh)
     aot = args.aot if args.aot is not None else args.serve
+    if mesh is not None:
+        total = tile_serving_bytes(sp)
+        per_rank = per_device_tile_bytes(eng.params, mesh)
+        worst = max(per_rank.values())
+        shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        print(f"mesh={shape}: tile bits {total / 1e6:.3f}MB total, "
+              f"{worst / 1e6:.3f}MB max/device ({total / max(worst, 1):.1f}x "
+              f"sharding)")
+        del sp      # the rank keeps only its blocks of the tiles
 
     def flush_trace_log():
         if args.trace_log and eng.tel is not None and eng.tel.ring is not None:

@@ -153,13 +153,15 @@ class EncDecModel:
         self.cfg = cfg
         self.ctx = ctx or ModelContext(policy=cfg.tbn)
         c, d = self.ctx, cfg.d_model
-        self.frame_proj = Dense(d, d, c, name="frame_proj")
+        self.frame_proj = Dense(d, d, c, name="frame_proj",
+                                logical=("embed", "embed"))
         self.embed = Embedding(cfg.vocab, d, c, name="dec_embed")
         self.enc_block = EncBlock(cfg, c)
         self.dec_block = DecBlock(cfg, c)
         self.enc_norm = _norm(cfg, c, "enc_norm")
         self.dec_norm = _norm(cfg, c, "dec_norm")
-        self.head = Dense(d, cfg.vocab, c, name="lm_head", kind="head")
+        self.head = Dense(d, cfg.vocab, c, name="lm_head", kind="head",
+                          logical=("vocab", "embed"))
 
     @property
     def device(self) -> torch.device:
@@ -178,6 +180,9 @@ class EncDecModel:
 
     def init(self, seed: int) -> dict:
         return mod.init_params(self.specs(), seed, self.device)
+
+    def logical(self) -> dict:
+        return mod.logical_axes(self.specs())
 
     # ------------------------------------------------------------------
     # training

@@ -464,7 +464,7 @@ class DecoderLM:
         self.final_norm = _norm(cfg, c, cfg.d_model, "final_norm")
         if not cfg.tie_embeddings:
             self.head = Dense(cfg.d_model, cfg.vocab, c, name="lm_head",
-                              kind="head")
+                              kind="head", logical=("vocab", "embed"))
 
     def _build_segments(self) -> List[Segment]:
         cfg, c = self.cfg, self.ctx
@@ -502,6 +502,9 @@ class DecoderLM:
 
     def init(self, seed: int) -> dict:
         return mod.init_params(self.specs(), seed, self.device)
+
+    def logical(self) -> dict:
+        return mod.logical_axes(self.specs())
 
     def logits(self, params, h) -> torch.Tensor:
         if self.cfg.tie_embeddings:

@@ -58,6 +58,12 @@ class ChannelNorm:
         return self.ln(params, x)
 
 
+def _dense(*args, **kw) -> Dense:
+    """A ``Dense`` that names no logical axis: the paper's models shard
+    nothing over a mesh (the reference's ``logical=(None, None)``)."""
+    return Dense(*args, logical=(None, None), **kw)
+
+
 class _Seq:
     """Name -> module container with dict specs/params."""
 
@@ -157,7 +163,7 @@ class ResNet(_PaperModel):
                 self._add_block(name, c_in, c_mid, s)
                 c_in = c_mid * self.expansion
                 self.block_names.append((name, c_mid, s, c_in))
-        m.add("head", Dense(c_in, classes, ctx, name="head", kind="head"))
+        m.add("head", _dense(c_in, classes, ctx, name="head", kind="head"))
 
     def _add_block(self, name, c_in, c_mid, stride):
         ctx, m = self.ctx, self.m
@@ -218,7 +224,7 @@ class VGGSmall(_PaperModel):
         for i, (ci, co) in enumerate(chans):
             m.add(f"c{i}", Conv2D(ci, co, (3, 3), ctx, name=f"c{i}"))
             m.add(f"n{i}", ChannelNorm(co, ctx))
-        m.add("head", Dense(512 * 4 * 4, classes, ctx, name="head", kind="head"))
+        m.add("head", _dense(512 * 4 * 4, classes, ctx, name="head", kind="head"))
 
     def __call__(self, params, x):
         h = x
@@ -241,16 +247,17 @@ class ViT(_PaperModel):
         self.patch, self.img = patch, img
         n_tokens = (img // patch) ** 2
         m = self.m = _Seq()
-        m.add("embed", Dense(patch * patch * 3, dim, ctx, name="embed"))
-        self.pos = mod.ParamSpec((n_tokens, dim), torch.float32, mod.normal(0.02))
+        m.add("embed", _dense(patch * patch * 3, dim, ctx, name="embed"))
+        self.pos = mod.ParamSpec((n_tokens, dim), torch.float32, (None, None),
+                                 mod.normal(0.02))
         for i in range(depth):
-            m.add(f"l{i}.qkv", Dense(dim, 3 * dim, ctx, name=f"l{i}.qkv"))
-            m.add(f"l{i}.proj", Dense(dim, dim, ctx, name=f"l{i}.proj"))
+            m.add(f"l{i}.qkv", _dense(dim, 3 * dim, ctx, name=f"l{i}.qkv"))
+            m.add(f"l{i}.proj", _dense(dim, dim, ctx, name=f"l{i}.proj"))
             m.add(f"l{i}.n1", ChannelNorm(dim, ctx))
-            m.add(f"l{i}.fc1", Dense(dim, mlp_dim, ctx, name=f"l{i}.fc1"))
-            m.add(f"l{i}.fc2", Dense(mlp_dim, dim, ctx, name=f"l{i}.fc2"))
+            m.add(f"l{i}.fc1", _dense(dim, mlp_dim, ctx, name=f"l{i}.fc1"))
+            m.add(f"l{i}.fc2", _dense(mlp_dim, dim, ctx, name=f"l{i}.fc2"))
             m.add(f"l{i}.n2", ChannelNorm(dim, ctx))
-        m.add("head", Dense(dim, classes, ctx, name="head", kind="head"))
+        m.add("head", _dense(dim, classes, ctx, name="head", kind="head"))
 
     def specs(self):
         out = self.m.specs()
@@ -280,20 +287,20 @@ class SwinLite(_PaperModel):
         self.ctx, self.img, self.patch = ctx, img, patch
         self.dims, self.depths = dims, depths
         m = self.m = _Seq()
-        m.add("embed", Dense(patch * patch * 3, dims[0], ctx, name="embed"))
+        m.add("embed", _dense(patch * patch * 3, dims[0], ctx, name="embed"))
         for s, (d, n) in enumerate(zip(dims, depths)):
             for b in range(n):
                 pre = f"s{s}b{b}"
-                m.add(f"{pre}.qkv", Dense(d, 3 * d, ctx, name=f"{pre}.qkv"))
-                m.add(f"{pre}.proj", Dense(d, d, ctx, name=f"{pre}.proj"))
+                m.add(f"{pre}.qkv", _dense(d, 3 * d, ctx, name=f"{pre}.qkv"))
+                m.add(f"{pre}.proj", _dense(d, d, ctx, name=f"{pre}.proj"))
                 m.add(f"{pre}.n1", ChannelNorm(d, ctx))
-                m.add(f"{pre}.fc1", Dense(d, 4 * d, ctx, name=f"{pre}.fc1"))
-                m.add(f"{pre}.fc2", Dense(4 * d, d, ctx, name=f"{pre}.fc2"))
+                m.add(f"{pre}.fc1", _dense(d, 4 * d, ctx, name=f"{pre}.fc1"))
+                m.add(f"{pre}.fc2", _dense(4 * d, d, ctx, name=f"{pre}.fc2"))
                 m.add(f"{pre}.n2", ChannelNorm(d, ctx))
             if s + 1 < len(dims):
-                m.add(f"merge{s}", Dense(4 * d, dims[s + 1], ctx,
+                m.add(f"merge{s}", _dense(4 * d, dims[s + 1], ctx,
                                          name=f"merge{s}"))
-        m.add("head", Dense(dims[-1], classes, ctx, name="head", kind="head"))
+        m.add("head", _dense(dims[-1], classes, ctx, name="head", kind="head"))
 
     def __call__(self, params, x):
         m = self.m
@@ -325,15 +332,15 @@ class MLPMixer(_PaperModel):
         self.patch, self.img = patch, img
         n_tok = self.n_tok = (img // patch) ** 2
         m = self.m = _Seq()
-        m.add("embed", Dense(patch * patch * 3, dim, ctx, name="embed"))
+        m.add("embed", _dense(patch * patch * 3, dim, ctx, name="embed"))
         for i in range(depth):
-            m.add(f"l{i}.t1", Dense(n_tok, token_hidden, ctx, name=f"l{i}.t1"))
-            m.add(f"l{i}.t2", Dense(token_hidden, n_tok, ctx, name=f"l{i}.t2"))
-            m.add(f"l{i}.c1", Dense(dim, chan_hidden, ctx, name=f"l{i}.c1"))
-            m.add(f"l{i}.c2", Dense(chan_hidden, dim, ctx, name=f"l{i}.c2"))
+            m.add(f"l{i}.t1", _dense(n_tok, token_hidden, ctx, name=f"l{i}.t1"))
+            m.add(f"l{i}.t2", _dense(token_hidden, n_tok, ctx, name=f"l{i}.t2"))
+            m.add(f"l{i}.c1", _dense(dim, chan_hidden, ctx, name=f"l{i}.c1"))
+            m.add(f"l{i}.c2", _dense(chan_hidden, dim, ctx, name=f"l{i}.c2"))
             m.add(f"l{i}.n1", ChannelNorm(dim, ctx))
             m.add(f"l{i}.n2", ChannelNorm(dim, ctx))
-        m.add("head", Dense(dim, classes, ctx, name="head", kind="head"))
+        m.add("head", _dense(dim, classes, ctx, name="head", kind="head"))
 
     def __call__(self, params, x):
         m = self.m
@@ -366,7 +373,7 @@ class ConvMixer(_PaperModel):
             m.add(f"l{i}.pw", Conv2D(dim, dim, (1, 1), ctx, name=f"l{i}.pw"))
             m.add(f"l{i}.n1", ChannelNorm(dim, ctx))
             m.add(f"l{i}.n2", ChannelNorm(dim, ctx))
-        m.add("head", Dense(dim, classes, ctx, name="head", kind="head"))
+        m.add("head", _dense(dim, classes, ctx, name="head", kind="head"))
 
     def __call__(self, params, x):
         m = self.m
@@ -398,12 +405,12 @@ class TNet(_PaperModel):
         self.ctx, self.k, self.name = ctx, k, name
         m = self.m = _Seq()
         for i, w in enumerate((64, 128, 1024)):
-            m.add(f"mlp{i}", Dense(k if i == 0 else (64, 128)[i - 1], w, ctx,
+            m.add(f"mlp{i}", _dense(k if i == 0 else (64, 128)[i - 1], w, ctx,
                                    name=f"{name}.mlp{i}"))
             m.add(f"n{i}", ChannelNorm(w, ctx))
-        m.add("fc1", Dense(1024, 512, ctx, name=f"{name}.fc1"))
-        m.add("fc2", Dense(512, 256, ctx, name=f"{name}.fc2"))
-        m.add("out", Dense(256, k * k, ctx, name=f"{name}.out", kind="head"))
+        m.add("fc1", _dense(1024, 512, ctx, name=f"{name}.fc1"))
+        m.add("fc2", _dense(512, 256, ctx, name=f"{name}.fc2"))
+        m.add("out", _dense(256, k * k, ctx, name=f"{name}.out", kind="head"))
 
     def __call__(self, params, x):
         m = self.m
@@ -431,22 +438,22 @@ class PointNet(_PaperModel):
         m.add("tnet2", TNet(ctx, widths[1], "tnet2"))
         c_in = 3
         for i, w in enumerate(widths):
-            m.add(f"mlp{i}", Dense(c_in, w, ctx, name=f"mlp{i}"))
+            m.add(f"mlp{i}", _dense(c_in, w, ctx, name=f"mlp{i}"))
             m.add(f"n{i}", ChannelNorm(w, ctx))
             c_in = w
         g = widths[-1]
         if task == "cls":
-            m.add("fc1", Dense(g, 512, ctx, name="fc1"))
-            m.add("fc2", Dense(512, 256, ctx, name="fc2"))
-            m.add("head", Dense(256, classes, ctx, name="head", kind="head"))
+            m.add("fc1", _dense(g, 512, ctx, name="fc1"))
+            m.add("fc2", _dense(512, 256, ctx, name="fc2"))
+            m.add("head", _dense(256, classes, ctx, name="head", kind="head"))
         else:
             c = g + widths[2]
             self.seg_w = (512, 256, 128) if task == "part" else (256, 128)
             for i, w in enumerate(self.seg_w):
-                m.add(f"seg{i}", Dense(c, w, ctx, name=f"seg{i}"))
+                m.add(f"seg{i}", _dense(c, w, ctx, name=f"seg{i}"))
                 m.add(f"sn{i}", ChannelNorm(w, ctx))
                 c = w
-            m.add("head", Dense(c, classes, ctx, name="head", kind="head"))
+            m.add("head", _dense(c, classes, ctx, name="head", kind="head"))
 
     def __call__(self, params, pts):
         """pts (B, N, 3) -> logits: cls (B, k) | seg (B, N, k)."""
@@ -482,15 +489,15 @@ class TSTransformer(_PaperModel):
         self.ctx, self.dim, self.depth, self.heads = ctx, dim, depth, heads
         self.features, self.horizon = features, horizon
         m = self.m = _Seq()
-        m.add("embed", Dense(features, dim, ctx, name="embed"))
+        m.add("embed", _dense(features, dim, ctx, name="embed"))
         for i in range(depth):
-            m.add(f"l{i}.qkv", Dense(dim, 3 * dim, ctx, name=f"l{i}.qkv"))
-            m.add(f"l{i}.proj", Dense(dim, dim, ctx, name=f"l{i}.proj"))
-            m.add(f"l{i}.fc1", Dense(dim, d_ff, ctx, name=f"l{i}.fc1"))
-            m.add(f"l{i}.fc2", Dense(d_ff, dim, ctx, name=f"l{i}.fc2"))
+            m.add(f"l{i}.qkv", _dense(dim, 3 * dim, ctx, name=f"l{i}.qkv"))
+            m.add(f"l{i}.proj", _dense(dim, dim, ctx, name=f"l{i}.proj"))
+            m.add(f"l{i}.fc1", _dense(dim, d_ff, ctx, name=f"l{i}.fc1"))
+            m.add(f"l{i}.fc2", _dense(d_ff, dim, ctx, name=f"l{i}.fc2"))
             m.add(f"l{i}.n1", ChannelNorm(dim, ctx))
             m.add(f"l{i}.n2", ChannelNorm(dim, ctx))
-        m.add("head", Dense(dim, features * horizon, ctx, name="head",
+        m.add("head", _dense(dim, features * horizon, ctx, name="head",
                             kind="head"))
 
     def __call__(self, params, x):
@@ -520,8 +527,8 @@ class MCUMLP(_PaperModel):
     def __init__(self, ctx: ModelContext):
         self.ctx = ctx
         m = self.m = _Seq()
-        m.add("fc1", Dense(784, 128, ctx, name="fc1"))
-        m.add("head", Dense(128, 10, ctx, name="head", kind="head"))
+        m.add("fc1", _dense(784, 128, ctx, name="fc1"))
+        m.add("head", _dense(128, 10, ctx, name="head", kind="head"))
 
     def __call__(self, params, x):
         h = F.relu(self.m["fc1"](params["fc1"], x))

@@ -143,12 +143,13 @@ class Attention:
         self.groups = self.n_heads // self.n_kv
         c, d, hd = self.ctx, self.d_model, self.hd
         self.wq = Dense(d, self.n_heads * hd, c, name=f"{self.name}.wq",
-                        use_bias=self.qkv_bias)
+                        logical=("heads", "embed"), use_bias=self.qkv_bias)
         self.wk = Dense(d, self.n_kv * hd, c, name=f"{self.name}.wk",
-                        use_bias=self.qkv_bias)
+                        logical=("heads", "embed"), use_bias=self.qkv_bias)
         self.wv = Dense(d, self.n_kv * hd, c, name=f"{self.name}.wv",
-                        use_bias=self.qkv_bias)
-        self.wo = Dense(self.n_heads * hd, d, c, name=f"{self.name}.wo")
+                        logical=("heads", "embed"), use_bias=self.qkv_bias)
+        self.wo = Dense(self.n_heads * hd, d, c, name=f"{self.name}.wo",
+                        logical=("embed", "heads"))
         if self.qk_norm:
             self.qnorm = RMSNorm(hd, c, name=f"{self.name}.qnorm")
             self.knorm = RMSNorm(hd, c, name=f"{self.name}.knorm")

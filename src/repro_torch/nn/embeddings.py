@@ -22,7 +22,8 @@ class Embedding:
 
     def specs(self) -> mod.SpecTree:
         return {"table": mod.ParamSpec((self.vocab, self.dim),
-                                       self.ctx.param_dtype, mod.normal(0.02))}
+                                       self.ctx.param_dtype, ("vocab", "embed"),
+                                       mod.normal(0.02))}
 
     def __call__(self, params: dict, ids: torch.Tensor) -> torch.Tensor:
         # Gather first, then cast: the same values as the reference's

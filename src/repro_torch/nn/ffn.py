@@ -32,10 +32,13 @@ class MLP:
 
     def __post_init__(self):
         c = self.ctx
-        self.up = Dense(self.d_model, self.d_ff, c, name=f"{self.name}.up")
+        self.up = Dense(self.d_model, self.d_ff, c, name=f"{self.name}.up",
+                        logical=("mlp", "embed"))
         if self.gated:
-            self.gate = Dense(self.d_model, self.d_ff, c, name=f"{self.name}.gate")
-        self.down = Dense(self.d_ff, self.d_model, c, name=f"{self.name}.down")
+            self.gate = Dense(self.d_model, self.d_ff, c, name=f"{self.name}.gate",
+                              logical=("mlp", "embed"))
+        self.down = Dense(self.d_ff, self.d_model, c, name=f"{self.name}.down",
+                          logical=("embed", "mlp"))
         self._act = ACTIVATIONS[self.activation]
 
     def specs(self) -> mod.SpecTree:

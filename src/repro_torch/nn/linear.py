@@ -62,6 +62,7 @@ class Dense:
     name: str = "dense"
     kind: str = "dense"            # "dense" | "head"
     use_bias: bool = False
+    logical: Tuple[Optional[str], Optional[str]] = ("mlp", "embed")  # (out, in)
 
     def __post_init__(self):
         self.spec: Optional[TileSpec] = self.ctx.policy.spec_for(
@@ -74,38 +75,45 @@ class Dense:
             return self._serve_specs()
         pd = self.ctx.param_dtype
         shape = (self.n_out, self.n_in)
-        out: dict = {"w": mod.ParamSpec(shape, pd, mod.kaiming())}
+        out: dict = {"w": mod.ParamSpec(shape, pd, self.logical, mod.kaiming())}
         if self.spec is not None and self.spec.alpha_source == "A":
-            out["a"] = mod.ParamSpec(shape, pd, mod.kaiming())
+            out["a"] = mod.ParamSpec(shape, pd, self.logical, mod.kaiming())
         if self.use_bias:
-            out["b"] = mod.ParamSpec((self.n_out,), pd, mod.zeros_init())
+            out["b"] = mod.ParamSpec((self.n_out,), pd, (self.logical[0],),
+                                     mod.zeros_init())
         return out
 
     def _serve_specs(self) -> mod.SpecTree:
         out: dict = {}
         if self.spec is not None and self.spec.aligned_rows:
-            # shipped form: one word-padded packed row per unique weight row
+            # shipped form: one word-padded packed row per unique weight
+            # row; the row axis is the tensor-parallel shard axis (each
+            # rank of a mesh's model axis holds r/TP rows)
             out["tile"] = mod.ParamSpec(
                 (self.spec.rows_per_tile, packed_len(self.n_in)), torch.int32,
-                mod.zeros_init())
+                ("tile_rows", None), mod.zeros_init())
             out["alpha"] = mod.ParamSpec((self.spec.n_alpha,), torch.float32,
-                                         mod.ones_init())
+                                         (None,), mod.ones_init())
         elif self.spec is not None:
             # unaligned tiling: flat q-bit tile, dense reconstruction
             out["tile"] = mod.ParamSpec((packed_len(self.spec.q),), torch.int32,
-                                        mod.zeros_init())
+                                        (None,), mod.zeros_init())
             out["alpha"] = mod.ParamSpec((self.spec.n_alpha,), torch.float32,
-                                         mod.ones_init())
+                                         (None,), mod.ones_init())
         elif self.ctx.policy.binarize(self.kind):
             # BWNN: one packed sign row per weight row + one layer alpha
             out["wbits"] = mod.ParamSpec((self.n_out, packed_len(self.n_in)),
-                                         torch.int32, mod.zeros_init())
-            out["alpha"] = mod.ParamSpec((1,), torch.float32, mod.ones_init())
+                                         torch.int32, (self.logical[0], None),
+                                         mod.zeros_init())
+            out["alpha"] = mod.ParamSpec((1,), torch.float32, (None,),
+                                         mod.ones_init())
         else:
             out["w"] = mod.ParamSpec((self.n_out, self.n_in),
-                                     self.ctx.compute_dtype, mod.kaiming())
+                                     self.ctx.compute_dtype, self.logical,
+                                     mod.kaiming())
         if self.use_bias:
-            out["b"] = mod.ParamSpec((self.n_out,), torch.float32, mod.zeros_init())
+            out["b"] = mod.ParamSpec((self.n_out,), torch.float32,
+                                     (self.logical[0],), mod.zeros_init())
         return out
 
     def __call__(self, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -180,36 +188,44 @@ class Conv2D:
         if self.ctx.mode == SERVE:
             return self._serve_specs()
         pd = self.ctx.param_dtype
-        out: dict = {"w": mod.ParamSpec(self.wshape, pd, mod.kaiming())}
+        out: dict = {"w": mod.ParamSpec(self.wshape, pd, (None,) * 4,
+                                        mod.kaiming())}
         if self.spec is not None and self.spec.alpha_source == "A":
-            out["a"] = mod.ParamSpec(self.wshape, pd, mod.kaiming())
+            out["a"] = mod.ParamSpec(self.wshape, pd, (None,) * 4, mod.kaiming())
         if self.use_bias:
-            out["b"] = mod.ParamSpec((self.c_out,), torch.float32, mod.zeros_init())
+            out["b"] = mod.ParamSpec((self.c_out,), torch.float32, (None,),
+                                     mod.zeros_init())
         return out
 
     def _serve_specs(self) -> mod.SpecTree:
         out: dict = {}
         if self.plan is not None:
+            # (kh*kw, r, words): the unique-filter axis is the tensor-parallel
+            # shard axis, as the dense row tile's
             out["tile_conv"] = mod.ParamSpec(self.plan.packed_shape(),
-                                             torch.int32, mod.zeros_init())
+                                             torch.int32,
+                                             (None, "tile_rows", None),
+                                             mod.zeros_init())
             out["alpha"] = mod.ParamSpec((self.spec.n_alpha,), torch.float32,
-                                         mod.ones_init())
+                                         (None,), mod.ones_init())
         elif self.spec is not None:  # unaligned: flat tile, dense fallback
             out["tile"] = mod.ParamSpec((packed_len(self.spec.q),), torch.int32,
-                                        mod.zeros_init())
+                                        (None,), mod.zeros_init())
             out["alpha"] = mod.ParamSpec((self.spec.n_alpha,), torch.float32,
-                                         mod.ones_init())
+                                         (None,), mod.ones_init())
         elif self.ctx.policy.binarize("conv"):
             kh, kw = self.kernel
             out["wbits"] = mod.ParamSpec(
                 (self.c_out, packed_len(self.c_in * kh * kw)), torch.int32,
-                mod.zeros_init())
-            out["alpha"] = mod.ParamSpec((1,), torch.float32, mod.ones_init())
+                (None, None), mod.zeros_init())
+            out["alpha"] = mod.ParamSpec((1,), torch.float32, (None,),
+                                         mod.ones_init())
         else:
             out["w"] = mod.ParamSpec(self.wshape, self.ctx.compute_dtype,
-                                     mod.kaiming())
+                                     (None,) * 4, mod.kaiming())
         if self.use_bias:
-            out["b"] = mod.ParamSpec((self.c_out,), torch.float32, mod.zeros_init())
+            out["b"] = mod.ParamSpec((self.c_out,), torch.float32, (None,),
+                                     mod.zeros_init())
         return out
 
     def __call__(self, params: dict, x: torch.Tensor) -> torch.Tensor:

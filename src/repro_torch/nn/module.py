@@ -3,7 +3,9 @@
 A layer is a plain dataclass exposing ``specs()`` -> nested dict of
 :class:`ParamSpec` and ``__call__(params, *args)`` on tensors. Param trees
 are nested dicts keyed exactly like the reference's, so both packages
-address the same "/"-joined leaf paths.
+address the same "/"-joined leaf paths. Each spec names a logical axis
+per dim ("heads", "tile_rows", ...); ``logical_axes`` collects them and
+``repro_torch.distributed.sharding`` maps them onto a mesh.
 
 Initialization draws from one ``torch.Generator`` per leaf, seeded from
 (seed, leaf path): deterministic and independent of tree order, like the
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Any, Callable, Dict, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,7 +63,13 @@ class ParamSpec:
 
     shape: Tuple[int, ...]
     dtype: Any = torch.float32
+    logical: Tuple[Optional[str], ...] = ()  # logical axis name per dim
     init: Initializer = dataclasses.field(default_factory=lambda: normal(0.02))
+
+    def __post_init__(self):
+        if self.logical and len(self.logical) != len(self.shape):
+            raise ValueError(f"logical {self.logical} does not match shape "
+                             f"{self.shape}")
 
 
 SpecTree = Union[ParamSpec, Dict[str, "SpecTree"]]
@@ -172,12 +180,24 @@ class LazyParams:
         return self[key] if key in self._specs else default
 
 
-def stack_specs(specs: SpecTree, n: int) -> SpecTree:
-    """Prepend a layer axis of size n to every leaf (stacked ``seg`` params
-    the model walks with a Python loop)."""
+def logical_axes(specs: SpecTree) -> dict:
+    """Tree of logical-axis tuples, mirroring the param tree (a leaf that
+    names none gets None per dim)."""
     out: dict = {}
     for path, spec in walk(specs):
+        set_path(out, path, tuple(spec.logical) if spec.logical
+                 else (None,) * len(spec.shape))
+    return out
+
+
+def stack_specs(specs: SpecTree, n: int) -> SpecTree:
+    """Prepend a layer axis of size n, named "layers", to every leaf
+    (stacked ``seg`` params the model walks with a Python loop)."""
+    out: dict = {}
+    for path, spec in walk(specs):
+        logical = tuple(spec.logical) or (None,) * len(spec.shape)
         set_path(out, path, ParamSpec((n,) + tuple(spec.shape), spec.dtype,
+                                      ("layers",) + logical,
                                       _stacked_init(spec.init, n)))
     return out
 

@@ -24,6 +24,14 @@ reference reaches no Pallas kernel on this path and neither does the
 port. Each bank is rebuilt just before its product and dropped after it,
 so one bank's dense transient is alive at a time. The shared experts are
 an ``MLP`` of tiled ``Dense`` layers (kernels B1-B4 on the card).
+
+Expert parallelism (serving under a mesh, ``distributed/sharding.py``):
+where the "experts" axis divides E a rank holds E/TP banks, rebuilds and
+multiplies only its experts over the tokens dispatched to them (the
+routing is replicated, so no all-to-all), combines them locally and sums
+the partial outputs over the axis (``all_reduce``). Where it does not
+divide, a bank's tile rows may fall to "tile_rows" instead, as the
+reference's spec resolves: the bank gathers its rows before the rebuild.
 """
 from __future__ import annotations
 
@@ -40,6 +48,13 @@ from repro_torch.core.tiling import (
     reconstruct_from_tile,
     tiled_weight,
     tiled_weight_rows,
+)
+from repro_torch.distributed.sharding import (
+    expert_sharding,
+    gather_blocks,
+    shard_index,
+    sum_over,
+    tile_sharding,
 )
 from repro_torch.nn import module as mod
 from repro_torch.nn.context import SERVE, ModelContext, full_f32_matmul
@@ -78,39 +93,52 @@ class ExpertBank:
         pd, e = self.ctx.param_dtype, self.n_experts
         if self.ctx.mode == SERVE:
             if self.spec is not None and self.spec.aligned_rows:
-                # row-packed per-expert tiles (E, r, words)
+                # row-packed per-expert tiles (E, r, words): "experts"
+                # claims the model axis first (expert parallelism);
+                # "tile_rows" shards only where E does not divide it
                 return {
                     "tile": mod.ParamSpec(
                         (e, self.spec.rows_per_tile, packed_len(self.n_in)),
-                        torch.int32, mod.zeros_init()),
+                        torch.int32, ("experts", "tile_rows", None),
+                        mod.zeros_init()),
                     "alpha": mod.ParamSpec((e, self.spec.n_alpha),
-                                           torch.float32, mod.ones_init()),
+                                           torch.float32, ("experts", None),
+                                           mod.ones_init()),
                 }
             if self.spec is not None:   # unaligned: flat per-expert tiles
                 return {
                     "tile": mod.ParamSpec((e, packed_len(self.spec.q)),
-                                          torch.int32, mod.zeros_init()),
+                                          torch.int32, ("experts", None),
+                                          mod.zeros_init()),
                     "alpha": mod.ParamSpec((e, self.spec.n_alpha),
-                                           torch.float32, mod.ones_init()),
+                                           torch.float32, ("experts", None),
+                                           mod.ones_init()),
                 }
             return {"w": mod.ParamSpec((e, self.n_out, self.n_in),
-                                       self.ctx.compute_dtype, mod.kaiming())}
-        out = {"w": mod.ParamSpec((e, self.n_out, self.n_in), pd, mod.kaiming())}
+                                       self.ctx.compute_dtype,
+                                       ("experts", "mlp", "embed"), mod.kaiming())}
+        wl = ("experts", "mlp", "embed")
+        out = {"w": mod.ParamSpec((e, self.n_out, self.n_in), pd, wl, mod.kaiming())}
         if self.spec is not None and self.spec.alpha_source == "A":
-            out["a"] = mod.ParamSpec((e, self.n_out, self.n_in), pd,
+            out["a"] = mod.ParamSpec((e, self.n_out, self.n_in), pd, wl,
                                      mod.kaiming())
         return out
 
     def effective(self, params: dict) -> torch.Tensor:
-        """(E, n_out, n_in) effective weights in the compute dtype."""
+        """(E, n_out, n_in) effective weights in the compute dtype (under
+        expert parallelism the rank's E/TP experts)."""
         cd, spec = self.ctx.compute_dtype, self.spec
         if self.ctx.mode == SERVE:
             if spec is None:
                 return params["w"].to(cd)
             tile = params["tile"]
             if tile.ndim == 3:          # row-packed (E, r, words)
+                rows = tile_sharding(spec.rows_per_tile)
+                if rows is not None and expert_sharding(self.n_experts) is None:
+                    # the bank's rows fell to "tile_rows": whole rows first
+                    tile = gather_blocks(tile, rows[0], rows[1], 1)
                 t = unpack_bits(tile, self.n_in, dtype=cd).reshape(
-                    self.n_experts, spec.q)
+                    tile.shape[0], spec.q)
             else:                       # flat (E, ceil(q/32))
                 t = unpack_bits(tile, spec.q, dtype=cd)
             return reconstruct_from_tile(t, params["alpha"], spec, dtype=cd)
@@ -163,7 +191,8 @@ class MoE:
     def specs(self) -> mod.SpecTree:
         out = {
             "router": mod.ParamSpec((self.n_experts, self.d_model),
-                                    torch.float32, mod.normal(0.02)),
+                                    torch.float32, ("experts", "embed"),
+                                    mod.normal(0.02)),
             "up": self.up.specs(),
             "down": self.down.specs(),
         }
@@ -266,27 +295,48 @@ class MoE:
         xbuf.index_copy_(0, flat_e * cap + pos, src)
         return xbuf.view(e, cap, d), (flat_e, pos)
 
-    def _combine_serve(self, ybuf, meta, gate_vals, tl):
+    def _combine_serve(self, ybuf, meta, gate_vals, tl, e0: Optional[int] = None):
         """Gate-rank-order combine: token t's output is the ordered sum over
         j = 0..k-1 of gate[t, j] * ybuf[e(t, j), pos(t, j)], in the compute
-        dtype (a fixed-length, fixed-order accumulation per token)."""
+        dtype (a fixed-length, fixed-order accumulation per token). With
+        ``e0`` ybuf holds experts e0.. only (a rank's banks): the other
+        experts' terms are dropped (gate 0), to be summed in by their
+        ranks."""
         cd = self.ctx.compute_dtype
         flat_e, pos = meta
-        k, cap, d = self.top_k, ybuf.shape[1], ybuf.shape[-1]
+        k, (e_loc, cap, d) = self.top_k, ybuf.shape
         rows = ybuf.reshape(-1, d)
         y = torch.zeros((tl, d), dtype=cd, device=ybuf.device)
         for j in range(k):
-            y = y + rows[flat_e[j::k] * cap + pos[j::k]] * gate_vals[:, j, None].to(cd)
+            e, g = flat_e[j::k], gate_vals[:, j]
+            if e0 is not None:
+                e = e - e0
+                mine = (e >= 0) & (e < e_loc)
+                e, g = e.clamp(0, e_loc - 1), torch.where(mine, g, 0.0)
+            y = y + rows[e * cap + pos[j::k]] * g[:, None].to(cd)
         return y
 
     def _serve_call(self, params: dict, x: torch.Tensor):
         """Fixed-shape serving forward: drop-free dispatch, one dispatch
-        group, expert banks rebuilt from their packed tiles."""
+        group, expert banks rebuilt from their packed tiles (under expert
+        parallelism the rank's banks, then the sum over the axis)."""
         b, s, d = x.shape
         tl = b * s
         xg = x.reshape(tl, d)
         _, gate_vals, top_idx = self._route(params["router"], xg)
         xbuf, meta = self._dispatch_serve(xg, top_idx)      # (E, tl*k, d)
+        ep, e0 = expert_sharding(self.n_experts), None
+        if ep is not None:
+            mesh, ax, extent = ep
+            e_loc = self.n_experts // extent
+            held = next(v for _, v in mod.walk(params["up"]))   # (E/TP, ...)
+            if held.shape[0] != e_loc:
+                raise ValueError(f"{self.name}: the rank holds {held.shape[0]} "
+                                 f"experts' banks; under an experts axis of "
+                                 f"{extent} it holds E / TP = {e_loc} (place "
+                                 f"the params with place_params)")
+            e0 = shard_index(mesh, ax) * e_loc
+            xbuf = xbuf[e0:e0 + e_loc]
         h = self._bank_product(xbuf, self.up, params["up"])
         if self.gated:
             h = self._act(self._bank_product(xbuf, self.gate_bank,
@@ -294,7 +344,9 @@ class MoE:
         else:
             h = self._act(h)
         ybuf = self._bank_product(h, self.down, params["down"])
-        y = self._combine_serve(ybuf, meta, gate_vals, tl)
+        y = self._combine_serve(ybuf, meta, gate_vals, tl, e0)
+        if ep is not None:
+            y = sum_over(y, mesh, ax)
         if self.n_shared:
             y = y + self.shared(params["shared"], xg[None])[0]
         return (y.reshape(b, s, d),

@@ -19,7 +19,8 @@ class RMSNorm:
     eps: float = 1e-6
 
     def specs(self) -> mod.SpecTree:
-        return {"scale": mod.ParamSpec((self.dim,), torch.float32, mod.ones_init())}
+        return {"scale": mod.ParamSpec((self.dim,), torch.float32, ("embed",),
+                                       mod.ones_init())}
 
     def __call__(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
@@ -60,8 +61,10 @@ class LayerNorm:
 
     def specs(self) -> mod.SpecTree:
         return {
-            "scale": mod.ParamSpec((self.dim,), torch.float32, mod.ones_init()),
-            "bias": mod.ParamSpec((self.dim,), torch.float32, mod.zeros_init()),
+            "scale": mod.ParamSpec((self.dim,), torch.float32, ("embed",),
+                                   mod.ones_init()),
+            "bias": mod.ParamSpec((self.dim,), torch.float32, ("embed",),
+                                  mod.zeros_init()),
         }
 
     def __call__(self, params: dict, x: torch.Tensor) -> torch.Tensor:

@@ -50,13 +50,17 @@ class RGLRUBlock:
     def __post_init__(self):
         c = self.ctx
         self.width = self.d_rnn or self.d_model
-        self.in_x = Dense(self.d_model, self.width, c, name=f"{self.name}.in_x")
+        self.in_x = Dense(self.d_model, self.width, c, name=f"{self.name}.in_x",
+                          logical=("mlp", "embed"))
         self.in_gate = Dense(self.d_model, self.width, c,
-                             name=f"{self.name}.in_gate")
-        self.out = Dense(self.width, self.d_model, c, name=f"{self.name}.out")
+                             name=f"{self.name}.in_gate", logical=("mlp", "embed"))
+        self.out = Dense(self.width, self.d_model, c, name=f"{self.name}.out",
+                         logical=("embed", "mlp"))
         # the gate projections are full FC layers -> TBN-tileable
-        self.w_a = Dense(self.width, self.width, c, name=f"{self.name}.w_a")
-        self.w_i = Dense(self.width, self.width, c, name=f"{self.name}.w_i")
+        self.w_a = Dense(self.width, self.width, c, name=f"{self.name}.w_a",
+                         logical=("mlp", "mlp"))
+        self.w_i = Dense(self.width, self.width, c, name=f"{self.name}.w_i",
+                         logical=("mlp", "mlp"))
 
     def specs(self) -> mod.SpecTree:
         f32, w = torch.float32, self.width
@@ -64,9 +68,10 @@ class RGLRUBlock:
             "in_x": self.in_x.specs(),
             "in_gate": self.in_gate.specs(),
             "out": self.out.specs(),
-            "conv_w": mod.ParamSpec((self.conv_width, w), f32, mod.normal(0.1)),
-            "conv_b": mod.ParamSpec((w,), f32, mod.zeros_init()),
-            "lam": mod.ParamSpec((w,), f32, mod.constant_init(2.2)),
+            "conv_w": mod.ParamSpec((self.conv_width, w), f32, (None, "mlp"),
+                                    mod.normal(0.1)),
+            "conv_b": mod.ParamSpec((w,), f32, ("mlp",), mod.zeros_init()),
+            "lam": mod.ParamSpec((w,), f32, ("mlp",), mod.constant_init(2.2)),
             "w_a": self.w_a.specs(),
             "w_i": self.w_i.specs(),
         }

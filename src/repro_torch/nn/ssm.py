@@ -78,9 +78,9 @@ class Mamba2Block:
         d_in_proj = (2 * self.d_inner + 2 * self.n_groups * self.d_state
                      + self.n_heads)
         self.in_proj = Dense(self.d_model, d_in_proj, c,
-                             name=f"{self.name}.in_proj")
+                             name=f"{self.name}.in_proj", logical=("mlp", "embed"))
         self.out_proj = Dense(self.d_inner, self.d_model, c,
-                              name=f"{self.name}.out_proj")
+                              name=f"{self.name}.out_proj", logical=("embed", "mlp"))
 
     def specs(self) -> mod.SpecTree:
         f32 = torch.float32
@@ -88,12 +88,15 @@ class Mamba2Block:
             "in_proj": self.in_proj.specs(),
             "out_proj": self.out_proj.specs(),
             "conv_w": mod.ParamSpec((self.conv_width, self.d_conv), f32,
-                                    mod.normal(0.1)),
-            "conv_b": mod.ParamSpec((self.d_conv,), f32, mod.zeros_init()),
-            "A_log": mod.ParamSpec((self.n_heads,), f32, mod.zeros_init()),
-            "D": mod.ParamSpec((self.n_heads,), f32, mod.ones_init()),
-            "dt_bias": mod.ParamSpec((self.n_heads,), f32, mod.zeros_init()),
-            "norm_scale": mod.ParamSpec((self.d_inner,), f32, mod.ones_init()),
+                                    (None, "mlp"), mod.normal(0.1)),
+            "conv_b": mod.ParamSpec((self.d_conv,), f32, ("mlp",),
+                                    mod.zeros_init()),
+            "A_log": mod.ParamSpec((self.n_heads,), f32, (None,), mod.zeros_init()),
+            "D": mod.ParamSpec((self.n_heads,), f32, (None,), mod.ones_init()),
+            "dt_bias": mod.ParamSpec((self.n_heads,), f32, (None,),
+                                     mod.zeros_init()),
+            "norm_scale": mod.ParamSpec((self.d_inner,), f32, ("mlp",),
+                                        mod.ones_init()),
         }
 
     # ------------------------------------------------------------------

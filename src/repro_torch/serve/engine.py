@@ -71,12 +71,19 @@ preempt-and-resume, and telemetry (port of ``repro/serve/engine.py``).
   observation only: request spans, tick phase histograms, an optional
   trace-event ring, and a detector of tick bodies that run eagerly after
   ``warmup()`` (read from ``TRACE_COUNTS``).
-
-Waiting for later slices: the HTTP front-end and mesh placement.
+* ``mesh=`` (a ("data", "model") ``DeviceMesh``, ``launch/mesh.py``) serves
+  tensor- and expert-parallel: the engine keeps this rank's block of the
+  params (``distributed.sharding.place_params``) and runs every tick under
+  ``axis_rules``, so each tiled layer runs on its r/TP rows and gathers
+  the rest. Every rank runs the same host schedule (SPMD); each tick's
+  sampled ids are broadcast from the mesh's first rank, so no rank can fork
+  its schedule. Ticks run eagerly: ``warmup()`` under a mesh raises
+  (``MESH_GRAPH_ITEM``).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import hashlib
 import itertools
@@ -88,6 +95,11 @@ from typing import Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import (
+    axis_rules,
+    broadcast_from_first,
+    place_params,
+)
 from repro_torch.kernels.ops import check_compute_path
 from repro_torch.nn import module as mod
 from repro_torch.serve.graphs import TickGraph
@@ -107,6 +119,10 @@ PRIORITY_RANKS: Dict[str, int] = {"interactive": 0, "batch": 1}
 # none of it, so a warm engine that serves without moving these counters
 # started no new capture and no eager tick (the reference's trace probe).
 TRACE_COUNTS: "collections.Counter[str]" = collections.Counter()
+# captured ticks under a mesh need collectives a graph can hold (NCCL, one
+# card per rank); gloo's run on the host
+MESH_GRAPH_ITEM = ("ROADMAP.md queue A item 9c (serving over NCCL, one card "
+                   "per rank: captured ticks under a mesh)")
 
 
 class AdmissionQueueFull(RuntimeError):
@@ -351,9 +367,10 @@ class ServeConfig:
 class BatchedEngine:
     """Serves ``model`` (a SERVE-mode ``DecoderLM`` or ``EncDecModel``, any
     model of the ServableModel contract) from ``params`` on the model's
-    device; the params must already live there."""
+    device; the params must already live there. Under ``mesh`` the engine
+    keeps this rank's block of them."""
 
-    def __init__(self, model, params, cfg: ServeConfig):
+    def __init__(self, model, params, cfg: ServeConfig, *, mesh=None):
         ensure_servable(model)
         self.model = model
         self.device = model.device
@@ -365,6 +382,9 @@ class BatchedEngine:
             raise ValueError(f"ServeConfig.compute_path {cfg.compute_path!r} "
                              f"but the model was built with "
                              f"{model.ctx.compute_path!r}")
+        self.mesh = mesh
+        if mesh is not None:
+            params = place_params(params, mod.logical_axes(model.specs()), mesh)
         self.params = params
         self.cfg = cfg
         self._queue = _AdmissionQueue()
@@ -1039,6 +1059,20 @@ class BatchedEngine:
                  for s in range(self.cfg.n_slots)]
         return sample_logits_batch(logits, self._temps, self._topks, seeds)
 
+    def _mesh_ctx(self):
+        """The sharding rules' context for a tick; a no-op without a mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return axis_rules(self.mesh)
+
+    def _agree(self, ids: torch.Tensor) -> torch.Tensor:
+        """A tick's sampled ids, as the mesh's first rank drew them (one
+        broadcast a tick), so every rank emits the same tokens and keeps
+        the same schedule; ``ids`` as given without a mesh."""
+        if self.mesh is None:
+            return ids
+        return broadcast_from_first(ids.contiguous(), self.mesh)
+
     def _emit(self, slot: int, req: Request, tok: int):
         req.output.append(tok)
         req.token_steps.append(self.steps)
@@ -1210,7 +1244,12 @@ class BatchedEngine:
         request. A second call is a no-op that returns the first call's
         seconds. Raises ``RuntimeError`` naming the entry point and its
         buffers' shapes if a run or a capture fails; the engine then stays
-        cold (no quiet half warmup)."""
+        cold (no quiet half warmup). Under a mesh it raises
+        ``NotImplementedError``: the ticks' gloo collectives run on the host
+        and no graph can hold them (``MESH_GRAPH_ITEM``)."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"warmup() under a mesh is not ported yet: {MESH_GRAPH_ITEM}")
         if self._graphs:
             return dict(self._warm_s)
         self._ptab_t.copy_(torch.from_numpy(self._ptab))
@@ -1298,7 +1337,7 @@ class BatchedEngine:
         self._ptab_t.copy_(torch.from_numpy(self._ptab))
         self._copy_cross_inputs()
         # the host copy of the sampled tokens ends the device phase
-        toks_host = self._sample(self._tick("extend_tick")).tolist()
+        toks_host = self._agree(self._sample(self._tick("extend_tick"))).tolist()
         t_host = time.perf_counter()
         if tel is not None:
             self._tick_phases["prefill_device"] = t_host - t_dev
@@ -1342,7 +1381,8 @@ class BatchedEngine:
         self._ptab_t.copy_(torch.from_numpy(self._ptab))
         self._copy_cross_inputs()
         logits = self._tick("decode_tick")
-        nxt = torch.where(self._active_t, self._sample(logits), self.tokens[:, 0])
+        nxt = self._agree(torch.where(self._active_t, self._sample(logits),
+                                      self.tokens[:, 0]))
         self.tokens.copy_(nxt[:, None])
         nxt_host = nxt.tolist()
         t_host = time.perf_counter()
@@ -1366,7 +1406,7 @@ class BatchedEngine:
         prefilling slot emits its first token on the tick its last chunk
         lands; a slot preempted this tick emits nothing."""
         tel = self.tel
-        with torch.no_grad():
+        with torch.no_grad(), self._mesh_ctx():
             if tel is not None:
                 t_tick = time.perf_counter()
                 eager_pre = self._eager_count() if self._eager_armed else 0

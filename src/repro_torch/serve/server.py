@@ -66,7 +66,12 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.serve.detok import DetokenizeWorker, PieceCodec
-from repro_torch.serve.engine import AdmissionQueueFull, BatchedEngine, Request
+from repro_torch.serve.engine import (
+    MESH_GRAPH_ITEM,
+    AdmissionQueueFull,
+    BatchedEngine,
+    Request,
+)
 from repro_torch.serve.sampling import SamplingParams
 
 # the /metrics histogram's route label vocabulary — anything else maps to
@@ -146,6 +151,11 @@ class EngineServer:
 
     def __init__(self, engine: BatchedEngine, cfg: ServerConfig = None,
                  *, codec: Optional[PieceCodec] = None):
+        if getattr(engine, "mesh", None) is not None:
+            # every rank must run the same ticks; the shell serves one
+            raise NotImplementedError(
+                f"the HTTP shell over a meshed engine is not ported yet: "
+                f"{MESH_GRAPH_ITEM}")
         self.engine = engine
         self.cfg = cfg or ServerConfig()
         self._loop: Optional[asyncio.AbstractEventLoop] = None

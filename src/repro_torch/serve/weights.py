@@ -196,3 +196,23 @@ def tile_serving_bytes(params) -> int:
     """Bytes of the packed tile bits alone (``tile`` and ``tile_conv``)."""
     return sum(v.numel() * v.element_size() for path, v in mod.walk(params)
                if path[-1] in ("tile", "tile_conv"))
+
+
+def per_device_tile_bytes(params, mesh=None) -> Dict[str, int]:
+    """Bytes of packed tile bits resident on each rank: ``{"rank i
+    (device)": bytes}`` over the ranks of ``mesh``, gathered with
+    ``all_gather_object``, where each rank passes the tree it holds
+    (``distributed.sharding.place_params``: 1/TP of every sharded tile).
+    Without a mesh, one entry ``{device: bytes}`` for ``params`` as
+    given."""
+    tiles = [v for path, v in mod.walk(params) if path[-1] in ("tile", "tile_conv")]
+    dev = str(tiles[0].device) if tiles else "host"
+    local = sum(v.numel() * v.element_size() for v in tiles)
+    if mesh is None:
+        return {dev: local}
+    import torch.distributed as dist
+
+    entries = [None] * dist.get_world_size()
+    dist.all_gather_object(entries, (dist.get_rank(), dev, local))
+    ranks = {int(r) for r in mesh.mesh.flatten()}
+    return {f"rank {r} ({d})": b for r, d, b in entries if r in ranks}
