@@ -103,8 +103,9 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      path: 4 requests of 8 greedy tokens each, cold and warm, with the
      same counter and token checks (own kernel = (6 L + 1) per decode tick
      + 1 per extend tick: their MLPs are not gated), first tokens printed;
-  4e. serve qwen2-moe-a2.7b at its published width and all 24 layers
-     (60 routed experts top-4 plus 4 shared a layer), bf16, from masters
+  4e. serve qwen2-moe-a2.7b at its published width, cut to
+     MOE_SERVE_LAYERS = 12 of its 24 layers when phase 5r made the run
+     longer (60 routed experts top-4 plus 4 shared a layer), bf16, from masters
      built, exported and freed one leaf at a time (the largest leaf is an
      (L, E, 1408, 2048) f32 expert bank of 16.6 GB; the build's peak of
      device memory is printed and must leave 10% of the card): the
@@ -224,7 +225,7 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      client's TTFT and ITL (mean, p50) beside the drain's, the warm decode
      tick ms inside the server beside the drain's, the detokenize
      backlog's peak and the phase's seconds;
-  4r. (runs last, after phase 10) tensor- and expert-parallel serving under
+  4r. (after phase 10, before 5r) tensor- and expert-parallel serving under
      a ("data", "model") mesh of ranks that share cuda:0 over gloo (ranks
      sharing one card: no multi-card figure). Phase 3's granite-8b export
      (full width and depth), 4e's qwen2-moe-a2.7b export cut to
@@ -249,6 +250,32 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      the serve CLI
      under ``torch.distributed.run --nproc-per-node 2 ... --reduced --mesh
      1x2``: exit 0, ``backend=gloo``, ``2.0x sharding``;
+  5r. (runs last) training under a ("data", "model") mesh of ranks that
+     share cuda:0 over gloo (no multi-card figure): granite-8b at full
+     width cut to TRAIN_MESH_LAYERS = 2, fused (B5 + B2 per shard), f32
+     masters of seed 0, bf16 compute, phase 5's batch 4 x 512, AdamW 3e-4,
+     first on one card, then under (1, 2) and (2, 1) on 2 ranks and (2, 2)
+     on 4 (``--train-rank JOB_DIR`` is one rank; the 4-rank job starts
+     beside the 2-rank one and trains once it has ended). Before, each
+     mesh's bytes a rank are reckoned (masters, gradients, two moments,
+     the whole masters built before the cut, activations) and must leave
+     10% of the card. On each rank: its B5 words of layer 0's gate equal
+     one card's rows and alpha within 1e-5; the losses of 2 steps within
+     rtol 1e-3 of one card's, their clip norms within TRAIN_MESH_GNORM_RTOL;
+     the update the 2 steps made to its block of each attention and norm
+     leaf (TRAIN_MESH_UPDATE_LEAVES) within TRAIN_MESH_UPDATE_TOL of one
+     card's (relative, in norm); B5 = B2 = 2 x (14 L + 1) launches, B1 =
+     B3 = B4 = B6 = 0, no plain version run; its master bytes, step 2's ms and
+     the collectives' share of it (each synchronized) and its peak memory.
+     The 2-rank job also runs one EF-sign ``build_dp_train_step`` step at
+     (2, 1) (finite loss) and a 2-stage GPipe of full-width blocks (fused,
+     one block a stage, M = 4 microbatches of 1 x 128; outputs and stage
+     gradients within rtol 1e-3 of the stages in sequence on one rank);
+     the 4-rank job writes a checkpoint under (2, 2) (granite-8b reduced,
+     3 steps), which ``elastic_restore`` puts onto one card: every leaf's
+     sha256 equals the state the ranks gathered. Beside the 4-rank job the
+     train CLI under ``torch.distributed.run --nproc-per-node 2 ...
+     --reduced --steps 3 --mesh 1x2`` exits 0 with ``done: 3 steps``;
   5. train granite-8b at published width, 4 layers (n_layers 36 -> 4: the
      masters, gradients and AdamW moments of all 36 do not fit one card),
      through ``launch.train.build_training`` as the CLI wires it but with
@@ -378,6 +405,9 @@ MAMBA_SERVE_LAYERS = 24
 # phase 4f serves moonshot-v1-16b-a3b at full width cut to 16 of its 48
 # layers: phases 4k-4m made the run longer, and this depth was the next cut
 MOONSHOT_SERVE_LAYERS = 16
+# phase 4e's depth: 12 of qwen2-moe-a2.7b's 24 layers (the run's time, when
+# phase 5r joined it; 4g and 4r check the MoE layers on the card at L = 2)
+MOE_SERVE_LAYERS = 12
 # phase 4i's window-wrapping request: a prompt longer than the 2048 window
 # on a slot of WRAP_MAX_LEN tokens; phase 4j's card-vs-CPU cut and chunk
 WRAP_PROMPT, WRAP_MAX_LEN = 2100, 2304
@@ -446,6 +476,28 @@ TP_PROMPT, TP_DECODE_STEPS, TP_MAX_TOKENS = [5, 3, 2, 7, 1, 4, 6, 2], 4, 16
 TP_LOGIT_RTOL, TP_R34_TOL = 1e-4, 1e-3
 TP_TIMED_TICKS, TP_JOB_TIMEOUT = 5, 300
 TP_DIR = None
+# phase 5r: granite-8b training at full width cut to TRAIN_MESH_LAYERS under
+# the meshes (data, model) of its two jobs (ranks sharing cuda:0 over gloo),
+# TRAIN_MESH_STEPS steps checked against one card at TRAIN_MESH_RTOL (phase
+# 5's tolerance: atomics) and one more timed with the collectives timed; the
+# 2-stage GPipe of full-width blocks (one block a stage), its microbatches
+# and their tokens; the checkpoint case trains granite-8b reduced
+TRAIN_MESH_LAYERS, TRAIN_MESH_STEPS, TRAIN_MESH_RTOL = 2, 2, 1e-3
+# each step's clip norm against one card's (rtol), and the update the
+# steps made to the attention and norm leaves of both layers against one
+# card's: ||d - d_1|| / ||d_1|| over the rank's block of each leaf, d =
+# params after the steps - params before (a skipped optimizer step gives
+# 1). Layer 0's attention gradient is the whole backward's (every later
+# Dense's dx partials and the DP mean reach it). Sound runs of the three
+# meshes (NVIDIA H100 80GB HBM3, 700 W) gave clip norms within 8.1e-4 and
+# updates within 0.108 (0.189 over every leaf): bf16 rounding flips a few
+# AdamW signs; the bounds are 2.5x and 3.7x those
+TRAIN_MESH_GNORM_RTOL, TRAIN_MESH_UPDATE_TOL = 2e-3, 0.4
+TRAIN_MESH_UPDATE_LEAVES = ("seg0/mixer", "seg0/norm1", "seg0/norm2", "final_norm")
+TRAIN_MESH_JOBS = (((1, 2), (2, 1)), ((2, 2),))
+PARTS_5R = (("ef_sign", "gpipe"), ("ckpt",))
+GPIPE_MICRO, GPIPE_MB, GPIPE_SEQ = 4, 1, 128
+TRAIN_MESH_LR = 3e-4
 
 
 def fail(msg: str) -> None:
@@ -1747,8 +1799,8 @@ def build_on_card(cfg):
 
 
 def phase_serve_paths(cfg, phase: str, cold_profile: bool = True):
-    """Phases 4b and 4e: ``cfg`` at its published width and depth (qwen1.5-32b
-    with its int8 KV cache; qwen2-moe-a2.7b) under each compute path on one
+    """Phases 4b and 4e: ``cfg`` at its published width and the depth it is
+    given (qwen1.5-32b with its int8 KV cache; qwen2-moe-a2.7b) under each compute path on one
     streamed export, cold and warm; one 4-slot decode tick traced per path.
     Returns (params, launch counts)."""
     import torch
@@ -3859,6 +3911,600 @@ def phase_tp(card: str, sp34):
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 5r: training under a mesh
+# ---------------------------------------------------------------------------
+def train_mesh_model(cfg, fused: bool = True):
+    """granite-8b cut to TRAIN_MESH_LAYERS, TRAIN mode, bf16 compute, fused
+    (B5 + B2), on cuda:0."""
+    import torch
+
+    from repro_torch.configs import build_model
+    from repro_torch.nn.context import TRAIN, ModelContext
+
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_MESH_LAYERS)
+    return build_model(cut, ModelContext(policy=cfg.tbn, mode=TRAIN,
+                                         compute_dtype=torch.bfloat16,
+                                         device="cuda", fused_train=fused,
+                                         fsdp_weights=cfg.fsdp_weights))
+
+
+def train_mesh_batch(cfg, step: int):
+    from repro_torch.data.synthetic import lm_batch
+
+    return lm_batch(0, step, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab)
+
+
+def train_mesh_reckon(model, dims, card_bytes: int) -> dict:
+    """Each rank's bytes under mesh ``dims``: the masters it holds (a tiled
+    Dense's r/TP rows, every other leaf whole), its gradients and two AdamW
+    moments of the same size, the whole masters it builds once before it
+    cuts them, and the activations of its TRAIN_BATCH / DP rows (the
+    remat'd blocks' inputs, one block's recompute, the bf16 logits of a
+    loss chunk and the f32 (m, d) gradient of a Dense's input)."""
+    from repro_torch.nn import module as mod
+
+    cfg = model.cfg
+    whole = held = 0
+    for _, spec in mod.walk(model.specs()):
+        n = math.prod(spec.shape) * 4
+        whole += n
+        held += n // dims[1] if spec.tile_p else n
+    rows = TRAIN_BATCH // dims[0] * TRAIN_SEQ
+    acts = (rows * cfg.d_model * 2 * (cfg.n_layers + 8)
+            + rows * cfg.d_ff * 2 * 4 + rows * cfg.vocab * 2 * 2
+            + rows * max(cfg.d_model, cfg.d_ff) * 4)
+    state = 4 * held
+    per_rank = state + whole + acts
+    ranks = dims[0] * dims[1]
+    return dict(held=held, whole=whole, state=state, acts=acts,
+                per_rank=per_rank, total=per_rank * ranks,
+                fits=per_rank * ranks <= 0.9 * card_bytes)
+
+
+@contextlib.contextmanager
+def timing_collectives(out: dict):
+    """Within the block, every collective of torch.distributed (all_reduce,
+    all_gather, broadcast, barrier) is timed with the card synchronized
+    before and after, into ``out["s"]`` and ``out["n"]``."""
+    import torch
+    import torch.distributed as dist
+
+    names = ("all_reduce", "all_gather", "broadcast", "barrier")
+    saved = {n: getattr(dist, n) for n in names}
+    out.setdefault("s", 0.0)
+    out.setdefault("n", 0)
+
+    def timed_call(fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            out["s"] += time.perf_counter() - t
+            out["n"] += 1
+            return res
+        return run
+
+    for n, fn in saved.items():
+        setattr(dist, n, timed_call(fn))
+    try:
+        yield out
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+@contextlib.contextmanager
+def counting_all_plain(counts: dict):
+    """``counting_plain`` with B5's plain version counted too."""
+    import importlib
+
+    tile_construct = importlib.import_module("repro_torch.kernels.tile_construct")
+
+    saved = tile_construct.tile_construct_plain
+
+    def counted(*a, **kw):
+        counts["tile_construct_plain"] = counts.get("tile_construct_plain", 0) + 1
+        return saved(*a, **kw)
+
+    tile_construct.tile_construct_plain = counted
+    try:
+        with counting_plain(counts):
+            yield counts
+    finally:
+        tile_construct.tile_construct_plain = saved
+
+
+def train_probe(model, params, shards, mesh=None):
+    """The B5 words and whole alpha of layer 0's FFN gate as this rank (or
+    one card) builds them from its masters."""
+    import torch
+
+    from repro_torch.distributed.sharding import sum_over
+    from repro_torch.kernels.ops import _rows_spec, tile_construct
+
+    w = params["seg0"]["ffn"]["gate"]["w"][0].detach()
+    spec = model.ctx.policy.spec_for((model.cfg.d_ff, model.cfg.d_model),
+                                     kind="dense")
+    words, alpha = tile_construct(w, _rows_spec(spec, w))
+    shard = None if shards is None else shards["seg0"]["ffn"]["gate"]["w"]
+    if shard is not None and shard.rows:
+        tp = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in shard.rows)
+        alpha = sum_over(alpha, mesh, shard.rows) / tp
+    torch.cuda.synchronize()
+    return words.cpu(), alpha.cpu()
+
+
+def train_mesh_steps(model, step_fn, state):
+    """TRAIN_MESH_STEPS steps with the launch counters zeroed just before and
+    read just after and every plain version counted; the last step is
+    timed with its collectives timed (the card synchronized around each).
+    Returns (losses, clip norms, counts, plain, ms of the last step,
+    collectives' seconds and calls in it, final state)."""
+    import torch
+
+    cfg = model.cfg
+    losses, gnorms, plain, coll = [], [], {}, {}
+    zero_counters()
+    with counting_all_plain(plain):
+        for i in range(TRAIN_MESH_STEPS):
+            last = i == TRAIN_MESH_STEPS - 1
+            with timing_collectives(coll) if last else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, m = step_fn(state, train_mesh_batch(cfg, i))
+                losses.append(float(m["loss"]))
+                ms = 1e3 * (time.perf_counter() - t)
+                gnorms.append(float(m["grad_norm"]))
+    counts = read_counters()
+    return (losses, gnorms, counts, plain, ms, coll.get("s", 0.0), coll.get("n", 0),
+            state)
+
+
+def update_leaf(path) -> bool:
+    return "/".join(path).startswith(TRAIN_MESH_UPDATE_LEAVES)
+
+
+def train_update_error(params, model, shards, mesh, ref_path) -> float:
+    """The worst leaf's ||d - d_1|| / ||d_1|| over this rank's block of the
+    TRAIN_MESH_UPDATE_LEAVES: d the update the steps made to its params
+    (after - ``model.init(0)``), d_1 one card's (saved at ``ref_path``)."""
+    import torch
+
+    from repro_torch.distributed.sharding import master_block, place_train_params
+    from repro_torch.nn import module as mod
+
+    init = place_train_params(model.init(0), shards, mesh)
+    ref = torch.load(ref_path, weights_only=True)
+    worst = 0.0
+    for path, d1 in mod.walk(ref):
+        p = mod.get_path(params, path)
+        d1 = master_block(d1, mod.get_path(shards, path), mesh).to(p.device)
+        d = p.detach().float() - mod.get_path(init, path).float()
+        num, den = float((d - d1).norm()), float(d1.norm())
+        worst = max(worst, num / den if den else num)
+    return worst
+
+
+def train_mesh_rank_main(job_dir: str) -> None:
+    """One rank of a phase 5r job (``chip_smoke.py --train-rank JOB_DIR``
+    with RANK and WORLD_SIZE set): joins the gloo job through a FileStore
+    on cuda:0 and trains under each of the job's meshes, then the job's
+    extra parts (the EF-sign step, the GPipe check, the checkpoint);
+    saves the results to rank<i>.pt there."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (
+        gather_train_params, place_train_params, train_shards)
+    from repro_torch.nn import module as mod
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import build_train_step, init_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    job = torch.load(Path(job_dir) / "job.pt", weights_only=False)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(job_dir) / "store"), world), rank=rank, world_size=world)
+    granite = get_config("granite-8b")
+    # a job started early (its start-up beside the job before it) waits
+    # for its go before it touches the card
+    while not (Path(job_dir) / "go").exists():
+        time.sleep(0.05)
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(what):
+        nonlocal t0
+        out["seconds"][what] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    lap("start")
+    for dims in job["meshes"]:
+        tag = f"{dims[0]}x{dims[1]}"
+        mesh = init_device_mesh("cuda", tuple(dims), mesh_dim_names=("data", "model"))
+        model = train_mesh_model(granite)
+        shards = train_shards(model.specs(), mesh, fsdp=granite.fsdp_weights)
+        params = place_train_params(model.init(0), shards, mesh)
+        torch.cuda.empty_cache()
+        words, alpha = train_probe(model, params, shards, mesh)
+        opt = adamw(TRAIN_MESH_LR)
+        step_fn = build_train_step(model.train_forward, opt, mesh=mesh, shards=shards)
+        state = init_state(params, opt)
+        held = sum(v.numel() * v.element_size() for _, v in mod.walk(params))
+        lap(f"{tag} set-up")
+        losses, gnorms, counts, plain, ms, coll_s, coll_n, state = train_mesh_steps(
+            model, step_fn, state)
+        peak = torch.cuda.max_memory_allocated()
+        params = state.params
+        del state       # the moments go before the update is read
+        torch.cuda.empty_cache()
+        update_err = train_update_error(params, model, shards, mesh,
+                                        Path(job_dir).parent / "train_ref_update.pt")
+        out[tuple(dims)] = dict(
+            words=words, alpha=alpha, model_index=mesh.get_local_rank("model"),
+            losses=losses, gnorms=gnorms, update_err=update_err, counts=counts,
+            plain=plain, step_ms=ms, coll_s=coll_s, coll_n=coll_n, held=held,
+            peak=peak)
+        del model, params, step_fn, opt
+        torch.cuda.empty_cache()
+        lap(f"{tag} steps")
+    if "ef_sign" in job["parts"]:
+        from repro_torch.distributed.compression import (
+            CompressionState, build_dp_train_step)
+
+        mesh = init_device_mesh("cuda", (2, 1), mesh_dim_names=("data", "model"))
+        model = train_mesh_model(granite)
+        params, opt = model.init(0), adamw(TRAIN_MESH_LR)
+        step = build_dp_train_step(model.train_forward, opt, mesh, compression="ef_sign")
+        state, comp = init_state(params, opt), CompressionState.init(params, "ef_sign")
+        state, comp, m = step(state, comp, train_mesh_batch(granite, 0))
+        out["ef_sign"] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+        del model, params, state, comp, opt, step
+        torch.cuda.empty_cache()
+        lap("ef_sign")
+    if "gpipe" in job["parts"]:
+        from repro_torch.distributed.pipeline import build_gpipe_apply
+        from repro_torch.launch.mesh import make_stage_mesh
+
+        stages = make_stage_mesh(world, "cuda")
+        model = train_mesh_model(granite)
+        seg = model.segments[0]
+        stacked = {k: v for k, v in model.init(0)["seg0"].items()}
+        stacked = mod.map_tree(lambda v: v.requires_grad_(True), stacked)
+        positions = torch.arange(GPIPE_SEQ, device="cuda")[None].expand(GPIPE_MB, -1)
+
+        def stage_fn(pl, h):
+            return seg.block(pl, h, positions=positions)[0]
+
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(7)
+        x = torch.randn((GPIPE_MICRO, GPIPE_MB, GPIPE_SEQ, granite.d_model),
+                        generator=gen, device="cuda").to(torch.bfloat16)
+        zero_counters()
+        y = build_gpipe_apply(stage_fn, stages)(stacked, x)
+        y.float().square().sum().backward()
+        counts = read_counters()
+        s = stages.get_local_rank("stage")
+        grads = mod.map_tree(lambda v: v.grad[s].float().clone(), stacked)
+        mod.map_tree(lambda v: setattr(v, "grad", None), stacked)
+        ys = []
+        for i in range(GPIPE_MICRO):        # the stages in sequence, one rank
+            h = x[i]
+            for j in range(world):
+                h = stage_fn(mod.map_tree(lambda v: v[j], stacked), h)
+            ys.append(h)
+        y_ref = torch.stack(ys)
+        y_ref.float().square().sum().backward()
+        worst_g = 0.0
+        for path, g in mod.walk(grads):
+            g_ref = mod.get_path(stacked, path).grad[s].float()
+            scale = float(g_ref.abs().max()) or 1.0
+            worst_g = max(worst_g, float((g - g_ref).abs().max()) / scale)
+        out["gpipe"] = dict(
+            y_err=float((y.float() - y_ref.float()).abs().max())
+            / float(y_ref.float().abs().max()),
+            g_err=worst_g, finite=bool(torch.isfinite(y).all()), counts=counts,
+            stage=s)
+        del model, stacked, grads, y, y_ref, ys
+        torch.cuda.empty_cache()
+        lap("gpipe")
+    if "ckpt" in job["parts"]:
+        from repro_torch.launch.train import build_training
+
+        mesh = init_device_mesh("cuda", tuple(job["meshes"][0]),
+                                mesh_dim_names=("data", "model"))
+        small = granite.reduced()
+        model = train_mesh_model(small)
+        tr = build_training(small, model.ctx, seed=0, batch=4, seq=64, lr=1e-3,
+                            warmup=1, total_steps=3, grad_accum=1,
+                            ckpt_dir=str(Path(job_dir) / "ckpt"), ckpt_every=2,
+                            mesh=mesh)
+        final = tr.recovery.run(tr.step_fn, 3)
+        digests = {}
+        for name, tree in (("params", final.params), ("mu", final.opt_state.mu),
+                           ("nu", final.opt_state.nu)):
+            whole = gather_train_params(tree, tr.shardings.shards, mesh)
+            for path, v in mod.walk(whole):
+                digests[f"{name}/{'/'.join(path)}"] = hashlib.sha256(
+                    v.detach().cpu().numpy().tobytes()).hexdigest()
+        out["ckpt"] = dict(digests=digests, step=final.step,
+                           restarts=tr.recovery.restarts)
+        lap("ckpt")
+    torch.save(out, Path(job_dir) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def train_mesh_job_start(dims_list, parts, world: int, go: bool = True):
+    """Start a phase 5r job on ``world`` ranks of this script sharing
+    cuda:0; its ranks start training once the job's go file exists
+    (written now unless ``go`` is False: ``train_mesh_job_go``)."""
+    import torch
+
+    job_dir = TP_DIR / f"train{world}"
+    job_dir.mkdir()
+    torch.save(dict(meshes=dims_list, parts=parts), job_dir / "job.pt")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), WORLD_SIZE=str(world),
+               OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--train-rank", str(job_dir)],
+                              env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    started = dict(dir=job_dir, procs=procs, dims=dims_list, t0=time.perf_counter())
+    if go:
+        train_mesh_job_go(started)
+    return started
+
+
+def train_mesh_job_go(started) -> None:
+    started["t0"] = time.perf_counter()
+    (started["dir"] / "go").write_text("go")
+
+
+def train_mesh_job_finish(started):
+    """Each rank's results of a started job and the seconds from its go."""
+    import torch
+
+    procs, dims_list = started["procs"], started["dims"]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                outs.append(p.communicate(timeout=TP_JOB_TIMEOUT)[0])
+            except subprocess.TimeoutExpired:
+                fail(f"phase 5r job {dims_list}: rank {r} still running after "
+                     f"{TP_JOB_TIMEOUT}s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            fail(f"phase 5r job {dims_list}: rank {r} exited {p.returncode}:\n"
+                 f"{text[-3000:]}")
+    return ([torch.load(started["dir"] / f"rank{r}.pt", weights_only=False)
+             for r in range(len(procs))], time.perf_counter() - started["t0"])
+
+
+def train_cli_mesh_start():
+    """Start the train CLI under torch.distributed.run, 2 ranks on the card:
+    ``--arch granite-8b --reduced --steps 3 --mesh 1x2``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train", "--arch",
+         "granite-8b", "--reduced", "--steps", "3", "--mesh", "1x2",
+         "--ckpt-dir", str(TP_DIR / "train_cli")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT))
+
+
+def train_cli_mesh_finish(started, card: str) -> None:
+    t0, proc = started
+    try:
+        text, err = proc.communicate(timeout=TP_JOB_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"train CLI --mesh 1x2 still running after {TP_JOB_TIMEOUT}s")
+    if (proc.returncode != 0 or text.count("done: 3 steps") != 1
+            or "backend=gloo" not in text):
+        fail(f"train CLI --mesh 1x2 exit {proc.returncode}:\n{text[-2000:]}\n"
+             f"{err[-2000:]}")
+    done = next(ln for ln in text.splitlines() if ln.startswith("done:"))
+    print(f"train CLI --mesh 1x2 (--arch granite-8b --reduced, 2 ranks sharing one "
+          f"card, {card}; beside the (2, 2) job): exit 0 in "
+          f"{time.perf_counter() - t0:.1f}s; {done.strip()}", flush=True)
+
+
+def phase_train_mesh(card: str) -> None:
+    """Phase 5r: granite-8b training at full width cut to TRAIN_MESH_LAYERS,
+    fused, under (1, 2), (2, 1) and (2, 2) on ranks sharing cuda:0 over
+    gloo, against one card on the same masters; the EF-sign DP step, a
+    2-stage GPipe of full-width blocks, a checkpoint written under (2, 2)
+    restored onto one card, and the train CLI under --mesh."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.ft.recovery import elastic_restore
+    from repro_torch.nn import module as mod
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import build_train_step, init_state
+
+    t_phase = time.perf_counter()
+    granite = get_config("granite-8b")
+    L = TRAIN_MESH_LAYERS
+    per_step = 2 * 7 * L + 1
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    # the single card's reference: the same masters, batches and optimizer
+    model = train_mesh_model(granite)
+    for dims in (dims for job in TRAIN_MESH_JOBS for dims in job):
+        rk = train_mesh_reckon(model, dims, card_bytes)
+        print(f"phase 5r memory reckoning, mesh {dims}: a rank holds "
+              f"{rk['held'] / 1e9:.3f} GB of masters (one card "
+              f"{rk['whole'] / 1e9:.3f}); masters + grads + 2 AdamW moments "
+              f"{rk['state'] / 1e9:.3f} GB, the whole masters built once before "
+              f"the cut {rk['whole'] / 1e9:.3f} GB, activations ~"
+              f"{rk['acts'] / 1e9:.3f} GB: {rk['per_rank'] / 1e9:.3f} GB a rank, "
+              f"{rk['total'] / 1e9:.3f} GB for {dims[0] * dims[1]} ranks of "
+              f"{card_bytes / 1e9:.1f} GB (must leave 10%)", flush=True)
+        if not rk["fits"]:
+            fail(f"phase 5r mesh {dims}: {rk['total'] / 1e9:.1f} GB reckoned over 90% "
+                 f"of the card")
+    params = model.init(0)
+    ref_words, ref_alpha = train_probe(model, params, None)
+    opt = adamw(TRAIN_MESH_LR)
+    ref_losses, ref_gnorms, ref_counts, _, ref_ms, _, _, state = train_mesh_steps(
+        model, build_train_step(model.train_forward, opt), init_state(params, opt))
+    if ref_counts["B5"] != TRAIN_MESH_STEPS * per_step:
+        fail(f"phase 5r single card: launches {ref_counts}")
+    params = state.params
+    del state
+    # the update one card's steps made, for the ranks to read their blocks of
+    update: dict = {}
+    for path, v in mod.walk(model.init(0)):
+        if update_leaf(path):
+            mod.set_path(update, path, (mod.get_path(params, path).detach() - v).cpu())
+    torch.save(update, TP_DIR / "train_ref_update.pt")
+    del model, params, update, opt
+    release()
+    print(f"phase 5r single card (granite-8b full width, L={L}, fused, bf16, "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ}): losses "
+          + " ".join(f"{v:.5f}" for v in ref_losses)
+          + ", clip norms " + " ".join(f"{v:.6f}" for v in ref_gnorms)
+          + f", step {TRAIN_MESH_STEPS} {ref_ms:.1f} ms; {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+    # both jobs start now; the second trains once the first has ended (its
+    # ranks' start-up runs beside the first job), with the CLI beside it
+    jobs = [train_mesh_job_start(list(dims_list), PARTS_5R[i],
+                                 dims_list[0][0] * dims_list[0][1], go=i == 0)
+            for i, dims_list in enumerate(TRAIN_MESH_JOBS)]
+    cli = None
+    for i, (dims_list, job) in enumerate(zip(TRAIN_MESH_JOBS, jobs)):
+        parts, world = PARTS_5R[i], len(job["procs"])
+        if i:
+            train_mesh_job_go(job)
+            cli = train_cli_mesh_start()
+        ranks, dt = train_mesh_job_finish(job)
+        for dims in dims_list:
+            label = f"mesh {dims} ({world} ranks sharing one card, {card})"
+            want = TRAIN_MESH_STEPS * per_step
+            for r, res in enumerate(ranks):
+                got = res[dims]
+                tp = dims[1]
+                n = ref_words.numel() // tp
+                t = got["model_index"]
+                if not torch.equal(got["words"], ref_words[t * n:(t + 1) * n]):
+                    fail(f"{label} rank {r}: B5 words of its rows differ from one "
+                         f"card's")
+                if not torch.allclose(got["alpha"], ref_alpha, rtol=1e-5, atol=0):
+                    fail(f"{label} rank {r}: alpha {got['alpha'][:3]} vs "
+                         f"{ref_alpha[:3]}")
+                if not all(math.isfinite(v) for v in got["losses"]) or any(
+                        abs(a - b) > TRAIN_MESH_RTOL * abs(b)
+                        for a, b in zip(got["losses"], ref_losses, strict=True)):
+                    fail(f"{label} rank {r}: losses {got['losses']} vs one card's "
+                         f"{ref_losses} (rtol {TRAIN_MESH_RTOL})")
+                if any(abs(a - b) > TRAIN_MESH_GNORM_RTOL * abs(b)
+                       for a, b in zip(got["gnorms"], ref_gnorms, strict=True)):
+                    fail(f"{label} rank {r}: clip norms {got['gnorms']} vs one "
+                         f"card's {ref_gnorms} (rtol {TRAIN_MESH_GNORM_RTOL})")
+                if not got["update_err"] <= TRAIN_MESH_UPDATE_TOL:
+                    fail(f"{label} rank {r}: the steps' update of a leaf is "
+                         f"{got['update_err']:.3e} (relative, worst leaf) away from "
+                         f"one card's (need {TRAIN_MESH_UPDATE_TOL})")
+                c = got["counts"]
+                if (c["B5"] != want or c["B2"] != want
+                        or any(c[k] for k in ("B1", "B3", "B4", "B6")) or got["plain"]):
+                    fail(f"{label} rank {r}: launches {c}, plain versions "
+                         f"{got['plain']}; need B5 = B2 = {TRAIN_MESH_STEPS} * "
+                         f"(14 L + 1) = {want}, the rest 0, no plain version")
+            res = ranks[0][dims]
+            print(f"phase 5r [{label}]: B5 words of each rank's rows equal one "
+                  f"card's, alpha within 1e-5; losses "
+                  + " ".join(f"{v:.5f}" for v in res["losses"])
+                  + f" within rtol {TRAIN_MESH_RTOL} of one card's; clip norms "
+                  + " ".join(f"{v:.6f}" for v in res["gnorms"])
+                  + " (one card " + " ".join(f"{v:.6f}" for v in ref_gnorms)
+                  + f", rtol {TRAIN_MESH_GNORM_RTOL}); attention and norm "
+                  f"updates within {max(x[dims]['update_err'] for x in ranks):.3e} of "
+                  f"one card's (relative, worst leaf and rank; need "
+                  f"{TRAIN_MESH_UPDATE_TOL}); "
+                  f"launches a rank "
+                  f"B5 = B2 = {res['counts']['B5']} ({TRAIN_MESH_STEPS} x (14 L + 1)), "
+                  f"B1 = B3 = B4 = B6 = 0, no plain version run; masters "
+                  f"{res['held'] / 1e9:.3f} GB a rank; step {TRAIN_MESH_STEPS} "
+                  f"{res['step_ms']:.1f} ms (one card {ref_ms:.1f}), "
+                  f"{res['coll_n']} collectives {1e3 * res['coll_s']:.1f} ms = "
+                  f"{res['coll_s'] * 1e3 / res['step_ms']:.3f} of it (each "
+                  f"synchronized; ranks share one card over gloo: information, not "
+                  f"a multi-card figure); peak {res['peak'] / 1e9:.2f} GB a rank",
+                  flush=True)
+        if "ef_sign" in parts:
+            for r, res in enumerate(ranks):
+                if not math.isfinite(res["ef_sign"]["loss"]):
+                    fail(f"phase 5r EF-sign DP step (2, 1) rank {r}: loss "
+                         f"{res['ef_sign']}")
+            print(f"phase 5r EF-sign build_dp_train_step (2, 1), granite-8b full "
+                  f"width L={L}: one step, loss {ranks[0]['ef_sign']['loss']:.5f} "
+                  f"(finite), grad norm {ranks[0]['ef_sign']['grad_norm']:.3f}",
+                  flush=True)
+        if "gpipe" in parts:
+            for r, res in enumerate(ranks):
+                g = res["gpipe"]
+                if (not g["finite"] or g["y_err"] > TRAIN_MESH_RTOL
+                        or g["g_err"] > TRAIN_MESH_RTOL or g["counts"]["B5"] == 0
+                        or g["counts"]["B2"] == 0):
+                    fail(f"phase 5r GPipe stage {g['stage']}: outputs within "
+                         f"{g['y_err']:.2e}, grads within {g['g_err']:.2e} of the "
+                         f"stages in sequence (need {TRAIN_MESH_RTOL}), launches "
+                         f"{g['counts']}")
+            print(f"phase 5r GPipe, 2 stages x 1 full-width granite-8b block (fused), "
+                  f"M={GPIPE_MICRO} microbatches of {GPIPE_MB}x{GPIPE_SEQ}: outputs "
+                  f"within {max(r['gpipe']['y_err'] for r in ranks):.2e} and stage "
+                  f"gradients within {max(r['gpipe']['g_err'] for r in ranks):.2e} "
+                  f"x max of the stages run in sequence on one rank", flush=True)
+        if "ckpt" in parts:
+            small = get_config("granite-8b").reduced()
+            model = train_mesh_model(small)
+            template = init_state(model.init(0), adamw(1e-3))
+            step, state = elastic_restore(TP_DIR / "train4" / "ckpt", template, None)
+            digests = {}
+            for name, tree in (("params", state.params), ("mu", state.opt_state.mu),
+                               ("nu", state.opt_state.nu)):
+                for path, v in mod.walk(tree):
+                    digests[f"{name}/{'/'.join(path)}"] = hashlib.sha256(
+                        v.detach().cpu().numpy().tobytes()).hexdigest()
+            want = ranks[0]["ckpt"]
+            if step != want["step"] or digests != want["digests"] or want["restarts"]:
+                bad = [k for k in want["digests"] if digests.get(k) != want["digests"][k]]
+                fail(f"phase 5r checkpoint (2, 2) -> one card: step {step} vs "
+                     f"{want['step']}, {len(bad)} leaves differ: {bad[:3]}")
+            print(f"phase 5r checkpoint written under (2, 2) (granite-8b reduced, "
+                  f"fused on the card, 3 steps) and elastic_restore'd onto one card: "
+                  f"step {step}, all {len(digests)} leaves (masters, both moments) "
+                  f"equal to the state the ranks gathered (sha256)", flush=True)
+            del model, template, state
+        print(f"phase 5r job {list(dims_list)}: {dt:.1f}s from its go (rank 0: "
+              + ", ".join(f"{k} {v:.1f}s" for k, v in ranks[0]["seconds"].items())
+              + ")", flush=True)
+    train_cli_mesh_finish(cli, card)
+    release()
+    print(f"phase 5r (training under a mesh, ranks sharing one card): "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+
+
 def main() -> None:
     global TP_DIR
     try:
@@ -3908,7 +4554,8 @@ def main() -> None:
         counts = {k: counts[k] + v for k, v in phase_serve_family(
             arch, n_layers=FAMILY_SERVE_LAYERS)[1].items() if k in counts}
     moe = get_config(MOE)
-    sp, moe_counts = phase_serve_paths(moe, "4e")
+    sp, moe_counts = phase_serve_paths(
+        dataclasses.replace(moe, n_layers=MOE_SERVE_LAYERS), "4e")
     phase_moe_card_vs_cpu(moe, sp)
     tp_save("moe", sp, TP_MOE_LAYERS)
     del sp
@@ -3953,6 +4600,7 @@ def main() -> None:
     phase_resnet34_card_vs_cpu(sp34)
     phase_tp(card, sp34)
     del sp34
+    phase_train_mesh(card)
 
     entries = []
     for kname, fname, m, head, dtype, replaces in (
@@ -4021,5 +4669,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-rank"]:
         tp_rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--train-rank"]:
+        train_mesh_rank_main(sys.argv[2])
     else:
         main()

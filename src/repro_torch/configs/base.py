@@ -1,6 +1,6 @@
 """Architecture config schema (port of the model and training fields of
-``repro/configs/base.py``). The sharding recipes and the shape cells come
-with the slice that ports the mesh."""
+``repro/configs/base.py``, with ``fsdp_weights``). The other sharding
+recipes and the shape cells are not ported."""
 from __future__ import annotations
 
 import dataclasses
@@ -64,6 +64,9 @@ class ArchConfig:
     remat: str = "full"            # training: full | none ("dots" not ported)
     attn_chunk: int = 1024         # chunked-attention query block
     grad_accum: int = 1            # microbatches per training step
+    # training under a mesh: a tiled Dense's masters also split their n_in
+    # dim over "data" and are gathered at use (ZeRO-3)
+    fsdp_weights: bool = False
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests (the reference's

@@ -34,8 +34,9 @@ every helper reports "no sharding" and no collective runs.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -71,6 +72,11 @@ DEFAULT_RULES: Dict[str, AxisVal] = {
     "act_vocab": "model",
     "act_experts": "model",
 }
+
+# MoE expert banks in TRAIN mode under a model axis (neither expert- nor
+# row-sharded training of the banks is ported)
+MOE_TRAIN_TP_ITEM = ("ROADMAP.md queue A item 9e (MoE expert banks trained "
+                     "under a model axis)")
 
 # the logical dims a rank keeps its block of; the leaves kept whole
 # whatever their axes name (the router: routing is replicated)
@@ -126,6 +132,29 @@ def axis_rules(mesh: Mesh, rules: Optional[Dict[str, AxisVal]] = None):
 
 def active_mesh() -> Optional[Mesh]:
     return _ACTIVE.mesh
+
+
+@contextlib.contextmanager
+def _rules_as(mesh, rules):
+    prev = (_ACTIVE.mesh, _ACTIVE.rules)
+    _ACTIVE.mesh, _ACTIVE.rules = mesh, rules
+    try:
+        yield
+    finally:
+        _ACTIVE.mesh, _ACTIVE.rules = prev
+
+
+def remat(fn, *args):
+    """``torch.utils.checkpoint`` (non-reentrant) whose recompute runs under
+    the axis rules its forward ran under: the backward of CUDA tensors runs
+    in autograd's device thread, which the thread-local rules do not
+    reach, and a rank's tiled layers must take their per-shard branch
+    there too."""
+    from torch.utils.checkpoint import checkpoint
+
+    mesh, rules = _ACTIVE.mesh, _ACTIVE.rules
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
+        contextlib.nullcontext(), _rules_as(mesh, rules)))
 
 
 def _as_axes(v: AxisVal) -> Tuple[str, ...]:
@@ -325,3 +354,237 @@ def broadcast_from_first(t: torch.Tensor, mesh) -> torch.Tensor:
     src = int(mesh.mesh.flatten()[0])
     dist.broadcast(t, src=src)
     return t
+
+
+# ---------------------------------------------------------------------------
+# Training half: where a rank's masters live, and the collectives of the
+# per-shard train branches (differentiable, Megatron-style)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MasterShard:
+    """How a rank holds one TRAIN leaf whose last two dims are a tiled
+    Dense's (p * r, n_in) masters: ``rows`` are the mesh axes that split
+    each replica's r unique rows (a rank on model index t keeps rows
+    [t r/TP, (t+1) r/TP) of every replica), ``cols`` the axes that split
+    n_in (``fsdp_weights``)."""
+
+    p: int
+    rows: Tuple[str, ...] = ()
+    cols: Tuple[str, ...] = ()
+
+
+def _axis_for(mesh, rules: Dict[str, AxisVal], name: str, dim: int
+              ) -> Tuple[str, ...]:
+    """The longest dividing prefix of rule ``name``'s axes for a dim of
+    size ``dim`` (extent-1 axes dropped)."""
+    ext = mesh_extents(mesh)
+    axes = tuple(a for a in _as_axes(rules.get(name)) if a in ext)
+    chosen = _dividing_prefix(mesh, axes, dim)
+    return chosen if _mesh_extent(mesh, chosen) > 1 else ()
+
+
+def train_shards(specs, mesh, *, fsdp: bool = False,
+                 rules: Optional[Dict[str, AxisVal]] = None) -> dict:
+    """Per TRAIN leaf, its ``MasterShard`` or None (kept whole). A leaf with
+    ``ParamSpec.tile_p`` (a row-aligned tiled Dense's ``w`` / ``a``) splits
+    its r unique rows over the "tile_rows" rule's axes where their extent
+    divides r, and under ``fsdp`` its n_in over the "embed" rule's axes
+    where theirs divides n_in (the ``_divisible_spec`` rules: a ragged dim
+    stays whole). The router and every other leaf stay whole. An expert
+    bank's masters under a model axis raise: the port trains MoE banks on
+    one device or replicated over "data" only."""
+    rules = _filter_rules(mesh, rules)
+    out: dict = {}
+    for path, spec in mod.walk(specs):
+        shard = None
+        if path[-1] in WHOLE_LEAVES:
+            pass
+        elif "experts" in spec.logical and _axis_for(
+                mesh, rules, "experts", spec.shape[spec.logical.index("experts")]):
+            raise NotImplementedError(
+                f"{'/'.join(path)}: expert banks trained under a model axis "
+                f"are not ported: {MOE_TRAIN_TP_ITEM}")
+        elif spec.tile_p:
+            rows_n, n_in = spec.shape[-2], spec.shape[-1]
+            rows = _axis_for(mesh, rules, "tile_rows", rows_n // spec.tile_p)
+            cols = _axis_for(mesh, rules, "embed", n_in) if fsdp else ()
+            if rows or cols:
+                shard = MasterShard(spec.tile_p, rows, cols)
+        mod.set_path(out, path, shard)
+    return out
+
+
+def _rows_view(t: torch.Tensor, p: int) -> torch.Tensor:
+    """(..., p * r, n) -> (..., p, r, n)."""
+    return t.unflatten(-2, (p, t.shape[-2] // p))
+
+
+def master_block(t: torch.Tensor, shard: Optional[MasterShard], mesh
+                 ) -> torch.Tensor:
+    """This rank's block of a whole leaf (a copy, so the whole can go)."""
+    if shard is None:
+        return t
+    v = _rows_view(t, shard.p)
+    v = local_block(local_block(v, mesh, shard.rows, -2), mesh, shard.cols, -1)
+    return v.flatten(-3, -2).clone()
+
+
+def gather_master(t: torch.Tensor, shard: Optional[MasterShard], mesh
+                  ) -> torch.Tensor:
+    """The inverse of ``master_block``: the whole leaf on every rank."""
+    if shard is None:
+        return t
+    v = gather_blocks(_rows_view(t, shard.p), mesh, shard.cols, -1)
+    return gather_blocks(v, mesh, shard.rows, -2).flatten(-3, -2)
+
+
+def _map_shards(fn, tree: dict, shards: dict, mesh) -> dict:
+    out: dict = {}
+    for path, v in mod.walk(tree):
+        mod.set_path(out, path, fn(v, mod.get_path(shards, path), mesh))
+    return out
+
+
+def place_train_params(params: dict, shards: dict, mesh) -> dict:
+    """The TRAIN tree this rank holds: each sharded leaf cut to its block
+    (``master_block``), every other leaf as given."""
+    return _map_shards(master_block, params, shards, mesh)
+
+
+def gather_train_params(params: dict, shards: dict, mesh) -> dict:
+    """Every rank's blocks gathered into the whole TRAIN tree (the
+    one-device layout), on every rank."""
+    return _map_shards(gather_master, params, shards, mesh)
+
+
+class _CopyToShards(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``axes`` (each
+    rank's gradient is the part its shard of rows contributes)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # summed in f32 whatever the compute dtype
+        return (sum_over(g.to(torch.float32, copy=True), ctx.mesh,
+                         ctx.axes).to(g.dtype),
+                None, None)
+
+
+class _SumShards(torch.autograd.Function):
+    """all_reduce forward; the backward sums the gradient over ``axes`` too
+    (each rank's output feeds only its own shard's part of the loss)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return sum_over(x.clone(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_over(g.clone(), ctx.mesh, ctx.axes), None, None
+
+
+class _GatherShards(torch.autograd.Function):
+    """``gather_blocks`` forward; the backward is this rank's block of the
+    gradient (every rank holds the same whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return gather_blocks(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (local_block(g, ctx.mesh, ctx.axes, ctx.dim).contiguous(),
+                None, None, None)
+
+
+class _GatherReduceScatter(torch.autograd.Function):
+    """``gather_blocks`` forward over axes whose ranks hold different data
+    (FSDP over "data"); the backward reduce-scatters: the gradient summed
+    over ``axes``, this rank's block of it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return gather_blocks(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = sum_over(g.contiguous().clone(), ctx.mesh, ctx.axes)
+        return (local_block(g, ctx.mesh, ctx.axes, ctx.dim).contiguous(),
+                None, None, None)
+
+
+def copy_to_shards(x, mesh, axes):
+    return _CopyToShards.apply(x, mesh, axes) if axes else x
+
+
+def sum_shards(x, mesh, axes):
+    return _SumShards.apply(x, mesh, axes) if axes else x
+
+
+def gather_shards(x, mesh, axes, dim):
+    return _GatherShards.apply(x, mesh, axes, dim) if axes else x
+
+
+def fsdp_gather(w, mesh, axes):
+    """A master's n_in blocks gathered over ``axes`` at use; its gradient
+    is reduce-scattered back (summed over the data ranks)."""
+    return _GatherReduceScatter.apply(w, mesh, axes, -1) if axes else w
+
+
+def dense_train_shards(r: int, n_in: int, fsdp: bool):
+    """(mesh, rows axes, cols axes) of a tiled Dense's masters under the
+    active rules, as ``train_shards`` placed them, or None outside a mesh
+    (or when neither dim is split)."""
+    mesh, rules = _ACTIVE.mesh, _ACTIVE.rules
+    if mesh is None or rules is None:
+        return None
+    rows = _axis_for(mesh, rules, "tile_rows", r)
+    cols = _axis_for(mesh, rules, "embed", n_in) if fsdp else ()
+    return (mesh, rows, cols) if rows or cols else None
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainShardings:
+    """A training run's placement: its mesh and the ``train_shards`` tree of
+    its params. A leaf of a larger tree (a ``TrainState``: params, the
+    optimizer's moments of the same shapes, counters) takes the shard of
+    the param whose path it ends with."""
+
+    mesh: Any
+    shards: dict
+
+    def shard_for(self, path: str) -> Optional[MasterShard]:
+        """The shard of the "/"-joined leaf ``path``: the longest param
+        path it ends with, or None (a whole leaf)."""
+        best, found = -1, None
+        for p, shard in mod.walk(self.shards):
+            key = "/".join(p)
+            if (path == key or path.endswith("/" + key)) and len(key) > best:
+                best, found = len(key), shard
+        return found
+
+    def is_first(self) -> bool:
+        """Whether this is the job's first rank (it writes checkpoints)."""
+        return dist.get_rank() == int(self.mesh.mesh.flatten()[0])
+
+
+def world_all_true(flag: bool, mesh) -> bool:
+    """Whether ``flag`` holds on every rank of ``mesh`` (an all_reduce of 0
+    / 1, MIN, over all its ranks)."""
+    t = torch.tensor([1 if flag else 0], dtype=torch.int32,
+                     device=_mesh_device(mesh))
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return bool(t.item())
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")

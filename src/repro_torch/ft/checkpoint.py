@@ -17,6 +17,12 @@ The copy to host memory happens on the caller's thread, for CPU tensors
 too (the values must be those of the step being saved); serialization and the directory swap run
 on a writer thread. Restore copies into the tensors of a template state
 in place, so a resumed run holds one copy of the state on the device.
+
+Under a mesh (``CheckpointManager(shardings=)``) a save gathers every
+sharded leaf (the masters a rank holds a block of, and their optimizer
+moments) to the first rank, which writes the one-device format while the
+others wait at a barrier in ``wait()``: one card or any mesh reads the
+file, a mesh through ``place`` / ``restore_into(shardings=)``.
 """
 from __future__ import annotations
 
@@ -31,6 +37,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import gather_master, master_block
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 _SEP = "/"
@@ -78,8 +87,18 @@ def _to_host(v) -> np.ndarray:
     return np.asarray(v)
 
 
-def _host_leaves(tree) -> List[Tuple[str, np.ndarray]]:
-    return [(k, _to_host(v)) for k, v in flatten_with_paths(tree)]
+def _host_leaves(tree, shardings=None) -> List[Tuple[str, np.ndarray]]:
+    """(path, host array) of every leaf; under ``shardings`` each sharded
+    leaf is first gathered whole (a collective: every rank calls this)."""
+    if shardings is None:
+        return [(k, _to_host(v)) for k, v in flatten_with_paths(tree)]
+    out = []
+    for k, v in flatten_with_paths(tree):
+        shard = shardings.shard_for(k) if isinstance(v, torch.Tensor) else None
+        if shard is not None:
+            v = gather_master(v, shard, shardings.mesh)
+        out.append((k, _to_host(v)))
+    return out
 
 
 def save_checkpoint(root: os.PathLike, step: int, tree, *,
@@ -149,11 +168,16 @@ def restore_checkpoint(root: os.PathLike, step: Optional[int] = None
 
 
 @torch.no_grad()
-def _fill(template, flat: Dict[str, np.ndarray], prefix: str = ""):
+def _fill(template, flat: Dict[str, np.ndarray], prefix: str = "",
+          shardings=None):
     kids = _children(template)
     if kids is None:
         arr = flat[prefix]
         if isinstance(template, torch.Tensor):
+            shard = None if shardings is None else shardings.shard_for(prefix)
+            if shard is not None:
+                arr = master_block(torch.from_numpy(arr), shard,
+                                   shardings.mesh).numpy()
             if tuple(arr.shape) != tuple(template.shape):
                 raise ValueError(f"leaf {prefix}: stored shape {arr.shape} != "
                                  f"{tuple(template.shape)}")
@@ -162,7 +186,8 @@ def _fill(template, flat: Dict[str, np.ndarray], prefix: str = ""):
         if isinstance(template, (int, np.integer)):
             return int(arr)
         return arr
-    vals = [_fill(v, flat, f"{prefix}{_SEP}{k}" if prefix else k) for k, v in kids]
+    vals = [_fill(v, flat, f"{prefix}{_SEP}{k}" if prefix else k, shardings)
+            for k, v in kids]
     if isinstance(template, dict):
         return {k: v for (k, _), v in zip(kids, vals)}
     if _is_namedtuple(template):
@@ -170,15 +195,46 @@ def _fill(template, flat: Dict[str, np.ndarray], prefix: str = ""):
     return type(template)(vals)
 
 
-def restore_into(template, root: os.PathLike, step: Optional[int] = None):
+def restore_into(template, root: os.PathLike, step: Optional[int] = None,
+                 shardings=None):
     """Restore into the structure of ``template``: tensor leaves are
-    overwritten in place (shapes must match), int leaves replaced.
-    -> (step, tree)."""
+    overwritten in place (shapes must match), int leaves replaced. Under
+    ``shardings`` (``distributed.sharding.TrainShardings``) ``template``
+    holds a rank's blocks and each sharded leaf takes its block of the
+    whole leaf on disk. -> (step, tree)."""
     step, flat, _ = restore_checkpoint(root, step)
     missing = [p for p, _ in flatten_with_paths(template) if p not in flat]
     if missing:
         raise KeyError(f"checkpoint missing leaves: {missing[:5]}...")
-    return step, _fill(template, flat)
+    return step, _fill(template, flat, shardings=shardings)
+
+
+def place(tree, shardings):
+    """A whole (one-device) tree cut to this rank's blocks under
+    ``shardings`` (``distributed.sharding.TrainShardings``; None keeps it
+    whole): what the reference's ``place`` does with ``device_put``."""
+    if shardings is None:
+        return tree
+
+    def cut(path, v):
+        shard = shardings.shard_for(path) if isinstance(v, torch.Tensor) else None
+        return v if shard is None else master_block(v, shard, shardings.mesh)
+
+    return _map_leaves(cut, tree)
+
+
+def _map_leaves(fn, tree, prefix: str = ""):
+    """``fn(path, leaf)`` over every leaf, keeping the tree's structure."""
+    kids = _children(tree)
+    if kids is None:
+        return fn(prefix, tree)
+    vals = [_map_leaves(fn, v, f"{prefix}{_SEP}{k}" if prefix else k)
+            for k, v in kids]
+    if isinstance(tree, dict):
+        return {k: v for (k, _), v in zip(kids, vals)}
+    if _is_namedtuple(tree):
+        return type(tree)(*vals)
+    return type(tree)(vals)
 
 
 class CheckpointManager:
@@ -187,8 +243,13 @@ class CheckpointManager:
     ``latest_step`` and at shutdown."""
 
     def __init__(self, root: os.PathLike, *, save_every: int = 100,
-                 max_to_keep: int = 3, async_save: bool = True):
+                 max_to_keep: int = 3, async_save: bool = True,
+                 shardings=None):
         self.root = pathlib.Path(root)
+        # under a mesh: saves gather every sharded leaf (all ranks call
+        # ``save``), the first rank writes the one-device format, ``wait``
+        # ends at a barrier and restores take each rank's blocks
+        self.shardings = shardings
         self.save_every = save_every
         self.max_to_keep = max_to_keep
         self.async_save = async_save
@@ -202,8 +263,10 @@ class CheckpointManager:
     def save(self, step: int, tree, *, metadata=None, force: bool = False):
         if not force and not self.should_save(step):
             return None
+        host = _host_leaves(tree, self.shardings)
+        if self.shardings is not None and not self.shardings.is_first():
+            return step
         self.root.mkdir(parents=True, exist_ok=True)
-        host = _host_leaves(tree)
         meta = dict(metadata or {})
         if not self.async_save:
             _write(self.root, step, host, meta)
@@ -232,10 +295,12 @@ class CheckpointManager:
             t.join()
         with self._lock:
             self._pending.clear()
-            if self._errors:
-                err = self._errors[0]
-                self._errors.clear()
-                raise err
+            err = self._errors[0] if self._errors else None
+            self._errors.clear()
+        if self.shardings is not None:
+            dist.barrier()      # the first rank's writes are on disk
+        if err is not None:
+            raise err
 
     def _gc(self):
         with self._lock:
@@ -246,4 +311,4 @@ class CheckpointManager:
         return latest_step(self.root)
 
     def restore_into(self, template, step: Optional[int] = None):
-        return restore_into(template, self.root, step)
+        return restore_into(template, self.root, step, self.shardings)

@@ -19,7 +19,7 @@ every rank then replicates the whole rows with the whole alpha, so a
 gather carries 1/p of the layer's output. Flat tiles never engage it. A rank dispatches on the whole batch's m and its float kernels
 plan for the whole (m, r), so it runs the kernel, the compute path and the
 summation order that one card would: its block equals that card's rows bit
-for bit.
+for bit. B6 likewise plans for the whole call's pixels and filters.
 
 ``tbn_dense_train`` is the fused training forward: ``tile_construct``
 (kernel B5) builds the packed tile and alpha from the masters, then
@@ -49,6 +49,7 @@ reference's ``use_pallas=False`` rule).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -57,14 +58,20 @@ import torch.nn.functional as F
 from repro_torch.core.packing import LANE_BITS, packed_len, unpack_bits
 from repro_torch.core.tiling import (
     TileSpec,
+    _ConstructRowsIdentity,
     plan_conv_tiling,
     tiled_matmul_reference,
     tiled_weight,
 )
 from repro_torch.distributed.sharding import (
+    _mesh_extent,
     batch_shard_axes,
+    copy_to_shards,
     gather_blocks,
+    gather_shards,
     local_block,
+    sum_over,
+    sum_shards,
     tile_sharding,
 )
 from repro_torch.kernels.tile_construct import tile_construct_kernel
@@ -290,7 +297,7 @@ def tiled_conv_infer(x: torch.Tensor, packed: torch.Tensor,
         n_ax = batch_shard_axes(ax, n)
         u = tiled_conv_unique(local_block(xin, mesh, n_ax, 0).contiguous(),
                               packed, kernel=(kh, kw), stride=(sh, sw),
-                              out_hw=(oh, ow))
+                              out_hw=(oh, ow), plan_shape=(n * oh * ow, plan.r))
         u = gather_blocks(gather_blocks(u, mesh, ax, 3), mesh, n_ax, 0)
     y5 = _replicate_conv_out(u, alpha, spec)
     return y5.reshape(n, oh, ow, spec.p * plan.r).to(x.dtype)
@@ -366,3 +373,97 @@ def tbn_dense_train(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     gradient == the reference forward's. ``a`` may be ``w`` (alpha_source
     "W"): pass the same tensor."""
     return _TbnDenseTrain.apply(x, w, a, spec)
+
+
+# --------------------------------------------------------------------------
+# The training forward under a model axis: a rank holds r/TP unique rows of
+# every replica of the masters
+# --------------------------------------------------------------------------
+def _rows_spec(spec: TileSpec, w: torch.Tensor) -> TileSpec:
+    """The tiling of a rank's (p * r/TP, n_in) block of the masters."""
+    rows, n_in = w.shape[-2:]
+    if rows % spec.p or n_in % LANE_BITS:
+        raise ValueError(f"a rank's masters {tuple(w.shape)} must be p = "
+                         f"{spec.p} replicas of whole rows of whole 32-bit "
+                         f"words (spec {spec.shape})")
+    return dataclasses.replace(spec, shape=(rows, n_in), q=rows // spec.p * n_in)
+
+
+def _tp_train_rows(x, w, a, spec: TileSpec, mesh, rows) -> torch.Tensor:
+    """The effective-weight form of a rank's rows: y (..., p, r/TP) =
+    x @ B_hat_rank^T, B_hat_rank = alpha * sign(column sums of the rank's
+    (p, r/TP, n_in) block) with the identity STE of ``tiled_weight_rows``,
+    and alpha the whole layer's (the rank's per-tile means of |A| summed
+    over ``rows`` and divided by TP). Its autograd graph carries the
+    gradient a rank needs: dx summed over ``rows`` (each rank's rows give a
+    part), d alpha summed over ``rows`` (each rank's outputs scale by it),
+    and the master rows' STE gradient, local to their columns."""
+    p, (n_rows, d) = spec.p, w.shape[-2:]
+    r_loc, tp = n_rows // p, _mesh_extent(mesh, rows)
+    b = _ConstructRowsIdentity.apply(w, p).reshape(p, r_loc, d)
+    src = a if spec.alpha_source == "A" else w
+    if spec.alpha_mode == "layer":
+        alpha = sum_shards(src.abs().mean().reshape(1), mesh, rows) / tp
+    else:
+        alpha = sum_shards(src.reshape(p, r_loc, d).abs().mean(dim=(-1, -2)),
+                           mesh, rows) / tp
+    bhat = (b * alpha.reshape(-1, 1, 1)).to(x.dtype).reshape(n_rows, d)
+    y = copy_to_shards(x, mesh, rows) @ bhat.T
+    return y.unflatten(-1, (p, r_loc))
+
+
+def dense_train_rows(x, w, a, spec: TileSpec, mesh, rows) -> torch.Tensor:
+    """The unfused training forward of a rank holding r/TP rows of every
+    replica: its rows of the effective weight, then its block of the
+    output gathered over ``rows`` (the gradient's own block goes back).
+    Returns the whole (..., n_out) on every rank."""
+    _rows_spec(spec, w)
+    y = gather_shards(_tp_train_rows(x, w, a, spec, mesh, rows), mesh, rows, -1)
+    return y.flatten(-2)
+
+
+class _TbnDenseTrainRows(torch.autograd.Function):
+    """Fused forward of a rank's rows: B5 on the rank's (p, r/TP * n_in)
+    slab (its words are one card's rows of the tile), alpha's per-tile
+    partials summed over ``rows``, B2 (B1 at m <= 32) on the rank's rows
+    planned for the whole (m, r), the unique rows gathered over ``rows``
+    and replicated with the whole alpha. Backward: the gradient of
+    ``_tp_train_rows`` against the rank's block of the output gradient,
+    which recomputes B_hat's rows instead of storing them."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, spec, mesh, rows):
+        local = _rows_spec(spec, w)
+        packed, alpha = tile_construct(w, local, a=a)
+        alpha = sum_over(alpha, mesh, rows) / _mesh_extent(mesh, rows)
+        n_in, r = local.shape[1], spec.rows_per_tile
+        xm = x.reshape(-1, n_in)
+        u = _dense_unique_local(xm, packed.reshape(-1, n_in // LANE_BITS),
+                                whole=(xm.shape[0], r))
+        u = gather_blocks(u, mesh, rows, 1)
+        ctx.spec, ctx.mesh, ctx.rows = spec, mesh, rows
+        ctx.save_for_backward(x, w, a)
+        y = _replicate_dense_out(u, alpha, spec)
+        return y.reshape(*x.shape[:-1], spec.shape[0]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, a = ctx.saved_tensors
+        spec, mesh, rows = ctx.spec, ctx.mesh, ctx.rows
+        g_rows = local_block(g.unflatten(-1, (spec.p, spec.rows_per_tile)),
+                             mesh, rows, -1)
+        with torch.enable_grad():
+            ins = [v.detach().requires_grad_(need)
+                   for v, need in zip((x, w, a), ctx.needs_input_grad[:3])]
+            y = _tp_train_rows(*ins, spec, mesh, rows)
+            wanted = [v for v in ins if v.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, g_rows, allow_unused=True))
+        return (*(next(grads) if v.requires_grad else None for v in ins),
+                None, None, None)
+
+
+def tbn_dense_train_rows(x, w, a, spec: TileSpec, mesh, rows) -> torch.Tensor:
+    """``tbn_dense_train`` for a rank holding r/TP rows of every replica of
+    the masters (``distributed.sharding.train_shards``); ``a`` may be
+    ``w``. Returns the whole (..., n_out) on every rank."""
+    return _TbnDenseTrainRows.apply(x, w, a, spec, mesh, rows)

@@ -117,21 +117,34 @@ def _launcher():
     return lib, fn
 
 
+def call_plan(n: int, r: int, kernel: Tuple[int, int], words: int,
+              out_hw: Tuple[int, int], sms: int, bf16: bool,
+              body: str | None = None, plan_shape=None) -> Plan:
+    """The plan of a B6 call on N images and r filters: :func:`plan_conv`
+    for its m = N*OH*OW pixels and r, or for ``plan_shape`` (M, R) when the
+    call is a rank's block of a larger one (M pixels, R filters), so the
+    rank sums each element in the order one card sums the whole."""
+    m = n * out_hw[0] * out_hw[1]
+    pm, pr = plan_shape or (m, r)
+    return plan_conv(pm, pr, kernel, words, sms, bf16, body)
+
+
 def tiled_conv_unique(x: torch.Tensor, packed: torch.Tensor, *,
                       kernel: Tuple[int, int], stride: Tuple[int, int],
-                      out_hw: Tuple[int, int]) -> torch.Tensor:
+                      out_hw: Tuple[int, int], plan_shape=None) -> torch.Tensor:
     """u[n,oh,ow,:] = sum_{i,j} x[n, oh*sh+i, ow*sw+j, :] @ T[i,j]^T.
 
     x (N, Hp, Wp, C) bf16/f32 NHWC, already padded (Hp >= (OH-1)*sh + kh,
     Wp >= (OW-1)*sw + kw), C a multiple of 32; packed (kh*kw, r, C/32)
     int32 conv layout. Returns (N, OH, OW, r) float32. Launches kernel B6
-    for CUDA tensors as :func:`plan_conv` plans it; CPU tensors take the
-    plain version."""
+    for CUDA tensors as :func:`call_plan` plans it (for ``plan_shape``
+    (M, R) pixels and filters when given: a rank's block of a larger
+    call); CPU tensors take the plain version."""
     check_operands(x, packed, kernel, stride, out_hw)
     if x.device.type == "cpu":
         return tiled_conv_plain(x, packed, kernel=kernel, stride=stride,
                                 out_hw=out_hw)
-    return _launch(x, packed, kernel, stride, out_hw, None)
+    return _launch(x, packed, kernel, stride, out_hw, None, plan_shape)
 
 
 def tiled_conv_body(x: torch.Tensor, packed: torch.Tensor, body: str, *,
@@ -147,7 +160,8 @@ def tiled_conv_body(x: torch.Tensor, packed: torch.Tensor, body: str, *,
     return _launch(x, packed, kernel, stride, out_hw, body)
 
 
-def _launch(x, packed, kernel, stride, out_hw, body) -> torch.Tensor:
+def _launch(x, packed, kernel, stride, out_hw, body, plan_shape=None
+            ) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"tiled_conv_unique: no kernel for device {x.device}")
     if x.device.index not in (None, torch.cuda.current_device()):
@@ -161,8 +175,8 @@ def _launch(x, packed, kernel, stride, out_hw, body) -> torch.Tensor:
     m = n * oh * ow
     bf16 = x.dtype == torch.bfloat16
     out = torch.empty((n, oh, ow, r), dtype=torch.float32, device=x.device)
-    plan = plan_conv(m, r, kernel, words, _sm_count(out.device.index), bf16,
-                     body)
+    plan = call_plan(n, r, kernel, words, out_hw, _sm_count(out.device.index),
+                     bf16, body, plan_shape)
     work = (torch.empty((plan.splits, m, r), dtype=torch.float32,
                         device=x.device) if plan.splits > 1 else None)
     lib, launch = _launcher()

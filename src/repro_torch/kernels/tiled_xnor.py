@@ -33,6 +33,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core.ordered import ordered_mean
 from repro_torch.core.packing import LANE_BITS, pack_bits, unpack_bits
 from repro_torch.kernels import _build
 from repro_torch.kernels.tiled_matmul import _sm_count, cuda_args
@@ -57,9 +58,15 @@ def quantize_sign(x: torch.Tensor, n_in: int
     """Sign-binarize activation rows: x (m, k >= n_in) -> (packed (m,
     ceil(n_in/32)) int32, scale (m, 1) f32). Bit j of word w is
     ``x[:, 32w + j] > 0`` (the tile's little-endian layout, pad bits 0);
-    ``scale = mean|x_row|``. x is cast to f32 first, as the reference does."""
+    ``scale = mean|x_row|``. x is cast to f32 first, as the reference does;
+    on the CPU the mean is summed in the reference's order
+    (``core.ordered.ordered_mean``), so a tie element's sign is the
+    reference's."""
     xv = x[:, :n_in].float()
-    scale = xv.abs().mean(dim=1, keepdim=True)
+    if xv.device.type == "cpu":
+        scale = ordered_mean(xv.abs())
+    else:
+        scale = xv.abs().mean(dim=1, keepdim=True)
     return pack_bits(xv > 0), scale
 
 

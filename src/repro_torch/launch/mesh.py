@@ -1,5 +1,5 @@
-"""Serving meshes for the port (port of ``parse_mesh_arg`` and
-``make_host_mesh`` of ``repro/launch/mesh.py``).
+"""Meshes for the port (port of ``parse_mesh_arg`` and ``make_host_mesh``
+of ``repro/launch/mesh.py``, and the pipeline's stage mesh).
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with dim names
 ("data", "model") over the ranks of one ``torch.distributed`` job:
@@ -82,6 +82,14 @@ def make_host_mesh(data: int = 2, model: int = 4):
     from torch.distributed.device_mesh import init_device_mesh
 
     return init_device_mesh("cpu", (data, model), mesh_dim_names=MESH_DIMS)
+
+
+def make_stage_mesh(n_stages: int, device_type: str = "cpu"):
+    """The 1-D ("stage",) mesh of a GPipe job of ``n_stages`` ranks
+    (``distributed.pipeline``), on ``device_type``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(device_type, (n_stages,), mesh_dim_names=("stage",))
 
 
 def init_mesh(dp: int, tp: int, device: DeviceLike = None):

@@ -31,9 +31,9 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import remat
 from repro_torch.models.lm import ce_sum, nll_sum
 from repro_torch.nn import module as mod
 from repro_torch.nn.attention import Attention, _attend_core, scatter_pages
@@ -197,7 +197,7 @@ class EncDecModel:
         reference checkpoints under "full" and "dots" alike here)."""
         if self.cfg.remat == "none":
             return fn(x, *args)
-        return checkpoint(fn, x, *args, use_reentrant=False)
+        return remat(fn, x, *args)
 
     def encode(self, params, frames) -> torch.Tensor:
         """frames (B, S_enc, d_model) precomputed frontend embeddings ->

@@ -43,9 +43,9 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import remat
 from repro_torch.nn import module as mod
 from repro_torch.nn.attention import Attention, _attend_core, make_mask, quantize_kv
 from repro_torch.nn.context import ModelContext
@@ -86,7 +86,7 @@ def ce_sum(chunk_sum, h, targets, mask, vocab: int) -> torch.Tensor:
         return chunk_sum(h, targets, mask)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     for hc, tc, mc in zip(h.chunk(nb), targets.chunk(nb), mask.chunk(nb)):
-        tot = tot + checkpoint(chunk_sum, hc, tc, mc, use_reentrant=False)
+        tot = tot + remat(chunk_sum, hc, tc, mc)
     return tot
 
 
@@ -532,8 +532,7 @@ class DecoderLM:
                 f"remat='dots' is not ported yet: {DOTS_REMAT_ITEM}")
         if self.cfg.remat != "full":
             raise ValueError(f"unknown remat {self.cfg.remat!r}")
-        return checkpoint(lambda h: block(pl, h, positions=positions), x,
-                          use_reentrant=False)
+        return remat(lambda h: block(pl, h, positions=positions), x)
 
     def backbone(self, params, x, *, positions=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:

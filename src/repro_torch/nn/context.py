@@ -31,6 +31,7 @@ class ModelContext:
     compute_dtype: torch.dtype = torch.bfloat16
     compute_path: str = "float"
     fused_train: bool = False      # TRAIN: tiled Dense through kernel B5
+    fsdp_weights: bool = False     # TRAIN under a mesh: gather n_in at use
     device: DeviceLike = None
     ledger: Optional[LayerLedger] = None
 

@@ -6,8 +6,12 @@ weight: with ``ModelContext(fused_train=True)`` a tiled Dense goes through
 ``kernels.ops.tbn_dense_train`` (kernel B5, then B2/B1 on the card);
 otherwise it materializes B_hat (``tiled_weight_rows``, or ``tiled_weight``
 for an unaligned tiling, or ``bwnn_weight`` for a binarized layer below
-lambda) and multiplies or convolves densely. SERVE mode carries the
-shipped form: a tiled layer applies through the tile-reuse math
+lambda) and multiplies or convolves densely. Under a mesh
+(``distributed.sharding.train_shards``) a rank holds r/TP unique rows of
+every replica of a tiled Dense's masters (and, under ``fsdp_weights``, a
+block of n_in, gathered at use) and runs the per-shard branch of
+``kernels.ops`` (``tbn_dense_train_rows`` / ``dense_train_rows``). SERVE mode
+carries the shipped form: a tiled layer applies through the tile-reuse math
 (``kernels.ops.tiled_dense_infer``: kernels B1/B2 on the card;
 ``kernels.ops.tiled_conv_infer``: kernel B6); an unaligned tile and the
 BWNN sign bits (``wbits``) are unpacked to the dense weight, as in the
@@ -35,10 +39,17 @@ from repro_torch.core.tiling import (
     tiled_weight,
     tiled_weight_rows,
 )
+from repro_torch.distributed.sharding import (
+    _mesh_extent,
+    dense_train_shards,
+    fsdp_gather,
+)
 from repro_torch.kernels.ops import (
     Padding,
+    dense_train_rows,
     pad_nhwc,
     tbn_dense_train,
+    tbn_dense_train_rows,
     tiled_conv_infer,
     tiled_dense_infer,
 )
@@ -75,9 +86,12 @@ class Dense:
             return self._serve_specs()
         pd = self.ctx.param_dtype
         shape = (self.n_out, self.n_in)
-        out: dict = {"w": mod.ParamSpec(shape, pd, self.logical, mod.kaiming())}
+        # row-aligned masters name their p replicas: under a mesh a rank
+        # holds r/TP of the r unique rows of every replica
+        tp = self.spec.p if self.spec is not None and self.spec.aligned_rows else 0
+        out: dict = {"w": mod.ParamSpec(shape, pd, self.logical, mod.kaiming(), tp)}
         if self.spec is not None and self.spec.alpha_source == "A":
-            out["a"] = mod.ParamSpec(shape, pd, self.logical, mod.kaiming())
+            out["a"] = mod.ParamSpec(shape, pd, self.logical, mod.kaiming(), tp)
         if self.use_bias:
             out["b"] = mod.ParamSpec((self.n_out,), pd, (self.logical[0],),
                                      mod.zeros_init())
@@ -126,7 +140,20 @@ class Dense:
         return y
 
     def _train_apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        cd, w = self.ctx.compute_dtype, params["w"]
+        cd = self.ctx.compute_dtype
+        shards = (dense_train_shards(self.spec.rows_per_tile, self.n_in,
+                                     self.ctx.fsdp_weights)
+                  if self.spec is not None and self.spec.aligned_rows else None)
+        if shards is not None:
+            params, rows = self._gather_masters(params, shards)
+            if rows:
+                mesh = shards[0]
+                w, a = params["w"], params.get("a")
+                if self.ctx.fused_train:
+                    return tbn_dense_train_rows(x.to(cd), w, w if a is None else a,
+                                                self.spec, mesh, rows)
+                return dense_train_rows(x.to(cd), w, a, self.spec, mesh, rows)
+        w = params["w"]
         if self.spec is not None and self.ctx.fused_train:
             return tbn_dense_train(x.to(cd), w, params.get("a", w), self.spec)
         if self.spec is not None and self.spec.aligned_rows:
@@ -139,6 +166,26 @@ class Dense:
         else:
             weff = w.to(cd)
         return x.to(cd) @ weff.T
+
+    def _gather_masters(self, params: dict, shards):
+        """A rank's masters under a mesh (``distributed.sharding.
+        train_shards``): under ``fsdp_weights`` their n_in blocks gathered
+        over "data" (the gradient is reduce-scattered back). Returns the
+        params and the axes that split the r unique rows, whose per-shard
+        branch of ``kernels.ops`` then runs (fused: B5 + B2 on the rank's
+        rows)."""
+        mesh, rows, cols = shards
+        want = (self.spec.p * self.spec.rows_per_tile // _mesh_extent(mesh, rows),
+                self.n_in // _mesh_extent(mesh, cols))
+        if tuple(params["w"].shape) != want:
+            raise ValueError(f"{self.name}: the rank holds masters "
+                             f"{tuple(params['w'].shape)}; under this mesh it "
+                             f"holds {want} (place the params with "
+                             f"distributed.sharding.place_train_params)")
+        out = dict(params, w=fsdp_gather(params["w"], mesh, cols))
+        if "a" in params:
+            out["a"] = fsdp_gather(params["a"], mesh, cols)
+        return out, rows
 
     def _serve_apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         cd = self.ctx.compute_dtype

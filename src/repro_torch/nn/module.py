@@ -65,6 +65,11 @@ class ParamSpec:
     dtype: Any = torch.float32
     logical: Tuple[Optional[str], ...] = ()  # logical axis name per dim
     init: Initializer = dataclasses.field(default_factory=lambda: normal(0.02))
+    # a tiled Dense's TRAIN masters (row-aligned tiling): p, the count of
+    # replicas in the row axis (the second-to-last dim, p * r rows); 0
+    # elsewhere. ``distributed.sharding.train_shards`` splits such a
+    # leaf's r unique rows over the model axis
+    tile_p: int = 0
 
     def __post_init__(self):
         if self.logical and len(self.logical) != len(self.shape):
@@ -198,7 +203,7 @@ def stack_specs(specs: SpecTree, n: int) -> SpecTree:
         logical = tuple(spec.logical) or (None,) * len(spec.shape)
         set_path(out, path, ParamSpec((n,) + tuple(spec.shape), spec.dtype,
                                       ("layers",) + logical,
-                                      _stacked_init(spec.init, n)))
+                                      _stacked_init(spec.init, n), spec.tile_p))
     return out
 
 

@@ -50,6 +50,7 @@ from repro_torch.core.tiling import (
     tiled_weight_rows,
 )
 from repro_torch.distributed.sharding import (
+    MOE_TRAIN_TP_ITEM,
     expert_sharding,
     gather_blocks,
     shard_index,
@@ -142,6 +143,10 @@ class ExpertBank:
             else:                       # flat (E, ceil(q/32))
                 t = unpack_bits(tile, spec.q, dtype=cd)
             return reconstruct_from_tile(t, params["alpha"], spec, dtype=cd)
+        if expert_sharding(self.n_experts) is not None:
+            raise NotImplementedError(f"{self.name}: expert banks trained "
+                                      f"under a model axis are not ported: "
+                                      f"{MOE_TRAIN_TP_ITEM}")
         w = params["w"]
         if spec is not None:
             a = params.get("a")

@@ -7,6 +7,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.ordered import ordered_mean
 from repro_torch.nn import module as mod
 from repro_torch.nn.context import ModelContext
 
@@ -29,27 +30,8 @@ class RMSNorm:
         return x * inv * params["scale"].to(dt)
 
 
-# XLA's CPU backend splits a long f32 reduction into windows of this many
-# elements, each summed in order, then reduces the windows' partials the
-# same way (its tree-reduction rewrite)
-XLA_REDUCE_WINDOW = 32
-
-
-def _ordered_mean(xf: torch.Tensor) -> torch.Tensor:
-    """Mean over the last axis (length a multiple of ``XLA_REDUCE_WINDOW``)
-    in the reference's f32 summation order on the CPU: sequential sums
-    over windows of 32, then over the partials, recursively."""
-    n, part = xf.shape[-1], xf
-    while part.shape[-1] > XLA_REDUCE_WINDOW:
-        w = part.unflatten(-1, (-1, XLA_REDUCE_WINDOW))
-        acc = w[..., 0]
-        for i in range(1, XLA_REDUCE_WINDOW):
-            acc = acc + w[..., i]
-        part = acc
-    acc = part[..., :1]
-    for i in range(1, part.shape[-1]):
-        acc = acc + part[..., i:i + 1]
-    return acc / n
+# kept under its old name for the callers that import it from here
+_ordered_mean = ordered_mean
 
 
 @dataclasses.dataclass
@@ -69,16 +51,18 @@ class LayerNorm:
 
     def __call__(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         """On the CPU the mean is summed in the reference's order
-        (``_ordered_mean``) where the width is a multiple of 32: under the
-        integer compute paths a row of quantized products can have
-        elements equal to its mean, and x - mu is then a rounding error
-        whose sign the next layer's sign or int8 quantization keeps. On
-        the card the kernels' sums differ from the reference's anyway, and
-        the mean is one reduction."""
+        (``core.ordered.ordered_mean``, bit for bit ``jnp.mean`` at any
+        width): under the integer compute paths a row of quantized products
+        can have elements equal to its mean, and x - mu is then a rounding
+        error whose sign the next layer's sign or int8 quantization keeps.
+        The variance, the rsqrt and the apply are PyTorch's (ROADMAP C1
+        says what rounding that leaves against the reference). On the card
+        the kernels' sums differ from the reference's anyway, and the mean
+        is one reduction."""
         dt = x.dtype
         xf = x.float()
-        if x.device.type == "cpu" and xf.shape[-1] % XLA_REDUCE_WINDOW == 0:
-            mu = _ordered_mean(xf)
+        if x.device.type == "cpu":
+            mu = ordered_mean(xf)
         else:
             mu = xf.mean(dim=-1, keepdim=True)
         var = xf.var(dim=-1, keepdim=True, unbiased=False)

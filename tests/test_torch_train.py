@@ -423,9 +423,15 @@ def test_train_cli_policy_modes(tmp_path, capsys, mode):
     assert f"mode={mode}" in out and "done: 2 steps" in out
 
 
-def test_train_cli_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        train_cli.main(["--reduced", "--device", "cpu", "--mesh", "1x1"])
+def test_train_cli_mesh_not_ported(tmp_path, capsys):
+    """``--mesh`` is ported (training under a mesh, run under
+    ``torch.distributed.run``; ``tests/test_torch_tp_train.py``): 1x1 is one
+    device, and a mesh the job's ranks do not fill exits naming the count."""
+    train_cli.main(["--reduced", "--device", "cpu", "--mesh", "1x1", "--steps",
+                    "2", "--batch", "2", "--seq", "8", "--ckpt-dir", str(tmp_path)])
+    assert "done: 2 steps" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="needs 2 devices, have 1 ranks"):
+        train_cli.main(["--reduced", "--device", "cpu", "--mesh", "2x1"])
 
 
 def test_watchdog_flags_stragglers_and_hangs():
