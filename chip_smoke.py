@@ -30,8 +30,14 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      planner's cost model) and the planner's pick; B2's
      totals per fused train step and per extend tick are printed, and the
      totals of B1, B3 and B4 per decode tick at m = 4 and m = 32, each
-     with the min-max of its timing reps, and the planners' host time per
-     decode tick, cached and not. B5 (tile
+     with the min-max of its timing reps, the planners' host time per
+     decode tick, cached and not, and the host cost of the operator
+     dispatch (each kernel is a ``torch.library`` operator,
+     ``kernels/_op.py``) on a cold decode tick: its 253 B1 calls through
+     the wrapper against the launch alone. Every bound column comes from
+     ``repro_torch.roofline``: ``analysis.kernel_terms`` counts a call's
+     operations and bytes, ``hw.card`` gives the card's data-sheet peaks by
+     its name. B5 (tile
      construction) at the five full-width (p, q) shapes of granite-8b's
      tiled layers, f32 masters, alpha from W and from a separate A, plus a
      q = 500 case through ``ops.tile_construct`` (padding): packed words
@@ -157,7 +163,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
   4k. serve seamless-m4t-large-v2 at its published width and depth (24
      encoder + 24 decoder layers, d 1024, vocab 256206, p = 4), bf16,
      built the same way (peak printed, must leave 10% of the card): phase
-     3's 8 requests, each with its own synthetic clip of 40-256 frames, on
+     3's first SEAMLESS_REQUESTS = 4 requests (cut from 8 for the run's
+     time), each with its own synthetic clip of 40-256 frames, on
      256-token slots whose encode tick pads to ENC_TOKENS = 256 frames,
      under "float", "xnor" and "int8" on one export, cold and warm, with
      the same checks: own kernel = 8 L per decode tick (self q, k, v, o,
@@ -250,7 +257,17 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      the serve CLI
      under ``torch.distributed.run --nproc-per-node 2 ... --reduced --mesh
      1x2``: exit 0, ``backend=gloo``, ``2.0x sharding``;
-  5r. (runs last) training under a ("data", "model") mesh of ranks that
+  11. (runs last) the dry run against the card: ``launch.dryrun.count_cell``
+     builds one rank's cell on ``meta`` tensors under a fake process group
+     of the mesh's size and counts its step (``roofline.analysis``); the
+     tile bytes a rank of granite-8b serving at (1, 2) equal phase 4r's,
+     the collectives a train step and their kinds of granite-8b (L = 2) at
+     (1, 2), (2, 1), (2, 2) and of qwen2-moe (L = 2) at (1, 2), (2, 2)
+     equal phase 5r's step 2, phase 5d's state bytes and launches equal
+     the count, and each remat policy's predicted step peak and forward +
+     backward peak (with its launches) lie within DRYRUN_PEAK_TOL of
+     phase 5d's ``max_memory_allocated``;
+  5r. (runs before 11) training under a ("data", "model") mesh of ranks that
      share cuda:0 over gloo (no multi-card figure): granite-8b at full
      width cut to TRAIN_MESH_LAYERS = 2, fused (B5 + B2 per shard), f32
      masters of seed 0, bf16 compute, phase 5's batch 4 x 512, AdamW 3e-4,
@@ -275,7 +292,14 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      3 steps), which ``elastic_restore`` puts onto one card: every leaf's
      sha256 equals the state the ranks gathered. Beside the 4-rank job the
      train CLI under ``torch.distributed.run --nproc-per-node 2 ...
-     --reduced --steps 3 --mesh 1x2`` exits 0 with ``done: 3 steps``;
+     --reduced --steps 3 --mesh 1x2`` exits 0 with ``done: 3 steps``. Each
+     job also trains qwen2-moe-a2.7b at full width cut to TP_MOE_LAYERS = 2
+     (60 experts, top-4, 4 shared) under its model-axis mesh ((1, 2), (2,
+     2)), a rank holding E/TP experts' masters (built one leaf at a time),
+     by SGD without momentum (AdamW's moments of 4 ranks would not fit the
+     card): losses and clip norms of 2 steps against one card's at the
+     granite tolerances, B5 = B2 = 2 x (14 L + 1) a rank, no plain
+     version, the experts held, step 2's ms and collectives;
   5. train granite-8b at published width, 4 layers (n_layers 36 -> 4: the
      masters, gradients and AdamW moments of all 36 do not fit one card),
      through ``launch.train.build_training`` as the CLI wires it but with
@@ -288,6 +312,15 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      atomics reorder f32 sums), and the launch counters: B5 = B2 = steps *
      (14 L + 1), B1 = B3 = B4 = 0. Then the steady step time and a
      torch.profiler trace of one step;
+  5d. one fused step of phase 5's model, masters and first batch under
+     remat "none", "full" and "dots" (the selective checkpoint that saves
+     the matrix products, B2's included): "dots" gives "full"'s loss within
+     rtol 1e-3, launches B2 7 L + 1 times ("none"'s) against "full"'s
+     14 L + 1 and B5 14 L + 1 times (recomputed); then a forward +
+     backward alone on REMAT_BATCH x 512 rows, where the activations set
+     the peak (the step's peak is AdamW's, one figure for all three), with
+     the same launches: its peaks fall strictly, none > dots > full; the
+     state's bytes, the launches and each peak go to phase 11;
   6. the training CLI on the card (unfused default path): ``python -m
      repro_torch.launch.train --arch granite-8b --reduced --steps 3`` and
      the same with ``--arch qwen2-moe-a2.7b`` (the MoE TRAIN dispatch) and
@@ -393,6 +426,9 @@ FAMILY_TICK_LAYERS = {"qwen1.5-32b": 64, MAMBA: 48, RECGEMMA: 1, CHAMELEON: 48,
 # frame_proj and each encoder layer's q, k, v, o; its up; its down; and
 # each decoder layer's cross k, v (with the (1024, 256) ones)
 ENC_TOKENS, ENC_MAX_LEN, ENC_FRAMES = 256, 256, (40, 257)
+# phase 4k's requests a path (cut from 8 for the run's time, to make room
+# for phase 5r's MoE jobs and phase 11)
+SEAMLESS_REQUESTS = 4
 ENCODE_CALLS = {"K1024 r256": 1 + 4 * 24 + 2 * 24, "K1024 r2048": 24,
                 "K8192 r256": 24}
 # phase 4m: seamless cut to 2 + 2 layers, chameleon to 2, card vs CPU
@@ -438,12 +474,6 @@ N_SLOTS, CHUNK = 4, 32
 WIDE_SLOTS = MATVEC_M = 32   # MATVEC_MAX_M: the widest decode tick
 RTOL = 1e-4
 INT_RTOL = 1e-5
-# Data-sheet peaks (dense): memory bytes/s, bf16 tensor-core flop/s, f32
-# (non-tensor) flop/s, int8 tensor-core op/s; picked by the name nvidia-smi
-# reports.
-PEAKS = {"SXM": (3.35e12, 989e12, 67e12, 1979e12),
-         "PCIe": (2.0e12, 756e12, 51e12, 1513e12),
-         "NVL": (3.9e12, 835e12, 60e12, 1671e12)}
 # compute path -> the kernel that runs its m <= 32 projections
 PATH_KERNEL = {"float": "B1", "xnor": "B3", "int8": "B4"}
 # (name, p, q, tiled Dense of that shape per layer) of every B5 call of a
@@ -495,9 +525,31 @@ TRAIN_MESH_LAYERS, TRAIN_MESH_STEPS, TRAIN_MESH_RTOL = 2, 2, 1e-3
 TRAIN_MESH_GNORM_RTOL, TRAIN_MESH_UPDATE_TOL = 2e-3, 0.4
 TRAIN_MESH_UPDATE_LEAVES = ("seg0/mixer", "seg0/norm1", "seg0/norm2", "final_norm")
 TRAIN_MESH_JOBS = (((1, 2), (2, 1)), ((2, 2),))
-PARTS_5R = (("ef_sign", "gpipe"), ("ckpt",))
+PARTS_5R = (("ef_sign", "gpipe", "moe"), ("ckpt", "moe"))
 GPIPE_MICRO, GPIPE_MB, GPIPE_SEQ = 4, 1, 128
 TRAIN_MESH_LR = 3e-4
+# phase 5r's MoE jobs: qwen2-moe-a2.7b at full width cut to TP_MOE_LAYERS,
+# under the jobs' model-axis meshes, a rank holding E/TP experts' masters,
+# trained by SGD without momentum (4 ranks' AdamW moments of ~1.04 B params
+# each, beside their masters and gradients, would not fit one 80 GB card)
+MOE_TRAIN_MESHES = ((1, 2), (2, 2))
+# phase 5d: one fused step of phase 5's model, masters and batch under each
+# remat policy
+REMAT_MODES = ("none", "full", "dots")
+# and a forward + backward alone (no optimizer) of REMAT_BATCH x TRAIN_SEQ
+# rows, a batch at which the activations set its peak: at phase 5's 4 x 512
+# the 5.1 GB of gradients do (the meta count gives dots' peak = full's
+# there), and the whole step's peak is AdamW's (one figure for every policy)
+REMAT_BATCH = 16
+# the dry-run phase: a predicted peak (a step's: its state and batch plus
+# the most bytes the meta step's ops hold alive; a forward + backward's:
+# the most its ops hold alive) against the card's
+# torch.cuda.max_memory_allocated over the same region less what was
+# allocated before it, as a ratio within this much of 1 (the meta run sees
+# no kernel's split-K scratch, no cuBLAS workspace and no allocator
+# rounding: together tens of MB, under 1% of the smallest peak, ~8.7 GB;
+# on an H100 the ratios were 0.9972-1.0000)
+DRYRUN_PEAK_TOL = 0.02
 
 
 def fail(msg: str) -> None:
@@ -510,13 +562,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
-
-
-def peaks(card: str):
-    for key in ("PCIe", "NVL"):
-        if key in card:
-            return PEAKS[key]
-    return PEAKS["SXM"]
 
 
 def kernels():
@@ -603,7 +648,7 @@ def timed(res, key: str, fn) -> None:
     res[key], res[key + "_lo"], res[key + "_hi"] = time_reps(fn)
 
 
-def check_kernel(kernel, plain, x, packed, bw, peak, survey: bool = True):
+def check_kernel(kernel, plain, x, packed, card, survey: bool = True):
     """Run ``kernel`` once against ``plain`` on the same card inputs, assert
     the tolerance and that the launch counter rose, then time both and the
     library yardstick; in bf16, with ``survey``, hold and time every body
@@ -623,13 +668,15 @@ def check_kernel(kernel, plain, x, packed, bw, peak, survey: bool = True):
     if not torch.allclose(got, want, rtol=RTOL, atol=RTOL * scale):
         fail(f"{kernel.__name__} m={x.shape[0]} K={x.shape[1]} r={packed.shape[0]} "
              f"{x.dtype}: max|err| {err:.3e} over tolerance (max|u| {scale:.3e})")
+    from repro_torch.roofline.analysis import kernel_terms
+
     dense = unpack_rows(packed).to(x.dtype)
     m, k = x.shape
     r = packed.shape[0]
-    nbytes = x.numel() * x.element_size() + packed.numel() * 4 + m * r * 4
-    flops = 2.0 * m * k * r
-    t_bytes, t_ops = 1e3 * nbytes / bw, 1e3 * flops / peak
-    res = dict(err=err, scale=scale, flops=flops, bound_ms=max(t_bytes, t_ops),
+    work = kernel_terms("B1" if kernel.__name__ == "tiled_matvec_unique" else "B2",
+                        x.shape, packed.shape, x.dtype)
+    t_bytes, t_ops = work.times_ms(card)
+    res = dict(err=err, scale=scale, flops=work.ops, bound_ms=max(t_bytes, t_ops),
                bytes_ms=t_bytes, ops_ms=t_ops)
     timed(res, "ms", lambda: kernel(x, packed))
     res["plain_ms"] = time_ms(lambda: plain(x, packed))
@@ -773,7 +820,7 @@ def xnor_name(plan) -> str:
     return plan.body if plan.code == 0 else f"{plan.body}/{plan.reduce}"
 
 
-def check_int_kernel(path: str, m: int, n_in: int, r: int, gen, bw, int_peak,
+def check_int_kernel(path: str, m: int, n_in: int, r: int, gen, card,
                      with_times: bool = True, survey: bool = True):
     """B3 (``path`` "xnor") or B4 ("int8") once against its plain version on
     the same card inputs: the int32 accumulators must be equal. With
@@ -838,9 +885,11 @@ def check_int_kernel(path: str, m: int, n_in: int, r: int, gen, bw, int_peak,
         res["body"] = xnor_name(plan_xnor(m, r, words, sms))
     if not with_times:
         return res
-    nbytes = a.numel() * a.element_size() + packed.numel() * 4 + m * r * 4
-    ops = 2.0 * m * r * (words if path == "xnor" else n_in)
-    t_bytes, t_ops = 1e3 * nbytes / bw, 1e3 * ops / int_peak
+    from repro_torch.roofline.analysis import kernel_terms
+
+    work = kernel_terms("B3" if path == "xnor" else "B4", a.shape, packed.shape,
+                        a.dtype)
+    t_bytes, t_ops = work.times_ms(card)
     dense = unpack_rows(packed).to(torch.bfloat16)
     res.update(bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops)
     timed(res, "ms", run)
@@ -871,13 +920,14 @@ def phase_kernels(card: str):
 
     from repro_torch.kernels.tiled_matmul import tiled_matmul_plain
     from repro_torch.kernels.tiled_matvec import tiled_matvec_plain
+    from repro_torch.roofline import hw
 
-    bw, bf16_peak, f32_peak, int_peak = peaks(card)
+    hwc = hw.card(card)  # data-sheet peaks by the nvidia-smi name
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     ks = kernels()
     results = {}
-    both = ((torch.bfloat16, bf16_peak), (torch.float32, f32_peak))
+    both = (torch.bfloat16, torch.float32)
     for kname, kernel, plain, ms, dtypes in (
             ("B1", ks["B1"], tiled_matvec_plain, B1_MS, both),
             ("B2", ks["B2"], tiled_matmul_plain, B2_MS, both),
@@ -888,10 +938,10 @@ def phase_kernels(card: str):
         for name, k, r, _ in SHAPES:
             packed = torch.randint(0, 2**32, (r, k // 32), generator=gen,
                                    device="cuda", dtype=torch.int64).to(torch.int32)
-            for dtype, peak in dtypes:
+            for dtype in dtypes:
                 for m in ms:
                     x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
-                    res = check_kernel(kernel, plain, x, packed, bw, peak)
+                    res = check_kernel(kernel, plain, x, packed, hwc)
                     results[(kname, m, str(dtype).split(".")[-1], name)] = res
                     print(f"{kname} {name:8s} K={k:5d} r={r:4d} m={m:3d} "
                           f"{str(dtype).split('.')[-1]:8s} max|err|={res['err']:.2e} "
@@ -914,10 +964,10 @@ def phase_kernels(card: str):
           f"{tick['bound_ms']:.3f}ms", flush=True)
     for kname, path in (("B3", "xnor"), ("B4", "int8")):
         for m in INT_MS:     # pad bits: n_in = 80 against a pack_bits tile
-            check_int_kernel(path, m, 80, 24, gen, bw, int_peak, with_times=False)
+            check_int_kernel(path, m, 80, 24, gen, hwc, with_times=False)
         for name, k, r, _ in SHAPES:
             for m in INT_MS:
-                res = check_int_kernel(path, m, k, r, gen, bw, int_peak)
+                res = check_int_kernel(path, m, k, r, gen, hwc)
                 results[(kname, m, "int", name)] = res
                 print(f"{kname} {name:8s} K={k:5d} r={r:4d} m={m:3d} {path:8s} "
                       f"exact (max|acc|={res['scale']:.0f}) kernel "
@@ -934,6 +984,7 @@ def phase_kernels(card: str):
                   f"{tot['library_ms_lo']:.3f}-{tot['library_ms_hi']:.3f}) bound "
                   f"{tot['bound_ms']:.3f}ms", flush=True)
     planner_host_cost()
+    dispatcher_cost(card)
     return results
 
 
@@ -965,6 +1016,48 @@ def planner_host_cost() -> None:
           f"calls, median of 5): " + "; ".join(parts), flush=True)
 
 
+def dispatcher_cost(card: str) -> dict:
+    """Host cost of the operator dispatch (``kernels/_op.py``) on a cold
+    eager decode tick: the 253 B1 calls of one granite-8b decode tick at
+    L=36, m = 4, bf16, issued through the wrapper (checks, the
+    ``repro_torch::tiled_matvec_unique`` operator, the launch) and through
+    the launch alone, the card synchronized after each tick; the median of
+    9 ticks each, alternated. Returns the two in ms and their difference."""
+    import torch
+
+    from repro_torch.kernels import tiled_matvec
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    ops = {}
+    for name, k, r, _ in SHAPES:
+        ops[name] = (torch.randn((N_SLOTS, k), generator=gen, device="cuda").to(
+            torch.bfloat16), torch.randint(0, 2**32, (r, k // 32), generator=gen,
+                                           device="cuda", dtype=torch.int64
+                                           ).to(torch.int32))
+    calls = [ops[name] for name, _, _, per in SHAPES
+             for _ in range(per * 36 + (name == "lm_head"))]
+    ways = {"operator": tiled_matvec.tiled_matvec_unique,
+            "launch": lambda x, p: tiled_matvec._launch(x, p, None)}
+    times = {w: [] for w in ways}
+    for _ in range(10):
+        for way, fn in ways.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for x, p in calls:
+                fn(x, p)
+            torch.cuda.synchronize()
+            times[way].append(1e3 * (time.perf_counter() - t0))
+    med = {w: statistics.median(v[1:]) for w, v in times.items()}
+    med["cost"] = med["operator"] - med["launch"]
+    print(f"operator dispatch on a cold decode tick (granite-8b L=36, m={N_SLOTS}, "
+          f"{len(calls)} B1 calls, bf16, median of 9, {card}): through the operator "
+          f"{med['operator']:.3f} ms, the launch alone {med['launch']:.3f} ms: "
+          f"{med['cost']:.3f} ms a tick, {1e3 * med['cost'] / len(calls):.2f} us a "
+          f"call", flush=True)
+    return med
+
+
 def shape_key(k: int, r: int) -> str:
     """Where phase 2b stores the measurements of a FAMILY_SHAPES entry: by
     (K, r), so that two configs' equal shapes are one measurement."""
@@ -983,9 +1076,10 @@ def phase_family_kernels(card: str, results) -> None:
 
     from repro_torch.kernels.tiled_matmul import tiled_matmul_plain
     from repro_torch.kernels.tiled_matvec import tiled_matvec_plain
+    from repro_torch.roofline import hw
 
     t0 = time.perf_counter()
-    bw, bf16_peak, f32_peak, int_peak = peaks(card)
+    hwc = hw.card(card)  # data-sheet peaks by the nvidia-smi name
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     ks = kernels()
@@ -1002,12 +1096,11 @@ def phase_family_kernels(card: str, results) -> None:
                      else (N_SLOTS * CHUNK,))
             for kname, plain, ms in (("B1", tiled_matvec_plain, FAMILY_MS),
                                      ("B2", tiled_matmul_plain, b2_ms)):
-                for dtype, peak in ((torch.bfloat16, bf16_peak),
-                                    (torch.float32, f32_peak)):
+                for dtype in (torch.bfloat16, torch.float32):
                     dt = str(dtype).split(".")[-1]
                     for m in ms:
                         x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
-                        res = check_kernel(ks[kname], plain, x, packed, bw, peak,
+                        res = check_kernel(ks[kname], plain, x, packed, hwc,
                                            survey=False)
                         results[(kname, m, dt, key)] = res
                         print(f"{kname} {arch} {name:8s} K={k:5d} r={r:5d} m={m:3d} "
@@ -1019,7 +1112,7 @@ def phase_family_kernels(card: str, results) -> None:
             del packed
             for kname, path in (("B3", "xnor"), ("B4", "int8")):
                 for m in FAMILY_MS:
-                    res = check_int_kernel(path, m, k, r, gen, bw, int_peak,
+                    res = check_int_kernel(path, m, k, r, gen, hwc,
                                            survey=False)
                     results[(kname, m, "int", key)] = res
                     print(f"{kname} {arch} {name:8s} K={k:5d} r={r:5d} m={m:3d} "
@@ -1798,10 +1891,12 @@ def build_on_card(cfg):
     return s_model, sp, master_b
 
 
-def phase_serve_paths(cfg, phase: str, cold_profile: bool = True):
-    """Phases 4b and 4e: ``cfg`` at its published width and the depth it is
-    given (qwen1.5-32b with its int8 KV cache; qwen2-moe-a2.7b) under each compute path on one
-    streamed export, cold and warm; one 4-slot decode tick traced per path.
+def phase_serve_paths(cfg, phase: str, cold_profile: bool = True,
+                      requests: int = 8):
+    """Phases 4b, 4e and 4k: ``cfg`` at its published width and the depth it
+    is given (qwen1.5-32b with its int8 KV cache; qwen2-moe-a2.7b;
+    seamless) under each compute path on one streamed export, ``requests``
+    requests cold and warm; one 4-slot decode tick traced per path.
     Returns (params, launch counts)."""
     import torch
 
@@ -1816,8 +1911,8 @@ def phase_serve_paths(cfg, phase: str, cold_profile: bool = True):
             s_model = build_model(cfg, ModelContext(
                 policy=cfg.tbn, mode=SERVE, compute_dtype=torch.bfloat16,
                 device="cuda", compute_path=path))
-        counts = serve_run(cfg, s_model, sp, path, profile_ticks=1, wide=False,
-                           cold_profile=cold_profile)
+        counts = serve_run(cfg, s_model, sp, path, requests=requests,
+                           profile_ticks=1, wide=False, cold_profile=cold_profile)
         for k in (PATH_KERNEL[path], "B2"):
             launches[k] += counts[k]
     print(f"phase {phase} ({cfg.name} serve): {time.perf_counter() - t0:.1f}s",
@@ -2828,8 +2923,10 @@ def phase_b5(card: str):
     from repro_torch.core.tiling import plan_tiling
     from repro_torch.kernels import ops
     from repro_torch.kernels.tile_construct import tile_construct_plain
+    from repro_torch.roofline import hw
+    from repro_torch.roofline.analysis import kernel_terms
 
-    bw = peaks(card)[0]
+    hwc = hw.card(card)  # data-sheet peaks by the nvidia-smi name
     kernel = kernels()["B5"]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
@@ -2851,10 +2948,11 @@ def phase_b5(card: str):
             err = float((got[1] - want[1]).abs().max())
             if not torch.allclose(got[1], want[1], rtol=1e-5, atol=0):
                 fail(f"B5 {name} alpha from {source}: max|err| {err:.3e} over rtol 1e-5")
-            nbytes = p * q * 4 * (2 if a is not None else 1) + q // 8 + p * 4
+            work = kernel_terms("B5", w.shape, None, w.dtype, with_a=a is not None)
+            nbytes = work.bytes
             res = dict(err=err, ms=time_ms(lambda: kernel(w, a)),
                        plain_ms=time_ms(lambda: tile_construct_plain(w, a)),
-                       bound_ms=1e3 * nbytes / bw)
+                       bound_ms=work.bound_ms(hwc)[0])
             results[(name, source)] = res
             print(f"B5 {name:12s} p={p} q={q:9d} alpha from {source}: words equal, "
                   f"alpha max|err|={err:.2e} kernel {res['ms']:.4f}ms plain "
@@ -3018,6 +3116,116 @@ def phase_train_fused(cfg):
                 per_step=per_step)
 
 
+def phase_train_remat(cfg, card: str):
+    """Phase 5d: one fused step of phase 5's model (granite-8b at full width,
+    TRAIN_LAYERS layers, f32 masters of seed 0, bf16 compute, AdamW as
+    ``build_training`` wires it) on phase 5's first batch under each remat
+    policy, from the same masters: the loss, the launches (counters zeroed
+    just before, read just after), the state's bytes (masters and both
+    moments, summed ``nbytes``) and the step's peak of device memory
+    (``max_memory_allocated`` with the state allocated, the peak reset just
+    before; the bytes allocated before the step that are not the state's
+    are taken off). Then a forward + backward alone on REMAT_BATCH x
+    TRAIN_SEQ rows: its peak above what was allocated before it and its
+    launches. "dots" must give "full"'s loss within rtol REPLAY_RTOL,
+    launch B2 as often as "none" (its products are saved) and less often
+    than "full", and the forward + backward peaks must fall strictly:
+    none > dots > full. Returns {remat: measurements} for the dry-run
+    phase."""
+    import torch
+
+    from repro_torch.configs import build_model
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.nn import module as mod
+    from repro_torch.nn.context import TRAIN, ModelContext
+    from repro_torch.optim import adamw, cosine_with_warmup
+    from repro_torch.train.step import build_train_step, init_state
+
+    t0 = time.perf_counter()
+    L = TRAIN_LAYERS
+    batch = lm_batch(0, 0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab)
+    wide = {k: v.to("cuda") for k, v in
+            lm_batch(0, 1, REMAT_BATCH, TRAIN_SEQ, cfg.vocab).items()}
+    out = {}
+    for remat in REMAT_MODES:
+        model = build_model(dataclasses.replace(cfg, n_layers=L, remat=remat),
+                            ModelContext(policy=cfg.tbn, mode=TRAIN,
+                                         compute_dtype=torch.bfloat16,
+                                         device="cuda", fused_train=True))
+        opt = adamw(cosine_with_warmup(3e-4, 2, 8), weight_decay=0.1)
+        state = init_state(model.init(0), opt)
+        step_fn = build_train_step(model.train_forward, opt)
+        state_bytes = sum(v.numel() * v.element_size() for tree in (
+            state.params, state.opt_state.mu, state.opt_state.nu)
+            for _, v in mod.walk(tree))
+        release()
+        torch.cuda.synchronize()
+        other = torch.cuda.memory_allocated() - state_bytes
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        state, m = step_fn(state, batch)
+        loss = float(m["loss"])
+        counts = read_counters()
+        peak = torch.cuda.max_memory_allocated() - other
+        # forward + backward alone, on the updated masters
+        leaves = [v.requires_grad_(True) for _, v in mod.walk(state.params)]
+        del m
+        release()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        # (the aux is dropped at once: its graph would hold the masters
+        # past this mode's run)
+        fb_loss = model.train_forward(state.params, wide)[0]
+        grads = torch.autograd.grad(fb_loss, leaves)
+        torch.cuda.synchronize()
+        fb_counts = read_counters()
+        fb_peak = torch.cuda.max_memory_allocated() - before
+        fb_loss = float(fb_loss.detach())
+        del grads, leaves
+        out[remat] = dict(loss=loss, counts=counts, state_bytes=state_bytes,
+                          peak=peak, fb_peak=fb_peak, fb_counts=fb_counts)
+        print(f"phase 5d [remat={remat}, granite-8b full width, L={L}, fused, bf16, "
+              f"{card}]: step 1 ({TRAIN_BATCH}x{TRAIN_SEQ}) loss {loss:.5f}; "
+              f"launches B5 = {counts['B5']}, B2 = {counts['B2']}; state (masters "
+              f"+ 2 AdamW moments) {state_bytes} B; step peak {peak / 1e9:.3f} GB "
+              f"(max_memory_allocated less {other / 1e6:.1f} MB held before the "
+              f"step); forward + backward alone ({REMAT_BATCH}x{TRAIN_SEQ}) loss "
+              f"{fb_loss:.5f}, launches B5 = {fb_counts['B5']}, B2 = "
+              f"{fb_counts['B2']}, peak {fb_peak / 1e9:.3f} GB above the "
+              f"{before / 1e9:.3f} GB held before it", flush=True)
+        del model, state, step_fn, opt
+        release()
+    none, full, dots = (out[k] for k in REMAT_MODES)
+    if abs(dots["loss"] - full["loss"]) > REPLAY_RTOL * abs(full["loss"]):
+        fail(f"phase 5d: remat=dots loss {dots['loss']} vs full {full['loss']} "
+             f"(rtol {REPLAY_RTOL})")
+    want = {"none": (7 * L + 1, 7 * L + 1), "full": (14 * L + 1, 14 * L + 1),
+            "dots": (14 * L + 1, 7 * L + 1)}
+    for remat, (b5, b2) in want.items():
+        for what in ("counts", "fb_counts"):
+            c = out[remat][what]
+            if (c["B5"], c["B2"]) != (b5, b2) or any(c[k] for k in ("B1", "B3", "B4", "B6")):
+                fail(f"phase 5d remat={remat} ({what}): launches {c}; need B5 = "
+                     f"{b5}, B2 = {b2}")
+    if not none["fb_peak"] > dots["fb_peak"] > full["fb_peak"]:
+        fail(f"phase 5d: forward + backward peaks none {none['fb_peak']} > dots "
+             f"{dots['fb_peak']} > full {full['fb_peak']} does not hold")
+    print(f"phase 5d (remat none / full / dots, {card}): dots loss within "
+          f"{abs(dots['loss'] - full['loss']) / abs(full['loss']):.2e} of full's; "
+          f"B2 launches {none['counts']['B2']} / {full['counts']['B2']} / "
+          f"{dots['counts']['B2']} (dots saves B2's products: 7 L + 1 against 14 L "
+          f"+ 1), B5 {none['counts']['B5']} / {full['counts']['B5']} / "
+          f"{dots['counts']['B5']} (B5 recomputed under dots); step peaks "
+          f"{none['peak'] / 1e9:.3f} / {full['peak'] / 1e9:.3f} / "
+          f"{dots['peak'] / 1e9:.3f} GB (AdamW's, one figure); forward + backward "
+          f"peaks at {REMAT_BATCH}x{TRAIN_SEQ} {none['fb_peak'] / 1e9:.3f} / "
+          f"{full['fb_peak'] / 1e9:.3f} / {dots['fb_peak'] / 1e9:.3f} GB (none > "
+          f"dots > full holds); {time.perf_counter() - t0:.1f}s", flush=True)
+    return out
+
+
 def phase_train_cli(arch: str):
     """Phase 6: the training CLI, unfused default path, on the card."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
@@ -3115,7 +3323,7 @@ def conv_operands(n: int, h: int, c: int, r: int, stride: int, dtype, gen):
     return x, packed, dict(kernel=(3, 3), stride=(stride, stride), out_hw=(oh, ow))
 
 
-def check_conv(x, packed, kw, bw, peak):
+def check_conv(x, packed, kw, card):
     """B6 once against its plain version on the same card inputs (tolerance
     and counter), then timed beside the plain version, the library
     yardstick and the bound."""
@@ -3137,15 +3345,16 @@ def check_conv(x, packed, kw, bw, peak):
     if not torch.allclose(got, want, rtol=RTOL, atol=RTOL * scale):
         fail(f"B6 x={tuple(x.shape)} r={packed.shape[1]} {x.dtype}: max|err| "
              f"{err:.3e} over tolerance (max|u| {scale:.3e})")
+    from repro_torch.roofline.analysis import kernel_terms
+
     n, _, _, c = x.shape
     (oh, ow), r = kw["out_hw"], packed.shape[1]
     bank = unpack_conv_tile(packed, r, c, 3, 3, dtype=x.dtype)
     x_nchw = x.permute(0, 3, 1, 2)          # channels-last view: cuDNN NHWC
     m = n * oh * ow
-    nbytes = x.numel() * x.element_size() + packed.numel() * 4 + m * r * 4
-    flops = 2.0 * m * 9 * c * r
-    t_bytes, t_ops = 1e3 * nbytes / bw, 1e3 * flops / peak
-    res = dict(err=err, scale=scale, flops=flops,
+    work = kernel_terms("B6", x.shape, packed.shape, x.dtype, out_hw=kw["out_hw"])
+    t_bytes, t_ops = work.times_ms(card)
+    res = dict(err=err, scale=scale, flops=work.ops,
                ms=time_ms(lambda: kernel(x, packed, **kw)),
                plain_ms=time_ms(lambda: tiled_conv_plain(x, packed, **kw)),
                library_ms=time_ms(lambda: F.conv2d(x_nchw, bank, stride=kw["stride"])),
@@ -3194,16 +3403,17 @@ def phase_conv(card: str):
     from repro_torch.core.packing import pack_conv_tile
     from repro_torch.core.tiling import plan_tiling
     from repro_torch.kernels import ops
+    from repro_torch.roofline import hw
 
-    bw, bf16_peak, f32_peak, _ = peaks(card)
+    hwc = hw.card(card)  # data-sheet peaks by the nvidia-smi name
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
     results = {}
     for name, h, c, r, stride, _ in CONV_SHAPES:
         for n in CONV_NS:
-            for dtype, peak in ((torch.bfloat16, bf16_peak), (torch.float32, f32_peak)):
+            for dtype in (torch.bfloat16, torch.float32):
                 x, packed, kw = conv_operands(n, h, c, r, stride, dtype, gen)
-                res = check_conv(x, packed, kw, bw, peak)
+                res = check_conv(x, packed, kw, hwc)
                 dname = str(dtype).split(".")[-1]
                 results[(name, n, dname)] = res
                 print(f"B6 {name:22s} N={n:2d} r={r} {dname:8s} max|err|="
@@ -3786,7 +3996,8 @@ def phase_tp(card: str, sp34):
     """Phase 4r: the exports of phases 3, 4e and 9 (granite-8b whole, its
     engines cut to TP_LAYERS; qwen2-moe-a2.7b cut to TP_MOE_LAYERS;
     ResNet-34 whole) served by 2 and then 4 ranks that share cuda:0 over
-    gloo, against the single card on the same exports."""
+    gloo, against the single card on the same exports. Returns the tile
+    bytes each rank of the (1, 2) job held ({rank: bytes})."""
     import numpy as np
     import torch
 
@@ -3857,6 +4068,8 @@ def phase_tp(card: str, sp34):
                     v * tp != total_tile for v in per_rank.values()):
                 fail(f"{who}: tile bytes per rank {per_rank} x TP={tp} != "
                      f"{total_tile}")
+            if dims == (1, 2):
+                tile_rank = per_rank
             if "moe" in parts:
                 mw = tp_close(f"{who} {MOE} L={TP_MOE_LAYERS} f32", res["moe_logits"],
                               ref["moe_logits"], TP_LOGIT_RTOL)
@@ -3909,6 +4122,7 @@ def phase_tp(card: str, sp34):
     tp_mesh_cli_finish(cli, card)
     print(f"phase 4r (TP/EP serving, ranks sharing one card): "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return tile_rank
 
 
 # ---------------------------------------------------------------------------
@@ -3927,6 +4141,50 @@ def train_mesh_model(cfg, fused: bool = True):
                                          compute_dtype=torch.bfloat16,
                                          device="cuda", fused_train=fused,
                                          fsdp_weights=cfg.fsdp_weights))
+
+
+def train_moe_model(cfg):
+    """qwen2-moe-a2.7b cut to TP_MOE_LAYERS, TRAIN mode, bf16 compute, fused
+    (B5 + B2 for its attention, shared experts and head), on cuda:0."""
+    import torch
+
+    from repro_torch.configs import build_model
+    from repro_torch.nn.context import TRAIN, ModelContext
+
+    cut = dataclasses.replace(cfg, n_layers=TP_MOE_LAYERS)
+    return build_model(cut, ModelContext(policy=cfg.tbn, mode=TRAIN,
+                                         compute_dtype=torch.bfloat16,
+                                         device="cuda", fused_train=True))
+
+
+def placed_masters(model, shards, mesh):
+    """This rank's blocks of ``model.init(0)``, built one whole leaf at a
+    time (a rank never holds the whole masters)."""
+    from repro_torch.distributed.sharding import master_block
+    from repro_torch.nn import module as mod
+
+    out: dict = {}
+    for path, spec in mod.walk(model.specs()):
+        leaf = mod.init_leaf(spec, 0, path, model.device)
+        mod.set_path(out, path, master_block(leaf, mod.get_path(shards, path), mesh))
+        del leaf
+    return out
+
+
+def plain_sgd(lr: float):
+    """SGD without momentum (p -= lr * g in place): no state but the step."""
+    import torch
+
+    from repro_torch.nn import module as mod
+    from repro_torch.optim.adamw import Optimizer
+
+    @torch.no_grad()
+    def update(grads, step, params):
+        for path, v in mod.walk(params):
+            v.sub_(lr * mod.get_path(grads, path).to(v.dtype))
+        return params, step + 1
+
+    return Optimizer(init=lambda params: 0, update=update)
 
 
 def train_mesh_batch(cfg, step: int):
@@ -3966,16 +4224,19 @@ def train_mesh_reckon(model, dims, card_bytes: int) -> dict:
 def timing_collectives(out: dict):
     """Within the block, every collective of torch.distributed (all_reduce,
     all_gather, broadcast, barrier) is timed with the card synchronized
-    before and after, into ``out["s"]`` and ``out["n"]``."""
+    before and after, into ``out["s"]`` and ``out["n"]``, and counted by
+    kind (the dry run's names) into ``out["kinds"]``."""
     import torch
     import torch.distributed as dist
 
-    names = ("all_reduce", "all_gather", "broadcast", "barrier")
+    names = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+             "broadcast": "broadcast", "barrier": "barrier"}
     saved = {n: getattr(dist, n) for n in names}
     out.setdefault("s", 0.0)
     out.setdefault("n", 0)
+    out.setdefault("kinds", {})
 
-    def timed_call(fn):
+    def timed_call(fn, kind):
         def run(*a, **kw):
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -3983,11 +4244,12 @@ def timing_collectives(out: dict):
             torch.cuda.synchronize()
             out["s"] += time.perf_counter() - t
             out["n"] += 1
+            out["kinds"][kind] = out["kinds"].get(kind, 0) + 1
             return res
         return run
 
     for n, fn in saved.items():
-        setattr(dist, n, timed_call(fn))
+        setattr(dist, n, timed_call(fn, names[n]))
     try:
         yield out
     finally:
@@ -4041,7 +4303,7 @@ def train_mesh_steps(model, step_fn, state):
     read just after and every plain version counted; the last step is
     timed with its collectives timed (the card synchronized around each).
     Returns (losses, clip norms, counts, plain, ms of the last step,
-    collectives' seconds and calls in it, final state)."""
+    collectives' seconds, calls and calls by kind in it, final state)."""
     import torch
 
     cfg = model.cfg
@@ -4059,7 +4321,7 @@ def train_mesh_steps(model, step_fn, state):
                 gnorms.append(float(m["grad_norm"]))
     counts = read_counters()
     return (losses, gnorms, counts, plain, ms, coll.get("s", 0.0), coll.get("n", 0),
-            state)
+            coll.get("kinds", {}), state)
 
 
 def update_leaf(path) -> bool:
@@ -4139,8 +4401,8 @@ def train_mesh_rank_main(job_dir: str) -> None:
         state = init_state(params, opt)
         held = sum(v.numel() * v.element_size() for _, v in mod.walk(params))
         lap(f"{tag} set-up")
-        losses, gnorms, counts, plain, ms, coll_s, coll_n, state = train_mesh_steps(
-            model, step_fn, state)
+        losses, gnorms, counts, plain, ms, coll_s, coll_n, kinds, state = (
+            train_mesh_steps(model, step_fn, state))
         peak = torch.cuda.max_memory_allocated()
         params = state.params
         del state       # the moments go before the update is read
@@ -4150,11 +4412,34 @@ def train_mesh_rank_main(job_dir: str) -> None:
         out[tuple(dims)] = dict(
             words=words, alpha=alpha, model_index=mesh.get_local_rank("model"),
             losses=losses, gnorms=gnorms, update_err=update_err, counts=counts,
-            plain=plain, step_ms=ms, coll_s=coll_s, coll_n=coll_n, held=held,
-            peak=peak)
+            plain=plain, step_ms=ms, coll_s=coll_s, coll_n=coll_n, kinds=kinds,
+            held=held, peak=peak)
         del model, params, step_fn, opt
         torch.cuda.empty_cache()
         lap(f"{tag} steps")
+    if "moe" in job["parts"]:
+        moe = get_config(MOE)
+        for dims in (d for d in MOE_TRAIN_MESHES if d[0] * d[1] == world):
+            mesh = init_device_mesh("cuda", dims, mesh_dim_names=("data", "model"))
+            model = train_moe_model(moe)
+            shards = train_shards(model.specs(), mesh)
+            params = placed_masters(model, shards, mesh)
+            opt = plain_sgd(TRAIN_MESH_LR)
+            step_fn = build_train_step(model.train_forward, opt, mesh=mesh,
+                                       shards=shards)
+            state = init_state(params, opt)
+            held = sum(v.numel() * v.element_size() for _, v in mod.walk(params))
+            experts = int(params["seg0"]["ffn"]["up"]["w"].shape[1])
+            torch.cuda.reset_peak_memory_stats()
+            losses, gnorms, counts, plain, ms, coll_s, coll_n, kinds, state = (
+                train_mesh_steps(model, step_fn, state))
+            out[("moe", dims)] = dict(
+                losses=losses, gnorms=gnorms, counts=counts, plain=plain,
+                step_ms=ms, coll_s=coll_s, coll_n=coll_n, kinds=kinds, held=held,
+                experts=experts, peak=torch.cuda.max_memory_allocated())
+            del model, params, state, step_fn, opt
+            torch.cuda.empty_cache()
+            lap(f"moe {dims[0]}x{dims[1]}")
     if "ef_sign" in job["parts"]:
         from repro_torch.distributed.compression import (
             CompressionState, build_dp_train_step)
@@ -4325,7 +4610,7 @@ def train_cli_mesh_finish(started, card: str) -> None:
           f"{time.perf_counter() - t0:.1f}s; {done.strip()}", flush=True)
 
 
-def phase_train_mesh(card: str) -> None:
+def phase_train_mesh(card: str) -> dict:
     """Phase 5r: granite-8b training at full width cut to TRAIN_MESH_LAYERS,
     fused, under (1, 2), (2, 1) and (2, 2) on ranks sharing cuda:0 over
     gloo, against one card on the same masters; the EF-sign DP step, a
@@ -4364,7 +4649,7 @@ def phase_train_mesh(card: str) -> None:
     params = model.init(0)
     ref_words, ref_alpha = train_probe(model, params, None)
     opt = adamw(TRAIN_MESH_LR)
-    ref_losses, ref_gnorms, ref_counts, _, ref_ms, _, _, state = train_mesh_steps(
+    ref_losses, ref_gnorms, ref_counts, _, ref_ms, _, _, _, state = train_mesh_steps(
         model, build_train_step(model.train_forward, opt), init_state(params, opt))
     if ref_counts["B5"] != TRAIN_MESH_STEPS * per_step:
         fail(f"phase 5r single card: launches {ref_counts}")
@@ -4385,12 +4670,29 @@ def phase_train_mesh(card: str) -> None:
           + f", step {TRAIN_MESH_STEPS} {ref_ms:.1f} ms; {time.perf_counter() - t_phase:.1f}s",
           flush=True)
 
+    # the MoE jobs' one-card reference: the same masters, batches and SGD
+    moe = get_config(MOE)
+    model = train_moe_model(moe)
+    opt = plain_sgd(TRAIN_MESH_LR)
+    moe_losses, moe_gnorms, moe_counts, _, moe_ms, _, _, _, state = train_mesh_steps(
+        model, build_train_step(model.train_forward, opt),
+        init_state(model.init(0), opt))
+    if moe_counts["B5"] != TRAIN_MESH_STEPS * per_step:
+        fail(f"phase 5r {MOE} single card: launches {moe_counts}")
+    del model, state, opt
+    release()
+    print(f"phase 5r single card ({MOE} full width, L={TP_MOE_LAYERS}, "
+          f"{moe.moe.n_experts} experts, fused, bf16, {TRAIN_BATCH}x{TRAIN_SEQ}, "
+          f"SGD {TRAIN_MESH_LR}): losses " + " ".join(f"{v:.5f}" for v in moe_losses)
+          + ", clip norms " + " ".join(f"{v:.6f}" for v in moe_gnorms)
+          + f", step {TRAIN_MESH_STEPS} {moe_ms:.1f} ms", flush=True)
+
     # both jobs start now; the second trains once the first has ended (its
     # ranks' start-up runs beside the first job), with the CLI beside it
     jobs = [train_mesh_job_start(list(dims_list), PARTS_5R[i],
                                  dims_list[0][0] * dims_list[0][1], go=i == 0)
             for i, dims_list in enumerate(TRAIN_MESH_JOBS)]
-    cli = None
+    cli, mesh_results = None, {}
     for i, (dims_list, job) in enumerate(zip(TRAIN_MESH_JOBS, jobs)):
         parts, world = PARTS_5R[i], len(job["procs"])
         if i:
@@ -4431,6 +4733,7 @@ def phase_train_mesh(card: str) -> None:
                          f"{got['plain']}; need B5 = B2 = {TRAIN_MESH_STEPS} * "
                          f"(14 L + 1) = {want}, the rest 0, no plain version")
             res = ranks[0][dims]
+            mesh_results[dims] = res
             print(f"phase 5r [{label}]: B5 words of each rank's rows equal one "
                   f"card's, alpha within 1e-5; losses "
                   + " ".join(f"{v:.5f}" for v in res["losses"])
@@ -4451,6 +4754,42 @@ def phase_train_mesh(card: str) -> None:
                   f"synchronized; ranks share one card over gloo: information, not "
                   f"a multi-card figure); peak {res['peak'] / 1e9:.2f} GB a rank",
                   flush=True)
+        for dims in (d for d in MOE_TRAIN_MESHES if d[0] * d[1] == world):
+            label = f"{MOE} mesh {dims} ({world} ranks sharing one card, {card})"
+            want = TRAIN_MESH_STEPS * per_step
+            for r, rank_res in enumerate(ranks):
+                got = rank_res[("moe", dims)]
+                if not all(math.isfinite(v) for v in got["losses"]) or any(
+                        abs(a - b) > TRAIN_MESH_RTOL * abs(b)
+                        for a, b in zip(got["losses"], moe_losses, strict=True)):
+                    fail(f"{label} rank {r}: losses {got['losses']} vs one card's "
+                         f"{moe_losses} (rtol {TRAIN_MESH_RTOL})")
+                if any(abs(a - b) > TRAIN_MESH_GNORM_RTOL * abs(b)
+                       for a, b in zip(got["gnorms"], moe_gnorms, strict=True)):
+                    fail(f"{label} rank {r}: clip norms {got['gnorms']} vs one "
+                         f"card's {moe_gnorms} (rtol {TRAIN_MESH_GNORM_RTOL})")
+                c = got["counts"]
+                if (c["B5"] != want or c["B2"] != want
+                        or any(c[k] for k in ("B1", "B3", "B4", "B6")) or got["plain"]
+                        or got["experts"] != moe.moe.n_experts // dims[1]):
+                    fail(f"{label} rank {r}: launches {c}, plain versions "
+                         f"{got['plain']}, {got['experts']} experts held; need B5 = "
+                         f"B2 = {want}, the rest 0, E / TP = "
+                         f"{moe.moe.n_experts // dims[1]}")
+            got = ranks[0][("moe", dims)]
+            mesh_results[("moe", dims)] = got
+            print(f"phase 5r [{label}]: {got['experts']} of {moe.moe.n_experts} "
+                  f"experts' masters a rank ({got['held'] / 1e9:.3f} GB of masters); "
+                  f"losses " + " ".join(f"{v:.5f}" for v in got["losses"])
+                  + f" within rtol {TRAIN_MESH_RTOL} and clip norms "
+                  + " ".join(f"{v:.6f}" for v in got["gnorms"])
+                  + f" within rtol {TRAIN_MESH_GNORM_RTOL} of one card's; launches a "
+                  f"rank B5 = B2 = {got['counts']['B5']}, B1 = B3 = B4 = B6 = 0, no "
+                  f"plain version run; step {TRAIN_MESH_STEPS} {got['step_ms']:.1f} ms "
+                  f"(one card {moe_ms:.1f}), {got['coll_n']} collectives "
+                  f"{1e3 * got['coll_s']:.1f} ms = "
+                  f"{got['coll_s'] * 1e3 / got['step_ms']:.3f} of it; peak "
+                  f"{got['peak'] / 1e9:.2f} GB a rank", flush=True)
         if "ef_sign" in parts:
             for r, res in enumerate(ranks):
                 if not math.isfinite(res["ef_sign"]["loss"]):
@@ -4503,6 +4842,120 @@ def phase_train_mesh(card: str) -> None:
     release()
     print(f"phase 5r (training under a mesh, ranks sharing one card): "
           f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    return mesh_results
+
+
+def meta_grad_peak(cfg, batch: int, seq: int):
+    """(peak bytes, {kernel id: calls}) of one forward + backward of
+    ``cfg``'s fused train model on ``meta`` masters and a (batch, seq)
+    token batch, counted by ``roofline.analysis.CostCounter``: the most
+    bytes its ops hold alive at once (activations, saved products,
+    recomputes, gradients), what phase 5d's forward + backward measures."""
+    import torch
+
+    from repro_torch.configs import build_model
+    from repro_torch.nn import module as mod
+    from repro_torch.nn.context import TRAIN, ModelContext
+    from repro_torch.roofline.analysis import CostCounter
+
+    model = build_model(cfg, ModelContext(policy=cfg.tbn, mode=TRAIN,
+                                          compute_dtype=torch.bfloat16,
+                                          device="meta", fused_train=True))
+    params = mod.abstract_params(model.specs())
+    leaves = [v.requires_grad_(True) for _, v in mod.walk(params)]
+    tokens = torch.empty((batch, seq), dtype=torch.int64, device="meta")
+    counter = CostCounter()
+    with counter:
+        loss, _ = model.train_forward(params, {"tokens": tokens})
+        torch.autograd.grad(loss, leaves)
+    return counter.peak_bytes, dict(counter.kernels)
+
+
+def phase_dryrun(card: str, remat: dict, tile_rank: dict, mesh_results: dict) -> None:
+    """Phase 11 (last): the dry run's counts (``launch.dryrun.count_cell``:
+    the cell built for one rank on ``meta`` tensors under a fake process
+    group of the mesh's size, its step run once under
+    ``roofline.analysis.CostCounter``; nothing runs on the card) against
+    what this run measured on the card: the tile bytes a rank of
+    granite-8b serving at (1, 2) (phase 4r), the collectives a train step
+    and their kinds of granite-8b at (1, 2), (2, 1), (2, 2) and of
+    qwen2-moe at (1, 2), (2, 2) (phase 5r's step 2), each exactly; phase
+    5d's state bytes exactly and its B5 / B2 launches, and each remat
+    policy's predicted step peak (state and batch plus the most bytes the
+    step's ops hold alive) and forward + backward peak
+    (``meta_grad_peak``) against phase 5d's ``max_memory_allocated``
+    within DRYRUN_PEAK_TOL."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.dryrun import count_cell
+
+    t0 = time.perf_counter()
+    granite = get_config("granite-8b")
+    served = count_cell(granite, ShapeCell("4r", 64, N_SLOTS, "decode"), (1, 2))
+    if set(tile_rank.values()) != {served["tile_bytes"]}:
+        fail(f"phase 11: the dry run's tile bytes a rank at (1, 2) "
+             f"{served['tile_bytes']} vs phase 4r's {tile_rank}")
+    print(f"phase 11 [dry run vs phase 4r, {card}]: granite-8b serving at (1, 2), "
+          f"tile bytes a rank {served['tile_bytes']} (counted on meta) = "
+          f"{sorted(set(tile_rank.values()))} (held on the card's ranks)",
+          flush=True)
+    step_cell = ShapeCell("step", TRAIN_SEQ, TRAIN_BATCH, "train")
+    for arch, layers, key in (("granite-8b", TRAIN_MESH_LAYERS, lambda d: d),
+                              (MOE, TP_MOE_LAYERS, lambda d: ("moe", d))):
+        cut = dataclasses.replace(get_config(arch), n_layers=layers)
+        for dims in ((1, 2), (2, 1), (2, 2)):
+            if key(dims) not in mesh_results:
+                continue
+            counted = count_cell(cut, step_cell, dims)["coll_calls"]
+            seen = mesh_results[key(dims)]["kinds"]
+            if counted != seen:
+                fail(f"phase 11: {arch} L={layers} at {dims}: the dry run counts "
+                     f"{counted} collectives a step, phase 5r's step 2 ran {seen}")
+            print(f"phase 11 [dry run vs phase 5r, {card}]: {arch} L={layers} at "
+                  f"{dims}: {sum(counted.values())} collectives a step "
+                  + " ".join(f"{k} {v}" for k, v in sorted(counted.items()))
+                  + " (meta) = phase 5r's step 2 on the card's ranks", flush=True)
+    for mode in REMAT_MODES:
+        cut = dataclasses.replace(granite, n_layers=TRAIN_LAYERS, remat=mode)
+        got = count_cell(cut, step_cell, (1, 1))
+        card_run = remat[mode]
+        want_k = {k: v for k, v in card_run["counts"].items() if v}
+        if got["state_bytes"] != card_run["state_bytes"] or got["kernels"] != want_k:
+            fail(f"phase 11 remat={mode}: the dry run's state {got['state_bytes']} B "
+                 f"and kernels {got['kernels']} vs phase 5d's "
+                 f"{card_run['state_bytes']} B and {want_k}")
+        predicted = got["argument_bytes"] + got["peak_bytes"]
+        ratio = predicted / card_run["peak"]
+        if abs(ratio - 1) > DRYRUN_PEAK_TOL:
+            fail(f"phase 11 remat={mode}: predicted step peak {predicted / 1e9:.3f} "
+                 f"GB vs max_memory_allocated {card_run['peak'] / 1e9:.3f} GB "
+                 f"(ratio {ratio:.3f}, need within {DRYRUN_PEAK_TOL})")
+        fb_peak, fb_kernels = meta_grad_peak(cut, REMAT_BATCH, TRAIN_SEQ)
+        want_fb = {k: v for k, v in card_run["fb_counts"].items() if v}
+        fb_ratio = fb_peak / card_run["fb_peak"]
+        if fb_kernels != want_fb or abs(fb_ratio - 1) > DRYRUN_PEAK_TOL:
+            fail(f"phase 11 remat={mode}: forward + backward at {REMAT_BATCH}x"
+                 f"{TRAIN_SEQ} predicted peak {fb_peak / 1e9:.3f} GB and kernels "
+                 f"{fb_kernels} vs phase 5d's {card_run['fb_peak'] / 1e9:.3f} GB "
+                 f"and {want_fb} (ratio {fb_ratio:.3f}, need within "
+                 f"{DRYRUN_PEAK_TOL})")
+        print(f"phase 11 [dry run vs phase 5d, {card}]: granite-8b L={TRAIN_LAYERS} "
+              f"remat={mode}: state {got['state_bytes']} B = the card's; launches "
+              f"{got['kernels']} = the card's; step peak predicted "
+              f"{predicted / 1e9:.3f} GB (state and batch "
+              f"{got['argument_bytes'] / 1e9:.3f} + the ops' "
+              f"{got['peak_bytes'] / 1e9:.3f}) against max_memory_allocated "
+              f"{card_run['peak'] / 1e9:.3f} GB: ratio {ratio:.4f}; forward + "
+              f"backward at {REMAT_BATCH}x{TRAIN_SEQ}: launches {fb_kernels} = the "
+              f"card's, peak predicted {fb_peak / 1e9:.3f} GB against "
+              f"{card_run['fb_peak'] / 1e9:.3f} GB: ratio {fb_ratio:.4f} (bound "
+              f"1 +- {DRYRUN_PEAK_TOL} each)", flush=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    print(f"phase 11 (the dry run against the card): "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def main() -> None:
@@ -4575,7 +5028,7 @@ def main() -> None:
         del sp
         release()
     seamless = get_config(SEAMLESS)
-    sp, enc_counts = phase_serve_paths(seamless, "4k")
+    sp, enc_counts = phase_serve_paths(seamless, "4k", requests=SEAMLESS_REQUESTS)
     phase_encdec_card_vs_cpu(seamless, sp)
     phase_features_seamless(seamless, sp)
     del sp
@@ -4592,15 +5045,17 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train_fused(cfg)
+    remat = phase_train_remat(cfg, card)
     for arch in ("granite-8b", MOE, SEAMLESS):
         phase_train_cli(arch)
     phase_train_card_vs_cpu(cfg)
     conv = phase_conv(card)
     sp34, r34 = phase_resnet34()
     phase_resnet34_card_vs_cpu(sp34)
-    phase_tp(card, sp34)
+    tile_rank = phase_tp(card, sp34)
     del sp34
-    phase_train_mesh(card)
+    mesh_results = phase_train_mesh(card)
+    phase_dryrun(card, remat, tile_rank, mesh_results)
 
     entries = []
     for kname, fname, m, head, dtype, replaces in (

@@ -7,7 +7,7 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeCell, cell_applicable
 
 _MODULES: Dict[str, str] = {
     "granite-8b": "repro_torch.configs.granite_8b",
@@ -43,4 +43,12 @@ def build_model(cfg: ArchConfig, ctx=None):
     return DecoderLM(cfg, ctx)
 
 
-__all__ = ["ARCH_IDS", "ArchConfig", "build_model", "get_config"]
+__all__ = [
+    "ARCH_IDS",
+    "SHAPES",
+    "ArchConfig",
+    "ShapeCell",
+    "build_model",
+    "cell_applicable",
+    "get_config",
+]

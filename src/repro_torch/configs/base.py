@@ -1,10 +1,11 @@
-"""Architecture config schema (port of the model and training fields of
-``repro/configs/base.py``, with ``fsdp_weights``). The other sharding
-recipes and the shape cells are not ported."""
+"""Architecture config schema and input-shape cells (port of
+``repro/configs/base.py``: the model and training fields, the shape-cell
+capabilities, ``fsdp_weights`` and ``rules_override``; the ``attn_act``
+recipe is not ported)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 from repro_torch.core.policy import TBNPolicy, tbn_policy
 
@@ -61,12 +62,21 @@ class ArchConfig:
         )
     )
     kv_dtype: str = "bf16"         # "bf16" (the compute dtype) | "int8"
-    remat: str = "full"            # training: full | none ("dots" not ported)
+    # shape-cell capabilities
+    supports_decode: bool = True
+    subquadratic: bool = False     # may run long_500k
+    remat: str = "full"            # training: full | dots | none
     attn_chunk: int = 1024         # chunked-attention query block
     grad_accum: int = 1            # microbatches per training step
+    # the reference's roofline unrolls its layer scan with this; the port's
+    # layer loop is always unrolled, so it changes nothing here
+    force_unroll: bool = False
     # training under a mesh: a tiled Dense's masters also split their n_in
     # dim over "data" and are gathered at use (ZeRO-3)
     fsdp_weights: bool = False
+    # per-arch logical -> mesh rule overrides ((key, value) pairs merged over
+    # distributed.sharding.DEFAULT_RULES)
+    rules_override: Tuple[Tuple[str, object], ...] = ()
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests (the reference's
@@ -100,3 +110,31 @@ class ArchConfig:
             tbn=dataclasses.replace(self.tbn, min_size=1024),
             attn_chunk=64,
         )
+
+
+# ---------------------------------------------------------------------------
+# Input-shape cells (shared by all LM-family archs)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ArchConfig, shape: ShapeCell) -> Tuple[bool, str]:
+    """(runs?, reason-if-skipped), the reference's skips word for word."""
+    if shape.kind == "decode" and not cfg.supports_decode:
+        return False, "SKIP: encoder-only, no decode step"
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "SKIP: full-attention (needs sub-quadratic)"
+    return True, ""

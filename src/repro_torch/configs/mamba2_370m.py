@@ -17,5 +17,6 @@ CONFIG = ArchConfig(
     vocab=50_280,
     ssm=SSMSpec(d_state=128, head_dim=64, expand=2, n_groups=1, chunk=256),
     norm="rmsnorm",
+    subquadratic=True,
     tbn=tbn_policy(p=4, min_size=150_000, alpha_source="W", alpha_mode="tile"),
 )

@@ -22,5 +22,6 @@ CONFIG = ArchConfig(
     activation="gelu",
     gated_mlp=True,
     norm="rmsnorm",
+    subquadratic=True,
     tbn=tbn_policy(p=8, min_size=150_000, alpha_source="W", alpha_mode="tile"),
 )

@@ -13,6 +13,7 @@ Unpacking uses ``(w >> j) & 1``, which is exact under the arithmetic
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 LANE_BITS = 32
@@ -45,6 +46,18 @@ def unpack_bits(packed: torch.Tensor, q: int, dtype=torch.float32) -> torch.Tens
     return (flat * 2 - 1).to(dtype)
 
 
+def pack_tile_matrix(tm: torch.Tensor) -> torch.Tensor:
+    """(r, n) ±1 tile matrix -> (r, ceil(n/32)) int32, packed per row: each
+    weight row's bits stay contiguous, so a kernel unpacks a block of rows
+    without crossing them."""
+    return pack_bits(tm)
+
+
+def unpack_tile_matrix(packed: torch.Tensor, n: int,
+                       dtype=torch.float32) -> torch.Tensor:
+    return unpack_bits(packed, n, dtype)
+
+
 def pack_conv_tile(t: torch.Tensor, r: int, c_in: int, kh: int, kw: int
                    ) -> torch.Tensor:
     """Flat conv tile (q,) ±1 -> (kh*kw, r, ceil(c_in/32)) int32, the "conv
@@ -61,3 +74,21 @@ def unpack_conv_tile(packed: torch.Tensor, r: int, c_in: int, kh: int, kw: int,
     """(kh*kw, r, ceil(c_in/32)) int32 -> OIHW tile bank (r, c_in, kh, kw) ±1."""
     by_pos = unpack_bits(packed, c_in, dtype=dtype)        # (kh*kw, r, c_in)
     return by_pos.reshape(kh, kw, r, c_in).permute(2, 3, 0, 1)
+
+
+def storage_bytes(q: int, n_alpha: int) -> int:
+    """Exact shipped bytes for one tiled layer (tile words + f32 alphas)."""
+    return packed_len(q) * 4 + 4 * n_alpha
+
+
+def pack_bits_np(t: np.ndarray) -> np.ndarray:
+    """NumPy twin of ``pack_bits`` (the export path, no device needed)."""
+    q = t.shape[-1]
+    bits = (t > 0).astype(np.uint32)
+    pad = packed_len(q) * LANE_BITS - q
+    if pad:
+        bits = np.concatenate([bits, np.zeros(t.shape[:-1] + (pad,), np.uint32)],
+                              axis=-1)
+    words = bits.reshape(*t.shape[:-1], packed_len(q), LANE_BITS)
+    shifts = np.arange(LANE_BITS, dtype=np.uint32)
+    return (words << shifts).sum(axis=-1, dtype=np.uint32).astype(np.int32)

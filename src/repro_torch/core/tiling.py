@@ -232,6 +232,17 @@ def reconstruct_from_tile(t: torch.Tensor, alpha: torch.Tensor, spec: TileSpec,
     return (b * a).reshape(*lead, *spec.shape).to(dtype)
 
 
+def tile_as_matrix(t: torch.Tensor, spec: TileSpec) -> torch.Tensor:
+    """The q-bit tile as an (r, trailing) ±1 matrix (aligned case): for a
+    dense weight stored (n_out, n_in) with p | n_out the effective weight is
+    the block-row replication W_hat = kron(alpha, T)."""
+    if len(spec.shape) < 2:
+        raise ValueError("tile_as_matrix needs a >=2-D weight")
+    if not spec.aligned_rows:
+        raise ValueError("unaligned tiling cannot be viewed as a row block")
+    return t.reshape(spec.rows_per_tile, spec.n // spec.shape[0])
+
+
 def tiled_matmul_reference(x: torch.Tensor, t: torch.Tensor,
                            alpha: torch.Tensor, spec: TileSpec) -> torch.Tensor:
     """y = x @ W_hat^T the tile-reuse way (aligned dense layers): u = x @ T^T
@@ -247,6 +258,24 @@ def tiled_matmul_reference(x: torch.Tensor, t: torch.Tensor,
     else:
         y = u[..., None, :] * alpha.reshape((1,) * (u.ndim - 1) + (spec.p, 1))
     return y.reshape(*x.shape[:-1], n_out)
+
+
+def fold_inputs_reference(x: torch.Tensor, t: torch.Tensor,
+                          alpha: torch.Tensor, spec: TileSpec) -> torch.Tensor:
+    """y = x @ W_hat for weights stored (n_in, n_out) with p | n_in: the
+    replication lies along the contraction dim, so the p blocks of x are
+    pre-combined, y = (sum_i alpha_i * x[..., i*r:(i+1)*r]) @ T, p-fold
+    fewer products and no output replication."""
+    n_in = spec.shape[0]
+    r = spec.rows_per_tile
+    n_out = spec.n // n_in
+    xb = x.reshape(*x.shape[:-1], spec.p, r)
+    alpha = alpha.to(x.dtype)
+    if spec.alpha_mode == "layer":
+        folded = alpha.reshape(1) * xb.sum(dim=-2)
+    else:
+        folded = torch.einsum("...pr,p->...r", xb, alpha)
+    return folded @ t.reshape(r, n_out).to(x.dtype)
 
 
 # --------------------------------------------------------------------------

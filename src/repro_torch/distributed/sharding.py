@@ -73,11 +73,6 @@ DEFAULT_RULES: Dict[str, AxisVal] = {
     "act_experts": "model",
 }
 
-# MoE expert banks in TRAIN mode under a model axis (neither expert- nor
-# row-sharded training of the banks is ported)
-MOE_TRAIN_TP_ITEM = ("ROADMAP.md queue A item 9e (MoE expert banks trained "
-                     "under a model axis)")
-
 # the logical dims a rank keeps its block of; the leaves kept whole
 # whatever their axes name (the router: routing is replicated)
 SHARDED_AXES = ("tile_rows", "experts")
@@ -144,17 +139,53 @@ def _rules_as(mesh, rules):
         _ACTIVE.mesh, _ACTIVE.rules = prev
 
 
-def remat(fn, *args):
+# the outputs the "dots" policy saves: the matrix products (aten's, and
+# kernels B1 / B2, ``kernels/_op.py``)
+DOT_OPS = frozenset({
+    "aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm", "aten::matmul",
+    "repro_torch::tiled_matvec_unique", "repro_torch::tiled_matmul_unique"})
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat="dots"`` (the reference's
+    ``jax.checkpoint_policies.checkpoint_dots``): save every matrix
+    product's output (``DOT_OPS``), recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op._schema.name in DOT_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, *args, policy=None):
     """``torch.utils.checkpoint`` (non-reentrant) whose recompute runs under
     the axis rules its forward ran under: the backward of CUDA tensors runs
     in autograd's device thread, which the thread-local rules do not
     reach, and a rank's tiled layers must take their per-shard branch
-    there too."""
-    from torch.utils.checkpoint import checkpoint
+    there too. ``policy`` (e.g. ``dots_policy``) makes it a selective
+    checkpoint: the outputs it saves are kept from the forward, the rest
+    recomputed."""
+    from torch.utils.checkpoint import (
+        checkpoint,
+        create_selective_checkpoint_contexts,
+    )
 
     mesh, rules = _ACTIVE.mesh, _ACTIVE.rules
-    return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
-        contextlib.nullcontext(), _rules_as(mesh, rules)))
+
+    def contexts():
+        if policy is None:
+            fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+        else:
+            fwd, rec = create_selective_checkpoint_contexts(policy)
+
+        @contextlib.contextmanager
+        def recompute():
+            with rec, _rules_as(mesh, rules):
+                yield
+
+        return fwd, recompute()
+
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
 
 
 def _as_axes(v: AxisVal) -> Tuple[str, ...]:
@@ -225,6 +256,17 @@ def batch_shard_axes(exclude: Sequence[str], dim: int) -> Tuple[str, ...]:
     if mesh is None:
         return ()
     return _dividing_prefix(mesh, tuple(a for a in axes if a not in exclude), dim)
+
+
+def data_parallel_axes() -> Optional[Tuple[Mesh, Tuple[str, ...], int]]:
+    """(mesh, axes, extent) of the active "act_batch" rule's axes of extent
+    > 1: the axes a training step splits its global batch over
+    (``train.step.dp_rows``), or None."""
+    mesh, axes = _rule_axes("act_batch")
+    if mesh is None:
+        return None
+    axes = tuple(a for a in axes if mesh_extents(mesh)[a] > 1)
+    return (mesh, axes, _mesh_extent(mesh, axes)) if axes else None
 
 
 def spec_from_logical(logical: Sequence[Optional[str]]) -> Tuple[AxisVal, ...]:
@@ -362,15 +404,25 @@ def broadcast_from_first(t: torch.Tensor, mesh) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class MasterShard:
-    """How a rank holds one TRAIN leaf whose last two dims are a tiled
-    Dense's (p * r, n_in) masters: ``rows`` are the mesh axes that split
-    each replica's r unique rows (a rank on model index t keeps rows
+    """How a rank holds one TRAIN leaf. A tiled Dense's (p * r, n_in)
+    masters (its last two dims): ``rows`` are the mesh axes that split each
+    replica's r unique rows (a rank on model index t keeps rows
     [t r/TP, (t+1) r/TP) of every replica), ``cols`` the axes that split
-    n_in (``fsdp_weights``)."""
+    n_in (``fsdp_weights``). A MoE expert bank: ``experts`` are the axes
+    that split its E experts (dim ``experts_dim``; a rank on model index t
+    keeps experts [t E/TP, (t+1) E/TP)), as serving's expert parallelism
+    places its banks."""
 
     p: int
     rows: Tuple[str, ...] = ()
     cols: Tuple[str, ...] = ()
+    experts: Tuple[str, ...] = ()
+    experts_dim: int = 0
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """Every axis that splits the leaf."""
+        return tuple(self.rows) + tuple(self.cols) + tuple(self.experts)
 
 
 def _axis_for(mesh, rules: Dict[str, AxisVal], name: str, dim: int
@@ -390,20 +442,20 @@ def train_shards(specs, mesh, *, fsdp: bool = False,
     its r unique rows over the "tile_rows" rule's axes where their extent
     divides r, and under ``fsdp`` its n_in over the "embed" rule's axes
     where theirs divides n_in (the ``_divisible_spec`` rules: a ragged dim
-    stays whole). The router and every other leaf stay whole. An expert
-    bank's masters under a model axis raise: the port trains MoE banks on
-    one device or replicated over "data" only."""
+    stays whole). A MoE expert bank's masters split their E experts over
+    the "experts" rule's axes where their extent divides E (a rank holds
+    E/TP experts' masters). The router and every other leaf stay whole."""
     rules = _filter_rules(mesh, rules)
     out: dict = {}
     for path, spec in mod.walk(specs):
         shard = None
         if path[-1] in WHOLE_LEAVES:
             pass
-        elif "experts" in spec.logical and _axis_for(
-                mesh, rules, "experts", spec.shape[spec.logical.index("experts")]):
-            raise NotImplementedError(
-                f"{'/'.join(path)}: expert banks trained under a model axis "
-                f"are not ported: {MOE_TRAIN_TP_ITEM}")
+        elif "experts" in spec.logical:
+            dim = spec.logical.index("experts")
+            ep = _axis_for(mesh, rules, "experts", spec.shape[dim])
+            if ep:
+                shard = MasterShard(1, experts=ep, experts_dim=dim)
         elif spec.tile_p:
             rows_n, n_in = spec.shape[-2], spec.shape[-1]
             rows = _axis_for(mesh, rules, "tile_rows", rows_n // spec.tile_p)
@@ -424,6 +476,8 @@ def master_block(t: torch.Tensor, shard: Optional[MasterShard], mesh
     """This rank's block of a whole leaf (a copy, so the whole can go)."""
     if shard is None:
         return t
+    if shard.experts:
+        return local_block(t, mesh, shard.experts, shard.experts_dim).clone()
     v = _rows_view(t, shard.p)
     v = local_block(local_block(v, mesh, shard.rows, -2), mesh, shard.cols, -1)
     return v.flatten(-3, -2).clone()
@@ -434,6 +488,8 @@ def gather_master(t: torch.Tensor, shard: Optional[MasterShard], mesh
     """The inverse of ``master_block``: the whole leaf on every rank."""
     if shard is None:
         return t
+    if shard.experts:
+        return gather_blocks(t, mesh, shard.experts, shard.experts_dim)
     v = gather_blocks(_rows_view(t, shard.p), mesh, shard.cols, -1)
     return gather_blocks(v, mesh, shard.rows, -2).flatten(-3, -2)
 
@@ -518,6 +574,24 @@ class _GatherReduceScatter(torch.autograd.Function):
         g = sum_over(g.contiguous().clone(), ctx.mesh, ctx.axes)
         return (local_block(g, ctx.mesh, ctx.axes, ctx.dim).contiguous(),
                 None, None, None)
+
+
+class _ReduceShards(torch.autograd.Function):
+    """all_reduce forward; the backward passes the gradient through (every
+    rank computes the whole loss from the whole sum, so each rank's part
+    gets the same gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return sum_over(x.clone(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def reduce_shards(x, mesh, axes):
+    return _ReduceShards.apply(x, mesh, axes) if axes else x
 
 
 def copy_to_shards(x, mesh, axes):

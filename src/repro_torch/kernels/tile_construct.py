@@ -9,8 +9,10 @@ column sums in a fixed order and alpha free of float atomics.
 
 ``ops.tile_construct`` pads q to a multiple of 32 and calls this once per
 tiled Dense per forward pass of the fused training path
-(``ModelContext(fused_train=True)``). The wrapper launches the kernel for
-CUDA tensors and runs the plain PyTorch version only for CPU tensors.
+(``ModelContext(fused_train=True)``). The wrapper calls the operator
+``repro_torch::tile_construct`` (``kernels/_op.py``), which launches the
+kernel for CUDA tensors and runs the plain PyTorch version only for CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch.core.packing import LANE_BITS, pack_bits
 from repro_torch.kernels import _build
+from repro_torch.kernels._op import kernel_op
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -81,10 +84,11 @@ def tile_construct_kernel(w2d: torch.Tensor, a2d: Optional[torch.Tensor] = None
     ``alpha_source="W"``), and the kernel then reads W once. Launches
     kernel B5 for CUDA tensors; CPU tensors take the plain version."""
     _check(w2d, a2d)
-    if w2d.device.type == "cpu":
-        return tile_construct_plain(w2d, a2d)
-    if w2d.device.type != "cuda":
-        raise ValueError(f"tile_construct_kernel: no kernel for device {w2d.device}")
+    return _construct_op(w2d, a2d)
+
+
+def _launch(w2d: torch.Tensor, a2d: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     if w2d.device.index not in (None, torch.cuda.current_device()):
         raise ValueError(f"tile_construct_kernel: w2d is on {w2d.device}, the "
                          f"current CUDA device is {torch.cuda.current_device()}")
@@ -104,4 +108,9 @@ def tile_construct_kernel(w2d: torch.Tensor, a2d: Optional[torch.Tensor] = None
     return packed, alpha
 
 
+_construct_op = kernel_op(
+    "tile_construct", "(Tensor w2d, Tensor? a2d) -> (Tensor, Tensor)",
+    _launch, lambda w2d, a2d: tile_construct_plain(w2d, a2d),
+    lambda w2d, a2d: (w2d.new_empty((w2d.shape[1] // LANE_BITS,), dtype=torch.int32),
+                      w2d.new_empty((w2d.shape[0],), dtype=torch.float32)))
 tile_construct_kernel.launches = 0

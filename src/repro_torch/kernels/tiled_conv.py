@@ -12,8 +12,10 @@ weight exists in device memory. :func:`plan_conv` picks the body, its tile
 and the K split on the host.
 
 ``ops.tiled_conv_infer`` pads x (spatially, and channels to whole words)
-and calls the wrapper. The wrapper launches the kernel for CUDA tensors
-and runs the plain PyTorch version only for CPU tensors.
+and calls the wrapper. The wrapper calls the operator
+``repro_torch::tiled_conv_unique`` (``kernels/_op.py``), which launches
+the kernel for CUDA tensors and runs the plain PyTorch version only for
+CPU tensors.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 
 from repro_torch.core.packing import LANE_BITS
 from repro_torch.kernels import _build
+from repro_torch.kernels._op import kernel_op
 from repro_torch.kernels.tiled_matmul import (
     STAGE_WORDS,
     TILE_M,
@@ -141,10 +144,8 @@ def tiled_conv_unique(x: torch.Tensor, packed: torch.Tensor, *,
     (M, R) pixels and filters when given: a rank's block of a larger
     call); CPU tensors take the plain version."""
     check_operands(x, packed, kernel, stride, out_hw)
-    if x.device.type == "cpu":
-        return tiled_conv_plain(x, packed, kernel=kernel, stride=stride,
-                                out_hw=out_hw)
-    return _launch(x, packed, kernel, stride, out_hw, None, plan_shape)
+    return _conv_op(x, packed, list(kernel), list(stride), list(out_hw),
+                    None if plan_shape is None else list(plan_shape))
 
 
 def tiled_conv_body(x: torch.Tensor, packed: torch.Tensor, body: str, *,
@@ -190,4 +191,14 @@ def _launch(x, packed, kernel, stride, out_hw, body, plan_shape=None
     return out
 
 
+_conv_op = kernel_op(
+    "tiled_conv_unique",
+    "(Tensor x, Tensor packed, int[] kernel, int[] stride, int[] out_hw, "
+    "int[]? plan_shape) -> Tensor",
+    lambda x, packed, kernel, stride, out_hw, plan_shape: _launch(
+        x, packed, tuple(kernel), tuple(stride), tuple(out_hw), None, plan_shape),
+    lambda x, packed, kernel, stride, out_hw, plan_shape: tiled_conv_plain(
+        x, packed, kernel=tuple(kernel), stride=tuple(stride), out_hw=tuple(out_hw)),
+    lambda x, packed, kernel, stride, out_hw, plan_shape: x.new_empty(
+        (x.shape[0], out_hw[0], out_hw[1], packed.shape[1]), dtype=torch.float32))
 tiled_conv_unique.launches = 0

@@ -10,8 +10,10 @@ out of device memory and the tensor cores fed.
 
 :func:`plan_matmul` picks the body, its tile and the K split on the host.
 
-The wrapper launches the kernel for CUDA tensors and runs the plain
-PyTorch version (unpack to ±1, ``x.float() @ t.T``) only for CPU tensors.
+The wrapper checks the operands and calls the operator
+``repro_torch::tiled_matmul_unique`` (``kernels/_op.py``), which launches
+the kernel for CUDA tensors and runs the plain PyTorch version (unpack to
+±1, ``x.float() @ t.T``) only for CPU tensors.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.core.packing import LANE_BITS, unpack_bits
 from repro_torch.kernels import _build
+from repro_torch.kernels._op import kernel_op
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -216,9 +219,7 @@ def tiled_matmul_unique(x: torch.Tensor, packed: torch.Tensor,
     >= (m, r) (a rank's block of a larger call, summed in the order one card
     would sum the whole); CPU tensors take the plain version."""
     check_operands(x, packed, "tiled_matmul_unique")
-    if x.device.type == "cpu":
-        return tiled_matmul_plain(x, packed)
-    return _launch(x, packed, None, plan_shape)
+    return _matmul_op(x, packed, None if plan_shape is None else list(plan_shape))
 
 
 def tiled_matmul_body(x: torch.Tensor, packed: torch.Tensor,
@@ -251,4 +252,14 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, body,
     return out
 
 
+def u_shape(x: torch.Tensor, packed: torch.Tensor, dtype=torch.float32):
+    """The (m, r) output of B1-B4 for x (m, ...) and packed (r, words)."""
+    return x.new_empty((x.shape[0], packed.shape[0]), dtype=dtype)
+
+
+_matmul_op = kernel_op(
+    "tiled_matmul_unique", "(Tensor x, Tensor packed, int[]? plan_shape) -> Tensor",
+    lambda x, packed, plan_shape: _launch(x, packed, None, plan_shape),
+    lambda x, packed, plan_shape: tiled_matmul_plain(x, packed),
+    lambda x, packed, plan_shape: u_shape(x, packed))
 tiled_matmul_unique.launches = 0

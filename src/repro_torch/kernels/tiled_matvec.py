@@ -16,9 +16,10 @@ their K splits in a thread-block cluster, not by the split pass).
 
 ``ops.tiled_dense_infer`` routes every matmul with m <= ``MATVEC_MAX_M``
 rows (after flattening lead dims) here: each decode tick, and the extend
-tick's LM head on the last valid column of each slot. The wrapper launches
-the kernel for CUDA tensors and runs the plain PyTorch version only for CPU
-tensors.
+tick's LM head on the last valid column of each slot. The wrapper calls
+the operator ``repro_torch::tiled_matvec_unique`` (``kernels/_op.py``),
+which launches the kernel for CUDA tensors and runs the plain PyTorch
+version only for CPU tensors.
 """
 from __future__ import annotations
 
@@ -29,10 +30,12 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._op import kernel_op
 from repro_torch.kernels.tiled_matmul import (
     _sm_count,
     check_operands,
     cuda_args,
+    u_shape,
     unpack_rows,
 )
 
@@ -247,9 +250,7 @@ def tiled_matvec_unique(x: torch.Tensor, packed: torch.Tensor,
     card's order, bit for bit. CPU tensors take the plain version."""
     check_operands(x, packed, "tiled_matvec_unique")
     _check_m(x, "tiled_matvec_unique")
-    if x.device.type == "cpu":
-        return tiled_matvec_plain(x, packed)
-    return _launch(x, packed, None, plan_shape)
+    return _matvec_op(x, packed, None if plan_shape is None else list(plan_shape))
 
 
 def tiled_matvec_body(x: torch.Tensor, packed: torch.Tensor,
@@ -285,4 +286,9 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, body,
     return out
 
 
+_matvec_op = kernel_op(
+    "tiled_matvec_unique", "(Tensor x, Tensor packed, int[]? plan_shape) -> Tensor",
+    lambda x, packed, plan_shape: _launch(x, packed, None, plan_shape),
+    lambda x, packed, plan_shape: tiled_matvec_plain(x, packed),
+    lambda x, packed, plan_shape: u_shape(x, packed))
 tiled_matvec_unique.launches = 0

@@ -22,8 +22,10 @@ batches, m <= ``MATVEC_MAX_M``, here when ``compute_path`` is not "float"):
 
 Both return the exact int32 accumulator; ``ops`` applies the activation
 scale and the alpha broadcast. The quantizers are plain PyTorch, as the
-reference computes them outside Pallas. Each wrapper launches its kernel
-for CUDA tensors and runs its plain version only for CPU tensors.
+reference computes them outside Pallas. Each wrapper calls its operator
+(``repro_torch::tiled_xnor_matvec_unique`` / ``tiled_int8_matvec_unique``,
+``kernels/_op.py``), which launches the kernel for CUDA tensors and runs
+its plain version only for CPU tensors.
 """
 from __future__ import annotations
 
@@ -36,7 +38,8 @@ import torch
 from repro_torch.core.ordered import ordered_mean
 from repro_torch.core.packing import LANE_BITS, pack_bits, unpack_bits
 from repro_torch.kernels import _build
-from repro_torch.kernels.tiled_matmul import _sm_count, cuda_args
+from repro_torch.kernels._op import kernel_op
+from repro_torch.kernels.tiled_matmul import _sm_count, cuda_args, u_shape
 from repro_torch.kernels.tiled_matvec import (
     MATVEC_MAX_M,
     CostModel,
@@ -244,9 +247,7 @@ def tiled_xnor_matvec_unique(packed_x: torch.Tensor, packed_rows: torch.Tensor,
     :func:`plan_xnor` plans it; CPU tensors take the plain version."""
     what = "tiled_xnor_matvec_unique"
     _check_xnor(packed_x, packed_rows, n_in, what)
-    if packed_x.device.type == "cpu":
-        return xnor_matvec_words(packed_x, packed_rows, n_in=n_in)
-    return _launch_xnor(packed_x, packed_rows, n_in, None, None)
+    return _xnor_op(packed_x, packed_rows, n_in)
 
 
 def tiled_xnor_body(packed_x: torch.Tensor, packed_rows: torch.Tensor, body: str,
@@ -293,9 +294,7 @@ def tiled_int8_matvec_unique(q: torch.Tensor, packed_rows: torch.Tensor
     what = "tiled_int8_matvec_unique"
     words = packed_rows.shape[1] if packed_rows.ndim == 2 else 0
     _check(q, packed_rows, torch.int8, words * LANE_BITS, what)
-    if q.device.type == "cpu":
-        return int8_matvec_packed(q, packed_rows, n_in=q.shape[1])
-    return _launch_int8(q, packed_rows, None)
+    return _int8_op(q, packed_rows)
 
 
 def tiled_int8_body(q: torch.Tensor, packed_rows: torch.Tensor,
@@ -329,5 +328,15 @@ def _launch_int8(q: torch.Tensor, packed_rows: torch.Tensor, body
     return out
 
 
+_xnor_op = kernel_op(
+    "tiled_xnor_matvec_unique", "(Tensor packed_x, Tensor packed_rows, int n_in) -> Tensor",
+    lambda a, rows, n_in: _launch_xnor(a, rows, n_in, None, None),
+    lambda a, rows, n_in: xnor_matvec_words(a, rows, n_in=n_in),
+    lambda a, rows, n_in: u_shape(a, rows, torch.int32))
+_int8_op = kernel_op(
+    "tiled_int8_matvec_unique", "(Tensor q, Tensor packed_rows) -> Tensor",
+    lambda q, rows: _launch_int8(q, rows, None),
+    lambda q, rows: int8_matvec_packed(q, rows, n_in=q.shape[1]),
+    lambda q, rows: u_shape(q, rows, torch.int32))
 tiled_xnor_matvec_unique.launches = 0
 tiled_int8_matvec_unique.launches = 0

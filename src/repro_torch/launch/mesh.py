@@ -1,5 +1,6 @@
-"""Meshes for the port (port of ``parse_mesh_arg`` and ``make_host_mesh``
-of ``repro/launch/mesh.py``, and the pipeline's stage mesh).
+"""Meshes for the port (port of ``repro/launch/mesh.py``: the production
+mesh, ``parse_mesh_arg`` and ``make_host_mesh``; and the pipeline's stage
+mesh).
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with dim names
 ("data", "model") over the ranks of one ``torch.distributed`` job:
@@ -18,8 +19,10 @@ job whose gloo group is already initialized, on the CPU (tests).
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -27,6 +30,56 @@ import torch.distributed as dist
 from repro_torch.device import DeviceLike, resolve_device
 
 MESH_DIMS = ("data", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductionMesh:
+    """A mesh of ``shape`` cards over ``axis_names``, described rather than
+    joined (see ``make_production_mesh``)."""
+
+    shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def extents(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.shape))
+
+    def join(self, rank: int = 0):
+        """This process as ``rank`` of the mesh's world through a fake
+        process group (``torch.testing._internal.distributed.fake_pg``:
+        every collective returns at once and moves nothing), and the
+        DeviceMesh over it: what a dry run on ``meta`` tensors needs of
+        the mesh without ``size`` processes. A fake group joined before
+        is left first; a real one raises, and is left as it is."""
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        if dist.is_initialized():
+            if dist.get_backend() != "fake":
+                raise RuntimeError(
+                    f"a {dist.get_backend()} process group is initialized: the "
+                    f"dry run joins a fake group of {self.size} ranks of its "
+                    f"own, so run it outside a distributed job")
+            dist.destroy_process_group()
+        dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                                world_size=self.size)
+        return init_device_mesh("cpu", self.shape, mesh_dim_names=self.axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """(16, 16) data x model; (2, 16, 16) pod x data x model across two
+    pods: the reference's extents, so cells compare one to one. On nodes of
+    8 H100s joined by NVLink, with ranks row-major over the axes (model
+    innermost, a node 8 consecutive ranks), a model group of 16 is two
+    nodes and a data or pod group spans 16 or 2 nodes: every axis crosses
+    nodes, so its collectives run at the network rate between nodes
+    (``roofline.hw.LINK_BW``); 32 nodes for one pod, 64 for two."""
+    if multi_pod:
+        return ProductionMesh((2, 16, 16), ("pod", "data", "model"))
+    return ProductionMesh((16, 16), ("data", "model"))
 
 
 def parse_mesh_arg(spec: str, world_size: Optional[int] = None

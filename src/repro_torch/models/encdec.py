@@ -181,6 +181,9 @@ class EncDecModel:
     def init(self, seed: int) -> dict:
         return mod.init_params(self.specs(), seed, self.device)
 
+    def abstract(self) -> dict:
+        return mod.abstract_params(self.specs())
+
     def logical(self) -> dict:
         return mod.logical_axes(self.specs())
 

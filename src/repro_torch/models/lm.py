@@ -29,7 +29,9 @@ rows after ``decode_step``. So every entry point writes the tensors the
 caller holds, which the engine's captured graphs read and write.
 
 Entry points: ``train_forward`` (next-token cross-entropy; each block is
-checkpointed under ``cfg.remat == "full"``), ``prefill`` (the whole prompt
+checkpointed under ``cfg.remat == "full"``, and under "dots" selectively:
+the matrix products' outputs, kernels B1 / B2 included, are saved and the
+rest recomputed), ``prefill`` (the whole prompt
 at once: the monolithic anchor that chunked prefill is held to),
 ``extend`` (chunked prefill of a (B, C) column block at per-slot offsets)
 and ``decode_step`` (one token per slot), and the per-slot cache
@@ -45,7 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import remat
+from repro_torch.distributed.sharding import dots_policy, remat
 from repro_torch.nn import module as mod
 from repro_torch.nn.attention import Attention, _attend_core, make_mask, quantize_kv
 from repro_torch.nn.context import ModelContext
@@ -60,7 +62,6 @@ from repro_torch.serve.servable import CacheFamily
 
 # the encoder-decoder family is models/encdec.py's EncDecModel
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
-DOTS_REMAT_ITEM = "ROADMAP.md queue A item 10 (leftovers: selective \"dots\" remat)"
 # _ce_sum chunks the batch when b % 32 == 0 and S * vocab reaches this
 CE_CHUNK_MIN_ELEMS = 2**26
 
@@ -503,6 +504,9 @@ class DecoderLM:
     def init(self, seed: int) -> dict:
         return mod.init_params(self.specs(), seed, self.device)
 
+    def abstract(self) -> dict:
+        return mod.abstract_params(self.specs())
+
     def logical(self) -> dict:
         return mod.logical_axes(self.specs())
 
@@ -527,12 +531,10 @@ class DecoderLM:
     def _remat_call(self, block, pl, x, positions):
         if self.cfg.remat == "none":
             return block(pl, x, positions=positions)
-        if self.cfg.remat == "dots":
-            raise NotImplementedError(
-                f"remat='dots' is not ported yet: {DOTS_REMAT_ITEM}")
-        if self.cfg.remat != "full":
+        if self.cfg.remat not in ("full", "dots"):
             raise ValueError(f"unknown remat {self.cfg.remat!r}")
-        return remat(lambda h: block(pl, h, positions=positions), x)
+        return remat(lambda h: block(pl, h, positions=positions), x,
+                     policy=dots_policy if self.cfg.remat == "dots" else None)
 
     def backbone(self, params, x, *, positions=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.ordered import XLA_EXACT_MAX_MACS, ordered_dot, xla_softmax
 from repro_torch.nn import module as mod
 from repro_torch.nn.context import ModelContext
 from repro_torch.nn.linear import Dense
@@ -97,9 +98,20 @@ def scatter_pages(pool: torch.Tensor, page_table: torch.Tensor,
 def _attend_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  mask: torch.Tensor, scale: float) -> torch.Tensor:
     """q (B, S, K, G, hd) grouped queries; k, v (B, T, K, hd); mask (B, S, T)
-    or (S, T), True = attend -> (B, S, K, G, hd)."""
-    scores = torch.einsum("bskgh,btkh->bkgst", q, k).float() * scale
+    or (S, T), True = attend -> (B, S, K, G, hd). f32 on the host, up to
+    ``XLA_EXACT_MAX_MACS``, in the reference's arithmetic: its dot orders
+    and its exp (``core.ordered``), so the integer paths' quantizers meet
+    the reference's bits."""
     mask_b = mask[None, None, None] if mask.ndim == 2 else mask[:, None, None]
+    if (q.device.type == "cpu" and q.dtype == k.dtype == v.dtype == torch.float32
+            and q.numel() * k.shape[1] <= XLA_EXACT_MAX_MACS):
+        rows = q.shape[1] * q.shape[3]
+        scores = ordered_dot(q.permute(0, 2, 3, 1, 4)[:, :, :, :, None],
+                             k.permute(0, 2, 1, 3)[:, :, None, None], rows) * scale
+        probs = xla_softmax(torch.where(mask_b, scores, NEG_INF))
+        return ordered_dot(probs.permute(0, 3, 1, 2, 4)[..., None, :],
+                           v.permute(0, 2, 3, 1)[:, None, :, None], rows)
+    scores = torch.einsum("bskgh,btkh->bkgst", q, k).float() * scale
     scores = torch.where(mask_b, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bkgst,btkh->bskgh", probs, v)

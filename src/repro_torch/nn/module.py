@@ -185,6 +185,20 @@ class LazyParams:
         return self[key] if key in self._specs else default
 
 
+def abstract_params(specs: SpecTree) -> dict:
+    """The param tree as ``meta`` tensors: every leaf's shape and dtype,
+    no storage (the dry run's params, ``launch/cells.py``)."""
+    out: dict = {}
+    for path, spec in walk(specs):
+        set_path(out, path, torch.empty(spec.shape, dtype=spec.dtype,
+                                        device="meta"))
+    return out
+
+
+def param_count(specs: SpecTree) -> int:
+    return sum(int(np.prod(s.shape)) for _, s in walk(specs))
+
+
 def logical_axes(specs: SpecTree) -> dict:
     """Tree of logical-axis tuples, mirroring the param tree (a leaf that
     names none gets None per dim)."""

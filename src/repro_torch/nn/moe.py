@@ -25,13 +25,24 @@ port. Each bank is rebuilt just before its product and dropped after it,
 so one bank's dense transient is alive at a time. The shared experts are
 an ``MLP`` of tiled ``Dense`` layers (kernels B1-B4 on the card).
 
-Expert parallelism (serving under a mesh, ``distributed/sharding.py``):
-where the "experts" axis divides E a rank holds E/TP banks, rebuilds and
-multiplies only its experts over the tokens dispatched to them (the
-routing is replicated, so no all-to-all), combines them locally and sums
-the partial outputs over the axis (``all_reduce``). Where it does not
-divide, a bank's tile rows may fall to "tile_rows" instead, as the
-reference's spec resolves: the bank gathers its rows before the rebuild.
+Expert parallelism (under a mesh, ``distributed/sharding.py``): where the
+"experts" axis divides E a rank holds E/TP banks, rebuilds and multiplies
+only its experts over the tokens dispatched to them (the routing is
+replicated, so no all-to-all), combines them locally and sums the partial
+outputs over the axis (``all_reduce``). Serving: where it does not divide,
+a bank's tile rows may fall to "tile_rows" instead, as the reference's
+spec resolves: the bank gathers its rows before the rebuild. Training: a
+rank holds E/TP experts' masters (``train_shards``); the router stays
+whole and its dispatch replicated, and the gradients each rank sees only
+in part (dx of its experts, the gates of its experts' terms) are summed
+over the axis, so the router's gradient is the whole mesh's. Under data
+parallelism the aux loss's expert densities and mean router
+probabilities are averaged over the "data" ranks, and the dispatch keeps
+the whole batch's groups and capacity (a group that spans ranks offsets a
+rank's positions by the earlier ranks' assignments), so a token drops
+where it would on one device. The banks' masters are rebuilt densely
+(``core.tiling.tiled_weight_rows``), not by kernel B5, in training as in
+the reference's TRAIN banks.
 """
 from __future__ import annotations
 
@@ -50,11 +61,14 @@ from repro_torch.core.tiling import (
     tiled_weight_rows,
 )
 from repro_torch.distributed.sharding import (
-    MOE_TRAIN_TP_ITEM,
+    copy_to_shards,
+    data_parallel_axes,
     expert_sharding,
     gather_blocks,
+    reduce_shards,
     shard_index,
     sum_over,
+    sum_shards,
     tile_sharding,
 )
 from repro_torch.nn import module as mod
@@ -143,18 +157,14 @@ class ExpertBank:
             else:                       # flat (E, ceil(q/32))
                 t = unpack_bits(tile, spec.q, dtype=cd)
             return reconstruct_from_tile(t, params["alpha"], spec, dtype=cd)
-        if expert_sharding(self.n_experts) is not None:
-            raise NotImplementedError(f"{self.name}: expert banks trained "
-                                      f"under a model axis are not ported: "
-                                      f"{MOE_TRAIN_TP_ITEM}")
-        w = params["w"]
+        w = params["w"]     # (E, ...), or a rank's E/TP experts
         if spec is not None:
             a = params.get("a")
             if spec.aligned_rows:
                 return tiled_weight_rows(w, spec, a=a, dtype=cd)
             per = [tiled_weight(we, spec, a=None if a is None else a[i], dtype=cd)
                    for i, we in enumerate(w.unbind(0))]
-            return torch.stack(per).reshape(self.n_experts, self.n_out, self.n_in)
+            return torch.stack(per).reshape(w.shape[0], self.n_out, self.n_in)
         if self.ctx.policy.binarize("dense"):
             return torch.stack([bwnn_weight(we, cd) for we in w.unbind(0)])
         return w.to(cd)
@@ -233,16 +243,45 @@ class MoE:
                 return g
         return 1
 
+    def _train_groups(self, t_local: int, n_dp: int):
+        """(groups here, tokens a group here, capacity, ranks a group spans)
+        for t_local tokens on each of n_dp data-parallel ranks: the whole
+        batch's groups (``_n_groups`` of n_dp * t_local tokens) and their
+        capacity, as one device dispatches them. A rank holds whole groups,
+        or (fewer groups than ranks) its block of one group that ``span``
+        ranks share."""
+        g = self._n_groups(t_local * n_dp)
+        cap = self._capacity(t_local * n_dp // g)
+        if g % n_dp == 0:
+            return g // n_dp, t_local * n_dp // g, cap, 1
+        if n_dp % g:
+            raise ValueError(f"{self.name}: {g} dispatch groups do not split "
+                             f"over {n_dp} data-parallel ranks")
+        return 1, t_local, cap, n_dp // g
+
+    def _rank_offset(self, top_idx, mesh, axes, span: int) -> torch.Tensor:
+        """(E,) assignments to each expert on the earlier ranks of this
+        rank's group (a group spans ``span`` consecutive data ranks, whose
+        tokens come before this rank's in the group's order)."""
+        counts = F.one_hot(top_idx.reshape(-1), self.n_experts).sum(0)
+        every = gather_blocks(counts[None], mesh, axes, 0)      # (n_dp, E)
+        d = shard_index(mesh, axes)
+        first = d - d % span
+        return every[first:d].sum(0)
+
     def _capacity(self, tl: int) -> int:
         cap = int(math.ceil(self.capacity_factor * self.top_k * tl
                             / self.n_experts))
         return max(8, -(-cap // 8) * 8)
 
-    def _dispatch(self, xg, top_idx, gate_vals, cap):
+    def _dispatch(self, xg, top_idx, gate_vals, cap, offset=None):
         """One group's dense dispatch. xg (tl, d); top_idx / gate_vals
         (tl, k). Returns xbuf (E, cap, d) and (e_idx, pos_c, tok_of, gates)
         for the combine. An over-capacity assignment gets expert id E: its
-        scatter lands in a spare row that is cut off, its gate is 0."""
+        scatter lands in a spare row that is cut off, its gate is 0.
+        ``offset`` (E,): the group's assignments to each expert that come
+        before these tokens (on earlier data-parallel ranks); they hold
+        the first positions."""
         cd = self.ctx.compute_dtype
         tl, d = xg.shape
         e, k = self.n_experts, self.top_k
@@ -256,6 +295,8 @@ class MoE:
             0, flat_e, torch.ones_like(flat_e))
         starts = counts.cumsum(0) - counts
         pos = torch.arange(tl * k, device=dev) - starts[e_sorted]
+        if offset is not None:
+            pos = pos + offset[e_sorted]
         keep = (pos >= 0) & (pos < cap)
         e_idx = torch.where(keep, e_sorted, torch.full_like(e_sorted, e))
         pos_c = pos.clamp(0, cap - 1)
@@ -268,9 +309,16 @@ class MoE:
                                   xg[tok_of[sl]].to(cd), accumulate=True)
         return xbuf[:e], (e_idx, pos_c, tok_of, gates)
 
-    def _combine(self, ybuf, meta, tl):
+    def _combine(self, ybuf, meta, tl, e0: int = 0):
+        """With ``e0`` ybuf holds experts e0.. only (a rank's banks): the
+        other experts' assignments gather the zero row, to be summed in by
+        their ranks."""
         e_idx, pos_c, tok_of, gates = meta
-        d = ybuf.shape[-1]
+        e_loc, d = ybuf.shape[0], ybuf.shape[-1]
+        if e_loc != self.n_experts:
+            local = e_idx - e0
+            e_idx = torch.where((local >= 0) & (local < e_loc), local,
+                                torch.full_like(local, e_loc))
         # a zero row at index E: a dropped assignment gathers exact zeros
         padded = torch.cat([ybuf, ybuf.new_zeros((1,) + tuple(ybuf.shape[1:]))])
         y = ybuf.new_zeros((tl, d))
@@ -363,19 +411,39 @@ class MoE:
         if self.ctx.mode == SERVE:
             return self._serve_call(params, x)
         b, s, d = x.shape
-        g = self._n_groups(b * s)
-        tl = b * s // g
+        dp = data_parallel_axes()
+        g, tl, cap, span = self._train_groups(b * s, 1 if dp is None else dp[2])
         xg = x.reshape(g, tl, d)
         probs, gate_vals, top_idx = self._route(params["router"], xg)
         # Switch-style load balance aux (over all tokens)
         density = F.one_hot(top_idx[..., 0], num_classes=self.n_experts
                             ).float().mean(dim=(0, 1))
-        aux = self.n_experts * (density * probs.mean(dim=(0, 1))).sum()
+        p_mean = probs.mean(dim=(0, 1))
+        if dp is not None:
+            # a rank holds its rows of the global batch (as many as every
+            # other rank's): the load balance is the whole batch's
+            d_mesh, d_ax, d_n = dp
+            density = sum_over(density, d_mesh, d_ax) / d_n
+            p_mean = sum_shards(p_mean, d_mesh, d_ax) / d_n
+        aux = self.n_experts * (density * p_mean).sum()
 
-        cap = self._capacity(tl)
-        groups = [self._dispatch(xg[i], top_idx[i], gate_vals[i], cap)
+        offset = None
+        if span > 1:
+            offset = self._rank_offset(top_idx, dp[0], dp[1], span)
+        ep, e0, xd, gd = expert_sharding(self.n_experts), 0, xg, gate_vals
+        if ep is not None:
+            # the rank holds E/TP experts' masters and runs them on the whole
+            # (replicated) dispatch; its parts of dx and of the gates'
+            # gradient are summed over the axis, its partial output too
+            mesh, ax, extent = ep
+            e_loc = self.n_experts // extent
+            e0 = shard_index(mesh, ax) * e_loc
+            xd, gd = copy_to_shards(xg, mesh, ax), copy_to_shards(gate_vals, mesh, ax)
+        groups = [self._dispatch(xd[i], top_idx[i], gd[i], cap, offset)
                   for i in range(g)]
         xbuf = torch.stack([buf for buf, _ in groups])      # (g, E, cap, d)
+        if ep is not None:
+            xbuf = xbuf[:, e0:e0 + e_loc]
         w_up = self.up.effective(params["up"])
         h = torch.einsum("gecd,efd->gecf", xbuf, w_up)
         if self.gated:
@@ -385,8 +453,10 @@ class MoE:
             h = self._act(h)
         w_down = self.down.effective(params["down"])
         ybuf = torch.einsum("gecf,edf->gecd", h, w_down)
-        yg = torch.stack([self._combine(ybuf[i], meta, tl)
+        yg = torch.stack([self._combine(ybuf[i], meta, tl, e0)
                           for i, (_, meta) in enumerate(groups)])
+        if ep is not None:
+            yg = reduce_shards(yg, mesh, ax)
         if self.n_shared:
             yg = yg + self.shared(params["shared"], xg)
         return yg.reshape(b, s, d), aux

@@ -15,7 +15,12 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import axis_rules, mesh_extents, sum_over
+from repro_torch.distributed.sharding import (
+    axis_rules,
+    mesh_extents,
+    shard_index,
+    sum_over,
+)
 from repro_torch.nn import module as mod
 from repro_torch.optim import clip_by_global_norm
 from repro_torch.optim.adamw import Optimizer
@@ -40,16 +45,28 @@ def _split(batch: Dict, n: int):
     return [{k: v.chunk(n)[i] for k, v in batch.items()} for i in range(n)]
 
 
-def dp_rows(batch: Dict, mesh, grad_accum: int = 1, axis: str = "data") -> Dict:
-    """This rank's rows of the global ``batch`` over the mesh's ``axis``,
-    in the order the reference's microbatches take them: global
-    microbatch i (rows [i B/n, (i+1) B/n) of n = ``grad_accum``) gives rank
-    d its d-th block, so the rank's microbatch i is its block of the
-    reference's microbatch i."""
-    dp = mesh_extents(mesh).get(axis, 1)
+def _dp_axes(mesh, axis) -> Tuple[str, ...]:
+    """The data-parallel axes (a name or a tuple of names, row-major) that
+    the mesh has."""
+    names = mesh_extents(mesh)
+    return tuple(a for a in ((axis,) if isinstance(axis, str) else axis)
+                 if a in names)
+
+
+def dp_rows(batch: Dict, mesh, grad_accum: int = 1, axis="data") -> Dict:
+    """This rank's rows of the global ``batch`` over the mesh's ``axis``
+    (or axes, row-major), in the order the reference's microbatches take
+    them: global microbatch i (rows [i B/n, (i+1) B/n) of n =
+    ``grad_accum``) gives rank d its d-th block, so the rank's microbatch i
+    is its block of the reference's microbatch i."""
+    axes = _dp_axes(mesh, axis)
+    ext = mesh_extents(mesh)
+    dp = 1
+    for a in axes:
+        dp *= ext[a]
     if dp == 1:
         return batch
-    d = mesh.get_local_rank(axis)
+    d = shard_index(mesh, axes)
     out = {}
     for k, v in batch.items():
         if v.shape[0] % (grad_accum * dp):
@@ -61,25 +78,32 @@ def dp_rows(batch: Dict, mesh, grad_accum: int = 1, axis: str = "data") -> Dict:
     return out
 
 
-def _mesh_grads(grads, loss, mesh, shards, axis: str = "data", reduce=None):
+def _mesh_grads(grads, loss, mesh, shards, axis="data", reduce=None):
     """The one-device step's loss and gradients from a rank's: the loss and
-    every gradient averaged over ``axis`` (an FSDP leaf's gradient came
-    back summed over it from its gather's reduce-scatter; every other leaf
-    is all_reduced here). Leaves split over "model" keep their rows.
-    ``reduce`` (a codec's mean over ``axis``, as ``distributed.compression``'s
-    ``CompressedMean``) takes the exact mean's place for the gradients."""
-    dp = mesh_extents(mesh).get(axis, 1)
+    every gradient averaged over ``axis`` (or axes; an FSDP leaf's gradient
+    came back summed over its cols axes from its gather's reduce-scatter;
+    every other axis is all_reduced here). Leaves split over "model" keep
+    their rows. ``reduce`` (a codec's mean over ``axis``, as
+    ``distributed.compression``'s ``CompressedMean``) takes the exact
+    mean's place for the gradients."""
+    axes = _dp_axes(mesh, axis)
+    ext = mesh_extents(mesh)
+    dp = 1
+    for a in axes:
+        dp *= ext[a]
     if reduce is not None:
         grads = reduce(grads)
     elif dp > 1:
         for path, g in mod.walk(grads):
             shard = mod.get_path(shards, path) if shards is not None else None
-            if shard is None or not shard.cols:
-                g.copy_(sum_over(g, mesh, (axis,)))
+            done = () if shard is None else shard.cols
+            rest = tuple(a for a in axes if a not in done)
+            if rest:
+                g.copy_(sum_over(g, mesh, rest))
             g.div_(dp)
     if dp == 1:
         return grads, loss
-    return grads, sum_over(loss.clone(), mesh, (axis,)) / dp
+    return grads, sum_over(loss.clone(), mesh, axes) / dp
 
 
 def mesh_global_norm(grads, mesh, shards) -> torch.Tensor:
@@ -89,7 +113,7 @@ def mesh_global_norm(grads, mesh, shards) -> torch.Tensor:
     groups: Dict[Tuple[str, ...], torch.Tensor] = {}
     for path, g in mod.walk(grads):
         shard = mod.get_path(shards, path) if shards is not None else None
-        axes = () if shard is None else tuple(shard.rows) + tuple(shard.cols)
+        axes = () if shard is None else shard.axes
         sq = g.float().square().sum()
         groups[axes] = groups[axes] + sq if axes in groups else sq
     total = None
@@ -108,7 +132,7 @@ def build_train_step(
     grad_transform: Optional[Callable] = None,   # e.g. compressed DP allreduce
     mesh=None,
     shards=None,
-    dp_axis: str = "data",
+    dp_axis="data",
     grad_reduce: Optional[Callable] = None,
 ):
     """The train step. Under ``mesh`` (a ("data", "model") DeviceMesh; the

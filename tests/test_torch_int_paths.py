@@ -237,16 +237,25 @@ def test_flat_tile_on_cpu_takes_float_reference(path):
 
 @pytest.mark.parametrize("path", INT_PATHS)
 def test_int_path_refuses_devices_without_a_kernel(path):
-    """Only a CPU tensor takes the plain version: on any other device the
-    integer path launches B3/B4 or raises (meta stands in for a device
-    with no kernel)."""
+    """Only a CPU tensor takes the plain version: the integer path's
+    operator (B3 / B4) has a CUDA implementation (the launch), a CPU one
+    and a fake one (on meta the layer gives its output's shape with no
+    launch); a tensor on any other device finds no implementation."""
     spec = plan_tiling((4 * 8, 64), p=4, min_size=1, alpha_source="W")
-    with pytest.raises(ValueError, match="no kernel for device"):
-        ops.tiled_dense_infer(torch.randn((4, 64), device="meta"),
+    fn = (ops.tiled_xnor_matvec_unique if path == "xnor"
+          else ops.tiled_int8_matvec_unique)
+    before = fn.launches
+    y = ops.tiled_dense_infer(torch.randn((4, 64), device="meta"),
                               torch.empty((8, 2), dtype=torch.int32,
                                           device="meta"),
                               torch.ones((4,), device="meta"), spec,
                               compute_path=path)
+    assert (y.device.type, tuple(y.shape)) == ("meta", (4, 32))
+    assert fn.launches == before
+    for key, has in (("CPU", True), ("CUDA", True), ("Meta", True),
+                     ("XPU", False), ("MPS", False), ("PrivateUse1", False)):
+        assert torch._C._dispatch_has_kernel_for_dispatch_key(
+            f"repro_torch::{fn.__name__}", key) == has, key
 
 
 def test_wrappers_check_operands():

@@ -145,12 +145,21 @@ def test_flat_tile_layout_error_on_kernel_path():
 
 @pytest.mark.parametrize("fn", [tiled_matvec_unique, tiled_matmul_unique])
 def test_wrappers_refuse_devices_without_a_kernel(fn):
-    """Only a CPU tensor takes the plain version: any other device must
-    launch a kernel or raise (meta stands in for a device with none)."""
+    """Only a CPU tensor takes the plain version: the wrapper's operator
+    has a CUDA implementation (the launch), a CPU one (the plain version)
+    and a fake one (a meta tensor gets the output's shape and dtype, no
+    launch); a tensor on any other device finds no implementation."""
     x = torch.empty((4, 64), device="meta")
     packed = torch.empty((8, 2), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="no kernel for device"):
-        fn(x, packed)
+    before = fn.launches
+    out = fn(x, packed)
+    assert (out.device.type, tuple(out.shape), out.dtype) == (
+        "meta", (4, 8), torch.float32)
+    assert fn.launches == before
+    for key, has in (("CPU", True), ("CUDA", True), ("Meta", True),
+                     ("XPU", False), ("MPS", False), ("PrivateUse1", False)):
+        assert torch._C._dispatch_has_kernel_for_dispatch_key(
+            f"repro_torch::{fn.__name__}", key) == has, key
 
 
 @pytest.mark.parametrize("fn", [tiled_matvec_unique, tiled_matmul_unique])

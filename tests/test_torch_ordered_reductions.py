@@ -173,11 +173,13 @@ def test_random_seamless_requests_give_the_reference_tokens(path, shape):
     assert not differ, f"{len(differ)} of {N_REQUESTS} requests differ: {differ}"
 
 
-# ROADMAP C1's open half: under int8 these requests still differ from the
-# JAX engine (a tie its LayerNorm's rsqrt and variance decide; the port
-# keeps PyTorch's). Held exactly, so that a regression, or the fix that
-# brings it to 0 (and then asks for 0 here), shows.
-INT8_DIFFERING = [40]
+# ROADMAP C1's int8 half, repaired: request 40 of this set gave other
+# greedy tokens (a round-half tie in quantize_int8 reached through
+# attention outputs a few ulps off the reference's) until the attention's
+# f32 CPU path took XLA's dot orders and exp (core.ordered.ordered_dot,
+# xla_softmax). No request differs now; held exactly, so a regression
+# shows.
+INT8_DIFFERING = []
 
 
 def test_random_seamless_int8_requests_hold_the_open_gap():

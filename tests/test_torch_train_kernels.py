@@ -114,8 +114,17 @@ def test_b5_wrapper_checks_operands():
         tile_construct_kernel(torch.zeros(4, 64, dtype=torch.float64))
     with pytest.raises(ValueError, match="a2d"):
         tile_construct_kernel(torch.zeros(4, 64), torch.zeros(4, 32))
-    with pytest.raises(ValueError, match="no kernel"):
-        tile_construct_kernel(torch.zeros(4, 64, device="meta"))
+    # meta: the operator's fake, the outputs' shapes and no launch; no
+    # device but CUDA, CPU and meta has an implementation
+    before = tile_construct_kernel.launches
+    words, alpha = tile_construct_kernel(torch.zeros(4, 64, device="meta"))
+    assert (tuple(words.shape), words.dtype, tuple(alpha.shape)) == (
+        (2,), torch.int32, (4,))
+    assert tile_construct_kernel.launches == before
+    for key, has in (("CPU", True), ("CUDA", True), ("Meta", True),
+                     ("XPU", False), ("PrivateUse1", False)):
+        assert torch._C._dispatch_has_kernel_for_dispatch_key(
+            "repro_torch::tile_construct", key) == has, key
 
 
 # --------------------------------------------------------------------------
@@ -313,13 +322,13 @@ def test_remat_modes():
     tokens = {"tokens": torch.randint(0, cfg.vocab, (2, 8),
                                       generator=torch.Generator().manual_seed(0))}
     losses = []
-    for remat in ("full", "none"):
+    for remat in ("full", "none", "dots"):
         m = build_model(dataclasses.replace(cfg, remat=remat),
                         ModelContext(policy=cfg.tbn, mode=TRAIN, device="cpu",
                                      compute_dtype=torch.float32))
         losses.append(float(m.train_forward(m.init(0), tokens)[0]))
-    assert losses[0] == losses[1]
-    m = build_model(dataclasses.replace(cfg, remat="dots"),
+    assert losses[0] == losses[1] == losses[2]
+    m = build_model(dataclasses.replace(cfg, remat="some"),
                     ModelContext(policy=cfg.tbn, mode=TRAIN, device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="unknown remat"):
         m.train_forward(m.init(0), tokens)

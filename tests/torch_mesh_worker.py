@@ -145,7 +145,10 @@ def _engine(case, mesh, dev):
 # test_torch_pipeline.py, test_torch_tp_train_cuda.py)
 # ---------------------------------------------------------------------------
 def _train_model(case, dev):
-    cfg = get_config(case["arch"]).reduced()
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config(case["arch"]).reduced(),
+                              remat=case.get("remat", "full"))
     ctx = ModelContext(policy=cfg.tbn, compute_dtype=getattr(torch, case["dtype"]),
                        device=dev, fused_train=case["fused"],
                        fsdp_weights=cfg.fsdp_weights)
@@ -154,21 +157,21 @@ def _train_model(case, dev):
 
 def _train(case, mesh, dev):
     """Two steps of the train step under the mesh from the case's masters:
-    the losses and grad norms, step 1's gradients gathered whole, the
-    probe leaf's tile words and whole alpha as this rank builds them, its
-    master bytes and its kernel launches."""
+    the losses and grad norms, step 1's gradients gathered whole, the probe leaf's tile words and whole alpha as this
+    rank builds them, its master bytes and its kernel launches."""
     from repro_torch.distributed.sharding import (
         gather_train_params, place_train_params, sum_over, train_shards)
     from repro_torch.kernels.ops import _rows_spec, tile_construct
     from repro_torch.kernels.tile_construct import tile_construct_kernel
     from repro_torch.nn import module as mod
-    from repro_torch.optim import adamw
+    from repro_torch.optim import adamw, sgd_momentum
     from repro_torch.train.step import build_train_step, init_state
 
     cfg, model = _train_model(case, dev)
     shards = train_shards(model.specs(), mesh, fsdp=cfg.fsdp_weights)
     params = place_train_params(params_from_numpy(case["masters"], dev), shards, mesh)
-    opt = adamw(case["lr"])
+    opt = (sgd_momentum(case["lr"]) if case.get("opt") == "sgd"
+           else adamw(case["lr"]))
     seen = {}
 
     def capture(grads):
