@@ -256,7 +256,28 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      against one card's and the gathers' share of it (information). Then
      the serve CLI
      under ``torch.distributed.run --nproc-per-node 2 ... --reduced --mesh
-     1x2``: exit 0, ``backend=gloo``, ``2.0x sharding``;
+     1x2``: exit 0, ``backend=gloo``, ``2.0x sharding``. Every engine under
+     a mesh is driven by its first rank; the others follow it (the tick
+     control);
+  4s. (inside 4r's jobs, then after them) warm ticks and the HTTP shell
+     under a mesh. In each job, after each path's cold drain, every rank
+     runs ``warmup()`` (each tick captured as CUDA graphs split at its
+     collectives, which run between the replays) and drains the same
+     prompts warm: tokens and ticks equal the cold meshed engine's and the
+     single card's, each rank's graphs a tick equal the first rank's (one
+     more than its collectives, the same sequence), the capture launched
+     the path's decode kernel and B2 on the rank's shards, and the warm
+     drain moves no launch counter, no TRACE_COUNTS, runs no plain version
+     and counts no eager tick; the same for qwen2-moe under (1, 2) (its
+     expert-parallel sum among the collectives). Under (1, 2) the bf16
+     decode and extend ticks at TP_LAYERS, cold against warm, with the
+     collectives' share (each synchronized), beside one card's cold and
+     warm. Then the serve CLI ``--arch granite-8b --mesh 1x2 --serve --aot
+     --port 0`` (full width and depth, started beside 4r's (2, 2) job): one
+     readiness line, MESH_SERVE_REQUESTS streams of phase 3's prompts whose
+     tokens equal phase 4q's one-card server's, the client's TTFT and ITL
+     against 4q's, and a SIGINT to the first rank after which the job
+     exits 0;
   11. (runs last) the dry run against the card: ``launch.dryrun.count_cell``
      builds one rank's cell on ``meta`` tensors under a fake process group
      of the mesh's size and counts its step (``roofline.analysis``); the
@@ -506,6 +527,12 @@ TP_PROMPT, TP_DECODE_STEPS, TP_MAX_TOKENS = [5, 3, 2, 7, 1, 4, 6, 2], 4, 16
 TP_LOGIT_RTOL, TP_R34_TOL = 1e-4, 1e-3
 TP_TIMED_TICKS, TP_JOB_TIMEOUT = 5, 300
 TP_DIR = None
+# phase 4s: the ticks timed cold and warm; the serve CLI under --mesh 1x2
+# --serve --aot at granite-8b's full width and depth, its requests (phase
+# 3's first prompts, 16 greedy tokens each, sent HTTP_STAGGER_S apart) and
+# the seconds it may take to be ready
+TICK_NAMES = ("decode_tick", "extend_tick")
+MESH_SERVE_REQUESTS, MESH_SERVE_TIMEOUT = 4, 420
 # phase 5r: granite-8b training at full width cut to TRAIN_MESH_LAYERS under
 # the meshes (data, model) of its two jobs (ranks sharing cuda:0 over gloo),
 # TRAIN_MESH_STEPS steps checked against one card at TRAIN_MESH_RTOL (phase
@@ -2423,6 +2450,9 @@ def phase_http_granite(cfg, sp):
           f"closed", flush=True)
     print(f"phase 4q ({cfg.name} HTTP shell): {time.perf_counter() - t0:.1f}s",
           flush=True)
+    return dict(tokens=drained["tokens"], ttft=float(np.mean(ttft)),
+                ttft_p50=float(np.median(ttft)), itl=float(np.mean(itl)),
+                itl_p50=float(np.median(itl)))
 
 
 def phase_features_mamba(cfg, sp):
@@ -3711,65 +3741,136 @@ def tp_engine(model, sp, mesh=None):
         compute_path=model.ctx.compute_path), mesh=mesh)
 
 
+def mesh_drain(eng, cfg, prompts, max_tokens: int):
+    """``prompts`` (greedy, ``max_tokens`` each) through ``eng``: on one card
+    or the mesh's first rank submitted and drained (then the other ranks
+    stopped), on another rank followed (the tick control mirrors the first
+    rank's calls). Returns the requests in submission order, on every
+    rank."""
+    from repro_torch.serve.sampling import SamplingParams
+
+    done = {}
+    eng.on_finish = lambda r: done.setdefault(r.rid, r)
+    if eng.is_first:
+        for p in prompts:
+            eng.submit(p, SamplingParams(max_tokens=max_tokens))
+        eng.run_until_drained()
+        eng.stop_followers()
+    else:
+        eng.follow()
+    reqs = [done[k] for k in sorted(done)]
+    if len(reqs) != len(prompts) or not all(
+            r.done and len(r.output) == max_tokens for r in reqs):
+        fail(f"{cfg.name}: not every request finished with {max_tokens} tokens")
+    return reqs
+
+
 def tp_drain(model, sp, cfg, prompts, max_tokens: int, mesh=None):
     """A cold engine of phase 3's shape over ``prompts`` (greedy), with the
     launch counters zeroed just before the drain and read just after, and
     every plain version counted. Returns (tokens, token steps, launches,
     plain calls)."""
-    from repro_torch.serve.sampling import SamplingParams
-
     eng = tp_engine(model, sp, mesh)
-    reqs = [eng.submit(p, SamplingParams(max_tokens=max_tokens)) for p in prompts]
     plain = {}
     zero_counters()
     with counting_plain(plain):
-        eng.run_until_drained()
+        reqs = mesh_drain(eng, cfg, prompts, max_tokens)
     counts = read_counters()
-    if not all(r.done and len(r.output) == max_tokens for r in reqs):
-        fail(f"{cfg.name}: not every request finished with {max_tokens} tokens")
     return [r.output for r in reqs], [r.token_steps for r in reqs], counts, plain
 
 
-def tp_tick_ms(eng, timed_gathers: bool = False):
-    """Median ms of TP_TIMED_TICKS cold decode ticks of an engine, after one
-    more (every slot inactive: the work of a 4-slot tick, and no state
-    moves), each synchronized;
-    with ``timed_gathers`` also the share of them spent in the tiled layers'
-    gathers (each gather synchronized before and after)."""
+def tp_warm(model, sp, cfg, prompts, max_tokens: int, mesh):
+    """Phase 4s on a rank: an engine of phase 3's shape under ``mesh``
+    warmed up (every rank at once: its ticks captured as graphs split at
+    each collective), with the launches the capture made, the seconds per
+    entry point, the graphs a tick holds and the graph pool's bytes; then
+    ``prompts`` drained warm with every launch counter set to 0 just
+    before and read just after, TRACE_COUNTS and the plain versions
+    watched."""
+    import torch
+
+    from repro_torch.serve.engine import TRACE_COUNTS
+
+    eng = tp_engine(model, sp, mesh)
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated()
+    zero_counters()
+    capture_s = eng.warmup()
+    captured = read_counters()
+    torch.cuda.synchronize()
+    pool = torch.cuda.memory_allocated() - alloc
+    traces, plain = TRACE_COUNTS.copy(), {}
+    zero_counters()
+    with counting_plain(plain):
+        reqs = mesh_drain(eng, cfg, prompts, max_tokens)
+    counts = read_counters()
+    return dict(tokens=[r.output for r in reqs], steps=[r.token_steps for r in reqs],
+                counts=counts, plain=plain, traces=TRACE_COUNTS != traces,
+                retraces=eng.stats()["retraces"], captured=captured,
+                capture_s=capture_s, pool_mb=pool / 1e6,
+                graphs={k: len(g.graphs) for k, g in eng._graphs.items()},
+                sequence={k: g.sequence for k, g in eng._graphs.items()})
+
+
+def tp_tick_ms(eng, timed_gathers: bool = False, name: str = "decode_tick"):
+    """Median ms of TP_TIMED_TICKS ``name`` ticks of an engine (cold: the
+    tick function; after ``warmup()``: its graphs replayed with the
+    collectives between them), after one more (every slot inactive and no
+    new token: the work of a 4-slot tick, and no state moves), each
+    synchronized; with ``timed_gathers`` also the share of them spent in
+    the collectives (cold: the tiled layers' gathers; warm: every
+    collective between the replays; each synchronized before and after)."""
     import torch
 
     from repro_torch.kernels import ops
 
     spent = [0.0]
     gather = ops.gather_blocks
+    graph = eng._graphs.get(name)
+    runs = list(graph.collectives) if graph is not None else []
 
-    def timed(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = gather(*a, **kw)
-        torch.cuda.synchronize()
-        spent[0] += time.perf_counter() - t0
-        return out
+    def timed(fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return out
+        return run
 
     times = []
     eng._active_t.zero_()
-    if timed_gathers:
-        ops.gather_blocks = timed
+    eng._n_new_t.zero_()
+    if timed_gathers and graph is None:
+        ops.gather_blocks = timed(gather)
+    elif timed_gathers:
+        graph.collectives = [timed(fn) for fn in runs]
     try:
         with torch.no_grad(), eng._mesh_ctx():
             for _ in range(TP_TIMED_TICKS + 1):
                 torch.cuda.synchronize()
                 spent[0] = 0.0
                 t0 = time.perf_counter()
-                eng._tick("decode_tick")
+                eng._tick(name)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0, spent[0]))
     finally:
         ops.gather_blocks = gather
+        if graph is not None:
+            graph.collectives = runs
     times = times[1:]
     tick = statistics.median(t for t, _ in times)
     share = sum(g for _, g in times) / sum(t for t, _ in times)
     return 1e3 * tick, share
+
+
+def tp_tick_times(eng):
+    """{decode_tick, extend_tick: (median ms, the collectives' share)} of
+    an engine, cold or warm (``tp_tick_ms``)."""
+    return {name: (tp_tick_ms(eng, name=name)[0],
+                   tp_tick_ms(eng, timed_gathers=True, name=name)[1])
+            for name in TICK_NAMES}
 
 
 def tp_shard_kernels(placed, mesh_label: str):
@@ -3871,12 +3972,19 @@ def tp_rank_main(job_dir: str) -> None:
                                                 TP_MAX_TOKENS, mesh)
         out[path] = dict(tokens=tokens, steps=steps, counts=counts, plain=plain)
         lap(path)
+        out[f"warm_{path}"] = tp_warm(model, sp, granite, job["prompts"],
+                                      TP_MAX_TOKENS, mesh)
+        release()
+        lap(f"warm {path}")
     if "bf16" in job["parts"]:
         model = tp_models(granite, TP_LAYERS, torch.bfloat16, ("float",))["float"]
         eng = tp_engine(model, sp, mesh)
-        out["bf16_tick_ms"] = tp_tick_ms(eng)[0]
-        out["bf16_gather_share"] = tp_tick_ms(eng, timed_gathers=True)[1]
+        out["bf16_cold"] = tp_tick_times(eng)
+        out["bf16_tick_ms"], out["bf16_gather_share"] = out["bf16_cold"]["decode_tick"]
+        eng.warmup()
+        out["bf16_warm"] = tp_tick_times(eng)
         del eng
+        release()
         lap("bf16")
     del sp, models
     if "moe" in job["parts"]:
@@ -3885,12 +3993,15 @@ def tp_rank_main(job_dir: str) -> None:
         model = tp_models(moe, TP_MOE_LAYERS, torch.float32, ("float",))["float"]
         mplaced = place_params(msp, mod.logical_axes(model.specs()), mesh)
         out["moe_logits"] = tp_logits(model, mplaced, mesh)
-        tokens, _, counts, plain = tp_drain(model, msp, moe, job["prompts"],
-                                            TP_MAX_TOKENS, mesh)
-        out["moe"] = dict(tokens=tokens, counts=counts, plain=plain,
+        tokens, steps, counts, plain = tp_drain(model, msp, moe, job["prompts"],
+                                                TP_MAX_TOKENS, mesh)
+        out["moe"] = dict(tokens=tokens, steps=steps, counts=counts, plain=plain,
                           experts_held=int(mplaced["seg0"]["ffn"]["up"]["tile"].shape[1]))
         del mplaced
         lap("moe")
+        out["moe_warm"] = tp_warm(model, msp, moe, job["prompts"], TP_MAX_TOKENS, mesh)
+        release()
+        lap("warm moe")
         del msp, model
     if "r34" in job["parts"]:
         from repro_torch.distributed.sharding import axis_rules
@@ -3992,12 +4103,157 @@ def tp_mesh_cli_finish(started, card: str):
           + next(ln for ln in text.splitlines() if "sharding" in ln).strip(), flush=True)
 
 
-def phase_tp(card: str, sp34):
-    """Phase 4r: the exports of phases 3, 4e and 9 (granite-8b whole, its
-    engines cut to TP_LAYERS; qwen2-moe-a2.7b cut to TP_MOE_LAYERS;
-    ResNet-34 whole) served by 2 and then 4 ranks that share cuda:0 over
-    gloo, against the single card on the same exports. Returns the tile
-    bytes each rank of the (1, 2) job held ({rank: bytes})."""
+def tp_check_warm(who: str, warm: dict, cold: dict, one: dict, own: str,
+                  first: dict) -> None:
+    """Phase 4s on a rank: its warm drain gives the cold meshed engine's and
+    the single card's tokens at the same ticks, with no launch through a
+    wrapper, no plain version, no TRACE_COUNTS move and no eager tick; the
+    capture launched ``own`` and B2 on the rank's shards; each tick holds
+    one graph more than it has collectives, as many as the first rank's."""
+    if (warm["tokens"], warm["steps"]) != (cold["tokens"], cold["steps"]) or (
+            warm["tokens"], warm["steps"]) != (one["tokens"], one["steps"]):
+        fail(f"{who} warm: tokens {warm['tokens'][:2]} vs cold meshed "
+             f"{cold['tokens'][:2]}, one card {one['tokens'][:2]}")
+    if any(warm["counts"].values()) or warm["plain"] or warm["traces"] or warm["retraces"]:
+        fail(f"{who} warm: the drain launched {warm['counts']}, ran plain versions "
+             f"{warm['plain']}, moved TRACE_COUNTS {warm['traces']}, eager ticks "
+             f"{warm['retraces']}: a tick did not replay its graphs")
+    if warm["captured"][own] < 1 or warm["captured"]["B2"] < 1:
+        fail(f"{who} warm: the capture launched {warm['captured']} on the rank's "
+             f"shards; need {own} and B2")
+    for name, n in warm["graphs"].items():
+        if n != len(warm["sequence"][name]) + 1 or n != first["graphs"][name] or (
+                warm["sequence"][name] != first["sequence"][name]):
+            fail(f"{who} warm: {name} holds {n} graphs around "
+                 f"{len(warm['sequence'][name])} collectives; the first rank "
+                 f"{first['graphs'][name]}")
+
+
+def tp_warm_line(warm: dict) -> str:
+    """Capture seconds, graphs a tick and the graph pool of a warm rank."""
+    return (", ".join(f"{k} {v:.2f}s" for k, v in warm["capture_s"].items())
+            + "; " + ", ".join(f"{k} {n} graphs ({n - 1} collectives)"
+                               for k, n in warm["graphs"].items())
+            + f"; graph pool {warm['pool_mb']:+.1f} MB a rank")
+
+
+def mesh_serve_start():
+    """Phase 4s's CLI: ``--arch granite-8b --mesh 1x2 --serve --aot --port
+    0`` under torch.distributed.run, 2 ranks on the card (full width and
+    depth, the masters of seed 0: phase 3's export); its output is read on
+    a thread. It builds and warms up beside phase 4r's (2, 2) job."""
+    import queue
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.serve", "--arch",
+         "granite-8b", "--mesh", "1x2", "--serve", "--aot", "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        cwd=str(ROOT))
+    lines: "queue.Queue" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    return dict(t0=time.perf_counter(), proc=proc, lines=lines, seen=[])
+
+
+def mesh_serve_finish(started, card: str, http_ref: dict, prompts) -> None:
+    """Phase 4s (c): wait for the meshed CLI's readiness line (the first
+    rank's alone), stream phase 3's first MESH_SERVE_REQUESTS prompts over
+    SSE (16 greedy tokens each): the tokens must equal phase 4q's one-card
+    server's; then SIGINT to the first rank: it closes the server and stops
+    the follower, and the job exits 0. Prints the client's TTFT and ITL
+    against 4q's."""
+    import asyncio
+    import queue
+    import signal
+
+    import numpy as np
+
+    from repro_torch.serve.client import sse_generate
+
+    proc, lines, seen = started["proc"], started["lines"], started["seen"]
+
+    def next_line(pred, what: str):
+        while True:
+            left = MESH_SERVE_TIMEOUT - (time.perf_counter() - started["t0"])
+            try:
+                line = lines.get(timeout=max(1.0, left))
+            except queue.Empty:
+                proc.kill()
+                fail(f"serve CLI --mesh 1x2 --serve: no {what} within "
+                     f"{MESH_SERVE_TIMEOUT}s:\n" + "".join(seen)[-3000:])
+            seen.append(line)
+            if pred(line):
+                return line
+
+    try:
+        lead = next_line(lambda ln: " serves, 1 follow" in ln, "first-rank line")
+        pid = int(lead.split("(pid ")[1].split(")")[0])
+        ready = next_line(lambda ln: ln.startswith("serving on http://"),
+                          "readiness line")
+        boot = time.perf_counter() - started["t0"]
+        port = int(ready.split(":")[2].split()[0])
+        max_tokens = 16
+
+        async def go():
+            async def one(i):
+                await asyncio.sleep(HTTP_STAGGER_S * i)
+                t_send = time.perf_counter()
+                return t_send, await sse_generate(HTTP_HOST, port, {
+                    "prompt": [int(t) for t in prompts[i]], "max_tokens": max_tokens})
+            return await asyncio.gather(*(one(i) for i in range(MESH_SERVE_REQUESTS)))
+        got = asyncio.run(go())
+        t_sig = time.perf_counter()
+        os.kill(pid, signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=90)
+        except subprocess.TimeoutExpired:
+            fail("serve CLI --mesh 1x2 --serve: still running 90 s after SIGINT "
+                 "to the first rank")
+        stop_s = time.perf_counter() - t_sig
+        time.sleep(0.2)
+        while not lines.empty():
+            seen.append(lines.get())
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = "".join(seen)
+    if (rc != 0 or "server closed" not in out or "Traceback" in out
+            or out.count("serving on http://") != 1):
+        fail(f"serve CLI --mesh 1x2 --serve exit {rc} after SIGINT:\n{out[-3000:]}")
+    ttft, itl = [], []
+    for i, (t_send, (status, events, times)) in enumerate(got):
+        toks = [e["token"] for e in events if "token" in e]
+        if status != 200 or toks != http_ref["tokens"][i]:
+            fail(f"serve CLI --mesh 1x2 --serve: stream {i} gave status {status}, "
+                 f"tokens {toks}; phase 4q's one-card server {http_ref['tokens'][i]}")
+        tok_times = [t for e, t in zip(events, times) if "token" in e]
+        ttft.append(1e3 * (tok_times[0] - t_send))
+        itl += [1e3 * (b - a) for a, b in zip(tok_times, tok_times[1:])]
+    print(f"phase 4s [serve CLI --arch granite-8b --mesh 1x2 --serve --aot, full "
+          f"width and depth (L=36), 2 ranks sharing one card, {card}]: ready in "
+          f"{boot:.1f}s from the start (built and warmed beside the (2, 2) job), one "
+          f"readiness line; {MESH_SERVE_REQUESTS} SSE streams x {max_tokens} greedy "
+          f"tokens equal phase 4q's one-card server; client TTFT mean "
+          f"{np.mean(ttft):.2f} ms p50 {np.median(ttft):.2f} ms, ITL mean "
+          f"{np.mean(itl):.2f} ms p50 {np.median(itl):.2f} ms (4q, one card, 8 "
+          f"streams: TTFT {http_ref['ttft']:.2f} / {http_ref['ttft_p50']:.2f} ms, "
+          f"ITL {http_ref['itl']:.2f} / {http_ref['itl_p50']:.2f} ms); SIGINT to the "
+          f"first rank -> both ranks exit 0 in {stop_s:.1f}s", flush=True)
+
+
+def phase_tp(card: str, sp34, http_ref: dict):
+    """Phases 4r and 4s: the exports of phases 3, 4e and 9 (granite-8b
+    whole, its engines cut to TP_LAYERS; qwen2-moe-a2.7b cut to
+    TP_MOE_LAYERS; ResNet-34 whole) served by 2 and then 4 ranks that
+    share cuda:0 over gloo, cold and warm, against the single card on the
+    same exports; then the serve CLI's HTTP shell under --mesh 1x2 at
+    granite-8b's full width and depth against phase 4q's one-card server
+    (``http_ref``). Returns the tile bytes each rank of the (1, 2) job held
+    ({rank: bytes})."""
     import numpy as np
     import torch
 
@@ -4021,7 +4277,10 @@ def phase_tp(card: str, sp34):
         ref[path] = dict(tokens=tokens, steps=steps, counts=counts)
     model = tp_models(granite, TP_LAYERS, torch.bfloat16, ("float",))["float"]
     eng = tp_engine(model, sp)
-    ref["bf16_tick_ms"] = tp_tick_ms(eng)[0]
+    ref["bf16_cold"] = {n: tp_tick_ms(eng, name=n)[0] for n in TICK_NAMES}
+    ref["bf16_tick_ms"] = ref["bf16_cold"]["decode_tick"]
+    eng.warmup()
+    ref["bf16_warm"] = {n: tp_tick_ms(eng, name=n)[0] for n in TICK_NAMES}
     del sp, models, model, eng
     msp = tp_load("moe")
     model = tp_models(moe, TP_MOE_LAYERS, torch.float32, ("float",))["float"]
@@ -4044,10 +4303,11 @@ def phase_tp(card: str, sp34):
           f"logits, L={TP_LAYERS} engines; {MOE} L={TP_MOE_LAYERS}, f32; resnet34 "
           f"N=2): {t_ref:.1f}s", flush=True)
 
-    cli = None
+    cli = serving = None
     for dims, parts in ((TP_MESHES[0], ("bf16", "moe", "r34")), (TP_MESHES[1], ())):
-        if not parts:       # the CLI runs beside the job that times nothing
+        if not parts:       # the CLIs start beside the job that times nothing
             cli = tp_mesh_cli_start()
+            serving = mesh_serve_start()
         ranks, dt = tp_job(dims, parts, prompts)
         tp = dims[1]
         label = f"mesh {dims} ({len(ranks)} ranks sharing one card, {card})"
@@ -4063,6 +4323,8 @@ def phase_tp(card: str, sp34):
                 if got["counts"] != want["counts"] or got["plain"]:
                     fail(f"{who} {path}: launches {got['counts']} (single card "
                          f"{want['counts']}), plain versions run {got['plain']}")
+                tp_check_warm(f"{who} {path}", res[f"warm_{path}"], got, want,
+                              PATH_KERNEL[path], ranks[0][f"warm_{path}"])
             per_rank = res["tile_bytes"]
             if len(per_rank) != len(ranks) or any(
                     v * tp != total_tile for v in per_rank.values()):
@@ -4081,6 +4343,12 @@ def phase_tp(card: str, sp34):
                          f"{ref['moe']['tokens'][:2]}, launches {got['counts']} vs "
                          f"{ref['moe']['counts']}, plain {got['plain']}, "
                          f"{got['experts_held']} experts held")
+                tp_check_warm(f"{who} {MOE}", res["moe_warm"], got, ref["moe"], "B1",
+                              ranks[0]["moe_warm"])
+                if not any(op[0] == "all_reduce" for op in
+                           res["moe_warm"]["sequence"]["decode_tick"]):
+                    fail(f"{who} {MOE} warm: no expert-parallel sum among the "
+                         f"decode tick's collectives")
             if "r34" in parts:
                 y, counts = res["r34"]["logits"], res["r34"]["counts"]
                 err = r34_err = float((y - ref["r34"]).abs().max())
@@ -4119,8 +4387,36 @@ def phase_tp(card: str, sp34):
                   f"{ref['bf16_tick_ms']:.2f} ms on one card; the gathers take "
                   f"{res['bf16_gather_share']:.3f} of a tick (each synchronized; "
                   f"information, not a multi-card figure)", flush=True)
+            print(f"phase 4s [{label}]: bf16 ticks (granite-8b full width, "
+                  f"L={TP_LAYERS}, {N_SLOTS} slots, median of {TP_TIMED_TICKS}), cold "
+                  f"-> warm on the mesh: " + "; ".join(
+                      f"{n} {res['bf16_cold'][n][0]:.3f} -> {res['bf16_warm'][n][0]:.3f}"
+                      f" ms (collectives {res['bf16_cold'][n][1]:.3f} -> "
+                      f"{res['bf16_warm'][n][1]:.3f} of it)" for n in TICK_NAMES)
+                  + "; one card: " + "; ".join(
+                      f"{n} {ref['bf16_cold'][n]:.3f} -> {ref['bf16_warm'][n]:.3f} ms"
+                      for n in TICK_NAMES) + " (ranks sharing one card over gloo: "
+                  f"information, not a multi-card figure)", flush=True)
+        print(f"phase 4s [{label}]: warmup() on every rank, granite-8b (full width, "
+              f"L={TP_LAYERS}, f32) rank 0: " + tp_warm_line(res["warm_float"])
+              + f"; warm tokens (8 x {TP_MAX_TOKENS} greedy) under float / xnor / "
+              f"int8 equal the cold meshed engine's and the single card's at the same "
+              f"ticks on every rank; no launch, no plain version, no TRACE_COUNTS "
+              f"move, 0 eager ticks in the warm drains; the captures launched "
+              + ", ".join(f"{p} {res[f'warm_{p}']['captured'][k]} {k}"
+                          for p, k in PATH_KERNEL.items())
+              + f", B2 {res['warm_float']['captured']['B2']} a rank", flush=True)
+        if "moe" in parts:
+            print(f"phase 4s [{label}]: {MOE} (full width, L={TP_MOE_LAYERS}, f32, "
+                  f"expert parallel) warm rank 0: " + tp_warm_line(res["moe_warm"])
+                  + "; tokens equal the cold meshed engine's and one card's, no "
+                  "launch or TRACE_COUNTS move in the warm drain", flush=True)
     tp_mesh_cli_finish(cli, card)
-    print(f"phase 4r (TP/EP serving, ranks sharing one card): "
+    print(f"phase 4r (TP/EP serving, ranks sharing one card, 4s's warm drains "
+          f"included): {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    mesh_serve_finish(serving, card, http_ref, prompts)
+    print(f"phase 4s (the meshed HTTP shell after the jobs): "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     return tile_rank
 
@@ -4995,7 +5291,7 @@ def main() -> None:
     sp, launches = phase_serve(cfg)
     phase_card_vs_cpu(cfg, sp)
     phase_features_granite(cfg, sp)
-    phase_http_granite(cfg, sp)
+    http_ref = phase_http_granite(cfg, sp)
     tp_save("granite", sp)
     del sp
     qwen = get_config(QWEN)
@@ -5052,7 +5348,7 @@ def main() -> None:
     conv = phase_conv(card)
     sp34, r34 = phase_resnet34()
     phase_resnet34_card_vs_cpu(sp34)
-    tile_rank = phase_tp(card, sp34)
+    tile_rank = phase_tp(card, sp34, http_ref)
     del sp34
     mesh_results = phase_train_mesh(card)
     phase_dryrun(card, remat, tile_rank, mesh_results)

@@ -30,6 +30,12 @@ A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with dim names
 ``param_specs`` and the resolution helpers also take a plain mapping of
 axis name -> extent, which needs no process group. Outside ``axis_rules``
 every helper reports "no sharding" and no collective runs.
+
+Every collective of a serve tick goes through ``gather_blocks``,
+``sum_over`` or ``broadcast_from_first``. Under ``recording`` (off by
+default) each hands its collective to a recorder instead of running it
+inline: a captured tick (``serve/graphs.py``) ends its graph there and
+runs the collective between the replays.
 """
 from __future__ import annotations
 
@@ -364,18 +370,61 @@ def place_params(params: dict, logical: dict, mesh,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Collectives, and the segment recorder that a captured tick splits at
+# ---------------------------------------------------------------------------
+class _Recording(threading.local):
+    def __init__(self):
+        self.recorder = None
+
+
+_RECORDING = _Recording()
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Route every collective of ``gather_blocks``, ``sum_over`` and
+    ``broadcast_from_first`` on this thread through ``recorder`` (off by
+    default: the collectives then run at once). ``recorder.split(op,
+    run)`` gets the op's description (kind, mesh axis, shape, dtype) and a
+    function of no arguments that runs the collective on tensors it holds:
+    the input the code before it wrote, the output the code after it
+    reads. It must run it (once, now) before it returns; a capture
+    (``serve/graphs.py``) ends its segment first and runs it again between
+    the replays of the segments around it."""
+    prev = _RECORDING.recorder
+    _RECORDING.recorder = recorder
+    try:
+        yield recorder
+    finally:
+        _RECORDING.recorder = prev
+
+
+def _collective(kind: str, axis: str, t: torch.Tensor, run) -> None:
+    rec = _RECORDING.recorder
+    if rec is None:
+        run()
+    else:
+        rec.split((kind, axis, tuple(t.shape), str(t.dtype)), run)
+
+
 def gather_blocks(t: torch.Tensor, mesh, axes: Tuple[str, ...], dim: int
                   ) -> torch.Tensor:
     """The inverse of ``local_block``: every rank's block along ``dim``
     gathered over ``axes`` (innermost axis first) and concatenated in
-    block order. A failed collective raises."""
+    block order. Under a recorder the input and the gathered parts are
+    tensors the collective holds (a captured tick's, reused by every
+    replay) and the concatenation is the next segment's. A failed
+    collective raises."""
     ext = mesh_extents(mesh)
     for a in reversed(axes):
         if ext[a] == 1:
             continue
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(ext[a])]
-        dist.all_gather(parts, t, group=mesh.get_group(a))
+        group = mesh.get_group(a)
+        _collective("all_gather", a, t,
+                    lambda p=parts, x=t, g=group: dist.all_gather(p, x, group=g))
         t = torch.cat(parts, dim)
     return t
 
@@ -386,7 +435,9 @@ def sum_over(t: torch.Tensor, mesh, axes: Tuple[str, ...]) -> torch.Tensor:
     t = t.contiguous()
     for a in axes:
         if mesh_extents(mesh)[a] > 1:
-            dist.all_reduce(t, group=mesh.get_group(a))
+            group = mesh.get_group(a)
+            _collective("all_reduce", a, t,
+                        lambda x=t, g=group: dist.all_reduce(x, group=g))
     return t
 
 
@@ -394,7 +445,7 @@ def broadcast_from_first(t: torch.Tensor, mesh) -> torch.Tensor:
     """``t`` as the mesh's first rank holds it, on every rank of the mesh
     (in place)."""
     src = int(mesh.mesh.flatten()[0])
-    dist.broadcast(t, src=src)
+    _collective("broadcast", "world", t, lambda: dist.broadcast(t, src=src))
     return t
 
 

@@ -16,6 +16,14 @@ its own (a node's ranks no more than its cards), ``gloo`` when
 ranks share a card or run on the CPU (gloo stages CUDA tensors through
 the host for its collectives). ``make_host_mesh`` builds the mesh of a
 job whose gloo group is already initialized, on the CPU (tests).
+
+A meshed engine's ticks are captured as CUDA graphs split at each
+collective (``serve/graphs.py``): the collectives run eagerly between the
+replays, which gloo on the host needs. The same split capture serves NCCL
+with a card a rank, where each collective also runs between the segments
+(nothing captures an NCCL call). The engine's tick control
+(``serve/control.py``) runs on a gloo group of the mesh's ranks under
+either backend.
 """
 from __future__ import annotations
 

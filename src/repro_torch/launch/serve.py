@@ -67,8 +67,14 @@ divides), started by ``torch.distributed.run``:
 The backend follows ``launch/mesh.mesh_backend``: NCCL when each rank has a
 card of its own, gloo when the ranks share one (or run on the CPU, with
 ``--device cpu``); the first rank prints it with the reason, the mesh's
-tile bytes per rank, and the reports. ``--serve`` and ``--aot`` are refused
-under a mesh (``MESH_GRAPH_ITEM``).
+tile bytes per rank, and the reports. The first rank takes the requests and
+the others follow it (``BatchedEngine.follow``, ``serve/control.py``).
+``--aot`` warms every rank up (the ticks captured as graphs split at their
+collectives); ``--serve`` runs the HTTP shell on the first rank, which
+alone prints the readiness line and its pid: a SIGINT or SIGTERM to that
+process closes the server and stops the followers, and every rank exits
+0 (the followers ignore both signals, so a signal to the whole job reaches
+the first rank's handler and no follower dies in a collective).
 
 Flow: build the TRAIN masters on the device one leaf at a time (or read
 them from the checkpoint), export
@@ -82,6 +88,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
+import os
 import time
 from typing import Dict
 
@@ -96,7 +103,7 @@ from repro_torch.kernels.tiled_xnor import COMPUTE_PATHS
 from repro_torch.launch.mesh import init_mesh, parse_mesh_arg
 from repro_torch.nn import module as mod
 from repro_torch.nn.context import SERVE, TRAIN, ModelContext
-from repro_torch.serve.engine import MESH_GRAPH_ITEM, BatchedEngine, ServeConfig
+from repro_torch.serve.engine import BatchedEngine, ServeConfig
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.weights import (
     export_serving_params,
@@ -339,9 +346,6 @@ def main(argv=None):
         raise SystemExit("--trace-log requires --telemetry (the ring is fed "
                          "from the telemetry call sites)")
     dims = parse_mesh_arg(args.mesh)
-    if dims is not None and (args.serve or args.aot):
-        raise SystemExit(f"--mesh with {'--serve' if args.serve else '--aot'} "
-                         f"is not ported yet: {MESH_GRAPH_ITEM}")
     if dims is None:
         return _serve_main(args, None, None)
     mesh, device, backend, why = init_mesh(*dims, args.device)
@@ -395,6 +399,11 @@ def _serve_main(args, mesh, device):
         telemetry=args.telemetry,
         trace_events=args.trace_events if args.trace_log else 0), mesh=mesh)
     aot = args.aot if args.aot is not None else args.serve
+    if mesh is not None and aot:
+        # collective: every rank captures its ticks at this point
+        t = eng.warmup()
+        if not args.serve:
+            print(f"AOT warmup: {', '.join(f'{k} {v:.2f}s' for k, v in t.items())}")
     if mesh is not None:
         total = tile_serving_bytes(sp)
         per_rank = per_device_tile_bytes(eng.params, mesh)
@@ -404,6 +413,15 @@ def _serve_main(args, mesh, device):
               f"{worst / 1e6:.3f}MB max/device ({total / max(worst, 1):.1f}x "
               f"sharding)")
         del sp      # the rank keeps only its blocks of the tiles
+        if not eng.is_first:
+            import signal
+
+            # the first rank's handler stops the job; a follower only ends
+            # on its stop flag
+            for sig in (signal.SIGINT, signal.SIGTERM):
+                signal.signal(sig, signal.SIG_IGN)
+            eng.follow()
+            return []
 
     def flush_trace_log():
         if args.trace_log and eng.tel is not None and eng.tel.ring is not None:
@@ -414,11 +432,14 @@ def _serve_main(args, mesh, device):
                      f"{eng.cfg.trace_events}-event ring)" if dropped else ""))
 
     if args.serve:
+        if mesh is not None:
+            print(f"first rank {dist.get_rank()} (pid {os.getpid()}) serves, "
+                  f"{dist.get_world_size() - 1} follow", flush=True)
         serve_http(eng, args, aot)
         flush_trace_log()
         print("server closed", flush=True)
         return []
-    if aot:
+    if aot and mesh is None:
         t = eng.warmup()
         print(f"AOT warmup: {', '.join(f'{k} {v:.2f}s' for k, v in t.items())}")
     rng = np.random.default_rng(args.seed)
@@ -437,6 +458,7 @@ def _serve_main(args, mesh, device):
                 frames=clips[i % len(clips)] if encdec else None)
             for i, p in enumerate(prompts)]
     ticks, dt, tick_ends = drain(eng, reqs)
+    eng.stop_followers()
     tok = sum(len(r.output) for r in reqs)
     label = device_label(device)
     rate = f"{tok / dt:.1f} tok/s on {label}" if dt > 1e-9 else "instant drain"

@@ -75,10 +75,16 @@ preempt-and-resume, and telemetry (port of ``repro/serve/engine.py``).
   tensor- and expert-parallel: the engine keeps this rank's block of the
   params (``distributed.sharding.place_params``) and runs every tick under
   ``axis_rules``, so each tiled layer runs on its r/TP rows and gathers
-  the rest. Every rank runs the same host schedule (SPMD); each tick's
-  sampled ids are broadcast from the mesh's first rank, so no rank can fork
-  its schedule. Ticks run eagerly: ``warmup()`` under a mesh raises
-  (``MESH_GRAPH_ITEM``).
+  the rest. Every rank runs the same tick bodies. The mesh's first rank
+  alone takes ``submit`` / ``abort`` / ``abort_all`` and mirrors them to
+  the other ranks at the start of each ``step()``; those ranks run
+  ``follow()`` until ``stop_followers()`` (the tick control,
+  ``serve/control.py``), so their schedules stay the first rank's. Each
+  tick's sampled ids are broadcast from the first rank too.
+  ``warmup()`` under a mesh is collective (every rank calls it at the
+  same point of its schedule): a tick is captured as graphs split at
+  each of its collectives, which run between the replays
+  (``serve/graphs.py``); sampling and the ids' broadcast stay eager.
 """
 from __future__ import annotations
 
@@ -102,6 +108,7 @@ from repro_torch.distributed.sharding import (
 )
 from repro_torch.kernels.ops import check_compute_path
 from repro_torch.nn import module as mod
+from repro_torch.serve.control import TickControl
 from repro_torch.serve.graphs import TickGraph
 from repro_torch.serve.kvpool import KVPool
 from repro_torch.serve.prefix import EncoderCache, PrefixTrie
@@ -119,10 +126,6 @@ PRIORITY_RANKS: Dict[str, int] = {"interactive": 0, "batch": 1}
 # none of it, so a warm engine that serves without moving these counters
 # started no new capture and no eager tick (the reference's trace probe).
 TRACE_COUNTS: "collections.Counter[str]" = collections.Counter()
-# captured ticks under a mesh need collectives a graph can hold (NCCL, one
-# card per rank); gloo's run on the host
-MESH_GRAPH_ITEM = ("ROADMAP.md queue A item 9c (serving over NCCL, one card "
-                   "per rank: captured ticks under a mesh)")
 
 
 class AdmissionQueueFull(RuntimeError):
@@ -383,8 +386,12 @@ class BatchedEngine:
                              f"but the model was built with "
                              f"{model.ctx.compute_path!r}")
         self.mesh = mesh
+        # the tick control: the first rank admits, the others mirror it
+        self._control: Optional[TickControl] = None
+        self._mirror: Dict[int, Request] = {}   # a follower's open requests
         if mesh is not None:
             params = place_params(params, mod.logical_axes(model.specs()), mesh)
+            self._control = TickControl(mesh)
         self.params = params
         self.cfg = cfg
         self._queue = _AdmissionQueue()
@@ -565,29 +572,56 @@ class BatchedEngine:
         if cls not in PRIORITY_RANKS:
             raise ValueError(f"unknown priority class {cls!r}: expected one of "
                              f"{sorted(PRIORITY_RANKS)}")
-        if (self.cfg.max_queued is not None
-                and self._queue.qsize() >= self.cfg.max_queued):
+        self._check_leader("submit")
+        queued = self._queue.qsize() + (self._control.n_pending()
+                                        if self._control is not None else 0)
+        if self.cfg.max_queued is not None and queued >= self.cfg.max_queued:
             self._stats["rejected"] += 1
             if self.tel is not None:
                 self.tel.rejected.inc()
-            raise AdmissionQueueFull(self._queue.qsize(), self.cfg.max_queued)
-        req = Request(rid=next(self._rid), prompt=prompt, params=params,
-                      priority=cls, submit_step=self.steps, frames=frames,
-                      enc_digest=enc_digest)
+            raise AdmissionQueueFull(queued, self.cfg.max_queued)
+        req = self._new_request(next(self._rid), prompt, params, cls,
+                                self.steps, frames, enc_digest)
+        if self._control is not None:
+            # queued when the next tick's message goes out, on every rank
+            self._control.record(("submit", req.rid, prompt, params, cls,
+                                  req.submit_step, frames, enc_digest), req)
+        else:
+            self._queue.put(req)
+        return req
+
+    def _new_request(self, rid, prompt, params, cls, step, frames,
+                     enc_digest) -> Request:
+        req = Request(rid=rid, prompt=prompt, params=params, priority=cls,
+                      submit_step=step, frames=frames, enc_digest=enc_digest)
         if self.tel is not None:
             req.span = RequestSpan(req.rid, time.monotonic())
             self.tel.submitted.inc()
             if self.tel.ring is not None:
                 self.tel.ring.emit("submit", rid=req.rid,
                                    prompt_tokens=len(prompt), priority=cls)
-        self._queue.put(req)
         return req
+
+    @property
+    def is_first(self) -> bool:
+        """Whether this engine takes the calls: always without a mesh, on
+        the mesh's first rank with one."""
+        return self._control is None or self._control.is_first
+
+    def _check_leader(self, what: str) -> None:
+        if not self.is_first:
+            raise RuntimeError(
+                f"{what}() on a follower: under a mesh only its first rank "
+                f"(rank {self._control.first}) takes submit / abort / "
+                f"abort_all and steps; the other ranks run follow()")
 
     @property
     def has_work(self) -> bool:
         """Anything queued, live or parked (a parked request holds pages and
-        an unfinished stream with no live slot)."""
-        return bool(self._live) or bool(self._parked) or not self._queue.empty()
+        an unfinished stream with no live slot), or submitted under a mesh
+        for the next tick."""
+        return (bool(self._live) or bool(self._parked) or not self._queue.empty()
+                or (self._control is not None and self._control.n_pending() > 0))
 
     # ---- slot lifecycle ----------------------------------------------
     def _set_sampling(self, slot: int, req: Request) -> None:
@@ -751,7 +785,15 @@ class BatchedEngine:
         at once, nothing is published to the trie (a half-prefilled page
         run would poison later hits), and ``on_finish`` fires with
         ``finish_reason == "aborted"``. Not safe against a concurrent
-        ``step()``. False if the request already finished."""
+        ``step()``. False if the request already finished. Under a mesh the
+        other ranks abort it at the start of the next tick."""
+        self._check_leader("abort")
+        done = self._abort(req)
+        if done and self._control is not None:
+            self._control.record(("abort", req.rid))
+        return done
+
+    def _abort(self, req: Request) -> bool:
         if req.done:
             return False
         req.done = True
@@ -773,8 +815,10 @@ class BatchedEngine:
         return True
 
     def abort_all(self) -> int:
-        """Abort every live, parked and queued request; returns how many
-        actually finished by it."""
+        """Abort every live, parked and queued request (under a mesh also
+        those submitted for the next tick); returns how many actually
+        finished by it."""
+        self._check_leader("abort_all")
         n = 0
         for r in list(self._live.values()):
             n += bool(self.abort(r))
@@ -782,6 +826,9 @@ class BatchedEngine:
             n += bool(self.abort(parked.req))
         for r in self._queue.drain():
             n += bool(self.abort(r))
+        if self._control is not None:
+            for r in self._control.pending_requests():
+                n += bool(self.abort(r))
         return n
 
     def _release_parked(self, parked: PreemptedState):
@@ -1244,12 +1291,14 @@ class BatchedEngine:
         request. A second call is a no-op that returns the first call's
         seconds. Raises ``RuntimeError`` naming the entry point and its
         buffers' shapes if a run or a capture fails; the engine then stays
-        cold (no quiet half warmup). Under a mesh it raises
-        ``NotImplementedError``: the ticks' gloo collectives run on the host
-        and no graph can hold them (``MESH_GRAPH_ITEM``)."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"warmup() under a mesh is not ported yet: {MESH_GRAPH_ITEM}")
+        cold (no quiet half warmup).
+
+        Under a mesh the call is collective: every rank calls it at the same
+        point of its schedule. Each entry point is captured as graphs split
+        at its collectives (``serve/graphs.py``), which run eagerly between
+        the replays, and every rank must record the same collectives (kind,
+        mesh axis, shape, dtype): a ``RuntimeError`` names the first that
+        differs."""
         if self._graphs:
             return dict(self._warm_s)
         self._ptab_t.copy_(torch.from_numpy(self._ptab))
@@ -1265,10 +1314,15 @@ class BatchedEngine:
         pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
                 else None)
         graphs, timings = {}, {}
-        with torch.no_grad():
+        split = self.mesh is not None
+        with torch.no_grad(), self._mesh_ctx():
             for name, (fn, buffers) in self._entry_points().items():
-                graphs[name] = TickGraph(name, fn, buffers, self.device)
+                graphs[name] = TickGraph(name, fn, buffers, self.device,
+                                         split=split)
                 timings[name] = graphs[name].capture(pool)
+                if split:
+                    self._control.check_same(f"warmup of '{name}'",
+                                             graphs[name].sequence)
         self._graphs, self._warm_s = graphs, timings
         # from here on a tick body that runs in step() is an eager tick
         self._eager_armed = True
@@ -1404,7 +1458,53 @@ class BatchedEngine:
         scheduled prefill chunks, then one batched decode step. Every slot
         decoding at the start of the tick emits exactly one token; a
         prefilling slot emits its first token on the tick its last chunk
-        lands; a slot preempted this tick emits nothing."""
+        lands; a slot preempted this tick emits nothing. Under a mesh the
+        first rank first sends the calls since the last tick to the other
+        ranks, which run the same tick in ``follow()``."""
+        self._check_leader("step")
+        if self._control is not None:
+            for req in self._control.send():
+                self._queue.put(req)
+        self._step()
+
+    def follow(self) -> int:
+        """Run this rank of a mesh behind the first rank until it stops the
+        followers (``stop_followers``): each message's calls applied in
+        order, then the same tick. Returns the ticks run. On the first rank
+        (or without a mesh) it raises."""
+        if self._control is None or self._control.is_first:
+            raise RuntimeError("follow() runs the mesh's other ranks; this "
+                               "engine takes the calls itself")
+        ticks = 0
+        while True:
+            calls, stop = self._control.receive()
+            if stop:
+                return ticks
+            self._apply(calls)
+            self._step()
+            ticks += 1
+
+    def stop_followers(self) -> None:
+        """First rank: send the stop flag, which ends the other ranks'
+        ``follow()``; this engine steps no more. Nothing without a mesh."""
+        if self._control is not None:
+            self._check_leader("stop_followers")
+            self._control.send(stop=True)
+
+    def _apply(self, calls) -> None:
+        """A follower's copy of the first rank's calls, in their order."""
+        for call in calls:
+            if call[0] == "submit":
+                rid, prompt, params, cls, step, frames, digest = call[1:]
+                req = self._new_request(rid, prompt, params, cls, step,
+                                        frames, digest)
+                self._mirror[rid] = req
+                self._queue.put(req)
+            else:                           # ("abort", rid)
+                self._abort(self._mirror[call[1]])
+        self._mirror = {k: r for k, r in self._mirror.items() if not r.done}
+
+    def _step(self):
         tel = self.tel
         with torch.no_grad(), self._mesh_ctx():
             if tel is not None:
@@ -1539,6 +1639,7 @@ class BatchedEngine:
     def run_until_drained(self, max_steps: int = 10_000, on_tick=None) -> int:
         """Step until every submitted request completes; returns the tick
         count. ``on_tick(engine)`` runs after each tick."""
+        self._check_leader("run_until_drained")
         for i in range(max_steps):
             if not self.has_work:
                 return i

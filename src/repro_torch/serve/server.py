@@ -50,6 +50,18 @@ Dataflow (DESIGN.md §6.3), three threads with one-way handoffs:
   re-raises the error after its shutdown. Nothing falls back or carries on.
 * ``stats()`` and ``/metrics`` read host state only, so a scrape never
   synchronizes the device from the loop thread.
+* Over a meshed engine (``BatchedEngine(mesh=)``) the shell runs on the
+  mesh's first rank only, and every other rank runs ``engine.follow()``:
+  each ``step()`` of the tick thread first sends the calls since the last
+  tick (the handlers' submits, the aborts) to the followers, which then
+  run the same tick (``serve/control.py``). An idle tick thread still
+  steps every ``control.HEARTBEAT_S`` seconds, so a follower never waits
+  on the group's timeout. ``close()`` ends with ``stop_followers()``
+  unless a tick failed (a failed rank takes the others' next collective
+  down with it); a meshed engine then steps no more, so it serves one
+  server. ``start(aot=True)`` warms the engine up, which under a mesh is
+  collective: every rank warms up first (``warmup()`` is then a no-op
+  here), as the CLI does.
 """
 from __future__ import annotations
 
@@ -65,13 +77,9 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.serve.control import HEARTBEAT_S
 from repro_torch.serve.detok import DetokenizeWorker, PieceCodec
-from repro_torch.serve.engine import (
-    MESH_GRAPH_ITEM,
-    AdmissionQueueFull,
-    BatchedEngine,
-    Request,
-)
+from repro_torch.serve.engine import AdmissionQueueFull, BatchedEngine, Request
 from repro_torch.serve.sampling import SamplingParams
 
 # the /metrics histogram's route label vocabulary — anything else maps to
@@ -151,12 +159,12 @@ class EngineServer:
 
     def __init__(self, engine: BatchedEngine, cfg: ServerConfig = None,
                  *, codec: Optional[PieceCodec] = None):
-        if getattr(engine, "mesh", None) is not None:
-            # every rank must run the same ticks; the shell serves one
-            raise NotImplementedError(
-                f"the HTTP shell over a meshed engine is not ported yet: "
-                f"{MESH_GRAPH_ITEM}")
+        if not engine.is_first:
+            raise ValueError("the HTTP shell over a meshed engine runs on the "
+                             "mesh's first rank; this rank runs "
+                             "engine.follow()")
         self.engine = engine
+        self._meshed = engine.mesh is not None
         self.cfg = cfg or ServerConfig()
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._server: Optional[asyncio.AbstractServer] = None
@@ -283,6 +291,8 @@ class EngineServer:
         # tick thread is down -> abort is now safe; every live/queued
         # request fires on_finish -> a final "aborted" event per stream
         self.engine.abort_all()
+        if self._tick_error is None:
+            self.engine.stop_followers()
         # sentinel lands BEHIND the aborts' final events: joining here
         # guarantees partial text of mid-flight streams was flushed
         await asyncio.to_thread(self.detok.close)
@@ -305,6 +315,7 @@ class EngineServer:
     def _tick_loop(self):
         eng = self.engine
         self._on_device()
+        beat = time.monotonic()
         while not self._stop:
             while not self._abort_q.empty():
                 try:
@@ -312,8 +323,10 @@ class EngineServer:
                 except queue.Empty:      # pragma: no cover
                     break
             # has_work counts parked (preempted) requests too: a parked
-            # stream with an empty queue still needs ticks to resume
-            if not eng.has_work:
+            # stream with an empty queue still needs ticks to resume; a
+            # meshed engine's idle step is its followers' heartbeat
+            if not eng.has_work and not (
+                    self._meshed and time.monotonic() - beat >= HEARTBEAT_S):
                 with self._wake:
                     if self._stop:
                         return
@@ -321,6 +334,7 @@ class EngineServer:
                 continue
             try:
                 eng.step()
+                beat = time.monotonic()
             except BaseException as e:   # fail every stream, then stop
                 self._tick_error = e
                 self._stop = True

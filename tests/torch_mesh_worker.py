@@ -1,7 +1,9 @@
 """One rank of the port's mesh tests (``test_torch_tp_serve.py``,
 ``test_torch_tp_cuda.py``, ``test_torch_tp_train.py``,
 ``test_torch_compression.py``, ``test_torch_pipeline.py``,
-``test_torch_tp_train_cuda.py``): joins a gloo job through a ``FileStore`` in the
+``test_torch_tp_train_cuda.py``, ``test_torch_mesh_warm.py``,
+``test_torch_mesh_server.py``, ``test_torch_mesh_warm_cuda.py``): joins a
+gloo job through a ``FileStore`` in the
 job directory, builds the job's ("data", "model") meshes, runs the job's
 cases under each and saves what it computed to ``rank<i>.pt`` there; the
 test compares it with the JAX package and the port on one device.
@@ -120,24 +122,183 @@ def _logits(case, mesh, dev):
     return out
 
 
-def _engine(case, mesh, dev):
+def _new_engine(case, mesh, dev):
     _, sm, sp = _model(case, dev)
-    eng = BatchedEngine(sm, sp, ServeConfig(**case["engine"]), mesh=mesh)
-    reqs = [eng.submit(np.asarray(p, np.int32), SamplingParams(**kw))
-            for p, kw in zip(case["prompts"], case["sampling"])]
+    return BatchedEngine(sm, sp, ServeConfig(
+        **case["engine"], compute_path=case.get("path", "float")), mesh=mesh)
+
+
+def _drive(eng, script):
+    """Run ``script(eng)`` (submits, steps, aborts; it ends drained) on the
+    mesh's first rank and ``follow()`` on the others, then stop them.
+    Returns (ticks, every finished request in rid order) on every rank."""
+    finished = {}
+    eng.on_finish = lambda r: finished.setdefault(r.rid, r)
+    if eng.is_first:
+        ticks = script(eng)
+        eng.stop_followers()
+    else:
+        ticks = eng.follow()
+    return ticks, [finished[rid] for rid in sorted(finished)]
+
+
+def _greedy_script(case):
+    def script(eng):
+        for p, kw in zip(case["prompts"], case["sampling"]):
+            eng.submit(np.asarray(p, np.int32), SamplingParams(**kw))
+        return eng.run_until_drained()
+    return script
+
+
+def _requests(reqs):
+    return {"tokens": [r.output for r in reqs], "steps": [r.token_steps for r in reqs],
+            "finish": [r.finish_reason for r in reqs]}
+
+
+def _engine(case, mesh, dev):
+    eng = _new_engine(case, mesh, dev)
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    ticks, reqs = _drive(eng, _greedy_script(case))
+    return dict(_requests(reqs), ticks=ticks, first=eng.is_first,
+                launches={k: fn.launches for k, fn in counters.items()})
+
+
+def _warm_engine(case, mesh, dev):
+    """``warmup()`` on every rank (the launches it makes, each entry point's
+    collective sequence), then the greedy drain: the requests, the ticks,
+    the launches and TRACE_COUNTS moved in it and the eager ticks the
+    engine saw."""
+    from repro_torch.serve.engine import TRACE_COUNTS
+
+    eng = _new_engine(case, mesh, dev)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    eng.warmup()
+    captured = {k: fn.launches for k, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    traces = TRACE_COUNTS.copy()
+    ticks, reqs = _drive(eng, _greedy_script(case))
+    return dict(_requests(reqs), ticks=ticks, captured=captured,
+                launches={k: fn.launches for k, fn in counters.items()},
+                traces=dict(TRACE_COUNTS - traces),
+                segments={k: len(g.graphs) for k, g in eng._graphs.items()},
+                sequence={k: g.sequence for k, g in eng._graphs.items()},
+                retraces=eng.stats()["retraces"])
+
+
+def control_script(eng):
+    """Calls on the first rank that exercise the tick control: two
+    requests share a page-aligned prefix (the second hits the trie), an
+    interactive request preempts a batch slot (which resumes later), and
+    the other batch request is aborted mid-flight, live after its first
+    tokens. Returns the ticks run."""
+    rng = np.random.default_rng(4)
+    shared = rng.integers(0, 512, size=16)
+    a, b = (np.concatenate([shared, rng.integers(0, 512, size=n)]).astype(np.int32)
+            for n in (3, 5))
+    eng.submit(a, SamplingParams(max_tokens=6))
     ticks = eng.run_until_drained()
-    refused = {}
-    for what, start in (("warmup", eng.warmup), ("server", lambda: EngineServer(eng))):
+    live = eng.submit(b, SamplingParams(max_tokens=20))
+    parked = eng.submit(rng.integers(0, 512, size=9).astype(np.int32),
+                        SamplingParams(max_tokens=12))
+    for _ in range(4):
+        eng.step()
+    eng.submit(rng.integers(0, 512, size=7).astype(np.int32),
+               SamplingParams(max_tokens=5, priority="interactive"))
+    for _ in range(3):
+        eng.step()
+    assert live.output and not live.done and parked.preempt_count == 1
+    eng.abort(live)
+    ticks += 7 + eng.run_until_drained()
+    assert live.prefix_hit_tokens == 16 and parked.finish_reason == "length"
+    return ticks
+
+
+def _control(case, mesh, dev):
+    eng = _new_engine(case, mesh, dev)
+    if case.get("warm"):
+        eng.warmup()
+    ticks, reqs = _drive(eng, control_script)
+    st = eng.stats()
+    return dict(_requests(reqs), ticks=ticks,
+                stats={k: st[k] for k in CONTROL_STATS},
+                ptab=eng._ptab.copy(), hits=[r.prefix_hit_tokens for r in reqs])
+
+
+CONTROL_STATS = ("admitted", "prefix_hits", "prefix_tokens", "preempts", "resumes",
+                 "aborted", "tokens_out", "pages_in_use", "trie_nodes",
+                 "decode_ticks", "extend_ticks", "ticks")
+
+
+def _replay(case, mesh, dev):
+    """Each rank's decode and extend tick logits run cold (the tick
+    functions, eagerly) and then replayed after ``warmup()``, on the same
+    inputs (random tokens, no slot active, no state moved); the graphs a
+    tick holds and its collectives."""
+    eng = _new_engine(case, mesh, dev)
+    gen = torch.Generator().manual_seed(case.get("seed", 0))
+    vocab = eng.model.cfg.vocab
+    tokens = torch.randint(0, vocab, tuple(eng.tokens.shape), generator=gen)
+    block = torch.randint(0, vocab, tuple(eng._block_t.shape), generator=gen)
+    names = ("decode_tick", "extend_tick")
+
+    def ticks():
+        eng.tokens.copy_(tokens)
+        eng._block_t.copy_(block)
+        with torch.no_grad(), eng._mesh_ctx():
+            return {n: eng._tick(n).clone().cpu() for n in names}
+
+    cold = ticks()
+    eng.warmup()
+    warm = ticks()
+    return {"cold": cold, "warm": warm,
+            "graphs": {n: len(eng._graphs[n].graphs) for n in names},
+            "collectives": {n: len(eng._graphs[n].collectives) for n in names},
+            "sequence": {n: eng._graphs[n].sequence for n in names}}
+
+
+def _server(case, mesh, dev):
+    """Every rank warms up; the first rank serves ``case["prompts"]`` over
+    HTTP through ``EngineServer`` (the streams sent at once, the raw
+    responses kept) and closes, which stops the other ranks' follow()."""
+    import asyncio
+
+    from repro_torch.serve import client
+    from repro_torch.serve.server import ServerConfig
+
+    eng = _new_engine(case, mesh, dev)
+    eng.warmup()
+    if not eng.is_first:
+        eng.follow()
+        return {"ticks": eng.steps, "stopped": True}
+
+    async def raw(port, payload):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
         try:
-            start()
-        except NotImplementedError as e:
-            refused[what] = str(e)
-    return {"tokens": [r.output for r in reqs], "steps": [r.token_steps for r in reqs],
-            "ticks": ticks, "refused": refused,
-            "launches": {k: fn.launches for k, fn in counters.items()}}
+            writer.write(client._request_bytes("POST", "/generate", payload))
+            await writer.drain()
+            return await reader.read()
+        finally:
+            writer.close()
+            await writer.wait_closed()
+
+    async def go():
+        srv = EngineServer(eng, ServerConfig(host="127.0.0.1", port=0))
+        port = await srv.start(aot=True)
+        try:
+            return await asyncio.gather(*(
+                raw(port, {"prompt": p, "max_tokens": m})
+                for p, m in zip(case["prompts"], case["max_tokens"])))
+        finally:
+            await srv.close()
+
+    bodies = asyncio.run(go())
+    return {"sse": bodies, "ticks": eng.steps,
+            "stopped": eng._control.stopped, "retraces": eng.stats()["retraces"]}
 
 
 # ---------------------------------------------------------------------------
@@ -348,6 +509,8 @@ def _gpipe(case, mesh, dev):
 
 
 KINDS = {"dense": _dense, "conv": _conv, "logits": _logits, "engine": _engine,
+         "warm_engine": _warm_engine, "control": _control, "server": _server,
+         "replay": _replay,
          "train": _train, "fault": _fault, "ckpt_write": _ckpt_write,
          "ckpt_restore": _ckpt_restore, "dp": _dp, "gpipe": _gpipe}
 
