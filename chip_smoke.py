@@ -136,8 +136,9 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      fails and names the token and the gap between its k-th and (k+1)-th
      router probability), logits at rtol = atol = 1e-3;
   4h. serve mamba2-370m at its published width, cut to
-     MAMBA_SERVE_LAYERS = 24 of its 48 layers when phase 4r made the run
-     longer (SSD state 128, no attention, no FFN), bf16, built the same
+     MAMBA_SERVE_LAYERS = 18 of its 48 layers when phase 4r made the run
+     longer (24, then 18 when 4r's heads-sharded attention added a
+     gather a layer) (SSD state 128, no attention, no FFN), bf16, built the same
      way: the
      requests of phase 3 under "float", "xnor" and "int8" on one export,
      cold and warm, with the same counter and token checks (own kernel =
@@ -249,7 +250,11 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      ticks, and each gather stages through the host): phase 3's 8 prompts
      x 16 greedy tokens under float, xnor and int8 give the single-card
      engine's tokens at the same ticks, each rank's launch counters equal
-     the single card's and no plain version runs. Under (1, 2) also:
+     the single card's and no plain version runs. granite's attention runs
+     on the rank's block of the heads ("heads" recipe: TP divides its 8
+     K/V heads), so each rank's K/V pools (the sum over ``eng.caches``)
+     hold one card's bytes x (K/TP)/K exactly (both printed), as do
+     qwen2-moe's (16 K/V heads) and the bf16 engine's. Under (1, 2) also:
      qwen2-moe (E/TP experts a rank) logits within 1e-4 and engine tokens
      equal; ResNet-34 N = 2 f32 logits within phase 10's 1e-3 (B6 per
      shard, 18 launches a rank); the cold bf16 decode tick at TP_LAYERS
@@ -265,7 +270,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      collectives, which run between the replays) and drains the same
      prompts warm: tokens and ticks equal the cold meshed engine's and the
      single card's, each rank's graphs a tick equal the first rank's (one
-     more than its collectives, the same sequence), the capture launched
+     more than its collectives, the same sequence, one all_gather a layer
+     of its attention output by heads), the capture launched
      the path's decode kernel and B2 on the rank's shards, and the warm
      drain moves no launch counter, no TRACE_COUNTS, runs no plain version
      and counts no eager tick; the same for qwen2-moe under (1, 2) (its
@@ -282,8 +288,12 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      builds one rank's cell on ``meta`` tensors under a fake process group
      of the mesh's size and counts its step (``roofline.analysis``); the
      tile bytes a rank of granite-8b serving at (1, 2) equal phase 4r's,
-     the collectives a train step and their kinds of granite-8b (L = 2) at
-     (1, 2), (2, 1), (2, 2) and of qwen2-moe (L = 2) at (1, 2), (2, 2)
+     and so do the K/V bytes a rank of 4r's bf16 engine (its paged cell);
+     granite-8b at full width, 32 slots x 32 768 tokens, counts
+     KV_32K_BYTES of K/V at (1, 1), half at (1, 2), a quarter at (1, 4)
+     (with the counted peak a rank); the collectives a train step and
+     their kinds of granite-8b (L = 2) at (1, 2), (2, 1), (2, 2) and of
+     qwen2-moe (L = 2) at (1, 2), (2, 2)
      equal phase 5r's step 2, phase 5d's state bytes and launches equal
      the count, and each remat policy's predicted step peak and forward +
      backward peak (with its launches) lie within DRYRUN_PEAK_TOL of
@@ -455,10 +465,11 @@ ENCODE_CALLS = {"K1024 r256": 1 + 4 * 24 + 2 * 24, "K1024 r2048": 24,
 # phase 4m: seamless cut to 2 + 2 layers, chameleon to 2, card vs CPU
 ENCDEC_CHECK_LAYERS = 2
 # phase 4l serves chameleon-34b at full width cut to 16 of its 48 layers,
-# and phases 4h / 4o mamba2-370m to 24 of its 48 (its cold per-token extend
-# ticks): phase 4r made the run longer, and these depths were the next cuts
+# and phases 4h / 4o mamba2-370m to 18 of its 48 (its cold per-token extend
+# ticks): phase 4r made the run longer (mamba2 first to 24, then, when 4r's
+# heads-sharded attention added a gather a layer to every meshed tick, to 18)
 CHAMELEON_SERVE_LAYERS = 16
-MAMBA_SERVE_LAYERS = 24
+MAMBA_SERVE_LAYERS = 18
 # phase 4f serves moonshot-v1-16b-a3b at full width cut to 16 of its 48
 # layers: phases 4k-4m made the run longer, and this depth was the next cut
 MOONSHOT_SERVE_LAYERS = 16
@@ -522,6 +533,9 @@ R34_LEDGER = (21_779_648, 11.646, 0.5347)   # params, Mbit, bits/param
 # tolerances (logits: of max|logit|; ResNet-34: phase 10's), the decode
 # ticks timed, and a job's time limit; TP_DIR holds the saved exports
 TP_MESHES = ((1, 2), (2, 2))
+# granite-8b's K/V at 32 slots x 32768 tokens: 36 layers x 8 heads x 128 x
+# (k, v) x bf16 a token, on one card (phase 11)
+KV_32K_BYTES = 36 * 32 * 32_768 * 8 * 128 * 2 * 2
 TP_LAYERS, TP_MOE_LAYERS = 2, MOE_CHECK_LAYERS
 TP_PROMPT, TP_DECODE_STEPS, TP_MAX_TOKENS = [5, 3, 2, 7, 1, 4, 6, 2], 4, 16
 TP_LOGIT_RTOL, TP_R34_TOL = 1e-4, 1e-3
@@ -3765,18 +3779,36 @@ def mesh_drain(eng, cfg, prompts, max_tokens: int):
     return reqs
 
 
+def kv_bytes(eng) -> int:
+    """The bytes of an engine's caches (a full-attention model's K/V pools):
+    what this rank holds."""
+    from repro_torch.launch.cells import tree_bytes
+
+    return int(tree_bytes(eng.caches))
+
+
+def kv_share(cfg, tp: int) -> "tuple[int, int]":
+    """(K/V heads a rank holds, K) of ``cfg`` under a model axis of ``tp``:
+    K/TP where ``attn_act`` is "heads" and tp divides n_kv and n_heads
+    (``distributed.sharding.head_sharding``), else K."""
+    k = cfg.n_kv
+    split = cfg.attn_act == "heads" and k % tp == 0 and cfg.n_heads % tp == 0
+    return (k // tp if split else k), k
+
+
 def tp_drain(model, sp, cfg, prompts, max_tokens: int, mesh=None):
     """A cold engine of phase 3's shape over ``prompts`` (greedy), with the
     launch counters zeroed just before the drain and read just after, and
     every plain version counted. Returns (tokens, token steps, launches,
-    plain calls)."""
+    plain calls, the bytes of the engine's K/V pools)."""
     eng = tp_engine(model, sp, mesh)
     plain = {}
     zero_counters()
     with counting_plain(plain):
         reqs = mesh_drain(eng, cfg, prompts, max_tokens)
     counts = read_counters()
-    return [r.output for r in reqs], [r.token_steps for r in reqs], counts, plain
+    return ([r.output for r in reqs], [r.token_steps for r in reqs], counts, plain,
+            kv_bytes(eng))
 
 
 def tp_warm(model, sp, cfg, prompts, max_tokens: int, mesh):
@@ -3968,9 +4000,9 @@ def tp_rank_main(job_dir: str) -> None:
     lap("checks")
     models = tp_models(granite, TP_LAYERS, torch.float32)
     for path, model in models.items():
-        tokens, steps, counts, plain = tp_drain(model, sp, granite, job["prompts"],
-                                                TP_MAX_TOKENS, mesh)
-        out[path] = dict(tokens=tokens, steps=steps, counts=counts, plain=plain)
+        tokens, steps, counts, plain, kv = tp_drain(model, sp, granite, job["prompts"],
+                                                    TP_MAX_TOKENS, mesh)
+        out[path] = dict(tokens=tokens, steps=steps, counts=counts, plain=plain, kv=kv)
         lap(path)
         out[f"warm_{path}"] = tp_warm(model, sp, granite, job["prompts"],
                                       TP_MAX_TOKENS, mesh)
@@ -3979,6 +4011,7 @@ def tp_rank_main(job_dir: str) -> None:
     if "bf16" in job["parts"]:
         model = tp_models(granite, TP_LAYERS, torch.bfloat16, ("float",))["float"]
         eng = tp_engine(model, sp, mesh)
+        out["bf16_kv"] = kv_bytes(eng)
         out["bf16_cold"] = tp_tick_times(eng)
         out["bf16_tick_ms"], out["bf16_gather_share"] = out["bf16_cold"]["decode_tick"]
         eng.warmup()
@@ -3993,9 +4026,9 @@ def tp_rank_main(job_dir: str) -> None:
         model = tp_models(moe, TP_MOE_LAYERS, torch.float32, ("float",))["float"]
         mplaced = place_params(msp, mod.logical_axes(model.specs()), mesh)
         out["moe_logits"] = tp_logits(model, mplaced, mesh)
-        tokens, steps, counts, plain = tp_drain(model, msp, moe, job["prompts"],
-                                                TP_MAX_TOKENS, mesh)
-        out["moe"] = dict(tokens=tokens, steps=steps, counts=counts, plain=plain,
+        tokens, steps, counts, plain, kv = tp_drain(model, msp, moe, job["prompts"],
+                                                    TP_MAX_TOKENS, mesh)
+        out["moe"] = dict(tokens=tokens, steps=steps, counts=counts, plain=plain, kv=kv,
                           experts_held=int(mplaced["seg0"]["ffn"]["up"]["tile"].shape[1]))
         del mplaced
         lap("moe")
@@ -4103,13 +4136,22 @@ def tp_mesh_cli_finish(started, card: str):
           + next(ln for ln in text.splitlines() if "sharding" in ln).strip(), flush=True)
 
 
+def head_gathers(sequence) -> int:
+    """The all_gathers of attention outputs by heads among a tick's
+    recorded collectives: the (B, S, H/TP * hd) ones (a tiled layer's
+    gathers are of (m, r) unique rows)."""
+    return sum(1 for kind, _, shape, _ in sequence
+               if kind == "all_gather" and len(shape) == 3)
+
+
 def tp_check_warm(who: str, warm: dict, cold: dict, one: dict, own: str,
-                  first: dict) -> None:
+                  first: dict, heads: int) -> None:
     """Phase 4s on a rank: its warm drain gives the cold meshed engine's and
     the single card's tokens at the same ticks, with no launch through a
     wrapper, no plain version, no TRACE_COUNTS move and no eager tick; the
     capture launched ``own`` and B2 on the rank's shards; each tick holds
-    one graph more than it has collectives, as many as the first rank's."""
+    one graph more than it has collectives, as many as the first rank's,
+    ``heads`` of them the layers' attention outputs gathered by heads."""
     if (warm["tokens"], warm["steps"]) != (cold["tokens"], cold["steps"]) or (
             warm["tokens"], warm["steps"]) != (one["tokens"], one["steps"]):
         fail(f"{who} warm: tokens {warm['tokens'][:2]} vs cold meshed "
@@ -4127,6 +4169,19 @@ def tp_check_warm(who: str, warm: dict, cold: dict, one: dict, own: str,
             fail(f"{who} warm: {name} holds {n} graphs around "
                  f"{len(warm['sequence'][name])} collectives; the first rank "
                  f"{first['graphs'][name]}")
+        if head_gathers(warm["sequence"][name]) != heads:
+            fail(f"{who} warm: {name} gathers {head_gathers(warm['sequence'][name])} "
+                 f"attention outputs by heads; want {heads}, one a layer")
+
+
+def tp_check_kv(who: str, got: int, one: int, cfg, tp: int) -> None:
+    """Phase 4r on a rank: the bytes of its K/V pools are one card's x
+    (K/TP)/K exactly where the model axis divides the heads, one card's
+    where it does not."""
+    held, k = kv_share(cfg, tp)
+    if one * held % k or got != one * held // k:
+        fail(f"{who}: K/V pools {got} B a rank; one card's {one} B x {held}/{k} "
+             f"= {one * held / k:.1f}")
 
 
 def tp_warm_line(warm: dict) -> str:
@@ -4253,7 +4308,8 @@ def phase_tp(card: str, sp34, http_ref: dict):
     same exports; then the serve CLI's HTTP shell under --mesh 1x2 at
     granite-8b's full width and depth against phase 4q's one-card server
     (``http_ref``). Returns the tile bytes each rank of the (1, 2) job held
-    ({rank: bytes})."""
+    ({rank: bytes}) and the bf16 engine's K/V pool bytes each of its ranks
+    held ({rank: bytes}), for phase 11."""
     import numpy as np
     import torch
 
@@ -4273,10 +4329,12 @@ def phase_tp(card: str, sp34, http_ref: dict):
     del full, model
     models = tp_models(granite, TP_LAYERS, torch.float32)
     for path, model in models.items():
-        tokens, steps, counts, _ = tp_drain(model, sp, granite, prompts, TP_MAX_TOKENS)
-        ref[path] = dict(tokens=tokens, steps=steps, counts=counts)
+        tokens, steps, counts, _, kv = tp_drain(model, sp, granite, prompts,
+                                                TP_MAX_TOKENS)
+        ref[path] = dict(tokens=tokens, steps=steps, counts=counts, kv=kv)
     model = tp_models(granite, TP_LAYERS, torch.bfloat16, ("float",))["float"]
     eng = tp_engine(model, sp)
+    ref["bf16_kv"] = kv_bytes(eng)
     ref["bf16_cold"] = {n: tp_tick_ms(eng, name=n)[0] for n in TICK_NAMES}
     ref["bf16_tick_ms"] = ref["bf16_cold"]["decode_tick"]
     eng.warmup()
@@ -4285,8 +4343,8 @@ def phase_tp(card: str, sp34, http_ref: dict):
     msp = tp_load("moe")
     model = tp_models(moe, TP_MOE_LAYERS, torch.float32, ("float",))["float"]
     ref["moe_logits"] = tp_logits(model, msp)
-    ref["moe"] = dict(zip(("tokens", "steps", "counts"), tp_drain(
-        model, msp, moe, prompts, TP_MAX_TOKENS)[:3]))
+    ref["moe"] = dict(zip(("tokens", "steps", "counts", "plain", "kv"), tp_drain(
+        model, msp, moe, prompts, TP_MAX_TOKENS)))
     del msp, model
     _, sms, _, _ = resnet34_models(torch.float32)
     gen = torch.Generator(device="cuda")
@@ -4304,6 +4362,7 @@ def phase_tp(card: str, sp34, http_ref: dict):
           f"N=2): {t_ref:.1f}s", flush=True)
 
     cli = serving = None
+    kv_rank = {}
     for dims, parts in ((TP_MESHES[0], ("bf16", "moe", "r34")), (TP_MESHES[1], ())):
         if not parts:       # the CLIs start beside the job that times nothing
             cli = tp_mesh_cli_start()
@@ -4323,8 +4382,13 @@ def phase_tp(card: str, sp34, http_ref: dict):
                 if got["counts"] != want["counts"] or got["plain"]:
                     fail(f"{who} {path}: launches {got['counts']} (single card "
                          f"{want['counts']}), plain versions run {got['plain']}")
+                tp_check_kv(f"{who} {path}", got["kv"], want["kv"], granite, tp)
                 tp_check_warm(f"{who} {path}", res[f"warm_{path}"], got, want,
-                              PATH_KERNEL[path], ranks[0][f"warm_{path}"])
+                              PATH_KERNEL[path], ranks[0][f"warm_{path}"],
+                              TP_LAYERS if kv_share(granite, tp)[0] < granite.n_kv
+                              else 0)
+            if "bf16" in parts:
+                tp_check_kv(f"{who} bf16", res["bf16_kv"], ref["bf16_kv"], granite, tp)
             per_rank = res["tile_bytes"]
             if len(per_rank) != len(ranks) or any(
                     v * tp != total_tile for v in per_rank.values()):
@@ -4332,6 +4396,7 @@ def phase_tp(card: str, sp34, http_ref: dict):
                      f"{total_tile}")
             if dims == (1, 2):
                 tile_rank = per_rank
+                kv_rank[r] = res["bf16_kv"]
             if "moe" in parts:
                 mw = tp_close(f"{who} {MOE} L={TP_MOE_LAYERS} f32", res["moe_logits"],
                               ref["moe_logits"], TP_LOGIT_RTOL)
@@ -4343,8 +4408,10 @@ def phase_tp(card: str, sp34, http_ref: dict):
                          f"{ref['moe']['tokens'][:2]}, launches {got['counts']} vs "
                          f"{ref['moe']['counts']}, plain {got['plain']}, "
                          f"{got['experts_held']} experts held")
+                tp_check_kv(f"{who} {MOE}", got["kv"], ref["moe"]["kv"], moe, tp)
                 tp_check_warm(f"{who} {MOE}", res["moe_warm"], got, ref["moe"], "B1",
-                              ranks[0]["moe_warm"])
+                              ranks[0]["moe_warm"],
+                              TP_MOE_LAYERS if kv_share(moe, tp)[0] < moe.n_kv else 0)
                 if not any(op[0] == "all_reduce" for op in
                            res["moe_warm"]["sequence"]["decode_tick"]):
                     fail(f"{who} {MOE} warm: no expert-parallel sum among the "
@@ -4369,14 +4436,21 @@ def phase_tp(card: str, sp34, http_ref: dict):
                           for p, k in PATH_KERNEL.items())
               + f"), no plain version run; tile bytes {total_tile / 1e6:.3f} MB, "
               f"{max(res['tile_bytes'].values()) / 1e6:.3f} MB a rank "
-              f"({total_tile / max(res['tile_bytes'].values()):.1f}x); job {dt:.1f}s "
+              f"({total_tile / max(res['tile_bytes'].values()):.1f}x); K/V pools "
+              f"(f32 engines) {res['float']['kv']} B a rank against one card's "
+              f"{ref['float']['kv']} B = x {'/'.join(map(str, kv_share(granite, tp)))}"
+              + (f", bf16 {res['bf16_kv']} B against {ref['bf16_kv']} B"
+                 if "bf16" in parts else "") + f" (exact on every rank); job {dt:.1f}s "
               f"(rank 0: " + ", ".join(f"{k} {v:.1f}s" for k, v in res["seconds"].items())
               + ")", flush=True)
         if "moe" in parts:
             print(f"phase 4r [{label}]: {MOE} (full width, L={TP_MOE_LAYERS}, f32, "
                   f"{moe.moe.n_experts // tp} of {moe.moe.n_experts} experts a rank) "
                   f"logits within {mw:.2e} x max|logit|, tokens equal, launches "
-                  f"{res['moe']['counts']}; resnet34 N=2 f32 logits max|diff| "
+                  f"{res['moe']['counts']}, K/V pools {res['moe']['kv']} B a rank "
+                  f"against {ref['moe']['kv']} B (x "
+                  f"{'/'.join(map(str, kv_share(moe, tp)))}); resnet34 N=2 f32 logits "
+                  f"max|diff| "
                   f"{r34_err:.2e} (rtol=atol={TP_R34_TOL}; B6 per shard, 18 launches "
                   f"a rank)",
                   flush=True)
@@ -4399,6 +4473,8 @@ def phase_tp(card: str, sp34, http_ref: dict):
                   f"information, not a multi-card figure)", flush=True)
         print(f"phase 4s [{label}]: warmup() on every rank, granite-8b (full width, "
               f"L={TP_LAYERS}, f32) rank 0: " + tp_warm_line(res["warm_float"])
+              + f"; attention outputs gathered by heads a tick: "
+              f"{head_gathers(res['warm_float']['sequence']['decode_tick'])}"
               + f"; warm tokens (8 x {TP_MAX_TOKENS} greedy) under float / xnor / "
               f"int8 equal the cold meshed engine's and the single card's at the same "
               f"ticks on every rank; no launch, no plain version, no TRACE_COUNTS "
@@ -4418,7 +4494,7 @@ def phase_tp(card: str, sp34, http_ref: dict):
     mesh_serve_finish(serving, card, http_ref, prompts)
     print(f"phase 4s (the meshed HTTP shell after the jobs): "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    return tile_rank
+    return tile_rank, kv_rank
 
 
 # ---------------------------------------------------------------------------
@@ -5167,13 +5243,18 @@ def meta_grad_peak(cfg, batch: int, seq: int):
     return counter.peak_bytes, dict(counter.kernels)
 
 
-def phase_dryrun(card: str, remat: dict, tile_rank: dict, mesh_results: dict) -> None:
+def phase_dryrun(card: str, remat: dict, tile_rank: dict, kv_rank: dict,
+                 mesh_results: dict) -> None:
     """Phase 11 (last): the dry run's counts (``launch.dryrun.count_cell``:
     the cell built for one rank on ``meta`` tensors under a fake process
     group of the mesh's size, its step run once under
     ``roofline.analysis.CostCounter``; nothing runs on the card) against
     what this run measured on the card: the tile bytes a rank of
-    granite-8b serving at (1, 2) (phase 4r), the collectives a train step
+    granite-8b serving at (1, 2) (phase 4r) and the K/V pool bytes a rank
+    of 4r's bf16 engine (its cell: TP_LAYERS layers, N_SLOTS slots of 128
+    tokens on 16-token pages), granite-8b's K/V a rank at full width and
+    depth, 32 slots x 32 768 tokens, at (1, 1), (1, 2), (1, 4) (exact, the
+    counted peak a rank printed), the collectives a train step
     and their kinds of granite-8b at (1, 2), (2, 1), (2, 2) and of
     qwen2-moe at (1, 2), (2, 2) (phase 5r's step 2), each exactly; phase
     5d's state bytes exactly and its B5 / B2 launches, and each remat
@@ -5197,6 +5278,27 @@ def phase_dryrun(card: str, remat: dict, tile_rank: dict, mesh_results: dict) ->
           f"tile bytes a rank {served['tile_bytes']} (counted on meta) = "
           f"{sorted(set(tile_rank.values()))} (held on the card's ranks)",
           flush=True)
+    pooled = count_cell(dataclasses.replace(granite, n_layers=TP_LAYERS),
+                        ShapeCell("4r", 128, N_SLOTS, "decode"), (1, 2),
+                        page_tokens=16)
+    if set(kv_rank.values()) != {pooled["cache_bytes"]}:
+        fail(f"phase 11: the dry run's K/V bytes a rank of 4r's bf16 engine at "
+             f"(1, 2) {pooled['cache_bytes']} vs phase 4r's {kv_rank}")
+    line = []
+    for dims, want in (((1, 1), KV_32K_BYTES), ((1, 2), KV_32K_BYTES // 2),
+                       ((1, 4), KV_32K_BYTES // 4)):
+        kv = count_cell(granite, ShapeCell("kv", 32_768, 32, "decode"), dims)
+        if kv["cache_bytes"] != want:
+            fail(f"phase 11: granite-8b 32 slots x 32768 tokens at {dims}: the dry "
+                 f"run counts {kv['cache_bytes']} B of K/V a rank, want {want}")
+        peak = kv["argument_bytes"] + kv["peak_bytes"]
+        line.append(f"{dims} {kv['cache_bytes']} B of K/V, peak {peak / 1e9:.3f} GB")
+    print(f"phase 11 [dry run vs phase 4r, {card}]: 4r's bf16 engine (granite-8b "
+          f"L={TP_LAYERS}, {N_SLOTS} x 128 tokens on 16-token pages) at (1, 2): K/V "
+          f"{pooled['cache_bytes']} B a rank (counted on meta) = "
+          f"{sorted(set(kv_rank.values()))} (held on the card's ranks); granite-8b "
+          f"full width and depth, decode, 32 slots x 32768 tokens, a rank (meta): "
+          + "; ".join(line), flush=True)
     step_cell = ShapeCell("step", TRAIN_SEQ, TRAIN_BATCH, "train")
     for arch, layers, key in (("granite-8b", TRAIN_MESH_LAYERS, lambda d: d),
                               (MOE, TP_MOE_LAYERS, lambda d: ("moe", d))):
@@ -5348,10 +5450,10 @@ def main() -> None:
     conv = phase_conv(card)
     sp34, r34 = phase_resnet34()
     phase_resnet34_card_vs_cpu(sp34)
-    tile_rank = phase_tp(card, sp34, http_ref)
+    tile_rank, kv_rank = phase_tp(card, sp34, http_ref)
     del sp34
     mesh_results = phase_train_mesh(card)
-    phase_dryrun(card, remat, tile_rank, mesh_results)
+    phase_dryrun(card, remat, tile_rank, kv_rank, mesh_results)
 
     entries = []
     for kname, fname, m, head, dtype, replaces in (

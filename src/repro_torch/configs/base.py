@@ -1,7 +1,7 @@
 """Architecture config schema and input-shape cells (port of
 ``repro/configs/base.py``: the model and training fields, the shape-cell
-capabilities, ``fsdp_weights`` and ``rules_override``; the ``attn_act``
-recipe is not ported)."""
+capabilities, the per-arch sharding recipe: ``attn_act``,
+``fsdp_weights`` and ``rules_override``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -71,8 +71,20 @@ class ArchConfig:
     # the reference's roofline unrolls its layer scan with this; the port's
     # layer loop is always unrolled, so it changes nothing here
     force_unroll: bool = False
-    # training under a mesh: a tiled Dense's masters also split their n_in
-    # dim over "data" and are gathered at use (ZeRO-3)
+    # per-arch sharding recipe:
+    #   attn_act  "heads": q/k/v sharded on the head axes where divisible
+    #             (seq replicated inside the block) — best when n_heads
+    #             divides the model axis. Serving under a mesh runs a rank's
+    #             block of the heads and holds that block of every K/V pool
+    #             (``distributed.sharding.head_sharding``).
+    #             "seq": q/k/v sequence-sharded over the model axis
+    #             (flash-row-parallel) — required when head counts do not
+    #             divide the mesh (qwen1.5: 40H, starcoder2: 36H); the port
+    #             keeps such attention replicated.
+    #   fsdp_weights  training under a mesh: a tiled Dense's masters also
+    #             split their n_in dim over "data" and are gathered at use
+    #             (ZeRO-3)
+    attn_act: str = "heads"
     fsdp_weights: bool = False
     # per-arch logical -> mesh rule overrides ((key, value) pairs merged over
     # distributed.sharding.DEFAULT_RULES)

@@ -1,8 +1,9 @@
 """qwen1.5-32b — large dense decoder with QKV bias and an int8 KV cache.
 
 [hf:Qwen family] 64L d_model=5120 40H (GQA kv=40) d_ff=27392 vocab=152064.
-The reference's mesh-only field (sequence-sharded attention) comes with
-the distributed slice; ``grad_accum`` and the int8 KV cache stay.
+40 heads do not divide the 16-way model axis, so its recipe is
+sequence-sharded attention (``attn_act="seq"``); ``grad_accum`` and the
+int8 KV cache keep its 32k x 128 decode cache in memory.
 """
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import tbn_policy
@@ -17,6 +18,7 @@ CONFIG = ArchConfig(
     d_ff=27_392,
     vocab=152_064,
     qkv_bias=True,
+    attn_act="seq",
     grad_accum=2,
     kv_dtype="int8",
     activation="silu",

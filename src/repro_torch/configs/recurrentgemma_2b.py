@@ -18,6 +18,9 @@ CONFIG = ArchConfig(
     d_ff=7680,
     vocab=256_000,
     pattern=("rec", "rec", "attn"),
+    # 10 heads do not divide the 16-way model axis: sequence-sharded
+    # attention activations
+    attn_act="seq",
     window=2048,
     activation="gelu",
     gated_mlp=True,

@@ -21,9 +21,16 @@ There is no GSPMD in PyTorch, so the port realises the placement itself:
 * A tiled layer runs its kernel on the rank's r/TP rows (and its block of
   the batch over "data" where that axis divides m) and ``all_gather``s its
   unique rows (``gather_blocks``) before it replicates them with the whole
-  alpha into the whole output. Activations, attention and the K/V pools
-  are replicated; ``kernels/ops.py`` and ``nn/moe.py`` hold the per-shard
-  branches.
+  alpha into the whole output; ``kernels/ops.py`` and ``nn/moe.py`` hold
+  the per-shard branches.
+* Serving attention of an architecture whose ``attn_act`` is "heads"
+  runs on the rank's block of the heads (``head_sharding``: the
+  "act_kv_heads" rule's longest dividing prefix of n_kv, where its extent
+  divides n_heads too) and holds that block of every K/V pool: its q / k /
+  v projections keep only the block's output columns, and its attention
+  output is gathered by heads before ``wo``. Where the rule does not
+  divide, and for "seq" architectures, attention and its pools stay whole.
+  The residual stream and every other activation are replicated.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with dim names
 ("data", "model"); its per-dim process groups carry the collectives.
@@ -252,6 +259,35 @@ def expert_sharding(n_experts: int) -> Optional[Tuple[Mesh, Tuple[str, ...], int
     """(mesh, axes, extent) that a MoE bank's E experts shard over (the
     "experts" rule; it claims its axes before "tile_rows"), or None."""
     return _rule_sharding("experts", n_experts)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadBlock:
+    """A rank's block of an attention layer's heads: ``extent`` blocks of
+    n_heads / extent query heads and n_kv / extent K/V heads split over
+    the mesh ``axes``; this rank holds block ``index`` (heads [index *
+    n / extent, (index + 1) * n / extent) of each kind)."""
+
+    mesh: Any
+    axes: Tuple[str, ...]
+    extent: int
+    index: int
+
+
+def head_sharding(n_heads: int, n_kv: int) -> Optional[HeadBlock]:
+    """The rank's ``HeadBlock`` of an attention layer with ``n_heads`` query
+    and ``n_kv`` K/V heads, or None: no active rules, the "act_kv_heads"
+    rule's longest dividing prefix of n_kv has extent 1, or its extent
+    does not divide n_heads (the reference's ``_divisible_spec`` rule: a
+    dim its axes do not divide stays whole). GQA groups stay aligned: the
+    extent divides n_kv."""
+    hit = _rule_sharding("act_kv_heads", n_kv)
+    if hit is None:
+        return None
+    mesh, axes, extent = hit
+    if n_heads % extent:
+        return None
+    return HeadBlock(mesh, axes, extent, shard_index(mesh, axes))
 
 
 def batch_shard_axes(exclude: Sequence[str], dim: int) -> Tuple[str, ...]:

@@ -11,8 +11,10 @@ storage, nothing computed), through the port's own placement: the train
 cell's masters cut by ``distributed.sharding.train_shards`` /
 ``place_train_params`` and its rows of the global batch taken by the step
 (``train.step.dp_rows``); a serve cell's params cut by ``place_params``
-(tile rows and expert banks), its batch, activations and caches whole, as
-the port serves under a mesh (heads-sharded attention is ROADMAP item 9c).
+(tile rows and expert banks), its caches built under the cell's rules (an
+architecture whose ``attn_act`` is "heads" holds its block of the K/V
+heads where the model axis divides them, ``nn/attention.Attention.heads``),
+its batch and activations whole, as the port serves under a mesh.
 The mesh is a DeviceMesh over a fake process group of the mesh's size
 (``launch.mesh.ProductionMesh.join``), so the collectives run and move
 nothing. Running ``fn(*args)`` under ``roofline.analysis.CostCounter``
@@ -36,6 +38,7 @@ from repro_torch.configs import build_model, get_config
 from repro_torch.configs.base import ArchConfig, SHAPES, ShapeCell, cell_applicable
 from repro_torch.distributed.sharding import (
     DEFAULT_RULES,
+    axis_rules,
     mesh_extents,
     place_params,
     place_train_params,
@@ -158,9 +161,10 @@ def train_batch_specs(cfg: ArchConfig, cell: ShapeCell, mesh):
 def cache_shardings(mesh, caches, batch_size: int):
     """The reference's placement of each cache leaf, by key name and rank:
     K/V shard the time axis over "model", recurrent state its widest dim.
-    The port's ranks hold every cache leaf whole (heads- and
-    sequence-sharded caches are ROADMAP item 9c); the dry run reports this
-    layout beside the bytes a rank holds."""
+    The port's ranks hold their block of the K/V heads where the model
+    axis divides them ("heads" architectures) and every other cache leaf
+    whole; the dry run reports this layout beside the bytes a rank holds
+    (``cache_bytes``)."""
     ba = batch_axes(mesh)
 
     def leaf(key, t):
@@ -271,36 +275,57 @@ def build_prefill_cell(cfg: ArchConfig, cell: ShapeCell, mesh):
                             alias_bytes=0))
 
 
-def build_decode_cell(cfg: ArchConfig, cell: ShapeCell, mesh):
+def build_decode_cell(cfg: ArchConfig, cell: ShapeCell, mesh,
+                      page_tokens: Optional[int] = None):
+    """One rank's decode step over ``cell.global_batch`` slots of
+    ``cell.seq_len`` tokens: dense per-slot caches, or with
+    ``page_tokens`` the engine's paged pool (b * ceil(s / page_tokens)
+    pages and the scratch page, read through a page table; decoder LMs).
+    The caches are built under the cell's rules, so they hold what the
+    rank holds."""
     model = _serve_model(cfg)
     params = _serve_params(cfg, model, mesh)
     b, s = cell.global_batch, cell.seq_len
     ba = batch_axes(mesh, cfg)
-    if cfg.family == "encdec":
-        caches = _encdec_caches(model, cfg, b, s)
-    else:
-        caches = model.init_caches(b, s, torch.bfloat16)
+    page_table = None
+    with axis_rules(mesh, dict(cfg.rules_override)):
+        if cfg.family == "encdec":
+            if page_tokens is not None:
+                raise ValueError("a paged decode cell is built for decoder LMs")
+            caches = _encdec_caches(model, cfg, b, s)
+        elif page_tokens is not None:
+            npp = -(-s // page_tokens)
+            caches = model.init_caches(b, s, torch.bfloat16, page_tokens=page_tokens,
+                                       n_pages=b * npp)
+            page_table = _meta((b, npp), torch.int32)
+        else:
+            caches = model.init_caches(b, s, torch.bfloat16)
     tokens, lengths = _meta((b, 1), torch.int32), _meta((b,), torch.int32)
 
     @torch.no_grad()
-    def decode_fn(params, tokens, caches, lengths):
-        return model.decode_step(params, tokens, caches, lengths)
+    def decode_fn(params, tokens, caches, lengths, page_table=None):
+        return model.decode_step(params, tokens, caches, lengths, page_table)
 
     cache_bytes = tree_bytes(caches)
-    return dict(fn=decode_fn, args=(params, tokens, caches, lengths),
+    args = (params, tokens, caches, lengths) + (
+        () if page_table is None else (page_table,))
+    return dict(fn=decode_fn, args=args,
                 model=model,
                 layouts=dict(tokens=fit_spec(mesh, (b, 1), ba, None),
                              caches=cache_shardings(mesh, caches, b)),
                 # the decoder's caches update in place (the encdec dense
                 # anchor returns new ones)
-                memory=dict(argument_bytes=tree_bytes((params, tokens, caches, lengths)),
-                            alias_bytes=0 if cfg.family == "encdec" else cache_bytes))
+                memory=dict(argument_bytes=tree_bytes(args),
+                            alias_bytes=0 if cfg.family == "encdec" else cache_bytes,
+                            cache_bytes=cache_bytes))
 
 
 def _encdec_caches(model, cfg: ArchConfig, b: int, s: int):
-    """Decoder self-cache (len s) + cross K/V over an encoder memory of len s."""
-    hd = model.dec_block.self_attn.hd
-    shape = (cfg.dec_layers, b, s, cfg.n_kv, hd)
+    """Decoder self-cache (len s) + cross K/V over an encoder memory of len
+    s: the dense anchor's rows, the rank's block of the K/V heads under a
+    head block (call under the cell's rules)."""
+    attn = model.dec_block.self_attn
+    shape = (cfg.dec_layers, b, s, attn.kv_heads(), attn.hd)
     return {k: _meta(shape, torch.bfloat16) for k in ("k", "v", "ck", "cv")}
 
 

@@ -8,8 +8,10 @@ the cell's step once on them under ``roofline.analysis.CostCounter`` and
 writes one JSON record: the rank's memory (its state and inputs, and the
 peak of the bytes the step's ops hold alive) against the card's 80 GB, the
 step's counted work (float and integer ops, HBM bytes, kernel calls,
-collective bytes and calls by kind), and the reference's placement of the
-batch (and caches) beside it. Nothing touches a card and no value is
+collective bytes and calls by kind), the K/V and state cache bytes the rank
+holds (``memory.cache_bytes``: its block of the K/V heads where a "heads"
+architecture's model axis divides them), and the reference's placement of
+the batch (and caches) beside it. Nothing touches a card and no value is
 computed.
 
 The port's layer loop dispatches every layer, so the roofline comes from
@@ -56,24 +58,39 @@ def run_plan(plan: dict, mesh, rules=None) -> tuple:
     return out, counter
 
 
-def count_cell(cfg, cell, dims) -> dict:
+def cache_bytes(cell, plan: dict, out) -> int:
+    """The K/V and state cache bytes a rank holds in a serve cell: a decode
+    step's caches (its arguments), a prefill's (its output); 0 for a train
+    cell."""
+    if cell.kind == "decode":
+        return int(plan["memory"]["cache_bytes"])
+    return int(tree_bytes(out[1])) if cell.kind == "prefill" else 0
+
+
+def count_cell(cfg, cell, dims, page_tokens=None) -> dict:
     """The first rank's counted cell for ``cfg`` (as given: cut it with
     ``cells.depth_cfg`` or ``dataclasses.replace`` first) and ``cell``
     under a ("data", "model") mesh of ``dims`` ((1, 1): one card): the
     kernels launched and the collectives by kind, with their bytes, the
     rank's param bytes (and for a train cell its state: masters and AdamW
-    moments), its tile bytes (a serve cell's packed tiles), and the peak
-    of the bytes its step's ops hold alive beside its arguments."""
+    moments), its tile bytes (a serve cell's packed tiles), its cache
+    bytes, and the peak of the bytes its step's ops hold alive beside its
+    arguments. ``page_tokens`` builds a decode cell on the engine's paged
+    pool (``cells.build_decode_cell``)."""
     mesh = ProductionMesh(tuple(dims), ("data", "model")).join()
-    plan = {"train": build_train_cell, "prefill": build_prefill_cell,
-            "decode": build_decode_cell}[cell.kind](cfg, cell, mesh)
+    if cell.kind == "decode":
+        plan = build_decode_cell(cfg, cell, mesh, page_tokens=page_tokens)
+    else:
+        plan = {"train": build_train_cell,
+                "prefill": build_prefill_cell}[cell.kind](cfg, cell, mesh)
     params = plan["args"][0].params if cell.kind == "train" else plan["args"][0]
-    _, counter = run_plan(plan, mesh, dict(cfg.rules_override))
+    out, counter = run_plan(plan, mesh, dict(cfg.rules_override))
     return dict(
         kernels=dict(counter.kernels), coll_calls=dict(counter.coll_calls),
         coll_bytes=dict(counter.coll_bytes), param_bytes=tree_bytes(params),
         tile_bytes=tree_bytes([v for p, v in mod.walk(params)
                                if p[-1] in ("tile", "tile_conv")]),
+        cache_bytes=cache_bytes(cell, plan, out),
         state_bytes=plan["memory"].get("state_bytes"),
         argument_bytes=plan["memory"]["argument_bytes"],
         peak_bytes=counter.peak_bytes, terms=counter.terms().as_dict())
@@ -100,6 +117,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str, roofline: bool = True) -> di
         output_bytes=int(tree_bytes(out)),
         temp_bytes=int(counter.peak_bytes),
         alias_bytes=int(mem["alias_bytes"]),
+        cache_bytes=cache_bytes(cell, plan, out),
     )
     peak = (mem_rec["argument_bytes"] + mem_rec["temp_bytes"]
             + mem_rec["output_bytes"] - mem_rec["alias_bytes"])

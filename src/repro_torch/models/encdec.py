@@ -22,7 +22,10 @@ entry point writes the pools in place, layer by layer, through views of
 the stacked leaves, so the engine's captured graphs read and write the
 tensors it holds. ``encode_serve`` is the fixed-shape encoder pass of the
 ENCODE phase: padded frames are masked out as keys, so the rows of the
-real frames equal an unpadded ``encode``.
+real frames equal an unpadded ``encode``. Under a mesh whose model axis
+divides the heads (``attn_act`` "heads") both pools, and the dense
+anchor's rows, hold the rank's block of the K/V heads; the encoder runs
+every head.
 """
 from __future__ import annotations
 
@@ -66,7 +69,8 @@ class EncBlock:
         self.norm1 = _norm(cfg, c, f"{self.name}.norm1")
         self.attn = Attention(d, cfg.n_heads, cfg.n_kv, c, head_dim=cfg.head_dim,
                               name=f"{self.name}.attn", causal=False,
-                              rope=cfg.rope_theta > 0, q_chunk=cfg.attn_chunk)
+                              rope=cfg.rope_theta > 0, q_chunk=cfg.attn_chunk,
+                              act_mode=cfg.attn_act)
         self.norm2 = _norm(cfg, c, f"{self.name}.norm2")
         self.ffn = MLP(d, cfg.d_ff, c, name=f"{self.name}.mlp",
                        gated=cfg.gated_mlp, activation=cfg.activation)
@@ -96,13 +100,15 @@ class DecBlock:
         self.self_attn = Attention(d, cfg.n_heads, cfg.n_kv, c,
                                    head_dim=cfg.head_dim,
                                    name=f"{self.name}.self_attn",
-                                   rope=cfg.rope_theta > 0, q_chunk=cfg.attn_chunk)
+                                   rope=cfg.rope_theta > 0, q_chunk=cfg.attn_chunk,
+                                   act_mode=cfg.attn_act)
         self.norm2 = _norm(cfg, c, f"{self.name}.norm2")
         self.cross_attn = Attention(d, cfg.n_heads, cfg.n_kv, c,
                                     head_dim=cfg.head_dim,
                                     name=f"{self.name}.cross_attn", causal=False,
                                     cross=True, rope=False,
-                                    q_chunk=cfg.attn_chunk)
+                                    q_chunk=cfg.attn_chunk,
+                                    act_mode=cfg.attn_act)
         self.norm3 = _norm(cfg, c, f"{self.name}.norm3")
         self.ffn = MLP(d, cfg.d_ff, c, name=f"{self.name}.mlp",
                        gated=cfg.gated_mlp, activation=cfg.activation)
@@ -121,21 +127,21 @@ class DecBlock:
     def decode_step(self, params, x, cache, lengths):
         """One token against dense per-slot rows: self K/V (B, T, K, hd)
         written at ``lengths`` into new tensors, cross K/V (B, T_enc, K,
-        hd) from the prefill, every row attended."""
+        hd) from the prefill, every row attended (under a head block the
+        rank's heads of each)."""
         h = self.norm1(params["norm1"], x)
         h, ck, cv = self.self_attn.decode_step(
             params["self_attn"], h, cache["k"], cache["v"], lengths, None)
         x = x + h
         mixer, b = self.cross_attn, x.shape[0]
         h = self.norm2(params["norm2"], x)
-        q = mixer.wq(params["cross_attn"]["wq"], h).reshape(
-            b, 1, mixer.n_heads, mixer.hd)
+        hb = mixer.heads()
+        q = mixer._proj("wq", params["cross_attn"], h, mixer.n_heads, hb)
         mask = torch.ones((b, 1, cache["ck"].shape[1]), dtype=torch.bool,
                           device=x.device)
         out = _attend_core(mixer._group(q), cache["ck"], cache["cv"], mask,
                            1.0 / math.sqrt(mixer.hd))
-        x = x + mixer.wo(params["cross_attn"]["wo"],
-                         out.reshape(b, 1, mixer.n_heads * mixer.hd))
+        x = x + mixer._out(params["cross_attn"], out, hb)
         x = x + self.ffn(params["ffn"], self.norm3(params["norm3"], x))
         return x, {**cache, "k": ck, "v": cv}
 
@@ -239,7 +245,8 @@ class EncDecModel:
     def prefill(self, params, batch, max_len: int):
         """Encode the frames and run the decoder prompt -> (last-position
         logits (B, vocab), dense caches {"k", "v": (L, B, max_len, K, hd),
-        "ck", "cv": (L, B, S_enc, K, hd)}, lengths)."""
+        "ck", "cv": (L, B, S_enc, K, hd)}, lengths); under a head block K
+        is the rank's block of the K/V heads."""
         memory = self.encode(params, batch["frames"])
         tokens = batch["tokens"].to(self.device).long()
         b, s = tokens.shape
@@ -249,11 +256,10 @@ class EncDecModel:
             hh = blk.norm1(pl["norm1"], x)
             _, (k, v) = blk.self_attn.prefill(pl["self_attn"], hh)
             x = blk(pl, x, memory)
-            t, mixer = memory.shape[1], blk.cross_attn
-            ck = mixer.wk(pl["cross_attn"]["wk"], memory).reshape(
-                b, t, mixer.n_kv, mixer.hd)
-            cv = mixer.wv(pl["cross_attn"]["wv"], memory).reshape(
-                b, t, mixer.n_kv, mixer.hd)
+            mixer = blk.cross_attn
+            hb = mixer.heads()
+            ck = mixer._proj("wk", pl["cross_attn"], memory, mixer.n_kv, hb)
+            cv = mixer._proj("wv", pl["cross_attn"], memory, mixer.n_kv, hb)
             pad = (0, 0, 0, 0, 0, max_len - s)
             per_layer.append({"k": torch.nn.functional.pad(k, pad),
                               "v": torch.nn.functional.pad(v, pad),
@@ -306,14 +312,16 @@ class EncDecModel:
                     cross_pages: Optional[int] = None) -> dict:
         """Pool-form caches: both families are pages addressed through
         separate tables, {"self": {"k", "v"}, "cross": {"k", "v"}}, each
-        (dec_layers, pages + 1, page_tokens, K, hd); no dense (n_slots, T)
-        row anywhere."""
+        (dec_layers, pages + 1, page_tokens, K, hd), K being the rank's
+        block of the K/V heads under a head block (``Attention.heads``); no
+        dense (n_slots, T) row anywhere."""
         if page_tokens is None:
             raise ValueError(
                 "EncDecModel serves paged-only: pass page_tokens/n_pages/"
                 "cross_pages (the dense reference path builds its caches "
                 "via prefill, not init_caches)")
-        n, kv, hd = self.cfg.dec_layers, self.cfg.n_kv, self.dec_block.self_attn.hd
+        attn = self.dec_block.self_attn
+        n, kv, hd = self.cfg.dec_layers, attn.kv_heads(), attn.hd
 
         def pool(pages):
             return torch.zeros((n, pages + 1, page_tokens, kv, hd), dtype=dtype,

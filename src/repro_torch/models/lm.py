@@ -26,7 +26,11 @@ dense ``(n_slots, max_len, K, hd)`` cache of a monolithic ``prefill``. A
 block returns new per-slot tensors, and the layer walk copies them into
 the held caches: all of them after ``extend``, the ``active`` slots'
 rows after ``decode_step``. So every entry point writes the tensors the
-caller holds, which the engine's captured graphs read and write.
+caller holds, which the engine's captured graphs read and write. Under a
+mesh, an architecture whose ``attn_act`` is "heads" serves its full
+attention on the rank's block of the heads, and its pool and dense rows
+hold only that block of the K/V heads (``Attention.heads``); windowed
+rings and recurrent carries stay whole.
 
 Entry points: ``train_forward`` (next-token cross-entropy; each block is
 checkpointed under ``cfg.remat == "full"``, and under "dots" selectively:
@@ -158,7 +162,7 @@ class Block:
                 name=f"{self.name}.attn", qkv_bias=cfg.qkv_bias,
                 qk_norm=cfg.qk_norm, rope=cfg.rope_theta > 0,
                 rope_theta=cfg.rope_theta or 10_000.0, q_chunk=cfg.attn_chunk,
-                window=cfg.window,
+                window=cfg.window, act_mode=cfg.attn_act,
             )
         elif self.kind == "rec":
             self.mixer = RGLRUBlock(d, ctx, name=f"{self.name}.rec")
@@ -200,15 +204,17 @@ class Block:
         scales ``ks`` / ``vs``. Without ``page_tokens``: dense (batch,
         max_len, ...) slot rows. A windowed ring is (batch, min(max_len,
         window), K, hd) in ``dtype`` either way; SSM and RG-LRU layers get
-        their f32 (h, conv) carries."""
+        their f32 (h, conv) carries. Under a mesh the pool and the dense
+        rows hold the rank's block of the K heads (``Attention.heads``);
+        the windowed ring stays whole, as its attention does."""
         if self.kind != "attn":
             return self.mixer.init_state(batch, device=device)
         window = self.cfg.window
+        n_kv = self.mixer.kv_heads()
         if page_tokens is not None and not window:
-            lead = (n_pages + 1, page_tokens, self.cfg.n_kv)
+            lead = (n_pages + 1, page_tokens, n_kv)
         else:
-            lead = (batch, min(max_len, window) if window else max_len,
-                    self.cfg.n_kv)
+            lead = (batch, min(max_len, window) if window else max_len, n_kv)
         shape = (*lead, self.mixer.hd)
         if self.cfg.kv_dtype == "int8" and not window:
             return {"k": torch.zeros(shape, dtype=torch.int8, device=device),

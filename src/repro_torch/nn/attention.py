@@ -9,6 +9,17 @@ the encoder-decoder family (``cross_kv`` writes its rows once a request,
 windowed ring cache of serving lives in ``models/lm.py``, as in the
 reference.
 
+Under a mesh the serving entry points of a layer whose ``act_mode`` is
+"heads" (the config's ``attn_act``, the reference's recipe of q, k and v
+constrained to their heads over "model") run on the rank's block of the
+heads (``distributed.sharding.head_sharding``): the q / k / v projections
+keep only the block's output columns, the rank's caches hold only its
+block of the K/V heads, and the attention output is gathered by heads
+over the block's axes before ``wo``, which runs whole. Every head's
+arithmetic is one card's, so the gathered output equals it. Where the
+rule does not divide the heads, on one device and in the training call,
+every head runs on every rank.
+
 The softmax core is written in plain torch ops, as the reference writes it
 in jnp, so the parity tests compare like with like. A masked key gets
 ``NEG_INF`` = -1e30, not -inf: its softmax weight underflows to exactly 0,
@@ -35,6 +46,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.ordered import XLA_EXACT_MAX_MACS, ordered_dot, xla_softmax
+from repro_torch.distributed.sharding import HeadBlock, gather_blocks, head_sharding
 from repro_torch.nn import module as mod
 from repro_torch.nn.context import ModelContext
 from repro_torch.nn.linear import Dense
@@ -148,6 +160,7 @@ class Attention:
     window: Optional[int] = None        # sliding-window size (recurrentgemma)
     causal: bool = True
     cross: bool = False                 # encoder-decoder cross attention
+    act_mode: str = "heads"             # "heads" | "seq" (see configs.base)
 
     def __post_init__(self):
         self.hd = self.head_dim or self.d_model // self.n_heads
@@ -174,16 +187,52 @@ class Attention:
             out["knorm"] = self.knorm.specs()
         return out
 
-    def _qkv(self, params, x, positions, kv_src=None, kv_positions=None):
-        """q from x; k, v from ``kv_src`` (a cross layer's memory) or x.
-        RoPE at ``positions`` / ``kv_positions`` (default: ``positions``),
-        never on a cross layer."""
-        b, s, _ = x.shape
+    def heads(self) -> Optional[HeadBlock]:
+        """The rank's block of this layer's heads under the active rules
+        (the "heads" recipe, where the model axis divides n_kv and
+        n_heads), or None: every head. A sliding-window layer keeps every
+        head: its serving ring (``models/lm.py``) is whole."""
+        if self.act_mode != "heads" or self.window:
+            return None
+        return head_sharding(self.n_heads, self.n_kv)
+
+    def kv_heads(self) -> int:
+        """The K/V heads this rank's serving caches hold: its block's under
+        the active rules, else every one."""
+        hb = self.heads()
+        return self.n_kv if hb is None else self.n_kv // hb.extent
+
+    def _proj(self, name: str, params, x, n: int,
+              hb: Optional[HeadBlock]) -> torch.Tensor:
+        """x through ``name`` (wq / wk / wv, n heads) -> (B, S, heads, hd):
+        every head, or the block ``hb`` of them (the block's columns of
+        the whole output, each the same product as one card's)."""
+        y = getattr(self, name)(params[name], x)
+        if hb is not None:
+            width = n // hb.extent * self.hd
+            y = y[..., hb.index * width:(hb.index + 1) * width]
+        return y.reshape(*x.shape[:2], -1, self.hd)
+
+    def _out(self, params, out: torch.Tensor,
+             hb: Optional[HeadBlock]) -> torch.Tensor:
+        """``wo`` of the attention output (B, S, heads..., hd): a block of
+        heads is first gathered by heads over the block's axes, so ``wo``
+        takes every head in order."""
+        out = out.reshape(*out.shape[:2], -1)
+        if hb is not None:
+            out = gather_blocks(out, hb.mesh, hb.axes, -1)
+        return self.wo(params["wo"], out)
+
+    def _qkv(self, params, x, positions, kv_src=None, kv_positions=None,
+             heads: Optional[HeadBlock] = None):
+        """q from x; k, v from ``kv_src`` (a cross layer's memory) or x:
+        every head, or the block ``heads`` of them. RoPE at ``positions`` /
+        ``kv_positions`` (default: ``positions``), never on a cross
+        layer."""
         src = x if kv_src is None else kv_src
-        t = src.shape[1]
-        q = self.wq(params["wq"], x).reshape(b, s, self.n_heads, self.hd)
-        k = self.wk(params["wk"], src).reshape(b, t, self.n_kv, self.hd)
-        v = self.wv(params["wv"], src).reshape(b, t, self.n_kv, self.hd)
+        q = self._proj("wq", params, x, self.n_heads, heads)
+        k = self._proj("wk", params, src, self.n_kv, heads)
+        v = self._proj("wv", params, src, self.n_kv, heads)
         if self.qk_norm:
             q = self.qnorm(params["qnorm"], q)
             k = self.knorm(params["knorm"], k)
@@ -194,8 +243,9 @@ class Attention:
         return q, k, v
 
     def _group(self, q):
+        """(B, S, heads, hd) -> (B, S, K/V heads, groups, hd)."""
         b, s = q.shape[:2]
-        return q.reshape(b, s, self.n_kv, self.groups, self.hd)
+        return q.reshape(b, s, -1, self.groups, self.hd)
 
     def __call__(self, params: dict, x: torch.Tensor, *,
                  positions: Optional[torch.Tensor] = None,
@@ -254,11 +304,13 @@ class Attention:
     def prefill(self, params: dict, x: torch.Tensor,
                 positions: Optional[torch.Tensor] = None):
         """Forward over the whole prompt -> (y, (k, v)), k and v (B, S, K,
-        hd) being the cache content."""
+        hd) being the cache content (the rank's block of K under a head
+        block)."""
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
-        q, k, v = self._qkv(params, x, positions)
+        hb = self.heads()
+        q, k, v = self._qkv(params, x, positions, heads=hb)
         scale = 1.0 / math.sqrt(self.hd)
         if s >= 4 * self.q_chunk:
             out = self._chunked(q, k, v, positions, positions, scale)
@@ -266,13 +318,13 @@ class Attention:
             out = _attend_core(self._group(q), k, v,
                                make_mask(positions, positions,
                                          window=self.window), scale)
-        y = self.wo(params["wo"], out.reshape(b, s, self.n_heads * self.hd))
-        return y, (k, v)
+        return self._out(params, out, hb), (k, v)
 
-    def _decode_dense(self, params, q, cache, lengths, rows):
+    def _decode_dense(self, params, q, cache, lengths, rows, hb):
         """Dense per-slot cache: write each slot's new ``rows`` at
         ``lengths`` into a copy of every leaf of ``cache`` ((B, T, ...)),
-        then attend over it. Returns (y, the new cache)."""
+        then attend over it (q and the cache: the head block ``hb``'s).
+        Returns (y, the new cache)."""
         b = q.shape[0]
         idx = torch.arange(b, device=q.device)
         new = {}
@@ -287,13 +339,13 @@ class Attention:
         if "ks" in new:
             views = [new[n] for n in ("k", "v", "ks", "vs")]
             return self._attend_quant(params, q, views, mask,
-                                      self.ctx.compute_dtype), new
+                                      self.ctx.compute_dtype, hb), new
         out = _attend_core(self._group(q), new["k"], new["v"], mask,
                            1.0 / math.sqrt(self.hd))
-        return self.wo(params["wo"], out.reshape(b, 1, self.n_heads * self.hd)), new
+        return self._out(params, out, hb), new
 
     def _attend_paged(self, params, q, cache_k, cache_v, page_table, positions,
-                      k_valid=None):
+                      hb, k_valid=None):
         view_k = gather_pages(cache_k, page_table)
         view_v = gather_pages(cache_v, page_table)
         b, s = q.shape[:2]
@@ -303,7 +355,7 @@ class Attention:
                          k_valid=k_valid)
         out = _attend_core(self._group(q), view_k, view_v, mask,
                            1.0 / math.sqrt(self.hd))
-        return self.wo(params["wo"], out.reshape(b, s, self.n_heads * self.hd))
+        return self._out(params, out, hb)
 
     def decode_step(self, params: dict, x: torch.Tensor, cache_k: torch.Tensor,
                     cache_v: torch.Tensor, lengths: torch.Tensor,
@@ -318,10 +370,11 @@ class Attention:
         which are returned."""
         b = x.shape[0]
         positions = lengths[:, None]
-        q, k, v = self._qkv(params, x, positions)
+        hb = self.heads()
+        q, k, v = self._qkv(params, x, positions, heads=hb)
         if page_table is None:
             y, new = self._decode_dense(params, q, {"k": cache_k, "v": cache_v},
-                                        lengths, {"k": k[:, 0], "v": v[:, 0]})
+                                        lengths, {"k": k[:, 0], "v": v[:, 0]}, hb)
             return y, new["k"], new["v"]
         ok = (torch.ones((b,), dtype=torch.bool, device=x.device)
               if active is None else active)[:, None]
@@ -330,7 +383,7 @@ class Attention:
         t = cache_k.shape[1] * page_table.shape[1]
         k_valid = torch.arange(t, device=x.device)[None, :] <= lengths[:, None]
         y = self._attend_paged(params, q, cache_k, cache_v, page_table,
-                               positions, k_valid)
+                               positions, hb, k_valid)
         return y, cache_k, cache_v
 
     def extend(self, params: dict, x: torch.Tensor, cache_k: torch.Tensor,
@@ -340,10 +393,12 @@ class Attention:
         """Chunked-prefill step: column j of row b carries the token at
         ``positions[b, j]``; padding columns (valid False) never write.
         Queries attend causally over the just-updated cache."""
-        q, k, v = self._qkv(params, x, positions)
+        hb = self.heads()
+        q, k, v = self._qkv(params, x, positions, heads=hb)
         scatter_pages(cache_k, page_table, positions, k, valid)
         scatter_pages(cache_v, page_table, positions, v, valid)
-        y = self._attend_paged(params, q, cache_k, cache_v, page_table, positions)
+        y = self._attend_paged(params, q, cache_k, cache_v, page_table,
+                               positions, hb)
         return y, cache_k, cache_v
 
     # ------------------------------------------------------------------
@@ -354,10 +409,11 @@ class Attention:
         """Encoder memory (B, T, d) -> cross-attention rows k, v (B, T, K,
         hd): computed once a request in the engine's ENCODE phase and
         written into the read-only cross pool. No RoPE (cross attention is
-        position-free); ``knorm`` under ``qk_norm``, as in ``_qkv``."""
-        b, t, _ = memory.shape
-        k = self.wk(params["wk"], memory).reshape(b, t, self.n_kv, self.hd)
-        v = self.wv(params["wv"], memory).reshape(b, t, self.n_kv, self.hd)
+        position-free); ``knorm`` under ``qk_norm``, as in ``_qkv``. Under a
+        head block, the rank's K/V heads."""
+        hb = self.heads()
+        k = self._proj("wk", params, memory, self.n_kv, hb)
+        v = self._proj("wv", params, memory, self.n_kv, hb)
         if self.qk_norm:
             k = self.knorm(params["knorm"], k)
         return k, v
@@ -371,9 +427,11 @@ class Attention:
         causal mask, no write. With ``page_table`` the caches are the cross
         pool, gathered per slot; rows past ``kv_lens`` (the last page's
         tail, stale rows) get exactly 0 weight, so the result is that of
-        attending the unpadded memory."""
+        attending the unpadded memory. Under a head block the queries and
+        the caches are the rank's heads."""
         b, s, _ = x.shape
-        q = self.wq(params["wq"], x).reshape(b, s, self.n_heads, self.hd)
+        hb = self.heads()
+        q = self._proj("wq", params, x, self.n_heads, hb)
         if self.qk_norm:
             q = self.qnorm(params["qnorm"], q)
         if page_table is None:
@@ -386,7 +444,7 @@ class Attention:
                 < kv_lens[:, None])[:, None, :].expand(b, s, t)
         out = _attend_core(self._group(q), view_k, view_v, mask,
                            1.0 / math.sqrt(self.hd))
-        return self.wo(params["wo"], out.reshape(b, s, self.n_heads * self.hd))
+        return self._out(params, out, hb)
 
     # ------------------------------------------------------------------
     # int8 KV: cache {"k", "v"} int8 codes, {"ks", "vs"} f32 scales
@@ -401,14 +459,13 @@ class Attention:
         return [gather_pages(cache[name], page_table)
                 for name in ("k", "v", "ks", "vs")]
 
-    def _attend_quant(self, params, q, views, mask, cd):
+    def _attend_quant(self, params, q, views, mask, cd, hb):
         """The reference's scale-factored attend, in its order of operations:
         the scales are rank-1 along hd, so they factor out of both products
         and no dequantized (B, T, K, hd) cache is built. Scores in f32,
         times ks, times 1/sqrt(hd), masked, softmax, cast to ``cd``; the
         probabilities times vs, then the product with the codes in ``cd``."""
         vk, vv, vks, vvs = views
-        b, s = q.shape[:2]
         scores = torch.einsum("bskgh,btkh->bkgst", self._group(q),
                               vk.to(cd)).float()
         scores = scores * vks.permute(0, 2, 1)[:, :, None, None, :]
@@ -417,7 +474,7 @@ class Attention:
         probs = torch.softmax(scores, dim=-1).to(cd)
         pv = probs * vvs.permute(0, 2, 1)[:, :, None, None, :].to(cd)
         out = torch.einsum("bkgst,btkh->bskgh", pv, vv.to(cd))
-        return self.wo(params["wo"], out.reshape(b, s, self.n_heads * self.hd))
+        return self._out(params, out, hb)
 
     def extend_quant(self, params: dict, x: torch.Tensor, cache: dict,
                      positions: torch.Tensor, valid: torch.Tensor,
@@ -425,12 +482,13 @@ class Attention:
         """Chunked-prefill step against the int8 pool: the new rows are
         quantized per token and head (as a monolithic prefill would), padding
         columns never write, and the queries attend causally."""
-        q, k, v = self._qkv(params, x, positions)
+        hb = self.heads()
+        q, k, v = self._qkv(params, x, positions, heads=hb)
         views = self._write_quant(cache, page_table, positions, k, v, valid)
         b, t = x.shape[0], views[0].shape[1]
         k_pos = torch.arange(t, device=x.device).expand(b, t)
         mask = make_mask(positions, k_pos, causal=True, window=self.window)
-        return self._attend_quant(params, q, views, mask, v.dtype), cache
+        return self._attend_quant(params, q, views, mask, v.dtype, hb), cache
 
     def decode_step_quant(self, params: dict, x: torch.Tensor, cache: dict,
                           lengths: torch.Tensor,
@@ -443,12 +501,13 @@ class Attention:
         ``decode_step``."""
         b = x.shape[0]
         positions = lengths[:, None]
-        q, k, v = self._qkv(params, x, positions)
+        hb = self.heads()
+        q, k, v = self._qkv(params, x, positions, heads=hb)
         if page_table is None:
             kq, ks = quantize_kv(k[:, 0])
             vq, vs = quantize_kv(v[:, 0])
             return self._decode_dense(params, q, cache, lengths,
-                                      {"k": kq, "v": vq, "ks": ks, "vs": vs})
+                                      {"k": kq, "v": vq, "ks": ks, "vs": vs}, hb)
         ok = (torch.ones((b,), dtype=torch.bool, device=x.device)
               if active is None else active)[:, None]
         views = self._write_quant(cache, page_table, positions, k, v, ok)
@@ -456,4 +515,4 @@ class Attention:
         k_pos = torch.arange(t, device=x.device).expand(b, t)
         mask = make_mask(positions, k_pos, causal=True, window=self.window,
                          k_valid=k_pos <= lengths[:, None])
-        return self._attend_quant(params, q, views, mask, v.dtype), cache
+        return self._attend_quant(params, q, views, mask, v.dtype, hb), cache

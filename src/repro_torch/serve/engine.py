@@ -75,7 +75,11 @@ preempt-and-resume, and telemetry (port of ``repro/serve/engine.py``).
   tensor- and expert-parallel: the engine keeps this rank's block of the
   params (``distributed.sharding.place_params``) and runs every tick under
   ``axis_rules``, so each tiled layer runs on its r/TP rows and gathers
-  the rest. Every rank runs the same tick bodies. The mesh's first rank
+  the rest; an architecture whose ``attn_act`` is "heads" attends on the
+  rank's block of the heads where the model axis divides them, its pools
+  (built under the rules too) holding that block of the K/V heads. Page
+  ids and page tables are global and equal on every rank; only each
+  page's heads differ. Every rank runs the same tick bodies. The mesh's first rank
   alone takes ``submit`` / ``abort`` / ``abort_all`` and mirrors them to
   the other ranks at the start of each ``step()``; those ranks run
   ``follow()`` until ``stop_followers()`` (the tick control,
@@ -442,11 +446,14 @@ class BatchedEngine:
                           if cfg.prefix_cache and self._cross else None)
         # float pools and rings take the model's compute dtype (reference
         # engine); an int8 KV config allocates int8 codes and f32 scales
-        # whatever it is, and recurrent carries are f32
-        self.caches = model.init_caches(cfg.n_slots, cfg.max_len,
-                                        model.ctx.compute_dtype,
-                                        page_tokens=self.pt, n_pages=n_pages,
-                                        **cache_kw)
+        # whatever it is, and recurrent carries are f32. Built under the
+        # mesh's rules: a "heads" architecture's pools hold the rank's
+        # block of the K/V heads
+        with self._mesh_ctx():
+            self.caches = model.init_caches(cfg.n_slots, cfg.max_len,
+                                            model.ctx.compute_dtype,
+                                            page_tokens=self.pt, n_pages=n_pages,
+                                            **cache_kw)
         self._stateful = model.has_recurrent_state
         # captured boundary snapshots per slot, and the boundaries of its
         # prompt that still need one (computed at admission)

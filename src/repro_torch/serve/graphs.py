@@ -26,7 +26,10 @@ and, on a CUDA engine, the ``torch.cuda.CUDAGraph`` s of it:
   holds, and opens the next graph in the same pool. The tick is S + 1
   graphs around S collectives, and :meth:`TickGraph.run` replays graph 0,
   runs collective 0, replays graph 1, and so on. Every rank must record
-  the same collectives (``sequence``); the engine checks that. The same
+  the same collectives (``sequence``); the engine checks that. A layer
+  whose attention runs on a block of the heads adds one (its output's
+  ``gather_blocks`` by heads before ``wo``), so such a tick holds one
+  more segment a layer, the same on every rank. The same
   split serves NCCL with a card a rank, where each collective also runs
   between the replays. Without a mesh S = 0: one graph, captured as
   ``torch.cuda.graph`` captures it.

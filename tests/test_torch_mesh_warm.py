@@ -8,8 +8,9 @@ under the meshes (1, 2) and (2, 1):
 
 * ``warmup()`` on every rank records each entry point's collectives
   (kind, mesh axis, shape, dtype): the same sequence on each rank, one
-  all_gather over "model" per tiled layer and the head under (1, 2), none
-  under (2, 1), where no tile splits;
+  all_gather over "model" per tiled layer and the head under (1, 2), and
+  one a layer of the attention output by heads (each rank attends on 2 of
+  the 4 heads), none under (2, 1), where no tile or head splits;
 * the warm engine's greedy tokens, finish reasons, token steps and ticks
   under float, xnor and int8 equal the JAX engine's, on every rank (the
   first rank admits, the other follows it), with no eager tick counted;
@@ -52,8 +53,11 @@ MAX_TOKENS = [4, 6, 3, 5]
 CONTROL_ENGINE = dict(n_slots=2, max_len=64, chunk_tokens=8, page_tokens=8,
                       prefix_cache=True, priorities=True, preempt=True)
 # the tiled layers of a reduced granite tick: q, k, v, o, gate, up, down in
-# each of its 2 layers, and the head
+# each of its 2 layers, and the head; under (1, 2) each layer also gathers
+# its attention output by heads (after v, before o)
 TILED_CALLS = 7 * 2 + 1
+HEAD_GATHERS = 2
+LAYER_OPS = 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,15 +131,20 @@ def test_warmup_records_the_same_collectives_on_every_rank(job, dims):
             if dims[1] == 1:
                 assert ops == [], (name, ops)
                 continue
-            assert len(ops) == TILED_CALLS, (name, ops)
+            assert len(ops) == TILED_CALLS + HEAD_GATHERS, (name, ops)
             assert {(kind, axis, dtype) for kind, axis, _, dtype in ops} == {
                 ("all_gather", "model", "torch.float32")}
-            rows = ENGINE["n_slots"] * (1 if name == "decode_tick" else
-                                        ENGINE["chunk_tokens"])
+            cols = 1 if name == "decode_tick" else ENGINE["chunk_tokens"]
+            rows = ENGINE["n_slots"] * cols
+            heads = [LAYER_OPS * i + 3 for i in range(HEAD_GATHERS)]
+            # a rank's (slots, columns, 2 heads x 16) attention output
+            assert all(ops[i][2] == (ENGINE["n_slots"], cols, 2 * 16)
+                       for i in heads)
+            tiled = [op for i, op in enumerate(ops) if i not in heads]
             # every projection gathers the whole batch; the head sees the
             # last column of each slot
-            assert all(shape[0] == rows for _, _, shape, _ in ops[:-1])
-            assert ops[-1][2][0] == ENGINE["n_slots"]
+            assert all(shape[0] == rows for _, _, shape, _ in tiled[:-1])
+            assert tiled[-1][2][0] == ENGINE["n_slots"]
 
 
 @pytest.mark.parametrize("path", PATHS)

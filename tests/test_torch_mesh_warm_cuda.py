@@ -4,7 +4,8 @@
 after ``warmup()`` (graphs split at each collective, the collectives run
 between the replays) give the logits of the same ticks run cold, bit for
 bit, and equal on both ranks; each tick holds one graph more than it has
-collectives. A single-card engine still captures one graph a tick
+collectives (a tiled layer's gather each, and each layer's attention
+output gathered by heads). A single-card engine still captures one graph a tick
 (S = 0) and replays its cold logits bit for bit.
 
 Imports neither jax nor the JAX package, so it runs on the GPU machine:
@@ -27,6 +28,7 @@ from torch_mesh_worker import _replay, finish_job, start_job
 ENGINE = dict(n_slots=3, max_len=64, chunk_tokens=8)
 NAMES = ("decode_tick", "extend_tick")
 TILED_CALLS = 7 * 2 + 1     # q, k, v, o, gate, up, down in 2 layers; the head
+HEAD_GATHERS = 2            # each layer's attention output, gathered by heads
 
 
 @pytest.fixture
@@ -70,8 +72,9 @@ def test_meshed_replay_equals_the_cold_tick_bit_for_bit(cuda_device, replay_job)
             assert torch.equal(rank["warm"][name], rank["cold"][name]), name
             assert torch.equal(rank["warm"][name], first["warm"][name]), name
             assert rank["sequence"][name] == first["sequence"][name]
-            assert rank["collectives"][name] == len(rank["sequence"][name]) == TILED_CALLS
-            assert rank["graphs"][name] == TILED_CALLS + 1
+            assert rank["collectives"][name] == len(rank["sequence"][name]) == (
+                TILED_CALLS + HEAD_GATHERS)
+            assert rank["graphs"][name] == TILED_CALLS + HEAD_GATHERS + 1
 
 
 @pytest.mark.cuda

@@ -15,8 +15,11 @@ and gather the rest; every rank must hold the same outputs, and:
 * granite-8b ``.reduced()`` in f32: prefill of one prompt and 4 greedy
   decode steps within atol 1e-5 of JAX's logits, each rank holding 1/TP
   of the tile bytes; the engine's greedy tokens equal the JAX engine's
-  under (1, 4) and (2, 2), on the first rank, which takes the requests,
-  and on the others, which follow it; a mixed greedy / stochastic batch
+  under (1, 4), where 4 does not divide its 2 K/V heads and each rank's
+  pool holds both, and under (2, 2), where each rank attends on its block
+  of the heads and its pool holds 1 of the 2 (``attn_act`` "heads"), on
+  the first rank, which takes the requests, and on the others, which
+  follow it; a mixed greedy / stochastic batch
   gives the port's single-device tokens (stochastic tokens do not compare
   across packages);
 * qwen2-moe-a2.7b ``.reduced()`` (E = 8, expert parallel) under (1, 2) and
@@ -291,6 +294,12 @@ def test_granite_engine_tokens_equal_reference(jobs, dims):
     assert _same_on_every_rank(per_rank, "tokens") == _jax_tokens(GRANITE)
     _same_on_every_rank(per_rank, "ticks")
     assert [r["first"] for r in per_rank] == [True, False, False, False]
+    # the pools' K/V heads a rank: the model axis of 2 divides the reduced
+    # n_kv = 2, that of 4 does not
+    heads = {shape[-2] for path, shape in
+             _same_on_every_rank(per_rank, "cache_shapes").items()
+             if path.split("/")[-1] in ("k", "v")}
+    assert heads == ({1} if dims[1] == 2 else {2})
 
 
 def test_mixed_sampling_equal_single_device(jobs):

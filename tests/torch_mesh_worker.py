@@ -97,7 +97,12 @@ def _conv(case, mesh, dev):
 
 
 def _model(case, dev):
-    cfg = get_config(case["arch"]).reduced()
+    """The case's SERVE model: ``arch`` reduced, with the ``cfg`` fields of
+    the case (e.g. ``kv_dtype``, ``attn_act``) replaced."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config(case["arch"]).reduced(),
+                              **case.get("cfg", {}))
     sm = build_model(cfg, ModelContext(
         policy=cfg.tbn, mode=SERVE, compute_dtype=getattr(torch, case["dtype"]),
         device=dev, compute_path=case.get("path", "float")))
@@ -119,6 +124,19 @@ def _logits(case, mesh, dev):
             lg, caches, lens = sm.decode_step(placed, tok, caches, lens)
             out["logits"].append(lg.cpu())
     out["tile_bytes"] = per_device_tile_bytes(placed, mesh)
+    out["cache_shapes"] = cache_shapes(caches)
+    return out
+
+
+def cache_shapes(caches, path=()):
+    """{"/"-joined path: shape} of every tensor in a cache tree (lists and
+    dicts)."""
+    if isinstance(caches, torch.Tensor):
+        return {"/".join(path): tuple(caches.shape)}
+    items = caches.items() if isinstance(caches, dict) else enumerate(caches)
+    out = {}
+    for k, v in items:
+        out.update(cache_shapes(v, path + (str(k),)))
     return out
 
 
@@ -143,9 +161,12 @@ def _drive(eng, script):
 
 
 def _greedy_script(case):
+    frames = case.get("frames") or [None] * len(case["prompts"])
+
     def script(eng):
-        for p, kw in zip(case["prompts"], case["sampling"]):
-            eng.submit(np.asarray(p, np.int32), SamplingParams(**kw))
+        for p, kw, f in zip(case["prompts"], case["sampling"], frames):
+            extra = {} if f is None else {"frames": f}
+            eng.submit(np.asarray(p, np.int32), SamplingParams(**kw), **extra)
         return eng.run_until_drained()
     return script
 
@@ -161,8 +182,20 @@ def _engine(case, mesh, dev):
     for fn in counters.values():
         fn.launches = 0
     ticks, reqs = _drive(eng, _greedy_script(case))
-    return dict(_requests(reqs), ticks=ticks, first=eng.is_first,
-                launches={k: fn.launches for k, fn in counters.items()})
+    out = dict(_requests(reqs), ticks=ticks, first=eng.is_first,
+               launches={k: fn.launches for k, fn in counters.items()},
+               cache_shapes=cache_shapes(eng.caches))
+    if case.get("keep_caches"):
+        out["caches"] = _cpu(eng.caches)
+    return out
+
+
+def _cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return [_cpu(v) for v in tree]
 
 
 def _warm_engine(case, mesh, dev):
@@ -187,7 +220,7 @@ def _warm_engine(case, mesh, dev):
                 traces=dict(TRACE_COUNTS - traces),
                 segments={k: len(g.graphs) for k, g in eng._graphs.items()},
                 sequence={k: g.sequence for k, g in eng._graphs.items()},
-                retraces=eng.stats()["retraces"])
+                retraces=eng.stats()["retraces"], cache_shapes=cache_shapes(eng.caches))
 
 
 def control_script(eng):
