@@ -87,8 +87,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      int8 rounding, so the integer paths' model-level max|d logit| is
      printed and only checked to be finite;
   4b. serve qwen1.5-32b at its published width and QWEN_SERVE_LAYERS = 16
-     of its 64 layers (cut when the SSM and hybrid phases made the run
-     longer), with its int8 KV cache, from masters built, exported and freed one leaf at a
+     of its 64 layers (cut to 16 when the SSM and hybrid phases made the
+     run longer), with its int8 KV cache, from masters built, exported and freed one leaf at a
      time (``build_serving``; the peak of device memory across the build
      is printed and must leave 10% of the card): the requests of phase 3
      under "float", "xnor" and "int8" on one export, cold and warm, with
@@ -110,8 +110,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      same counter and token checks (own kernel = (6 L + 1) per decode tick
      + 1 per extend tick: their MLPs are not gated), first tokens printed;
   4e. serve qwen2-moe-a2.7b at its published width, cut to
-     MOE_SERVE_LAYERS = 12 of its 24 layers when phase 5r made the run
-     longer (60 routed experts top-4 plus 4 shared a layer), bf16, from masters
+     MOE_SERVE_LAYERS = 4 of its 24 layers (12 when phase 5r made the run
+     longer, 4 when 4r's "seq" engines did) (60 routed experts top-4 plus 4 shared a layer), bf16, from masters
      built, exported and freed one leaf at a time (the largest leaf is an
      (L, E, 1408, 2048) f32 expert bank of 16.6 GB; the build's peak of
      device memory is printed and must leave 10% of the card): the
@@ -125,8 +125,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      products timed alone at the tick's shape, and under their kernel
      names in the trace;
   4f. serve moonshot-v1-16b-a3b at its published width, cut to
-     MOONSHOT_SERVE_LAYERS = 16 of its 48 layers when phases 4k-4m made
-     the run longer (a dense first layer, then 64 routed experts top-6
+     MOONSHOT_SERVE_LAYERS = 4 of its 48 layers (16 when phases 4k-4m
+     made the run longer, 4 when 4r's "seq" engines did) (a dense first layer, then 64 routed experts top-6
      plus 2 shared), int8 K/V cache, built the same way: float path,
      4 requests of 8 greedy tokens, cold and warm, the same checks, first
      tokens printed, one decode tick traced cold and warm;
@@ -136,9 +136,9 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      fails and names the token and the gap between its k-th and (k+1)-th
      router probability), logits at rtol = atol = 1e-3;
   4h. serve mamba2-370m at its published width, cut to
-     MAMBA_SERVE_LAYERS = 18 of its 48 layers when phase 4r made the run
+     MAMBA_SERVE_LAYERS = 6 of its 48 layers when phase 4r made the run
      longer (24, then 18 when 4r's heads-sharded attention added a
-     gather a layer) (SSD state 128, no attention, no FFN), bf16, built the same
+     gather a layer, then 6 when 4r's "seq" engines joined) (SSD state 128, no attention, no FFN), bf16, built the same
      way: the
      requests of phase 3 under "float", "xnor" and "int8" on one export,
      cold and warm, with the same counter and token checks (own kernel =
@@ -148,8 +148,10 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      reset; one 4-slot decode tick traced per path, warm (the cold traces,
      each behind a cold per-token extend tick, were cut when phases 4k-4m
      made the run longer);
-  4i. serve recurrentgemma-2b at its published width and all 26 layers (8
-     cycles of rec, rec, attn, then two rec tails; MQA kv 1, head dim 256,
+  4i. serve recurrentgemma-2b at its published width, cut to
+     RECGEMMA_SERVE_LAYERS = 8 of its 26 layers when 4r's "seq" engines
+     made the run longer (2 cycles of rec, rec, attn, then its two rec
+     tails; MQA kv 1, head dim 256,
      a 2048-token window ring), the same runs as 4h (own kernel = (8 rec +
      7 attn per layer) + 1 per decode tick); then one request of a
      2100-token prompt, longer than the window, on a 2304-token slot under
@@ -161,8 +163,10 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      chunks (recurrentgemma: 2100 and 300 tokens, so the ring wraps), then
      three greedy decode steps; logits at rtol = atol = 1e-4 at every call
      and the greedy tokens equal;
-  4k. serve seamless-m4t-large-v2 at its published width and depth (24
-     encoder + 24 decoder layers, d 1024, vocab 256206, p = 4), bf16,
+  4k. serve seamless-m4t-large-v2 at its published width, cut to
+     SEAMLESS_SERVE_LAYERS = 6 of its 24 encoder and 6 of its 24 decoder
+     layers when 4r's "seq" engines made the run longer (d 1024, vocab
+     256206, p = 4), bf16,
      built the same way (peak printed, must leave 10% of the card): phase
      3's first SEAMLESS_REQUESTS = 4 requests (cut from 8 for the run's
      time), each with its own synthetic clip of 40-256 frames, on
@@ -178,8 +182,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      with the LM head's share of busy time (timed alone as a CUDA graph:
      the whole head and the dense rebuild) and one head call's graph pool;
   4l. serve chameleon-34b at its published width, cut to
-     CHAMELEON_SERVE_LAYERS = 16 of its 48 layers when phase 4r made the
-     run longer (d 8192, GQA 64/8, d_ff 22016, QK-norm, p = 8), bf16, built the same way (peak printed): float path,
+     CHAMELEON_SERVE_LAYERS = 4 of its 48 layers (16 when phase 4r made
+     the run longer, 4 when its "seq" engines did) (d 8192, GQA 64/8, d_ff 22016, QK-norm, p = 8), bf16, built the same way (peak printed): float path,
      4 requests of 8 greedy tokens, cold and warm, own kernel = (7 L + 1)
      per decode tick, first tokens printed, one decode tick traced cold and
      warm;
@@ -206,7 +210,7 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      replayed graph (no TRACE_COUNTS move, no launch through a wrapper),
      tokens equal to the cache-off run, the bytes the trie's snapshots
      hold;
-  4p. seamless-m4t-large-v2 on 4k's export (24 + 24 layers, float, cold):
+  4p. seamless-m4t-large-v2 on 4k's export (SEAMLESS_SERVE_LAYERS + the same, float, cold):
      8 requests over 2 source clips: 2 encode ticks with the EncoderCache,
      8 without, equal tokens;
   4q. the HTTP/SSE serving shell on phase 3's granite-8b export (full
@@ -254,7 +258,23 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      on the rank's block of the heads ("heads" recipe: TP divides its 8
      K/V heads), so each rank's K/V pools (the sum over ``eng.caches``)
      hold one card's bytes x (K/TP)/K exactly (both printed), as do
-     qwen2-moe's (16 K/V heads) and the bf16 engine's. Under (1, 2) also:
+     qwen2-moe's (16 K/V heads) and the bf16 engine's. In both jobs
+     qwen1.5-32b (phase 4b's export; 40 heads: the "seq" recipe, each rank
+     holding the cache rows of the positions = its index mod TP and the
+     ranks merging their f64 partial softmaxes): f32 prefill + 4 decode
+     logits at 4b's QWEN_SERVE_LAYERS = 16 on its int8 K/V within 1e-4 x
+     max|logit| of the single card's own path (f32 ``_attend_core``) and
+     of the single card attending as the mesh's one part
+     (``one_part_seq``: f64, rounded once); its int8 K/V engines at
+     TP_LAYERS give the one-part single card's tokens under float, xnor
+     and int8 with its launches and no plain version, each rank's pools
+     holding exactly one card's bytes / TP (11 151 360 -> 5 575 680 B);
+     the requests whose tokens differ from the single card's own path
+     are printed (a fault to record, not a failure). Under (1, 2) also
+     recurrentgemma-2b (4i's export cut to TP_RG_LAYERS = 3: rec, rec,
+     attn; f32): tokens equal the one-part single card's (those apart
+     from its own path printed) and each rank's window ring holds half of
+     one card's bytes (its recurrent carries whole). Under (1, 2) also:
      qwen2-moe (E/TP experts a rank) logits within 1e-4 and engine tokens
      equal; ResNet-34 N = 2 f32 logits within phase 10's 1e-3 (B6 per
      shard, 18 launches a rank); the cold bf16 decode tick at TP_LAYERS
@@ -269,13 +289,15 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      runs ``warmup()`` (each tick captured as CUDA graphs split at its
      collectives, which run between the replays) and drains the same
      prompts warm: tokens and ticks equal the cold meshed engine's and the
-     single card's, each rank's graphs a tick equal the first rank's (one
+     single card's (qwen's: as one part), each rank's graphs a tick equal the first rank's (one
      more than its collectives, the same sequence, one all_gather a layer
-     of its attention output by heads), the capture launched
+     of its attention output by heads; qwen's ticks one all_gather a
+     layer of its packed partial softmaxes instead), the capture launched
      the path's decode kernel and B2 on the rank's shards, and the warm
      drain moves no launch counter, no TRACE_COUNTS, runs no plain version
      and counts no eager tick; the same for qwen2-moe under (1, 2) (its
-     expert-parallel sum among the collectives). Under (1, 2) the bf16
+     expert-parallel sum among the collectives) and for qwen1.5-32b's
+     three engines in both jobs. Under (1, 2) the bf16
      decode and extend ticks at TP_LAYERS, cold against warm, with the
      collectives' share (each synchronized), beside one card's cold and
      warm. Then the serve CLI ``--arch granite-8b --mesh 1x2 --serve --aot
@@ -288,7 +310,8 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      builds one rank's cell on ``meta`` tensors under a fake process group
      of the mesh's size and counts its step (``roofline.analysis``); the
      tile bytes a rank of granite-8b serving at (1, 2) equal phase 4r's,
-     and so do the K/V bytes a rank of 4r's bf16 engine (its paged cell);
+     and so do the K/V bytes a rank of 4r's bf16 engine (its paged cell)
+     and of 4r's qwen1.5-32b engine (one card's / 2, "seq");
      granite-8b at full width, 32 slots x 32 768 tokens, counts
      KV_32K_BYTES of K/V at (1, 1), half at (1, 2), a quarter at (1, 4)
      (with the counted peak a rank); the collectives a train step and
@@ -460,22 +483,33 @@ ENC_TOKENS, ENC_MAX_LEN, ENC_FRAMES = 256, 256, (40, 257)
 # phase 4k's requests a path (cut from 8 for the run's time, to make room
 # for phase 5r's MoE jobs and phase 11)
 SEAMLESS_REQUESTS = 4
+# phase 4k's depth: 6 of seamless's 24 encoder and 6 of its 24 decoder
+# layers (cut from whole for the run's time when 4r's "seq" checks made it
+# longer)
+SEAMLESS_SERVE_LAYERS = 6
 ENCODE_CALLS = {"K1024 r256": 1 + 4 * 24 + 2 * 24, "K1024 r2048": 24,
                 "K8192 r256": 24}
 # phase 4m: seamless cut to 2 + 2 layers, chameleon to 2, card vs CPU
 ENCDEC_CHECK_LAYERS = 2
-# phase 4l serves chameleon-34b at full width cut to 16 of its 48 layers,
-# and phases 4h / 4o mamba2-370m to 18 of its 48 (its cold per-token extend
-# ticks): phase 4r made the run longer (mamba2 first to 24, then, when 4r's
-# heads-sharded attention added a gather a layer to every meshed tick, to 18)
-CHAMELEON_SERVE_LAYERS = 16
-MAMBA_SERVE_LAYERS = 18
-# phase 4f serves moonshot-v1-16b-a3b at full width cut to 16 of its 48
-# layers: phases 4k-4m made the run longer, and this depth was the next cut
-MOONSHOT_SERVE_LAYERS = 16
-# phase 4e's depth: 12 of qwen2-moe-a2.7b's 24 layers (the run's time, when
-# phase 5r joined it; 4g and 4r check the MoE layers on the card at L = 2)
-MOE_SERVE_LAYERS = 12
+# phase 4l serves chameleon-34b at full width cut to 4 of its 48 layers,
+# phases 4h / 4o mamba2-370m to 6 of its 48 (its cold per-token extend
+# ticks) and 4i recurrentgemma-2b to 8 of its 26 (2 cycles and both
+# tails): phase 4r made the run longer (mamba2 first to 24, then, when 4r's
+# heads-sharded attention added a gather a layer to every meshed tick, to
+# 18; chameleon to 16), and its "seq" engines (qwen1.5-32b in both jobs,
+# recurrentgemma-2b) longer again: 4b's, 4i's and the window-wrap run's
+# "seq" attention runs in f64 on one card too, and the script took 1027.7
+# to 1241.7 s of its 1200-s limit on two hosts
+CHAMELEON_SERVE_LAYERS = 4
+MAMBA_SERVE_LAYERS = 6
+RECGEMMA_SERVE_LAYERS = 8
+# phase 4f serves moonshot-v1-16b-a3b at full width cut to 4 of its 48
+# layers (16 when phases 4k-4m made the run longer; 4 for 4r's "seq" engines)
+MOONSHOT_SERVE_LAYERS = 4
+# phase 4e's depth: 4 of qwen2-moe-a2.7b's 24 layers (the run's time: 12 when
+# phase 5r joined it, 4 for 4r's "seq" engines; 4g and 4r check the MoE
+# layers on the card at L = 2)
+MOE_SERVE_LAYERS = 4
 # phase 4i's window-wrapping request: a prompt longer than the 2048 window
 # on a slot of WRAP_MAX_LEN tokens; phase 4j's card-vs-CPU cut and chunk
 WRAP_PROMPT, WRAP_MAX_LEN = 2100, 2304
@@ -497,7 +531,8 @@ MOE_CHECK_LAYERS = 2
 # the depth of the earliest-cut path goes first
 FAMILY_SERVE_LAYERS = 8
 # phase 4b serves qwen1.5-32b at full width cut to 16 of its 64 identical
-# layers: phases 4h-4j made the run longer, and this depth is the next cut
+# layers: phases 4h-4j made the run longer (4r's "seq" logits run at this
+# depth too)
 QWEN_SERVE_LAYERS = 16
 B1_MS = (1, 4, 8, 16, 32)
 B2_MS = (33, 128, 512)
@@ -537,6 +572,15 @@ TP_MESHES = ((1, 2), (2, 2))
 # (k, v) x bf16 a token, on one card (phase 11)
 KV_32K_BYTES = 36 * 32 * 32_768 * 8 * 128 * 2 * 2
 TP_LAYERS, TP_MOE_LAYERS = 2, MOE_CHECK_LAYERS
+# phase 4r's "seq" architectures: qwen1.5-32b from phase 4b's export (its
+# f32 logits at 4b's QWEN_SERVE_LAYERS, its int8 K/V engines cut to
+# TP_LAYERS) in both jobs, and recurrentgemma-2b from 4i's export cut to
+# TP_RG_LAYERS (one rec, rec, attn cycle) under (1, 2); QWEN_KV_ONE: the
+# K/V pool bytes of qwen's 4-slot x 128 / page-16 engine at TP_LAYERS on
+# one card (33 pages of 16 rows x 40 heads, 128 int8 codes and a f32 scale
+# a row, k and v)
+TP_RG_LAYERS = 3
+QWEN_KV_ONE = TP_LAYERS * 33 * 16 * 40 * (128 + 4) * 2
 TP_PROMPT, TP_DECODE_STEPS, TP_MAX_TOKENS = [5, 3, 2, 7, 1, 4, 6, 2], 4, 16
 TP_LOGIT_RTOL, TP_R34_TOL = 1e-4, 1e-3
 TP_TIMED_TICKS, TP_JOB_TIMEOUT = 5, 300
@@ -2529,7 +2573,7 @@ def phase_features_mamba(cfg, sp):
 
 
 def phase_features_seamless(cfg, sp):
-    """Phase 4p: seamless-m4t-large-v2 at full width and depth on 4k's
+    """Phase 4p: seamless-m4t-large-v2 at full width and 4k's depth on 4k's
     export, float, cold engines: 8 requests over 2 source clips; 2 encode
     ticks with the EncoderCache, 8 without, equal greedy tokens."""
     import numpy as np
@@ -2790,7 +2834,7 @@ def phase_moe_card_vs_cpu(cfg, sp):
 
 def phase_serve_recurrent(arch: str, phase: str):
     """Phases 4h and 4i: ``arch`` (mamba2-370m, recurrentgemma-2b) at its
-    published width and depth (mamba2: MAMBA_SERVE_LAYERS) under each
+    published width, cut to MAMBA_SERVE_LAYERS / RECGEMMA_SERVE_LAYERS, under each
     compute path, as phase 4b, with
     no page pool and the slot reset among the captured entry points; for
     recurrentgemma-2b then the window-wrapping request (:func:`wrap_run`).
@@ -2798,8 +2842,8 @@ def phase_serve_recurrent(arch: str, phase: str):
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    if arch == MAMBA:
-        cfg = dataclasses.replace(cfg, n_layers=MAMBA_SERVE_LAYERS)
+    cfg = dataclasses.replace(cfg, n_layers=MAMBA_SERVE_LAYERS if arch == MAMBA
+                              else RECGEMMA_SERVE_LAYERS)
     # mamba2's cold profiles (each a cold per-token extend tick first) went
     # when phases 4k-4m made the run longer
     sp, launches = phase_serve_paths(cfg, phase, cold_profile=arch != MAMBA)
@@ -3270,22 +3314,39 @@ def phase_train_remat(cfg, card: str):
     return out
 
 
-def phase_train_cli(arch: str):
-    """Phase 6: the training CLI, unfused default path, on the card."""
+def phase_train_cli(archs):
+    """Phase 6: the training CLI, unfused default path, on the card: one
+    process an arch, all started together."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    outs = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         t0 = time.perf_counter()
-        out = subprocess.run(
+        procs = {arch: subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
-             "--reduced", "--steps", "3", "--ckpt-dir", tmp],
-            capture_output=True, text=True, timeout=600, env=env, cwd=str(ROOT))
+             "--reduced", "--steps", "3", "--ckpt-dir", str(Path(tmp) / arch)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+            cwd=str(ROOT)) for arch in archs}
+        try:
+            for arch, proc in procs.items():
+                try:
+                    outs[arch] = proc.communicate(timeout=600)
+                except subprocess.TimeoutExpired:
+                    fail(f"train CLI ({arch}) still running after 600s")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
         dt = time.perf_counter() - t0
-    if out.returncode != 0 or "done: 3 steps" not in out.stdout:
-        fail(f"train CLI ({arch}) exit {out.returncode}:\n{out.stdout[-2000:]}\n"
-             f"{out.stderr[-3000:]}")
-    lines = out.stdout.strip().splitlines()
-    print(f"train CLI (--arch {arch} --reduced --steps 3, card, unfused) exit 0 "
-          f"in {dt:.1f}s: {lines[0]} | {lines[-2]}", flush=True)
+    for arch, (text, err) in outs.items():
+        if procs[arch].returncode != 0 or "done: 3 steps" not in text:
+            fail(f"train CLI ({arch}) exit {procs[arch].returncode}:\n{text[-2000:]}\n"
+                 f"{err[-3000:]}")
+        lines = text.strip().splitlines()
+        print(f"train CLI (--arch {arch} --reduced --steps 3, card, unfused) exit 0: "
+              f"{lines[0]} | {lines[-2]}", flush=True)
+    print(f"train CLI: {len(archs)} processes started together, all done in "
+          f"{dt:.1f}s", flush=True)
 
 
 def phase_train_card_vs_cpu(cfg):
@@ -3717,6 +3778,31 @@ def counting_plain(counts: dict):
             setattr(m, n, fn)
 
 
+@contextlib.contextmanager
+def one_part_seq():
+    """Within the block, every "seq" layer on one card reads its caches
+    whole as the one part of a ``SeqBlock`` over no axes: the mesh's f64
+    partial softmax and merge, where one card otherwise attends in
+    ``_attend_core`` (f32). A mesh's tokens are held exactly to a single
+    card run so; its logits also to the single card's own path, within
+    TP_LOGIT_RTOL."""
+    from repro_torch.distributed.sharding import SeqBlock
+    from repro_torch.nn.attention import Attention
+
+    plain = Attention.seq_block
+
+    def seq_block(self, length):
+        if self.act_mode == "seq" and not self.cross:
+            return SeqBlock(None, (), 1, 0)
+        return plain(self, length)
+
+    Attention.seq_block = seq_block
+    try:
+        yield
+    finally:
+        Attention.seq_block = plain
+
+
 def tp_models(cfg, n_layers: int, dtype, paths=tuple(PATH_KERNEL)):
     """{path: SERVE model} of ``cfg`` cut to ``n_layers`` on cuda:0."""
     from repro_torch.configs import build_model
@@ -3736,12 +3822,14 @@ def tp_logits(model, sp, mesh=None):
     from repro_torch.distributed.sharding import axis_rules
 
     rules = axis_rules(mesh) if mesh is not None else contextlib.nullcontext()
+    max_len = 64
     with torch.no_grad(), rules:
         lg, c, lens = model.prefill(sp, {"tokens": torch.tensor(
-            [TP_PROMPT], device="cuda")}, 64)
+            [TP_PROMPT], device="cuda")}, max_len)
         out = [lg.cpu()]
         for _ in range(TP_DECODE_STEPS):
-            lg, c, lens = model.decode_step(sp, lg.argmax(-1)[:, None], c, lens)
+            lg, c, lens = model.decode_step(sp, lg.argmax(-1)[:, None], c, lens,
+                                            max_len=max_len)
             out.append(lg.cpu())
     return out
 
@@ -3780,20 +3868,35 @@ def mesh_drain(eng, cfg, prompts, max_tokens: int):
 
 
 def kv_bytes(eng) -> int:
-    """The bytes of an engine's caches (a full-attention model's K/V pools):
-    what this rank holds."""
+    """The bytes of an engine's attention caches (K/V pools and window
+    rings: its ``k`` / ``v`` / ``ks`` / ``vs`` leaves; recurrent carries
+    are not counted): what this rank holds."""
     from repro_torch.launch.cells import tree_bytes
+    from repro_torch.nn import module as mod
 
-    return int(tree_bytes(eng.caches))
+    return int(tree_bytes([v for path, v in mod.walk(dict(enumerate(eng.caches)))
+                           if path[-1] in ("k", "v", "ks", "vs")]))
 
 
-def kv_share(cfg, tp: int) -> "tuple[int, int]":
-    """(K/V heads a rank holds, K) of ``cfg`` under a model axis of ``tp``:
-    K/TP where ``attn_act`` is "heads" and tp divides n_kv and n_heads
-    (``distributed.sharding.head_sharding``), else K."""
-    k = cfg.n_kv
-    split = cfg.attn_act == "heads" and k % tp == 0 and cfg.n_heads % tp == 0
-    return (k // tp if split else k), k
+def attn_split(cfg, tp: int, rows: int = 16):
+    """How a rank on a model axis of ``tp`` holds ``cfg``'s attention
+    caches: "heads" where ``attn_act`` is "heads" and tp divides n_kv and
+    n_heads (``distributed.sharding.head_sharding``), "seq" where it is
+    "seq" and tp divides the cache's ``rows`` (the engines' 16-token pages,
+    ``seq_sharding``), else None (whole)."""
+    if cfg.attn_act == "heads":
+        return "heads" if cfg.n_kv % tp == 0 and cfg.n_heads % tp == 0 else None
+    return "seq" if rows % tp == 0 else None
+
+
+def kv_share(cfg, tp: int, rows: int = 16) -> "tuple[int, int]":
+    """The share (numerator, denominator) of one card's K/V bytes that a
+    rank holds under a model axis of ``tp``: K/TP of the K heads (K/V heads
+    split), 1/TP (time rows split) or 1/1 (``attn_split``)."""
+    split = attn_split(cfg, tp, rows)
+    if split == "heads":
+        return cfg.n_kv // tp, cfg.n_kv
+    return (1, tp) if split == "seq" else (1, 1)
 
 
 def tp_drain(model, sp, cfg, prompts, max_tokens: int, mesh=None):
@@ -4036,6 +4139,36 @@ def tp_rank_main(job_dir: str) -> None:
         release()
         lap("warm moe")
         del msp, model
+    if "qwen" in job["parts"]:
+        qwen = get_config(QWEN)
+        qsp = tp_load("qwen")
+        model = tp_models(qwen, QWEN_SERVE_LAYERS, torch.float32, ("float",))["float"]
+        qplaced = place_params(qsp, mod.logical_axes(model.specs()), mesh)
+        out["qwen_logits"] = tp_logits(model, qplaced, mesh)
+        qsp = tp_cut(qsp, TP_LAYERS)
+        del qplaced, model
+        release()
+        lap("qwen logits")
+        for path, model in tp_models(qwen, TP_LAYERS, torch.float32).items():
+            tokens, steps, counts, plain, kv = tp_drain(model, qsp, qwen, job["prompts"],
+                                                        TP_MAX_TOKENS, mesh)
+            out[f"qwen_{path}"] = dict(tokens=tokens, steps=steps, counts=counts,
+                                       plain=plain, kv=kv)
+            out[f"qwen_warm_{path}"] = tp_warm(model, qsp, qwen, job["prompts"],
+                                               TP_MAX_TOKENS, mesh)
+            release()
+        del qsp
+        lap("qwen")
+    if "rgemma" in job["parts"]:
+        rg = get_config(RECGEMMA)
+        model = tp_models(rg, TP_RG_LAYERS, torch.float32, ("float",))["float"]
+        tokens, steps, counts, plain, kv = tp_drain(model, tp_load("rgemma"), rg,
+                                                    job["prompts"], TP_MAX_TOKENS, mesh)
+        out["rgemma"] = dict(tokens=tokens, steps=steps, counts=counts, plain=plain,
+                             kv=kv)
+        del model
+        release()
+        lap("rgemma")
     if "r34" in job["parts"]:
         from repro_torch.distributed.sharding import axis_rules
 
@@ -4103,6 +4236,18 @@ def tp_close(label: str, got, want, tol: float) -> float:
     return worst
 
 
+def tp_token_faults(label: str, got: dict, want: dict, rank: int) -> list:
+    """The requests whose greedy tokens a "seq" mesh rank gave apart from
+    the single card's own path (f32 attention, where the mesh merges f64
+    partials): ["label rank r request i from token j", ...]."""
+    out = []
+    for i, (g, w) in enumerate(zip(got["tokens"], want["tokens"], strict=True)):
+        if g != w:
+            j = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
+            out.append(f"{label} rank {rank} request {i} from token {j}")
+    return out
+
+
 def tp_mesh_cli_start():
     """Start the serve CLI under torch.distributed.run, 2 ranks on the card:
     ``--arch granite-8b --reduced --mesh 1x2``."""
@@ -4144,14 +4289,22 @@ def head_gathers(sequence) -> int:
                if kind == "all_gather" and len(shape) == 3)
 
 
+def partial_gathers(sequence) -> int:
+    """The all_gathers of a "seq" layer's packed partial softmaxes among a
+    tick's recorded collectives: the (1, B, S, K, G, hd + 2) ones."""
+    return sum(1 for kind, _, shape, _ in sequence
+               if kind == "all_gather" and len(shape) == 6)
+
+
 def tp_check_warm(who: str, warm: dict, cold: dict, one: dict, own: str,
-                  first: dict, heads: int) -> None:
+                  first: dict, heads: int, partials: int = 0) -> None:
     """Phase 4s on a rank: its warm drain gives the cold meshed engine's and
     the single card's tokens at the same ticks, with no launch through a
     wrapper, no plain version, no TRACE_COUNTS move and no eager tick; the
     capture launched ``own`` and B2 on the rank's shards; each tick holds
     one graph more than it has collectives, as many as the first rank's,
-    ``heads`` of them the layers' attention outputs gathered by heads."""
+    ``heads`` of them the layers' attention outputs gathered by heads and
+    ``partials`` of them the layers' partial softmaxes."""
     if (warm["tokens"], warm["steps"]) != (cold["tokens"], cold["steps"]) or (
             warm["tokens"], warm["steps"]) != (one["tokens"], one["steps"]):
         fail(f"{who} warm: tokens {warm['tokens'][:2]} vs cold meshed "
@@ -4172,13 +4325,17 @@ def tp_check_warm(who: str, warm: dict, cold: dict, one: dict, own: str,
         if head_gathers(warm["sequence"][name]) != heads:
             fail(f"{who} warm: {name} gathers {head_gathers(warm['sequence'][name])} "
                  f"attention outputs by heads; want {heads}, one a layer")
+        if partial_gathers(warm["sequence"][name]) != partials:
+            fail(f"{who} warm: {name} gathers "
+                 f"{partial_gathers(warm['sequence'][name])} partial softmaxes; "
+                 f"want {partials}")
 
 
-def tp_check_kv(who: str, got: int, one: int, cfg, tp: int) -> None:
-    """Phase 4r on a rank: the bytes of its K/V pools are one card's x
-    (K/TP)/K exactly where the model axis divides the heads, one card's
-    where it does not."""
-    held, k = kv_share(cfg, tp)
+def tp_check_kv(who: str, got: int, one: int, cfg, tp: int, rows: int = 16) -> None:
+    """Phase 4r on a rank: the bytes of its K/V caches are one card's x
+    (K/TP)/K exactly where the model axis divides the heads ("heads"), x
+    1/TP where it divides a "seq" cache's rows, one card's where neither."""
+    held, k = kv_share(cfg, tp, rows)
     if one * held % k or got != one * held // k:
         fail(f"{who}: K/V pools {got} B a rank; one card's {one} B x {held}/{k} "
              f"= {one * held / k:.1f}")
@@ -4309,7 +4466,8 @@ def phase_tp(card: str, sp34, http_ref: dict):
     granite-8b's full width and depth against phase 4q's one-card server
     (``http_ref``). Returns the tile bytes each rank of the (1, 2) job held
     ({rank: bytes}) and the bf16 engine's K/V pool bytes each of its ranks
-    held ({rank: bytes}), for phase 11."""
+    held ({rank: bytes}) and qwen1.5-32b's float engine's ({rank: bytes}),
+    for phase 11."""
     import numpy as np
     import torch
 
@@ -4346,6 +4504,34 @@ def phase_tp(card: str, sp34, http_ref: dict):
     ref["moe"] = dict(zip(("tokens", "steps", "counts", "plain", "kv"), tp_drain(
         model, msp, moe, prompts, TP_MAX_TOKENS)))
     del msp, model
+    # the "seq" architectures on one card twice: its own path ("qwen_*",
+    # "rgemma") and as the mesh's one part ("qwen1_*", "rgemma1")
+    qwen, rg = get_config(QWEN), get_config(RECGEMMA)
+    fields = ("tokens", "steps", "counts", "plain", "kv")
+    qsp = tp_load("qwen")
+    model = tp_models(qwen, QWEN_SERVE_LAYERS, torch.float32, ("float",))["float"]
+    ref["qwen_logits"] = tp_logits(model, qsp)
+    with one_part_seq():
+        ref["qwen1_logits"] = tp_logits(model, qsp)
+    qsp = tp_cut(qsp, TP_LAYERS)
+    del model
+    for path, model in tp_models(qwen, TP_LAYERS, torch.float32).items():
+        ref[f"qwen_{path}"] = dict(zip(fields, tp_drain(model, qsp, qwen, prompts,
+                                                        TP_MAX_TOKENS)))
+        with one_part_seq():
+            ref[f"qwen1_{path}"] = dict(zip(fields, tp_drain(model, qsp, qwen, prompts,
+                                                             TP_MAX_TOKENS)))
+        if ref[f"qwen_{path}"]["kv"] != QWEN_KV_ONE:
+            fail(f"phase 4r {QWEN} {path}: one card's K/V pools "
+                 f"{ref[f'qwen_{path}']['kv']} B, want {QWEN_KV_ONE}")
+    del qsp, model
+    model = tp_models(rg, TP_RG_LAYERS, torch.float32, ("float",))["float"]
+    rsp = tp_load("rgemma")
+    ref["rgemma"] = dict(zip(fields, tp_drain(model, rsp, rg, prompts, TP_MAX_TOKENS)))
+    with one_part_seq():
+        ref["rgemma1"] = dict(zip(fields, tp_drain(model, rsp, rg, prompts,
+                                                   TP_MAX_TOKENS)))
+    del model, rsp
     _, sms, _, _ = resnet34_models(torch.float32)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
@@ -4358,13 +4544,15 @@ def phase_tp(card: str, sp34, http_ref: dict):
     release()
     t_ref = time.perf_counter() - t0
     print(f"phase 4r single-card references (granite-8b L={granite.n_layers} "
-          f"logits, L={TP_LAYERS} engines; {MOE} L={TP_MOE_LAYERS}, f32; resnet34 "
-          f"N=2): {t_ref:.1f}s", flush=True)
+          f"logits, L={TP_LAYERS} engines; {MOE} L={TP_MOE_LAYERS}; {QWEN} "
+          f"L={QWEN_SERVE_LAYERS} logits, L={TP_LAYERS} engines; {RECGEMMA} "
+          f"L={TP_RG_LAYERS}; f32; resnet34 N=2): {t_ref:.1f}s", flush=True)
 
     cli = serving = None
-    kv_rank = {}
-    for dims, parts in ((TP_MESHES[0], ("bf16", "moe", "r34")), (TP_MESHES[1], ())):
-        if not parts:       # the CLIs start beside the job that times nothing
+    kv_rank, qwen_kv_rank, own_path = {}, {}, []
+    for dims, parts in ((TP_MESHES[0], ("bf16", "moe", "r34", "qwen", "rgemma")),
+                        (TP_MESHES[1], ("qwen",))):
+        if "bf16" not in parts:     # the CLIs start beside the job that times nothing
             cli = tp_mesh_cli_start()
             serving = mesh_serve_start()
         ranks, dt = tp_job(dims, parts, prompts)
@@ -4385,8 +4573,7 @@ def phase_tp(card: str, sp34, http_ref: dict):
                 tp_check_kv(f"{who} {path}", got["kv"], want["kv"], granite, tp)
                 tp_check_warm(f"{who} {path}", res[f"warm_{path}"], got, want,
                               PATH_KERNEL[path], ranks[0][f"warm_{path}"],
-                              TP_LAYERS if kv_share(granite, tp)[0] < granite.n_kv
-                              else 0)
+                              TP_LAYERS if attn_split(granite, tp) == "heads" else 0)
             if "bf16" in parts:
                 tp_check_kv(f"{who} bf16", res["bf16_kv"], ref["bf16_kv"], granite, tp)
             per_rank = res["tile_bytes"]
@@ -4411,11 +4598,47 @@ def phase_tp(card: str, sp34, http_ref: dict):
                 tp_check_kv(f"{who} {MOE}", got["kv"], ref["moe"]["kv"], moe, tp)
                 tp_check_warm(f"{who} {MOE}", res["moe_warm"], got, ref["moe"], "B1",
                               ranks[0]["moe_warm"],
-                              TP_MOE_LAYERS if kv_share(moe, tp)[0] < moe.n_kv else 0)
+                              TP_MOE_LAYERS if attn_split(moe, tp) == "heads" else 0)
                 if not any(op[0] == "all_reduce" for op in
                            res["moe_warm"]["sequence"]["decode_tick"]):
                     fail(f"{who} {MOE} warm: no expert-parallel sum among the "
                          f"decode tick's collectives")
+            if "qwen" in parts:
+                qw1 = tp_close(f"{who} {QWEN} L={QWEN_SERVE_LAYERS} f32, int8 K/V, one "
+                               f"part", res["qwen_logits"], ref["qwen1_logits"],
+                               TP_LOGIT_RTOL)
+                qw = tp_close(f"{who} {QWEN} L={QWEN_SERVE_LAYERS} f32, int8 K/V",
+                              res["qwen_logits"], ref["qwen_logits"], math.inf)
+                if qw > TP_LOGIT_RTOL:
+                    own_path.append(f"{dims} {QWEN} rank {r} logits {qw:.3e} x "
+                                    f"max|logit|")
+                for path in PATH_KERNEL:
+                    got, want = res[f"qwen_{path}"], ref[f"qwen1_{path}"]
+                    if (got["tokens"], got["steps"]) != (want["tokens"], want["steps"]):
+                        fail(f"{who} {QWEN} {path}: engine tokens differ from the "
+                             f"single card's as one part: {got['tokens'][:2]} vs "
+                             f"{want['tokens'][:2]}")
+                    own_path += tp_token_faults(f"{dims} {QWEN} {path}", got,
+                                                ref[f"qwen_{path}"], r)
+                    if got["counts"] != want["counts"] or got["plain"]:
+                        fail(f"{who} {QWEN} {path}: launches {got['counts']} (single "
+                             f"card {want['counts']}), plain versions run {got['plain']}")
+                    tp_check_kv(f"{who} {QWEN} {path}", got["kv"], want["kv"], qwen, tp)
+                    tp_check_warm(f"{who} {QWEN} {path}", res[f"qwen_warm_{path}"], got,
+                                  want, PATH_KERNEL[path], ranks[0][f"qwen_warm_{path}"],
+                                  0, TP_LAYERS if attn_split(qwen, tp) == "seq" else 0)
+                if dims == (1, 2):
+                    qwen_kv_rank[r] = res["qwen_float"]["kv"]
+            if "rgemma" in parts:
+                got, want = res["rgemma"], ref["rgemma1"]
+                own_path += tp_token_faults(f"{dims} {RECGEMMA}", got, ref["rgemma"], r)
+                if ((got["tokens"], got["steps"]) != (want["tokens"], want["steps"])
+                        or got["counts"] != want["counts"] or got["plain"]):
+                    fail(f"{who} {RECGEMMA} L={TP_RG_LAYERS}: tokens {got['tokens'][:2]} "
+                         f"vs {want['tokens'][:2]}, launches {got['counts']} vs "
+                         f"{want['counts']}, plain {got['plain']}")
+                # the window ring of 128 rows (max_len < window)
+                tp_check_kv(f"{who} {RECGEMMA} ring", got["kv"], want["kv"], rg, tp, 128)
             if "r34" in parts:
                 y, counts = res["r34"]["logits"], res["r34"]["counts"]
                 err = r34_err = float((y - ref["r34"]).abs().max())
@@ -4487,6 +4710,39 @@ def phase_tp(card: str, sp34, http_ref: dict):
                   f"expert parallel) warm rank 0: " + tp_warm_line(res["moe_warm"])
                   + "; tokens equal the cold meshed engine's and one card's, no "
                   "launch or TRACE_COUNTS move in the warm drain", flush=True)
+        if "qwen" in parts:
+            print(f"phase 4r [{label}]: {QWEN} (full width, \"seq\": each rank holds "
+                  f"the positions = its index mod {tp}) prefill + {TP_DECODE_STEPS} "
+                  f"decode logits at L={QWEN_SERVE_LAYERS}, f32, int8 K/V, within {qw1:.2e} "
+                  f"x max|logit| of the single card attending as the mesh's one part "
+                  f"(f64 partial softmaxes; {qw:.2e} of its own f32 attention); "
+                  f"engines (L={TP_LAYERS}, int8 K/V, 8 x "
+                  f"{TP_MAX_TOKENS} greedy) equal the single card's as one part under "
+                  f"float / xnor / int8 with each rank's launches equal to the single "
+                  f"card's ("
+                  + ", ".join(f"{p} {ref[f'qwen_{p}']['counts'][k]} {k}"
+                              for p, k in PATH_KERNEL.items())
+                  + f"), no plain version run; K/V pools {res['qwen_float']['kv']} B a "
+                  f"rank against one card's {ref['qwen_float']['kv']} B = x "
+                  f"{'/'.join(map(str, kv_share(qwen, tp)))} (exact on every rank)"
+                  + (f"; {RECGEMMA} (full width, L={TP_RG_LAYERS}: rec, rec, attn, "
+                     f"f32) tokens equal one card's as one part, window ring {res['rgemma']['kv']} "
+                     f"B a rank against {ref['rgemma']['kv']} B (x "
+                     f"{'/'.join(map(str, kv_share(rg, tp, 128)))}), recurrent "
+                     f"carries whole" if "rgemma" in parts else ""), flush=True)
+            print(f"phase 4s [{label}]: {QWEN} (full width, L={TP_LAYERS}, int8 K/V, "
+                  f"f32) warm rank 0: " + tp_warm_line(res["qwen_warm_float"])
+                  + f"; partial softmaxes gathered a tick: "
+                  f"{partial_gathers(res['qwen_warm_float']['sequence']['decode_tick'])}"
+                  f"; warm tokens under float / xnor / int8 equal the cold meshed "
+                  f"engine's and one card's as one part; no launch, no plain version, no "
+                  f"TRACE_COUNTS move, 0 eager ticks in the warm drains", flush=True)
+    print(f"phase 4r [\"seq\" meshes against the single card's own f32 attention "
+          f"(ROADMAP C4: reported, held to the one-part single card instead)]: "
+          + ("logits within TP_LOGIT_RTOL and every request's tokens equal"
+             if not own_path else f"{len(own_path)} apart (logits over "
+             f"{TP_LOGIT_RTOL} x max|logit|; requests from their first differing "
+             f"token): " + "; ".join(own_path)), flush=True)
     tp_mesh_cli_finish(cli, card)
     print(f"phase 4r (TP/EP serving, ranks sharing one card, 4s's warm drains "
           f"included): {time.perf_counter() - t0:.1f}s", flush=True)
@@ -4494,7 +4750,7 @@ def phase_tp(card: str, sp34, http_ref: dict):
     mesh_serve_finish(serving, card, http_ref, prompts)
     print(f"phase 4s (the meshed HTTP shell after the jobs): "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    return tile_rank, kv_rank
+    return tile_rank, kv_rank, qwen_kv_rank
 
 
 # ---------------------------------------------------------------------------
@@ -5244,7 +5500,7 @@ def meta_grad_peak(cfg, batch: int, seq: int):
 
 
 def phase_dryrun(card: str, remat: dict, tile_rank: dict, kv_rank: dict,
-                 mesh_results: dict) -> None:
+                 qwen_kv_rank: dict, mesh_results: dict) -> None:
     """Phase 11 (last): the dry run's counts (``launch.dryrun.count_cell``:
     the cell built for one rank on ``meta`` tensors under a fake process
     group of the mesh's size, its step run once under
@@ -5252,7 +5508,8 @@ def phase_dryrun(card: str, remat: dict, tile_rank: dict, kv_rank: dict,
     what this run measured on the card: the tile bytes a rank of
     granite-8b serving at (1, 2) (phase 4r) and the K/V pool bytes a rank
     of 4r's bf16 engine (its cell: TP_LAYERS layers, N_SLOTS slots of 128
-    tokens on 16-token pages), granite-8b's K/V a rank at full width and
+    tokens on 16-token pages) and of 4r's qwen1.5-32b engine (int8 K/V,
+    "seq": half of each page's rows a rank), granite-8b's K/V a rank at full width and
     depth, 32 slots x 32 768 tokens, at (1, 1), (1, 2), (1, 4) (exact, the
     counted peak a rank printed), the collectives a train step
     and their kinds of granite-8b at (1, 2), (2, 1), (2, 2) and of
@@ -5284,6 +5541,20 @@ def phase_dryrun(card: str, remat: dict, tile_rank: dict, kv_rank: dict,
     if set(kv_rank.values()) != {pooled["cache_bytes"]}:
         fail(f"phase 11: the dry run's K/V bytes a rank of 4r's bf16 engine at "
              f"(1, 2) {pooled['cache_bytes']} vs phase 4r's {kv_rank}")
+    qwen_pooled = count_cell(dataclasses.replace(get_config(QWEN), n_layers=TP_LAYERS),
+                             ShapeCell("4r", 128, N_SLOTS, "decode"), (1, 2),
+                             page_tokens=16)
+    if qwen_pooled["cache_bytes"] != QWEN_KV_ONE // 2 or set(qwen_kv_rank.values()) != {
+            qwen_pooled["cache_bytes"]}:
+        fail(f"phase 11: the dry run's K/V bytes a rank of 4r's {QWEN} engine at "
+             f"(1, 2) {qwen_pooled['cache_bytes']} vs phase 4r's {qwen_kv_rank} "
+             f"(one card's {QWEN_KV_ONE} / 2)")
+    print(f"phase 11 [dry run vs phase 4r, {card}]: 4r's {QWEN} engine (L={TP_LAYERS}, "
+          f"int8 K/V, \"seq\") at (1, 2): K/V {qwen_pooled['cache_bytes']} B a rank "
+          f"(counted on meta) = {sorted(set(qwen_kv_rank.values()))} (held on the "
+          f"card's ranks) = one card's {QWEN_KV_ONE} / 2; all-gathers of a decode step "
+          f"{qwen_pooled['coll_calls'].get('all-gather', 0)} (one a layer of the "
+          f"partial softmaxes among them)", flush=True)
     line = []
     for dims, want in (((1, 1), KV_32K_BYTES), ((1, 2), KV_32K_BYTES // 2),
                        ((1, 4), KV_32K_BYTES // 4)):
@@ -5400,6 +5671,7 @@ def main() -> None:
     sp, counts = phase_serve_paths(
         dataclasses.replace(qwen, n_layers=QWEN_SERVE_LAYERS), "4b")
     phase_qwen_card_vs_cpu(qwen, sp)
+    tp_save("qwen", sp)
     del sp
     for arch in ("minitron-8b", "starcoder2-7b"):
         counts = {k: counts[k] + v for k, v in phase_serve_family(
@@ -5423,9 +5695,14 @@ def main() -> None:
         if arch == MAMBA:
             phase_features_mamba(dataclasses.replace(
                 get_config(arch), n_layers=MAMBA_SERVE_LAYERS), sp)
+        else:       # phase 4r's: the first (rec, rec, attn) cycle alone
+            tp_save("rgemma", {k: v for k, v in sp.items()
+                               if not k.startswith("seg") or k == "seg0"}, 1)
         del sp
         release()
-    seamless = get_config(SEAMLESS)
+    seamless = dataclasses.replace(
+        get_config(SEAMLESS), enc_layers=SEAMLESS_SERVE_LAYERS,
+        dec_layers=SEAMLESS_SERVE_LAYERS, n_layers=2 * SEAMLESS_SERVE_LAYERS)
     sp, enc_counts = phase_serve_paths(seamless, "4k", requests=SEAMLESS_REQUESTS)
     phase_encdec_card_vs_cpu(seamless, sp)
     phase_features_seamless(seamless, sp)
@@ -5444,16 +5721,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     train = phase_train_fused(cfg)
     remat = phase_train_remat(cfg, card)
-    for arch in ("granite-8b", MOE, SEAMLESS):
-        phase_train_cli(arch)
+    phase_train_cli(("granite-8b", MOE, SEAMLESS))
     phase_train_card_vs_cpu(cfg)
     conv = phase_conv(card)
     sp34, r34 = phase_resnet34()
     phase_resnet34_card_vs_cpu(sp34)
-    tile_rank, kv_rank = phase_tp(card, sp34, http_ref)
+    tile_rank, kv_rank, qwen_kv_rank = phase_tp(card, sp34, http_ref)
     del sp34
     mesh_results = phase_train_mesh(card)
-    phase_dryrun(card, remat, tile_rank, kv_rank, mesh_results)
+    phase_dryrun(card, remat, tile_rank, kv_rank, qwen_kv_rank, mesh_results)
 
     entries = []
     for kname, fname, m, head, dtype, replaces in (

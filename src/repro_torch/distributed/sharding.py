@@ -29,7 +29,16 @@ There is no GSPMD in PyTorch, so the port realises the placement itself:
   divides n_heads too) and holds that block of every K/V pool: its q / k /
   v projections keep only the block's output columns, and its attention
   output is gathered by heads before ``wo``. Where the rule does not
-  divide, and for "seq" architectures, attention and its pools stay whole.
+  divide, attention and its pools stay whole.
+* Serving attention of an architecture whose ``attn_act`` is "seq" splits
+  the time rows of every K/V cache over the "act_res_seq" rule's axes
+  (``seq_sharding``: its longest dividing prefix of the cache's length):
+  absolute position p lives on the rank of index p mod TP. Each rank
+  attends its queries against its own rows and returns a partial softmax
+  (its row maximum, its sum of exponentials and its unnormalised output,
+  in f64), and one ``gather_blocks`` a layer brings every rank's parts,
+  which each rank merges in rank order (``merge_partials``). A cache whose length the
+  rule does not divide stays whole, as does its attention.
   The residual stream and every other activation are replicated.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with dim names
@@ -288,6 +297,77 @@ def head_sharding(n_heads: int, n_kv: int) -> Optional[HeadBlock]:
     if n_heads % extent:
         return None
     return HeadBlock(mesh, axes, extent, shard_index(mesh, axes))
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqBlock:
+    """A rank's share of a serving cache's time rows: ``extent`` ranks over
+    the mesh ``axes`` interleave the positions, absolute position p living
+    on the rank of index p mod extent; this rank is ``index``. In a cache
+    of L rows (a page, a dense slot row, a ring) the rank holds the L /
+    extent rows whose index is ``index`` mod extent, in order."""
+
+    mesh: Any
+    axes: Tuple[str, ...]
+    extent: int
+    index: int
+
+    def local_rows(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The rank's rows of a whole cache ``t`` along ``dim`` (those of
+        index ``index`` mod extent; a copy)."""
+        dim %= t.ndim
+        return t.unflatten(dim, (-1, self.extent)).select(dim + 1,
+                                                          self.index).contiguous()
+
+    def positions(self, n: int, device) -> torch.Tensor:
+        """The absolute positions of a view of ``n`` of the rank's rows
+        (row i holds position i * extent + index)."""
+        return torch.arange(n, device=device) * self.extent + self.index
+
+
+def seq_sharding(length: int) -> Optional[SeqBlock]:
+    """The rank's ``SeqBlock`` of a serving cache of ``length`` time rows,
+    or None: no active rules, or the "act_res_seq" rule's longest dividing
+    prefix of ``length`` has extent 1 (the dividing rule of
+    ``head_sharding``: a length its axes do not divide stays whole)."""
+    hit = _rule_sharding("act_res_seq", length)
+    if hit is None:
+        return None
+    mesh, axes, extent = hit
+    return SeqBlock(mesh, axes, extent, shard_index(mesh, axes))
+
+
+def merge_softmax_parts(parts: torch.Tensor) -> torch.Tensor:
+    """Merge per-rank partial softmaxes: ``parts`` (R, ..., hd + 2), part
+    r packing (o_r, m_r, l_r) on its last axis (o_r = sum exp(s - m_r) v
+    over its keys, m_r its maximum score, l_r = sum exp(s - m_r)). Summed
+    in part order, so every rank gets the same bits: out = sum e^(m_r - M)
+    o_r / sum e^(m_r - M) l_r, M = max m_r. A part with no valid key
+    carries m_r = NEG_INF and o_r = l_r = 0 and weighs nothing; a row with
+    no valid key in any part gives 0 (finite; its output is discarded)."""
+    o, m, l = parts[..., :-2], parts[..., -2], parts[..., -1]
+    top = m.amax(0)
+    num = torch.zeros_like(o[0])
+    den = torch.zeros_like(l[0])
+    for r in range(parts.shape[0]):
+        w = torch.exp(m[r] - top)
+        num = num + w[..., None] * o[r]
+        den = den + w * l[r]
+    return num / torch.where(den > 0, den, torch.ones_like(den))[..., None]
+
+
+def merge_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                   seq: SeqBlock) -> torch.Tensor:
+    """This rank's partial softmax (o (..., hd), m (...), l (...), one
+    dtype) packed into one (..., hd + 2) tensor, gathered from every rank
+    of ``seq`` (one ``gather_blocks``) and merged (``merge_softmax_parts``):
+    the attention output (..., hd) over every rank's keys, in the parts'
+    dtype. A ``SeqBlock`` over no axes is one part: the cache whole, in
+    the mesh's arithmetic."""
+    packed = torch.cat([o, m[..., None], l[..., None]], dim=-1)[None]
+    if seq.axes:
+        packed = gather_blocks(packed, seq.mesh, seq.axes, 0)
+    return merge_softmax_parts(packed)
 
 
 def batch_shard_axes(exclude: Sequence[str], dim: int) -> Tuple[str, ...]:

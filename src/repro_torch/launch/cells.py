@@ -13,8 +13,11 @@ cell's masters cut by ``distributed.sharding.train_shards`` /
 (``train.step.dp_rows``); a serve cell's params cut by ``place_params``
 (tile rows and expert banks), its caches built under the cell's rules (an
 architecture whose ``attn_act`` is "heads" holds its block of the K/V
-heads where the model axis divides them, ``nn/attention.Attention.heads``),
-its batch and activations whole, as the port serves under a mesh.
+heads where the model axis divides them, ``nn/attention.Attention.heads``;
+one whose ``attn_act`` is "seq" 1/TP of every cache's time rows where the
+model axis divides their length, ``Attention.seq_block``, and gathers
+each layer's partial softmaxes), its batch and activations whole, as the
+port serves under a mesh.
 The mesh is a DeviceMesh over a fake process group of the mesh's size
 (``launch.mesh.ProductionMesh.join``), so the collectives run and move
 nothing. Running ``fn(*args)`` under ``roofline.analysis.CostCounter``
@@ -162,9 +165,13 @@ def cache_shardings(mesh, caches, batch_size: int):
     """The reference's placement of each cache leaf, by key name and rank:
     K/V shard the time axis over "model", recurrent state its widest dim.
     The port's ranks hold their block of the K/V heads where the model
-    axis divides them ("heads" architectures) and every other cache leaf
-    whole; the dry run reports this layout beside the bytes a rank holds
-    (``cache_bytes``)."""
+    axis divides them ("heads" architectures), or of a "seq" architecture
+    1/TP of the time rows where the model axis divides their length
+    (interleaved: position p on the rank of index p mod TP, where the
+    reference splits time in contiguous blocks; the bytes a rank holds are
+    the same), and every recurrent carry whole; the dry run reports this
+    layout beside the bytes a rank holds (``cache_bytes``) and the time
+    rows it holds (``cache_time_rows``)."""
     ba = batch_axes(mesh)
 
     def leaf(key, t):
@@ -192,6 +199,24 @@ def cache_shardings(mesh, caches, batch_size: int):
         return None
 
     return rec(caches)
+
+
+def cache_time_rows(caches, path=()) -> Dict[str, int]:
+    """{"/"-joined path: the time rows a rank holds} of every K/V leaf of a
+    cache tree (``k`` / ``v`` / ``ck`` / ``cv`` (..., T, K, hd) and the
+    int8 scales ``ks`` / ``vs`` (..., T, K)): a page's rows in a paged
+    pool, a slot's in a dense cache or a ring."""
+    out: Dict[str, int] = {}
+    items = caches.items() if isinstance(caches, dict) else enumerate(caches)
+    for key, v in items:
+        if isinstance(v, torch.Tensor):
+            if key in ("k", "v", "ck", "cv"):
+                out["/".join(path + (str(key),))] = int(v.shape[-3])
+            elif key in ("ks", "vs"):
+                out["/".join(path + (str(key),))] = int(v.shape[-2])
+        elif isinstance(v, (dict, list, tuple)):
+            out.update(cache_time_rows(v, path + (str(key),)))
+    return out
 
 
 def tree_bytes(tree) -> int:
@@ -282,7 +307,9 @@ def build_decode_cell(cfg: ArchConfig, cell: ShapeCell, mesh,
     ``page_tokens`` the engine's paged pool (b * ceil(s / page_tokens)
     pages and the scratch page, read through a page table; decoder LMs).
     The caches are built under the cell's rules, so they hold what the
-    rank holds."""
+    rank holds: ``memory.cache_bytes`` its bytes and
+    ``memory.cache_time_rows`` the time rows of each K/V leaf (a "seq"
+    architecture's 1/TP of them where the model axis divides them)."""
     model = _serve_model(cfg)
     params = _serve_params(cfg, model, mesh)
     b, s = cell.global_batch, cell.seq_len
@@ -301,10 +328,12 @@ def build_decode_cell(cfg: ArchConfig, cell: ShapeCell, mesh,
         else:
             caches = model.init_caches(b, s, torch.bfloat16)
     tokens, lengths = _meta((b, 1), torch.int32), _meta((b,), torch.int32)
+    # a decoder's caches' layout: a "seq" rank reads its rows by it
+    layout = {} if cfg.family == "encdec" else dict(page_tokens=page_tokens, max_len=s)
 
     @torch.no_grad()
     def decode_fn(params, tokens, caches, lengths, page_table=None):
-        return model.decode_step(params, tokens, caches, lengths, page_table)
+        return model.decode_step(params, tokens, caches, lengths, page_table, **layout)
 
     cache_bytes = tree_bytes(caches)
     args = (params, tokens, caches, lengths) + (
@@ -317,7 +346,8 @@ def build_decode_cell(cfg: ArchConfig, cell: ShapeCell, mesh,
                 # anchor returns new ones)
                 memory=dict(argument_bytes=tree_bytes(args),
                             alias_bytes=0 if cfg.family == "encdec" else cache_bytes,
-                            cache_bytes=cache_bytes))
+                            cache_bytes=cache_bytes,
+                            cache_time_rows=cache_time_rows(caches)))
 
 
 def _encdec_caches(model, cfg: ArchConfig, b: int, s: int):

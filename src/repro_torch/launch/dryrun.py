@@ -10,9 +10,12 @@ peak of the bytes the step's ops hold alive) against the card's 80 GB, the
 step's counted work (float and integer ops, HBM bytes, kernel calls,
 collective bytes and calls by kind), the K/V and state cache bytes the rank
 holds (``memory.cache_bytes``: its block of the K/V heads where a "heads"
-architecture's model axis divides them), and the reference's placement of
-the batch (and caches) beside it. Nothing touches a card and no value is
-computed.
+architecture's model axis divides them, 1/TP of the time rows where a
+"seq" architecture's divides their length; ``memory.cache_time_rows``
+for a decode cell), and the reference's placement of the batch (and
+caches) beside it. A "seq" cell's counted collectives include one
+all-gather a layer of the partial softmaxes. Nothing touches a card and
+no value is computed.
 
 The port's layer loop dispatches every layer, so the roofline comes from
 the full-depth run (no depth-1 / depth-2 extrapolation).
@@ -71,7 +74,8 @@ def count_cell(cfg, cell, dims, page_tokens=None) -> dict:
     """The first rank's counted cell for ``cfg`` (as given: cut it with
     ``cells.depth_cfg`` or ``dataclasses.replace`` first) and ``cell``
     under a ("data", "model") mesh of ``dims`` ((1, 1): one card): the
-    kernels launched and the collectives by kind, with their bytes, the
+    kernels launched and the collectives by kind (a "seq" layer's gather
+    of its partial softmaxes among them), with their bytes, the
     rank's param bytes (and for a train cell its state: masters and AdamW
     moments), its tile bytes (a serve cell's packed tiles), its cache
     bytes, and the peak of the bytes its step's ops hold alive beside its
@@ -119,6 +123,8 @@ def run_cell(arch: str, shape: str, mesh_kind: str, roofline: bool = True) -> di
         alias_bytes=int(mem["alias_bytes"]),
         cache_bytes=cache_bytes(cell, plan, out),
     )
+    if "cache_time_rows" in mem:
+        mem_rec["cache_time_rows"] = mem["cache_time_rows"]
     peak = (mem_rec["argument_bytes"] + mem_rec["temp_bytes"]
             + mem_rec["output_bytes"] - mem_rec["alias_bytes"])
     terms = counter.terms()

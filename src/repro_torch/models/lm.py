@@ -29,8 +29,14 @@ rows after ``decode_step``. So every entry point writes the tensors the
 caller holds, which the engine's captured graphs read and write. Under a
 mesh, an architecture whose ``attn_act`` is "heads" serves its full
 attention on the rank's block of the heads, and its pool and dense rows
-hold only that block of the K/V heads (``Attention.heads``); windowed
-rings and recurrent carries stay whole.
+hold only that block of the K/V heads (``Attention.heads``); its windowed
+rings stay whole. One whose ``attn_act`` is "seq" holds the rank's time
+rows of every pool page, dense slot row and window ring where the model
+axis divides their length (``Block.cache_seq``: position p on the rank of
+index p mod TP; ring row j, which holds the positions = j mod t, on rank
+j mod TP at local row j // TP), attends on them and merges every rank's
+partial softmax; the serving entry points take the layout's
+``page_tokens`` and ``max_len`` for that. Recurrent carries stay whole.
 
 Entry points: ``train_forward`` (next-token cross-entropy; each block is
 checkpointed under ``cfg.remat == "full"``, and under "dots" selectively:
@@ -45,7 +51,6 @@ snapshots).
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -53,7 +58,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import dots_policy, remat
 from repro_torch.nn import module as mod
-from repro_torch.nn.attention import Attention, _attend_core, make_mask, quantize_kv
+from repro_torch.nn.attention import Attention, make_mask, quantize_kv
 from repro_torch.nn.context import ModelContext
 from repro_torch.nn.embeddings import Embedding
 from repro_torch.nn.ffn import MLP
@@ -205,16 +210,18 @@ class Block:
         max_len, ...) slot rows. A windowed ring is (batch, min(max_len,
         window), K, hd) in ``dtype`` either way; SSM and RG-LRU layers get
         their f32 (h, conv) carries. Under a mesh the pool and the dense
-        rows hold the rank's block of the K heads (``Attention.heads``);
-        the windowed ring stays whole, as its attention does."""
+        rows hold the rank's block of the K heads (``Attention.heads``),
+        or under the "seq" recipe every cache (pool pages, dense rows, the
+        ring) the rank's 1/TP of its time rows (``cache_seq``)."""
         if self.kind != "attn":
             return self.mixer.init_state(batch, device=device)
         window = self.cfg.window
         n_kv = self.mixer.kv_heads()
-        if page_tokens is not None and not window:
-            lead = (n_pages + 1, page_tokens, n_kv)
-        else:
-            lead = (batch, min(max_len, window) if window else max_len, n_kv)
+        paged = page_tokens is not None and not window
+        rows = self._cache_rows(paged, page_tokens, max_len)
+        sb = self.mixer.seq_block(rows)
+        lead = (n_pages + 1 if paged else batch,
+                rows if sb is None else rows // sb.extent, n_kv)
         shape = (*lead, self.mixer.hd)
         if self.cfg.kv_dtype == "int8" and not window:
             return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -223,6 +230,29 @@ class Block:
                     "vs": torch.zeros(lead, dtype=torch.float32, device=device)}
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def _cache_rows(self, paged: bool, page_tokens: Optional[int],
+                    max_len: Optional[int]) -> Optional[int]:
+        """The whole time length of this attention layer's serving cache: a
+        pool page's ``page_tokens`` when ``paged`` (full attention), a
+        window ring's min(max_len, window), else a dense slot row's
+        ``max_len`` (None where the caller gave none)."""
+        if paged:
+            return page_tokens
+        if max_len is None or not self.cfg.window:
+            return max_len
+        return min(max_len, self.cfg.window)
+
+    def cache_seq(self, page_table, page_tokens: Optional[int],
+                  max_len: Optional[int]):
+        """The ``SeqBlock`` of this layer's serving cache under the active
+        rules (``Attention.seq_block`` of ``_cache_rows``; paged where a
+        ``page_table`` is given), or None: a whole cache, a recurrent
+        layer."""
+        if self.kind != "attn":
+            return None
+        paged = page_table is not None and not self.cfg.window
+        return self.mixer.seq_block(self._cache_rows(paged, page_tokens, max_len))
 
     def _ffn(self, params, x):
         """x + FFN(norm2(x)) and the FFN's aux loss (an MoE's load-balance
@@ -279,47 +309,54 @@ class Block:
         return {"h": _lru_scan(a, b)[:, -1], "conv": tail}
 
     def decode_step(self, params, x, cache, *, lengths, page_table=None,
-                    active=None):
+                    active=None, page_tokens=None, max_len=None):
         """One token per slot. Paged pools are written in place (inactive
         slots drop their write); the per-slot families come back as new
-        tensors for the caller to store."""
+        tensors for the caller to store. ``page_tokens`` and ``max_len``
+        (the caches' layout) tell a "seq" layer under a mesh its rows
+        (``cache_seq``)."""
         h = self.norm1(params["norm1"], x)
+        sb = self.cache_seq(page_table, page_tokens, max_len)
         if self.kind != "attn":
             h, cache = self.mixer.decode_step(params["mixer"], h, cache)
         elif self.cfg.window:
-            h, cache = self._windowed_decode(params["mixer"], h, cache, lengths)
+            h, cache = self._windowed_decode(params["mixer"], h, cache, lengths, sb)
         elif "ks" in cache:
             h, cache = self.mixer.decode_step_quant(
-                params["mixer"], h, cache, lengths, page_table, active=active)
+                params["mixer"], h, cache, lengths, page_table, active=active,
+                seq=sb)
         else:
             h, ck, cv = self.mixer.decode_step(
                 params["mixer"], h, cache["k"], cache["v"], lengths,
-                page_table, active=active)
+                page_table, active=active, seq=sb)
             cache = {"k": ck, "v": cv}
         return self._ffn(params, x + h)[0], cache
 
-    def extend(self, params, x, cache, *, positions, valid, page_table=None):
+    def extend(self, params, x, cache, *, positions, valid, page_table=None,
+               page_tokens=None, max_len=None):
         """Advance a (B, C) column block at per-slot offsets (chunked
         prefill). ``valid`` (B, C), a prefix of each row, marks the real
         columns: padding never writes a cache row and never advances a
-        carry, so a slot moves by exactly its count of valid columns."""
+        carry, so a slot moves by exactly its count of valid columns.
+        ``page_tokens`` / ``max_len`` as in ``decode_step``."""
         h = self.norm1(params["norm1"], x)
+        sb = self.cache_seq(page_table, page_tokens, max_len)
         if self.kind != "attn":
             h, cache = self.mixer.extend(params["mixer"], h, cache, valid)
         elif self.cfg.window:
             h, cache = self._windowed_extend(params["mixer"], h, cache,
-                                             positions, valid)
+                                             positions, valid, sb)
         elif "ks" in cache:
             h, cache = self.mixer.extend_quant(
-                params["mixer"], h, cache, positions, valid, page_table)
+                params["mixer"], h, cache, positions, valid, page_table, seq=sb)
         else:
             h, ck, cv = self.mixer.extend(
                 params["mixer"], h, cache["k"], cache["v"], positions, valid,
-                page_table)
+                page_table, seq=sb)
             cache = {"k": ck, "v": cv}
         return self._ffn(params, x + h)[0], cache
 
-    def _windowed_extend(self, params, x, cache, positions, valid):
+    def _windowed_extend(self, params, x, cache, positions, valid, sb):
         """Chunked prefill against the sliding-window ring (B, t, K, hd).
 
         A column's write evicts the ring entry ``t`` positions back, which
@@ -329,58 +366,74 @@ class Block:
         class mod t (columns >= n_new - t), if any, and keeps its entry
         otherwise. The reference drops the other columns' writes through an
         out-of-range scatter index; here each ring row gathers its writer
-        and selects, so nothing is scattered and nothing reads the host."""
+        and selects, so nothing is scattered and nothing reads the host.
+        Under a ``SeqBlock`` the ring holds the rank's rows."""
         mixer: Attention = self.mixer
         b, c, _ = x.shape
-        t = cache["k"].shape[1]
+        ring, t = self._ring_rows(cache["k"].shape[1], sb, x.device)
         window = self.cfg.window or t + 1
         q, k, v = mixer._qkv(params, x, positions)
         # old-ring key positions from the pre-chunk frontier: ring row j
         # holds the largest written position p <= lengths - 1 with p = j (t)
         lengths = positions[:, :1]
-        ring = torch.arange(t, device=x.device)[None, :]
         k_pos_old = lengths - 1 - torch.remainder(lengths - 1 - ring, t)
         dt = cache["k"].dtype
         k_cat = torch.cat([cache["k"], k.to(dt)], dim=1)
         v_cat = torch.cat([cache["v"], v.to(dt)], dim=1)
+        # under a SeqBlock each rank attends the chunk's columns it owns
+        fresh = valid if sb is None else valid & (positions % sb.extent == sb.index)
         mask = torch.cat([
             make_mask(positions, k_pos_old, causal=True, window=window,
                       k_valid=k_pos_old >= 0),
             make_mask(positions, positions, causal=True, window=window,
-                      k_valid=valid)], dim=-1)
-        out = _attend_core(mixer._group(q), k_cat, v_cat, mask,
-                           1.0 / math.sqrt(mixer.hd))
+                      k_valid=fresh)], dim=-1)
+        out = mixer._attend(q, k_cat, v_cat, mask, sb)
         y = mixer.wo(params["wo"], out.reshape(b, c, mixer.n_heads * mixer.hd))
         # ring row j's writer: the column in [lo, lo + t) whose position is
         # j mod t, lo = max(n_new - t, 0); it writes when it is valid
         n_new = valid.sum(dim=1, keepdim=True)
         lo = (n_new - t).clamp_min(0)
-        col = lo + torch.remainder(ring - lengths - lo, t)         # (B, t)
+        col = lo + torch.remainder(ring - lengths - lo, t)   # (B, rows held)
         hit = (col < n_new)[:, :, None, None]
-        src = col.clamp_max(c - 1)[:, :, None, None].expand(b, t, *k.shape[2:])
+        src = col.clamp_max(c - 1)[:, :, None, None].expand(
+            b, ring.shape[1], *k.shape[2:])
         ck = torch.where(hit, torch.gather(k, 1, src).to(dt), cache["k"])
         cv = torch.where(hit, torch.gather(v, 1, src).to(dt), cache["v"])
         return y, {"k": ck, "v": cv}
 
-    def _windowed_decode(self, params, x, cache, lengths):
+    @staticmethod
+    def _ring_rows(rows: int, sb, device):
+        """(the whole-ring indices j of the ``rows`` this rank holds (1,
+        rows), the ring's whole length t): every row 0..t-1, or under a
+        ``SeqBlock`` the rows j = index (mod TP), local row j // TP."""
+        if sb is None:
+            return torch.arange(rows, device=device)[None, :], rows
+        return sb.positions(rows, device)[None, :], rows * sb.extent
+
+    def _windowed_decode(self, params, x, cache, lengths, sb):
         """Sliding-window decode against the ring (B, t, K, hd), t <= W.
         Invariant: ring row j holds the K/V of the largest position p <=
         lengths with p = j (mod t). Every slot writes its row at lengths
-        mod t into new ring tensors, which are returned."""
+        mod t into new ring tensors, which are returned; under a
+        ``SeqBlock`` only the rank holding that ring row writes it."""
         mixer: Attention = self.mixer
         b = x.shape[0]
-        t = cache["k"].shape[1]
+        ring, t = self._ring_rows(cache["k"].shape[1], sb, x.device)
         q, k, v = mixer._qkv(params, x, lengths[:, None])
         idx = torch.arange(b, device=x.device)
         slot = torch.remainder(lengths, t).long()
         ck, cv = cache["k"].clone(), cache["v"].clone()
-        ck[idx, slot] = k[:, 0].to(ck.dtype)
-        cv[idx, slot] = v[:, 0].to(cv.dtype)
-        ring = torch.arange(t, device=x.device)[None, :]
+        if sb is None:
+            ck[idx, slot] = k[:, 0].to(ck.dtype)
+            cv[idx, slot] = v[:, 0].to(cv.dtype)
+        else:
+            at = torch.div(slot, sb.extent, rounding_mode="floor")
+            own = (slot % sb.extent == sb.index)[:, None, None]
+            ck[idx, at] = torch.where(own, k[:, 0].to(ck.dtype), ck[idx, at])
+            cv[idx, at] = torch.where(own, v[:, 0].to(cv.dtype), cv[idx, at])
         k_pos = lengths[:, None] - torch.remainder(lengths[:, None] - ring, t)
         ok = (k_pos >= 0) & (lengths[:, None] - k_pos < (self.cfg.window or t + 1))
-        out = _attend_core(mixer._group(q), ck, cv, ok[:, None, :],
-                           1.0 / math.sqrt(mixer.hd))
+        out = mixer._attend(q, ck, cv, ok[:, None, :], sb)
         y = mixer.wo(params["wo"], out.reshape(b, 1, mixer.n_heads * mixer.hd))
         return y, {"k": ck, "v": cv}
 
@@ -427,14 +480,11 @@ class _PatternBlock:
     def prefill(self, params, x, *, positions=None):
         return self._forward("prefill", params, x, None, positions=positions)
 
-    def decode_step(self, params, x, cache, *, lengths, page_table=None,
-                    active=None):
-        return self._forward("decode_step", params, x, cache, lengths=lengths,
-                             page_table=page_table, active=active)
+    def decode_step(self, params, x, cache, **kw):
+        return self._forward("decode_step", params, x, cache, **kw)
 
-    def extend(self, params, x, cache, *, positions, valid, page_table=None):
-        return self._forward("extend", params, x, cache, positions=positions,
-                             valid=valid, page_table=page_table)
+    def extend(self, params, x, cache, **kw):
+        return self._forward("extend", params, x, cache, **kw)
 
 
 @dataclasses.dataclass
@@ -737,7 +787,8 @@ class DecoderLM:
     def _pad_cache(self, seg, cache, max_len: int, prompt_len: int):
         """Grow attention caches to serving size: zero rows up to max_len,
         or for a window ring t = min(max_len, window) the last t entries,
-        rolled so that row j holds position p = j (mod t)."""
+        rolled so that row j holds position p = j (mod t). Under the "seq"
+        recipe each keeps the rank's rows (``Block.cache_seq``)."""
         window = self.cfg.window
         ax = 2 if seg.scanned else 1
         target = min(max_len, window) if window else max_len
@@ -753,13 +804,14 @@ class DecoderLM:
                 v = torch.cat([v, v.new_zeros(shape)], dim=ax)
             return v
 
-        def rec(c):
-            if "k" in c and "v" in c:
-                return {name: pad_kv(v) for name, v in c.items()}
-            return {k: rec(v) if isinstance(v, dict) else v
-                    for k, v in c.items()}
+        def per_block(blk, c):
+            if blk.kind != "attn":
+                return c
+            sb = blk.cache_seq(None, None, max_len)
+            return {name: pad_kv(v) if sb is None else sb.local_rows(pad_kv(v), ax)
+                    for name, v in c.items()}
 
-        return rec(cache)
+        return _map_block_cache(seg.block, per_block, cache)
 
     def _walk_segments(self, params, x, caches, step_fn, keep=None):
         """Apply ``step_fn(block, layer_params, x, layer_cache)`` layer by
@@ -776,29 +828,34 @@ class DecoderLM:
         return x, caches
 
     def decode_step(self, params, tokens, caches, lengths, page_table=None,
-                    active=None):
+                    active=None, page_tokens=None, max_len=None):
         """tokens (B, 1) -> (logits (B, vocab), caches, lengths + 1). With
         ``page_table`` full attention reads and writes the paged pools,
         without it the dense slot rows of a monolithic prefill. ``active``
         (B,) confines every cache write to the live slots: pool writes of
         the others are dropped and their per-slot rows are left as they
-        were (the reference leaves the latter to ``merge_caches``)."""
+        were (the reference leaves the latter to ``merge_caches``).
+        ``page_tokens`` and ``max_len``, the layout ``init_caches`` /
+        ``prefill`` built, tell a "seq" layer under a mesh the rows a rank
+        holds (``Block.cache_seq``)."""
         x = self.embed(params["embed"], tokens)
         x, caches = self._walk_segments(
             params, x, caches,
             lambda blk, pl, h, cl: blk.decode_step(
                 pl, h, cl, lengths=lengths, page_table=page_table,
-                active=active),
+                active=active, page_tokens=page_tokens, max_len=max_len),
             keep=active)
         h = self.final_norm(params["final_norm"], x)
         return self.logits(params, h)[:, 0], caches, lengths + 1
 
-    def extend(self, params, tokens, caches, lengths, n_new, page_table=None):
+    def extend(self, params, tokens, caches, lengths, n_new, page_table=None,
+               page_tokens=None, max_len=None):
         """Chunked-prefill step: advance each slot by its next n_new[b]
         prompt tokens. tokens (B, C); columns >= n_new[b] are padding.
         Returns (logits at each slot's last valid column (B, vocab), caches,
         lengths + n_new); a slot with n_new == 0 is untouched and its
-        logits row is meaningless."""
+        logits row is meaningless. ``page_tokens`` / ``max_len`` as in
+        ``decode_step``."""
         b, c = tokens.shape
         cols = torch.arange(c, device=tokens.device)[None, :]
         positions = lengths[:, None] + cols
@@ -808,7 +865,8 @@ class DecoderLM:
             params, x, caches,
             lambda blk, pl, h, cl: blk.extend(
                 pl, h, cl, positions=positions, valid=valid,
-                page_table=page_table))
+                page_table=page_table, page_tokens=page_tokens,
+                max_len=max_len))
         idx = (n_new.long() - 1).clamp(0, c - 1)
         h_last = torch.gather(x, 1, idx[:, None, None].expand(b, 1, x.shape[-1]))
         h = self.final_norm(params["final_norm"], h_last)

@@ -20,6 +20,26 @@ arithmetic is one card's, so the gathered output equals it. Where the
 rule does not divide the heads, on one device and in the training call,
 every head runs on every rank.
 
+A layer whose ``act_mode`` is "seq" (the reference's q, k and v
+sequence-sharded over "model") splits the time rows of its serving caches
+instead (``distributed.sharding.seq_sharding``, where the rule's axes
+divide the cache's length): absolute position p lives on the rank of
+index p mod TP, at local row (p mod page_tokens) // TP of its page, row
+p // TP of a dense slot cache, and ring row (p mod t) // TP of a window
+ring of t rows (``models/lm.py``). The rank that owns a new row writes
+it; the others drop the write to scratch. Every rank projects every head
+of every query, attends its queries against its own rows
+(``_partial_core``: the row maximum, the sum of exponentials and the
+unnormalised output, in f64) and merges every rank's parts after one
+gather a layer (``sharding.merge_partials``), rounding once. On one
+device a "seq" layer attends as every other does (``_attend_core``). The
+monolithic prefill and the training call attend whole; the prefill's
+caches keep the rank's rows (``models/lm.py``). The caller that lays out
+or reads a cache knows its whole length (the engine's page_tokens and
+max_len, a window ring's length) and passes the entry points its
+``SeqBlock`` (``Attention.seq_block``); a cache the rule does not divide
+stays whole, and so does its attention.
+
 The softmax core is written in plain torch ops, as the reference writes it
 in jnp, so the parity tests compare like with like. A masked key gets
 ``NEG_INF`` = -1e30, not -inf: its softmax weight underflows to exactly 0,
@@ -46,7 +66,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.ordered import XLA_EXACT_MAX_MACS, ordered_dot, xla_softmax
-from repro_torch.distributed.sharding import HeadBlock, gather_blocks, head_sharding
+from repro_torch.distributed.sharding import (
+    HeadBlock,
+    SeqBlock,
+    active_mesh,
+    gather_blocks,
+    head_sharding,
+    merge_partials,
+    seq_sharding,
+)
 from repro_torch.nn import module as mod
 from repro_torch.nn.context import ModelContext
 from repro_torch.nn.linear import Dense
@@ -90,19 +118,28 @@ def gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
 
 def scatter_pages(pool: torch.Tensor, page_table: torch.Tensor,
                   positions: torch.Tensor, values: torch.Tensor,
-                  valid: torch.Tensor) -> torch.Tensor:
+                  valid: torch.Tensor, seq: Optional[SeqBlock] = None
+                  ) -> torch.Tensor:
     """Write cache rows at absolute ``positions`` (B, C) through the page
     table, in place. Invalid columns — padding, inactive slots, negative
     positions and positions past the table's reach — go to the scratch
-    row and are never read."""
-    n_rows, pt = (pool.shape[0] - 1) * pool.shape[1], pool.shape[1]
+    row and are never read. Under ``seq`` the pool holds the rank's rows of
+    each page (``page_tokens / extent`` of them): a position lands at local
+    row (p mod page_tokens) // extent on the rank of index p mod extent,
+    and the other ranks drop it to scratch."""
+    n_rows, rows = (pool.shape[0] - 1) * pool.shape[1], pool.shape[1]
     npp = page_table.shape[1]
     flat = pool.view(-1, *pool.shape[2:])
     positions = positions.long()
+    pt = rows if seq is None else rows * seq.extent
     pidx = torch.div(positions, pt, rounding_mode="floor")
     page = torch.gather(page_table.long(), 1, pidx.clamp(0, npp - 1))
     ok = valid & (pidx < npp) & (positions >= 0)
-    idx = torch.where(ok, page * pt + positions % pt, n_rows)
+    row = positions % pt
+    if seq is not None:
+        ok = ok & (positions % seq.extent == seq.index)
+        row = torch.div(row, seq.extent, rounding_mode="floor")
+    idx = torch.where(ok, page * rows + row, n_rows)
     flat[idx.reshape(-1)] = values.reshape(-1, *pool.shape[2:]).to(pool.dtype)
     return pool
 
@@ -127,6 +164,32 @@ def _attend_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.where(mask_b, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bkgst,btkh->bskgh", probs, v)
+
+
+def _partial_softmax(scores: torch.Tensor, mask_b: torch.Tensor):
+    """f64 scores (B, K, G, S, T) over a rank's keys -> (e, m, l): e =
+    exp(s - m) at the valid keys and exactly 0 at the others (a masked
+    score is NEG_INF, not -inf, so a row with no valid key here would
+    otherwise weigh every key exp(0) = 1), m the row's largest score
+    (NEG_INF without a valid key) and l = sum e, both (B, S, K, G)."""
+    scores = torch.where(mask_b, scores, NEG_INF)
+    m = scores.amax(-1, keepdim=True)
+    e = torch.where(mask_b, torch.exp(scores - m), 0.0)
+    return e, m[..., 0].permute(0, 3, 1, 2), e.sum(-1).permute(0, 3, 1, 2)
+
+
+def _partial_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: torch.Tensor, scale: float):
+    """``_attend_core``'s arguments over a rank's keys -> its partial
+    softmax (o (B, S, K, G, hd), m, l (B, S, K, G)) in f64: o = sum e v
+    (``_partial_softmax``), unnormalised; ``sharding.merge_partials``
+    combines every rank's. In f64 the result rounds to the same f32 or
+    bf16 value however the keys are split over ranks (but for a value
+    within ~1e-15 of a rounding boundary)."""
+    mask_b = mask[None, None, None] if mask.ndim == 2 else mask[:, None, None]
+    scores = torch.einsum("bskgh,btkh->bkgst", q.double(), k.double()) * scale
+    e, m, l = _partial_softmax(scores, mask_b)
+    return torch.einsum("bkgst,btkh->bskgh", e, v.double()), m, l
 
 
 def make_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool = True,
@@ -195,6 +258,21 @@ class Attention:
         if self.act_mode != "heads" or self.window:
             return None
         return head_sharding(self.n_heads, self.n_kv)
+
+    def seq_block(self, length: Optional[int]) -> Optional[SeqBlock]:
+        """The rank's share of the time rows of a serving cache of
+        ``length`` rows (a page, a dense slot row, a window ring) under the
+        active rules: the "seq" recipe, where the "act_res_seq" rule's axes
+        divide ``length``; or None: every row (a "heads" layer, a cross
+        layer, one device, a length the rule does not divide). The serving
+        entry points take it as ``seq``; a "seq" layer under a mesh raises
+        without the cache's length, since a rank's rows cannot tell it."""
+        if self.act_mode != "seq" or self.cross or active_mesh() is None:
+            return None
+        if length is None:
+            raise ValueError(f"{self.name}: a \"seq\" layer under a mesh needs its "
+                             f"cache's whole length (page_tokens / max_len)")
+        return seq_sharding(length)
 
     def kv_heads(self) -> int:
         """The K/V heads this rank's serving caches hold: its block's under
@@ -305,7 +383,8 @@ class Attention:
                 positions: Optional[torch.Tensor] = None):
         """Forward over the whole prompt -> (y, (k, v)), k and v (B, S, K,
         hd) being the cache content (the rank's block of K under a head
-        block)."""
+        block; every row under the "seq" recipe, which attends whole here:
+        the model keeps the rank's rows of the padded cache)."""
         b, s, _ = x.shape
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
@@ -320,85 +399,113 @@ class Attention:
                                          window=self.window), scale)
         return self._out(params, out, hb), (k, v)
 
-    def _decode_dense(self, params, q, cache, lengths, rows, hb):
+    def _decode_dense(self, params, q, cache, lengths, rows, hb, sb):
         """Dense per-slot cache: write each slot's new ``rows`` at
         ``lengths`` into a copy of every leaf of ``cache`` ((B, T, ...)),
         then attend over it (q and the cache: the head block ``hb``'s).
-        Returns (y, the new cache)."""
+        Under a ``SeqBlock`` the rank holds rows p // TP of the positions p
+        of its index mod TP: the owner writes, the other ranks keep the
+        row. Returns (y, the new cache)."""
         b = q.shape[0]
         idx = torch.arange(b, device=q.device)
         new = {}
         for name, leaf in cache.items():
             leaf = leaf.clone()
-            leaf[idx, lengths.long()] = rows[name].to(leaf.dtype)
+            row = rows[name].to(leaf.dtype)
+            if sb is None:
+                leaf[idx, lengths.long()] = row
+            else:
+                at = torch.div(lengths, sb.extent, rounding_mode="floor").long()
+                at = at.clamp_max(leaf.shape[1] - 1)
+                own = (lengths % sb.extent == sb.index).view(b, *[1] * (row.ndim - 1))
+                leaf[idx, at] = torch.where(own, row, leaf[idx, at])
             new[name] = leaf
-        t = new["k"].shape[1]
-        k_pos = torch.arange(t, device=q.device).expand(b, t)
+        k_pos = self._key_positions(new["k"].shape[1], b, sb, q.device)
         mask = make_mask(lengths[:, None], k_pos, causal=True,
                          window=self.window, k_valid=k_pos <= lengths[:, None])
         if "ks" in new:
             views = [new[n] for n in ("k", "v", "ks", "vs")]
             return self._attend_quant(params, q, views, mask,
-                                      self.ctx.compute_dtype, hb), new
-        out = _attend_core(self._group(q), new["k"], new["v"], mask,
-                           1.0 / math.sqrt(self.hd))
-        return self._out(params, out, hb), new
+                                      self.ctx.compute_dtype, hb, sb), new
+        return self._out(params, self._attend(q, new["k"], new["v"], mask, sb),
+                         hb), new
+
+    @staticmethod
+    def _key_positions(t: int, b: int, sb: Optional[SeqBlock], device):
+        """(B, t) absolute positions of a per-slot view of ``t`` cache rows:
+        0..t-1, or the rank's positions under a ``SeqBlock``."""
+        pos = (torch.arange(t, device=device) if sb is None
+               else sb.positions(t, device))
+        return pos.expand(b, t)
+
+    def _attend(self, q, k, v, mask, sb: Optional[SeqBlock]) -> torch.Tensor:
+        """The attention of q (B, S, heads, hd) over k, v (B, T, K, hd) under
+        ``mask`` -> (B, S, K, G, hd): ``_attend_core``, or under a
+        ``SeqBlock`` this rank's f64 partial softmax merged with every other
+        rank's (one gather), rounded once to q's dtype."""
+        scale = 1.0 / math.sqrt(self.hd)
+        if sb is None:
+            return _attend_core(self._group(q), k, v, mask, scale)
+        o, m, l = _partial_core(self._group(q), k, v, mask, scale)
+        return merge_partials(o, m, l, sb).to(q.dtype)
 
     def _attend_paged(self, params, q, cache_k, cache_v, page_table, positions,
-                      hb, k_valid=None):
+                      hb, lengths=None, sb=None):
+        """Attend q at ``positions`` over the pool's per-slot views (keys
+        past ``lengths`` masked where given)."""
         view_k = gather_pages(cache_k, page_table)
         view_v = gather_pages(cache_v, page_table)
-        b, s = q.shape[:2]
-        t = view_k.shape[1]
-        k_pos = torch.arange(t, device=q.device).expand(b, t)
+        k_pos = self._key_positions(view_k.shape[1], q.shape[0], sb, q.device)
         mask = make_mask(positions, k_pos, causal=True, window=self.window,
-                         k_valid=k_valid)
-        out = _attend_core(self._group(q), view_k, view_v, mask,
-                           1.0 / math.sqrt(self.hd))
-        return self._out(params, out, hb)
+                         k_valid=None if lengths is None
+                         else k_pos <= lengths[:, None])
+        return self._out(params, self._attend(q, view_k, view_v, mask, sb), hb)
 
     def decode_step(self, params: dict, x: torch.Tensor, cache_k: torch.Tensor,
                     cache_v: torch.Tensor, lengths: torch.Tensor,
                     page_table: Optional[torch.Tensor],
-                    active: Optional[torch.Tensor] = None
+                    active: Optional[torch.Tensor] = None,
+                    seq: Optional[SeqBlock] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """One-token step: x (B, 1, d) at position ``lengths``; the new K/V
         row scatters through the table (inactive slots drop their write)
         and the attend runs over the gathered per-slot view. With
         ``page_table`` None the caches are dense (B, T, K, hd) slot rows (a
         monolithic prefill's): every slot writes its row into new tensors,
-        which are returned."""
+        which are returned. Under ``seq`` (``seq_block``) the caches hold
+        the rank's time rows."""
         b = x.shape[0]
         positions = lengths[:, None]
         hb = self.heads()
         q, k, v = self._qkv(params, x, positions, heads=hb)
         if page_table is None:
             y, new = self._decode_dense(params, q, {"k": cache_k, "v": cache_v},
-                                        lengths, {"k": k[:, 0], "v": v[:, 0]}, hb)
+                                        lengths, {"k": k[:, 0], "v": v[:, 0]}, hb,
+                                        seq)
             return y, new["k"], new["v"]
         ok = (torch.ones((b,), dtype=torch.bool, device=x.device)
               if active is None else active)[:, None]
-        scatter_pages(cache_k, page_table, positions, k, ok)
-        scatter_pages(cache_v, page_table, positions, v, ok)
-        t = cache_k.shape[1] * page_table.shape[1]
-        k_valid = torch.arange(t, device=x.device)[None, :] <= lengths[:, None]
+        scatter_pages(cache_k, page_table, positions, k, ok, seq)
+        scatter_pages(cache_v, page_table, positions, v, ok, seq)
         y = self._attend_paged(params, q, cache_k, cache_v, page_table,
-                               positions, hb, k_valid)
+                               positions, hb, lengths, seq)
         return y, cache_k, cache_v
 
     def extend(self, params: dict, x: torch.Tensor, cache_k: torch.Tensor,
                cache_v: torch.Tensor, positions: torch.Tensor,
-               valid: torch.Tensor, page_table: torch.Tensor
+               valid: torch.Tensor, page_table: torch.Tensor,
+               seq: Optional[SeqBlock] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Chunked-prefill step: column j of row b carries the token at
         ``positions[b, j]``; padding columns (valid False) never write.
-        Queries attend causally over the just-updated cache."""
+        Queries attend causally over the just-updated cache (the rank's
+        time rows under ``seq``)."""
         hb = self.heads()
         q, k, v = self._qkv(params, x, positions, heads=hb)
-        scatter_pages(cache_k, page_table, positions, k, valid)
-        scatter_pages(cache_v, page_table, positions, v, valid)
+        scatter_pages(cache_k, page_table, positions, k, valid, seq)
+        scatter_pages(cache_v, page_table, positions, v, valid, seq)
         y = self._attend_paged(params, q, cache_k, cache_v, page_table,
-                               positions, hb)
+                               positions, hb, sb=seq)
         return y, cache_k, cache_v
 
     # ------------------------------------------------------------------
@@ -449,23 +556,38 @@ class Attention:
     # ------------------------------------------------------------------
     # int8 KV: cache {"k", "v"} int8 codes, {"ks", "vs"} f32 scales
     # ------------------------------------------------------------------
-    def _write_quant(self, cache: dict, page_table, positions, k, v, valid):
+    def _write_quant(self, cache: dict, page_table, positions, k, v, valid,
+                     sb: Optional[SeqBlock] = None):
         """Quantize the new K/V rows and scatter codes and scales through
-        the one page table; returns the per-slot views of all four pools."""
+        the one page table (the rank's rows under ``sb``); returns the
+        per-slot views of all four pools."""
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)
         for name, rows in (("k", kq), ("v", vq), ("ks", ks), ("vs", vs)):
-            scatter_pages(cache[name], page_table, positions, rows, valid)
+            scatter_pages(cache[name], page_table, positions, rows, valid, sb)
         return [gather_pages(cache[name], page_table)
                 for name in ("k", "v", "ks", "vs")]
 
-    def _attend_quant(self, params, q, views, mask, cd, hb):
+    def _attend_quant(self, params, q, views, mask, cd, hb, sb=None):
         """The reference's scale-factored attend, in its order of operations:
         the scales are rank-1 along hd, so they factor out of both products
         and no dequantized (B, T, K, hd) cache is built. Scores in f32,
         times ks, times 1/sqrt(hd), masked, softmax, cast to ``cd``; the
-        probabilities times vs, then the product with the codes in ``cd``."""
+        probabilities times vs, then the product with the codes in ``cd``.
+        Under a ``SeqBlock`` (the rank's codes and scales) the same order
+        in f64 gives this rank's partial softmax (exp(s - m) times vs, then
+        the product with the codes), merged with the other ranks' and
+        rounded once to ``cd``."""
         vk, vv, vks, vvs = views
+        if sb is not None:
+            scores = torch.einsum("bskgh,btkh->bkgst", self._group(q).double(),
+                                  vk.double())
+            scores = scores * vks.double().permute(0, 2, 1)[:, :, None, None, :]
+            e, m, l = _partial_softmax(scores * (1.0 / math.sqrt(self.hd)),
+                                       mask[:, None, None])
+            pv = e * vvs.double().permute(0, 2, 1)[:, :, None, None, :]
+            o = torch.einsum("bkgst,btkh->bskgh", pv, vv.double())
+            return self._out(params, merge_partials(o, m, l, sb).to(cd), hb)
         scores = torch.einsum("bskgh,btkh->bkgst", self._group(q),
                               vk.to(cd)).float()
         scores = scores * vks.permute(0, 2, 1)[:, :, None, None, :]
@@ -478,22 +600,23 @@ class Attention:
 
     def extend_quant(self, params: dict, x: torch.Tensor, cache: dict,
                      positions: torch.Tensor, valid: torch.Tensor,
-                     page_table: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+                     page_table: torch.Tensor, seq: Optional[SeqBlock] = None
+                     ) -> Tuple[torch.Tensor, dict]:
         """Chunked-prefill step against the int8 pool: the new rows are
         quantized per token and head (as a monolithic prefill would), padding
         columns never write, and the queries attend causally."""
         hb = self.heads()
         q, k, v = self._qkv(params, x, positions, heads=hb)
-        views = self._write_quant(cache, page_table, positions, k, v, valid)
-        b, t = x.shape[0], views[0].shape[1]
-        k_pos = torch.arange(t, device=x.device).expand(b, t)
+        views = self._write_quant(cache, page_table, positions, k, v, valid, seq)
+        k_pos = self._key_positions(views[0].shape[1], x.shape[0], seq, x.device)
         mask = make_mask(positions, k_pos, causal=True, window=self.window)
-        return self._attend_quant(params, q, views, mask, v.dtype, hb), cache
+        return self._attend_quant(params, q, views, mask, v.dtype, hb, seq), cache
 
     def decode_step_quant(self, params: dict, x: torch.Tensor, cache: dict,
                           lengths: torch.Tensor,
                           page_table: Optional[torch.Tensor],
-                          active: Optional[torch.Tensor] = None
+                          active: Optional[torch.Tensor] = None,
+                          seq: Optional[SeqBlock] = None
                           ) -> Tuple[torch.Tensor, dict]:
         """One-token step against the int8 pool: only the new token's row is
         quantized; inactive slots drop their write. With ``page_table`` None
@@ -507,12 +630,11 @@ class Attention:
             kq, ks = quantize_kv(k[:, 0])
             vq, vs = quantize_kv(v[:, 0])
             return self._decode_dense(params, q, cache, lengths,
-                                      {"k": kq, "v": vq, "ks": ks, "vs": vs}, hb)
+                                      {"k": kq, "v": vq, "ks": ks, "vs": vs}, hb, seq)
         ok = (torch.ones((b,), dtype=torch.bool, device=x.device)
               if active is None else active)[:, None]
-        views = self._write_quant(cache, page_table, positions, k, v, ok)
-        t = views[0].shape[1]
-        k_pos = torch.arange(t, device=x.device).expand(b, t)
+        views = self._write_quant(cache, page_table, positions, k, v, ok, seq)
+        k_pos = self._key_positions(views[0].shape[1], b, seq, x.device)
         mask = make_mask(positions, k_pos, causal=True, window=self.window,
                          k_valid=k_pos <= lengths[:, None])
-        return self._attend_quant(params, q, views, mask, v.dtype, hb), cache
+        return self._attend_quant(params, q, views, mask, v.dtype, hb, seq), cache

@@ -77,9 +77,11 @@ preempt-and-resume, and telemetry (port of ``repro/serve/engine.py``).
   ``axis_rules``, so each tiled layer runs on its r/TP rows and gathers
   the rest; an architecture whose ``attn_act`` is "heads" attends on the
   rank's block of the heads where the model axis divides them, its pools
-  (built under the rules too) holding that block of the K/V heads. Page
-  ids and page tables are global and equal on every rank; only each
-  page's heads differ. Every rank runs the same tick bodies. The mesh's first rank
+  (built under the rules too) holding that block of the K/V heads; one
+  whose ``attn_act`` is "seq" holds the rank's rows of each page (the
+  positions = its index mod TP) and of each window ring, and merges the
+  ranks' partial softmaxes. Page ids and page tables are global and equal
+  on every rank; only what each page holds differs. Every rank runs the same tick bodies. The mesh's first rank
   alone takes ``submit`` / ``abort`` / ``abort_all`` and mirrors them to
   the other ranks at the start of each ``step()``; those ranks run
   ``follow()`` until ``stop_followers()`` (the tick control,
@@ -100,7 +102,7 @@ import itertools
 import threading
 import time
 import warnings
-from typing import Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -448,7 +450,10 @@ class BatchedEngine:
         # engine); an int8 KV config allocates int8 codes and f32 scales
         # whatever it is, and recurrent carries are f32. Built under the
         # mesh's rules: a "heads" architecture's pools hold the rank's
-        # block of the K/V heads
+        # block of the K/V heads, a "seq" architecture's pools and rings
+        # the rank's time rows (nn/attention.py); the page allocator, the
+        # trie, snapshots and the tick control see the same page ids on
+        # every rank
         with self._mesh_ctx():
             self.caches = model.init_caches(cfg.n_slots, cfg.max_len,
                                             model.ctx.compute_dtype,
@@ -480,18 +485,21 @@ class BatchedEngine:
         # from a trie node or a parked request before each restore
         self._snap_in = (model.snapshot_slot_caches(self.caches, 0)
                          if self._stateful else None)
-        # a cross model's tick inputs: the cross page table and encoder
-        # lengths of every slot (decode, extend), and the encode tick's
-        # padded frames, their mask and the encoding slot's table row
-        self._cross_kw: Dict[str, torch.Tensor] = {}
+        # the model's keywords of every tick: a decoder LM's the caches'
+        # layout (a "seq" architecture's rank reads its rows by it); a cross
+        # model's tick inputs: the cross page table and encoder lengths of
+        # every slot (decode, extend), and the encode tick's padded frames,
+        # their mask and the encoding slot's table row
+        self._tick_kw: Dict[str, Any] = dict(page_tokens=cfg.page_tokens,
+                                             max_len=cfg.max_len)
         if self._cross:
             dev, d = self.device, model.cfg.d_model
             self._xptab_t = torch.zeros((cfg.n_slots, self.x_npp),
                                         dtype=torch.int32, device=dev)
             self._enc_lens_t = torch.zeros((cfg.n_slots,), dtype=torch.int32,
                                            device=dev)
-            self._cross_kw = {"cross_page_table": self._xptab_t,
-                              "enc_lens": self._enc_lens_t}
+            self._tick_kw = {"cross_page_table": self._xptab_t,
+                             "enc_lens": self._enc_lens_t}
             self._frames_t = torch.zeros((1, self.enc_tokens, d),
                                          dtype=model.ctx.compute_dtype, device=dev)
             self._valid_t = torch.zeros((1, self.enc_tokens), dtype=torch.bool,
@@ -1162,7 +1170,7 @@ class BatchedEngine:
         active = self._active_t
         logits, new_caches, new_lengths = self.model.decode_step(
             self.params, self.tokens, self.caches, self.lengths, self._ptab_t,
-            active=active, **self._cross_kw)
+            active=active, **self._tick_kw)
         _check_in_place(self.caches, self.model.merge_caches(
             self.caches, new_caches, active, paged=True), "decode_tick")
         self.lengths.copy_(torch.where(active, new_lengths, self.lengths))
@@ -1175,7 +1183,7 @@ class BatchedEngine:
         TRACE_COUNTS["extend_tick"] += 1
         logits, caches, lengths = self.model.extend(
             self.params, self._block_t, self.caches, self.lengths,
-            self._n_new_t, self._ptab_t, **self._cross_kw)
+            self._n_new_t, self._ptab_t, **self._tick_kw)
         _check_in_place(self.caches, caches, "extend_tick")
         self.lengths.copy_(lengths)
         return logits

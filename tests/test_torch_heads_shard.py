@@ -15,9 +15,10 @@ module, serves under the mesh (1, 2):
   token steps and ticks equal the JAX engine's, and under int8 K/V each
   rank's codes and scales equal the head slice of the port's single
   engine's;
-* warm, the recorded collectives hold exactly one more all_gather a layer
-  than the same model's with ``attn_act="seq"`` (every head on every
-  rank): the attention output gathered by heads before ``wo``;
+* warm, the recorded collectives hold one all_gather a layer of the
+  attention output by heads before ``wo``, where the same model with
+  ``attn_act="seq"`` (time rows split, every head on every rank) gathers
+  its packed partial softmaxes instead;
 * seamless-m4t-large-v2 ``.reduced()`` holds K/TP heads in its self and
   cross pools and gives the JAX engine's greedy tokens.
 
@@ -25,11 +26,12 @@ In one subprocess, on ``meta`` tensors under a fake process group
 (``launch.mesh.ProductionMesh.join``): under (1, 4), where 4 does not
 divide the reduced n_kv = 2, granite's pools stay whole (the dividing
 rule; its tokens there are ``test_torch_tp_serve.py``'s); a "seq"
-architecture (starcoder2-7b ``.reduced()``) keeps whole pools under
-(1, 2); granite-8b at full width, 32 slots x 32 768 tokens, holds
-154 618 822 656 / 77 309 411 328 / 38 654 705 664 B of K/V a rank at
-(1, 1) / (1, 2) / (1, 4) and stays whole at (1, 16); the dry run counts
-the new gathers by kind with their bytes. Tokens and integers are exact.
+architecture (starcoder2-7b ``.reduced()``) keeps every K/V head and half
+of each page's rows under (1, 2); granite-8b at full width, 32 slots x
+32 768 tokens, holds 154 618 822 656 / 77 309 411 328 / 38 654 705 664 B
+of K/V a rank at (1, 1) / (1, 2) / (1, 4) and stays whole at (1, 16); the
+dry run counts the gathers of either recipe by kind with their bytes.
+Tokens and integers are exact.
 """
 import dataclasses
 import functools
@@ -334,19 +336,26 @@ def test_warm_ticks_gather_each_layers_attention_by_heads(job):
     assert sorted(h_seq) == ["decode_tick", "extend_tick"]
     for name, ops in h_seq.items():
         base = s_seq[name]
-        assert len(ops) == len(base) + LAYERS, name
+        assert len(ops) == len(base), name
         cols = 1 if name == "decode_tick" else ENGINE["chunk_tokens"]
-        added = list(ops)
-        for op in base:
-            added.remove(op)
-        # each layer's (slots, columns, 2 heads x 16) output, over "model"
-        assert added == [("all_gather", "model", (ENGINE["n_slots"], cols, 32),
-                          "torch.float32")] * LAYERS
-        # and it comes after the layer's q, k, v and before its wo
-        assert [i for i, op in enumerate(ops) if op in added] == [3, 11]
+        # each layer's (slots, columns, 2 heads x 16) output, over "model";
+        # under "seq" each layer's packed partials (1, slots, columns, 2 K/V
+        # heads, 2 groups, 16 + 2; f64) instead, in the same place
+        by_heads = ("all_gather", "model", (ENGINE["n_slots"], cols, 32),
+                    "torch.float32")
+        partials = ("all_gather", "model", (1, ENGINE["n_slots"], cols, 2, 2, 18),
+                    "torch.float64")
+        added = [i for i, op in enumerate(ops) if op == by_heads]
+        # after the layer's q, k, v and before its wo
+        assert added == [3, 11]
+        assert [i for i, op in enumerate(base) if op == partials] == added
+        assert [op for i, op in enumerate(ops) if i not in added] == [
+            op for i, op in enumerate(base) if i not in added]
     for r in heads + seq:
         assert r["retraces"] == 0
     assert set(_kv_heads(seq[0]["cache_shapes"]).values()) == {2}
+    # the seq engine's pools hold half of each page's 8 rows
+    assert seq[0]["cache_shapes"]["0/k"] == (LAYERS, 3 * 8 + 1, 4, 2, 16)
 
 
 def test_seamless_self_and_cross_pools_on_a_head_block(job):
@@ -363,7 +372,10 @@ def test_pools_stay_whole_where_the_rule_does_not_divide(job):
     meta = job[1]
     assert set(_kv_heads(meta["pools granite-8b 1x2"]).values()) == {1}
     assert set(_kv_heads(meta["pools granite-8b 1x4"]).values()) == {2}
-    assert set(_kv_heads(meta["pools starcoder2-7b 1x2"]).values()) == {2}
+    # a "seq" architecture keeps every K/V head and half of each page's rows
+    star = meta["pools starcoder2-7b 1x2"]
+    assert set(_kv_heads(star).values()) == {2}
+    assert star["0/k"] == [2, 25, 4, 2, 16]
     seam = _kv_heads(meta["pools seamless-m4t-large-v2 1x2"])
     assert len(seam) == 4 and set(seam.values()) == {1}
 
@@ -378,11 +390,13 @@ def test_full_width_kv_bytes_a_rank(job):
 
 def test_dry_run_counts_the_head_gathers_by_kind_and_bytes(job):
     heads, seq = job[1]["count heads"], job[1]["count seq"]
-    # 15 tile gathers (7 a layer and the head) and one head gather a layer
-    assert seq["coll_calls"] == {"all-gather": 15}
-    assert heads["coll_calls"] == {"all-gather": 15 + LAYERS}
-    # each gathers the (3 slots, 1 column, 4 heads x 16) bf16 output
-    added = heads["coll_bytes"]["all-gather"] - seq["coll_bytes"]["all-gather"]
-    assert added == LAYERS * 3 * 1 * 4 * 16 * 2
-    # the pool: 2 layers x 25 pages x 8 tokens x K x 16 x (k, v) x 2 B
-    assert seq["cache_bytes"] == 2 * heads["cache_bytes"] == 2 * 25 * 8 * 2 * 16 * 2 * 2
+    # 15 tile gathers (7 a layer and the head) and one gather a layer: of
+    # the attention output by heads, or under "seq" of the partials
+    assert seq["coll_calls"] == heads["coll_calls"] == {"all-gather": 15 + LAYERS}
+    # by heads, the (3 slots, 1 column, 4 heads x 16) bf16 output; under
+    # "seq" the f64 partials of 2 ranks, (2, 3, 1, 2 K, 2 groups, 16 + 2)
+    added = seq["coll_bytes"]["all-gather"] - heads["coll_bytes"]["all-gather"]
+    assert added == LAYERS * (2 * 3 * 1 * 2 * 2 * 18 * 8 - 3 * 1 * 4 * 16 * 2)
+    # the pool: 2 layers x 25 pages x 8 tokens x K x 16 x (k, v) x 2 B,
+    # halved by heads or by time rows
+    assert 2 * seq["cache_bytes"] == 2 * heads["cache_bytes"] == 2 * 25 * 8 * 2 * 16 * 2 * 2

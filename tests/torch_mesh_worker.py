@@ -2,7 +2,9 @@
 ``test_torch_tp_cuda.py``, ``test_torch_tp_train.py``,
 ``test_torch_compression.py``, ``test_torch_pipeline.py``,
 ``test_torch_tp_train_cuda.py``, ``test_torch_mesh_warm.py``,
-``test_torch_mesh_server.py``, ``test_torch_mesh_warm_cuda.py``): joins a
+``test_torch_mesh_server.py``, ``test_torch_mesh_warm_cuda.py``,
+``test_torch_heads_shard.py``, ``test_torch_heads_shard_cuda.py``,
+``test_torch_seq_shard.py``, ``test_torch_seq_shard_cuda.py``): joins a
 gloo job through a ``FileStore`` in the
 job directory, builds the job's ("data", "model") meshes, runs the job's
 cases under each and saves what it computed to ``rank<i>.pt`` there; the
@@ -16,6 +18,7 @@ It imports torch and repro_torch only.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 from pathlib import Path
@@ -28,9 +31,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.configs import build_model, get_config  # noqa: E402
 from repro_torch.core.tiling import TileSpec  # noqa: E402
-from repro_torch.distributed.sharding import axis_rules, place_params  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    SeqBlock,
+    axis_rules,
+    place_params,
+)
 from repro_torch.kernels.ops import tiled_conv_infer, tiled_dense_infer  # noqa: E402
 from repro_torch.launch.mesh import MESH_DIMS, make_host_mesh  # noqa: E402
+from repro_torch.nn.attention import Attention  # noqa: E402
 from repro_torch.nn.context import SERVE, ModelContext  # noqa: E402
 from repro_torch.serve.engine import BatchedEngine, ServeConfig  # noqa: E402
 from repro_torch.serve.sampling import SamplingParams  # noqa: E402
@@ -39,6 +47,27 @@ from repro_torch.serve.weights import (  # noqa: E402
     params_from_numpy,
     per_device_tile_bytes,
 )
+
+
+@contextlib.contextmanager
+def one_part_seq():
+    """Within the block, every "seq" layer on one device reads its caches
+    whole as the one part of a ``SeqBlock`` over no axes: the mesh's f64
+    partial softmax and merge, where one device otherwise takes
+    ``_attend_core``. A mesh's rows and values are held bit for bit to a
+    single engine run so."""
+    plain = Attention.seq_block
+
+    def seq_block(self, length):
+        if self.act_mode == "seq" and not self.cross:
+            return SeqBlock(None, (), 1, 0)
+        return plain(self, length)
+
+    Attention.seq_block = seq_block
+    try:
+        yield
+    finally:
+        Attention.seq_block = plain
 
 
 def _mesh(dims, device):
@@ -111,7 +140,8 @@ def _model(case, dev):
 
 def _logits(case, mesh, dev):
     """Prefill of one prompt, then greedy decode steps, under the mesh."""
-    _, sm, sp = _model(case, dev)
+    cfg, sm, sp = _model(case, dev)
+    layout = {} if cfg.family == "encdec" else {"max_len": case["max_len"]}
     rules = case.get("rules")
     placed = place_params(sp, sm.logical(), mesh, rules)
     tokens = torch.tensor([case["prompt"]], device=dev)
@@ -121,7 +151,7 @@ def _logits(case, mesh, dev):
         out["logits"].append(lg.cpu())
         for _ in range(case["decode_steps"]):
             tok = lg.argmax(-1)[:, None]
-            lg, caches, lens = sm.decode_step(placed, tok, caches, lens)
+            lg, caches, lens = sm.decode_step(placed, tok, caches, lens, **layout)
             out["logits"].append(lg.cpu())
     out["tile_bytes"] = per_device_tile_bytes(placed, mesh)
     out["cache_shapes"] = cache_shapes(caches)
