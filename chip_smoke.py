@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases (any failure raises and exits non-zero; no phase is skipped):
-  1. print the card's name and power limit, build kernels B1-B6 from
+  1. print the card's name and power limit, build kernels B1-B6 and B9 from
      ``src/repro_torch/csrc`` (one nvcc per source, in parallel), print
      ptxas's registers and spills, and require the tensor-core instruction
      of each tensor-core body in its library's SASS (``cuobjdump
@@ -56,6 +56,18 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      decoder layers; its head launches no kernel) per extend tick and per
      decode tick at m = 4 and m = 32, head included, and seamless's per
      encode tick (193 calls at m = 256);
+  2c. kernel B9 (``kernels/seq_attend.py``: a "seq" layer's f64 partial
+     softmax) at SEQ_ATTEND_CASES: qwen1.5-32b's decode and extend shapes
+     on int8 codes (40 K/V heads, G = 1), starcoder2-7b's on bf16 (K = 4,
+     G = 9), 4 slots over 128-row views, and recurrentgemma-2b's 2048-row
+     ring (K = 1, G = 10, hd 256): the f64 o / m / l within 1e-12 x max of
+     the plain version, the one part rounded to bf16 equal to the plain
+     version's (values within 1e-12 of a rounding boundary counted and
+     printed), two parts of interleaved keys merged as a (1, 2) mesh
+     merges them within 1e-12 of the one part; each timed beside the
+     plain version, the bound (``kernel_terms`` with the case's mask), the
+     parent's one-card attend and ``F.scaled_dot_product_attention`` in
+     bf16 (a yardstick never on the path);
   3. serve granite-8b at its published width through the user entry points
      (masters from a seed -> export -> BatchedEngine): 8 requests, prompts
      of 3-100 tokens, 16 greedy tokens each, 4 slots, 32-token chunks,
@@ -148,10 +160,9 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      reset; one 4-slot decode tick traced per path, warm (the cold traces,
      each behind a cold per-token extend tick, were cut when phases 4k-4m
      made the run longer);
-  4i. serve recurrentgemma-2b at its published width, cut to
-     RECGEMMA_SERVE_LAYERS = 8 of its 26 layers when 4r's "seq" engines
-     made the run longer (2 cycles of rec, rec, attn, then its two rec
-     tails; MQA kv 1, head dim 256,
+  4i. serve recurrentgemma-2b at its published width and its whole
+     RECGEMMA_SERVE_LAYERS = 26 layers (8 cycles of rec, rec, attn, then
+     its two rec tails; MQA kv 1, head dim 256,
      a 2048-token window ring), the same runs as 4h (own kernel = (8 rec +
      7 attn per layer) + 1 per decode tick); then one request of a
      2100-token prompt, longer than the window, on a 2304-token slot under
@@ -163,10 +174,9 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      chunks (recurrentgemma: 2100 and 300 tokens, so the ring wraps), then
      three greedy decode steps; logits at rtol = atol = 1e-4 at every call
      and the greedy tokens equal;
-  4k. serve seamless-m4t-large-v2 at its published width, cut to
-     SEAMLESS_SERVE_LAYERS = 6 of its 24 encoder and 6 of its 24 decoder
-     layers when 4r's "seq" engines made the run longer (d 1024, vocab
-     256206, p = 4), bf16,
+  4k. serve seamless-m4t-large-v2 at its published width and its whole
+     SEAMLESS_SERVE_LAYERS = 24 encoder and 24 decoder layers (d 1024,
+     vocab 256206, p = 4), bf16,
      built the same way (peak printed, must leave 10% of the card): phase
      3's first SEAMLESS_REQUESTS = 4 requests (cut from 8 for the run's
      time), each with its own synthetic clip of 40-256 frames, on
@@ -262,19 +272,21 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      qwen1.5-32b (phase 4b's export; 40 heads: the "seq" recipe, each rank
      holding the cache rows of the positions = its index mod TP and the
      ranks merging their f64 partial softmaxes): f32 prefill + 4 decode
-     logits at 4b's QWEN_SERVE_LAYERS = 16 on its int8 K/V within 1e-4 x
-     max|logit| of the single card's own path (f32 ``_attend_core``) and
-     of the single card attending as the mesh's one part
-     (``one_part_seq``: f64, rounded once); its int8 K/V engines at
-     TP_LAYERS give the one-part single card's tokens under float, xnor
-     and int8 with its launches and no plain version, each rank's pools
-     holding exactly one card's bytes / TP (11 151 360 -> 5 575 680 B);
-     the requests whose tokens differ from the single card's own path
-     are printed (a fault to record, not a failure). Under (1, 2) also
-     recurrentgemma-2b (4i's export cut to TP_RG_LAYERS = 3: rec, rec,
-     attn; f32): tokens equal the one-part single card's (those apart
-     from its own path printed) and each rank's window ring holds half of
-     one card's bytes (its recurrent carries whole). Under (1, 2) also:
+     logits at 4b's QWEN_SERVE_LAYERS = 16 on its int8 K/V equal to the
+     single card's own path (max|diff| 0: one card attends a "seq" layer
+     through B9 as the mesh's one part); its int8 K/V engines at
+     TP_LAYERS give the single card's tokens under float, xnor and int8
+     with its launches and no plain version, each rank's pools holding
+     exactly one card's bytes / TP (11 151 360 -> 5 575 680 B). In both
+     jobs also recurrentgemma-2b (4i's export cut to TP_RG_LAYERS = 3:
+     rec, rec, attn; f32): tokens equal the single card's, and a rank's
+     per-slot bytes (bf16 engines: the window ring, half of its rows
+     under "seq", and the recurrent carries) are one card's / TP / DP and
+     / DP exactly. (2, 2) splits the 4 slots over "data" too (2 a rank:
+     the model's rows, the per-slot caches, sampling), and a third job of
+     2 ranks, DP_MESH = (2, 1), serves granite-8b's float engine (tokens,
+     launches, its pool whole on every rank, warm) and recurrentgemma-2b
+     on the slots over "data" alone. Under (1, 2) also:
      qwen2-moe (E/TP experts a rank) logits within 1e-4 and engine tokens
      equal; ResNet-34 N = 2 f32 logits within phase 10's 1e-3 (B6 per
      shard, 18 launches a rank); the cold bf16 decode tick at TP_LAYERS
@@ -289,10 +301,12 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      runs ``warmup()`` (each tick captured as CUDA graphs split at its
      collectives, which run between the replays) and drains the same
      prompts warm: tokens and ticks equal the cold meshed engine's and the
-     single card's (qwen's: as one part), each rank's graphs a tick equal the first rank's (one
+     single card's, each rank's graphs a tick equal the first rank's (one
      more than its collectives, the same sequence, one all_gather a layer
      of its attention output by heads; qwen's ticks one all_gather a
-     layer of its packed partial softmaxes instead), the capture launched
+     layer of its packed partial softmaxes instead; with the slots over
+     "data", one all_gather a layer of the new K/V rows over "data" and
+     none in a tiled layer), the capture launched
      the path's decode kernel and B2 on the rank's shards, and the warm
      drain moves no launch counter, no TRACE_COUNTS, runs no plain version
      and counts no eager tick; the same for qwen2-moe under (1, 2) (its
@@ -310,8 +324,10 @@ Phases (any failure raises and exits non-zero; no phase is skipped):
      builds one rank's cell on ``meta`` tensors under a fake process group
      of the mesh's size and counts its step (``roofline.analysis``); the
      tile bytes a rank of granite-8b serving at (1, 2) equal phase 4r's,
-     and so do the K/V bytes a rank of 4r's bf16 engine (its paged cell)
-     and of 4r's qwen1.5-32b engine (one card's / 2, "seq");
+     and so do the K/V bytes a rank of 4r's bf16 engine (its paged cell),
+     of 4r's qwen1.5-32b engine (one card's / 2, "seq") and the per-slot
+     bytes a rank of 4r's recurrentgemma-2b engine at DP_MESH (its 2
+     slots' rings and carries);
      granite-8b at full width, 32 slots x 32 768 tokens, counts
      KV_32K_BYTES of K/V at (1, 1), half at (1, 2), a quarter at (1, 4)
      (with the counted peak a rank); the collectives a train step and
@@ -483,10 +499,10 @@ ENC_TOKENS, ENC_MAX_LEN, ENC_FRAMES = 256, 256, (40, 257)
 # phase 4k's requests a path (cut from 8 for the run's time, to make room
 # for phase 5r's MoE jobs and phase 11)
 SEAMLESS_REQUESTS = 4
-# phase 4k's depth: 6 of seamless's 24 encoder and 6 of its 24 decoder
-# layers (cut from whole for the run's time when 4r's "seq" checks made it
-# longer)
-SEAMLESS_SERVE_LAYERS = 6
+# phase 4k's depth: seamless's whole 24 encoder and 24 decoder layers
+# (cut to 6 + 6 while one card's "seq" attention ran eager f64, whole again
+# since it runs through kernel B9)
+SEAMLESS_SERVE_LAYERS = 24
 ENCODE_CALLS = {"K1024 r256": 1 + 4 * 24 + 2 * 24, "K1024 r2048": 24,
                 "K8192 r256": 24}
 # phase 4m: seamless cut to 2 + 2 layers, chameleon to 2, card vs CPU
@@ -502,7 +518,9 @@ ENCDEC_CHECK_LAYERS = 2
 # to 1241.7 s of its 1200-s limit on two hosts
 CHAMELEON_SERVE_LAYERS = 4
 MAMBA_SERVE_LAYERS = 6
-RECGEMMA_SERVE_LAYERS = 8
+# recurrentgemma-2b whole again (26 layers: 8 cycles and both tails) since
+# its "seq" attention runs through kernel B9 on one card
+RECGEMMA_SERVE_LAYERS = 26
 # phase 4f serves moonshot-v1-16b-a3b at full width cut to 4 of its 48
 # layers (16 when phases 4k-4m made the run longer; 4 for 4r's "seq" engines)
 MOONSHOT_SERVE_LAYERS = 4
@@ -568,6 +586,9 @@ R34_LEDGER = (21_779_648, 11.646, 0.5347)   # params, Mbit, bits/param
 # tolerances (logits: of max|logit|; ResNet-34: phase 10's), the decode
 # ticks timed, and a job's time limit; TP_DIR holds the saved exports
 TP_MESHES = ((1, 2), (2, 2))
+# phase 4r's third job: slots over "data" alone (granite-8b's float engine
+# and recurrentgemma-2b); (2, 2) splits the slots too (N_SLOTS over 2)
+DP_MESH = (2, 1)
 # granite-8b's K/V at 32 slots x 32768 tokens: 36 layers x 8 heads x 128 x
 # (k, v) x bf16 a token, on one card (phase 11)
 KV_32K_BYTES = 36 * 32 * 32_768 * 8 * 128 * 2 * 2
@@ -637,6 +658,22 @@ REMAT_BATCH = 16
 DRYRUN_PEAK_TOL = 0.02
 
 
+# phase 2c: kernel B9 (the f64 partial softmax of a "seq" layer) at the
+# shapes the main path gives it: (name, arch, queries a slot, keys a slot's
+# view, K/V kind); 4 slots, the serve phases' 128-row views (page 16), and
+# recurrentgemma's 2048-row ring at 4i's wrap run. Every case runs one part
+# (the one card's call: rounded once in the kernel) and two parts of
+# interleaved keys merged as a (1, 2) mesh merges them, against the plain
+# version: the f64 outputs within SEQ_ATTEND_TOL x max|.|, the rounded
+# ones equal but where a value lies within that of a rounding boundary
+SEQ_ATTEND_CASES = (("qwen decode int8", QWEN, 1, 128, "int8"),
+                    ("qwen extend int8", QWEN, CHUNK, 128, "int8"),
+                    ("starcoder2 decode bf16", "starcoder2-7b", 1, 128, "bf16"),
+                    ("starcoder2 extend bf16", "starcoder2-7b", CHUNK, 128, "bf16"),
+                    ("recurrentgemma ring bf16", RECGEMMA, 1, 2048, "bf16"))
+SEQ_ATTEND_TOL = 1e-12
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -650,7 +687,7 @@ def card_line() -> str:
 
 
 def kernels():
-    """{"B1".."B6": wrapper}: the wrappers whose ``launches`` count."""
+    """{"B1".."B6", "B9": wrapper}: the wrappers whose ``launches`` count."""
     from repro_torch.kernels.tile_construct import tile_construct_kernel
     from repro_torch.kernels.tiled_conv import tiled_conv_unique
     from repro_torch.kernels.tiled_matmul import tiled_matmul_unique
@@ -660,9 +697,12 @@ def kernels():
         tiled_xnor_matvec_unique,
     )
 
+    from repro_torch.kernels.seq_attend import seq_attend
+
     return {"B1": tiled_matvec_unique, "B2": tiled_matmul_unique,
             "B3": tiled_xnor_matvec_unique, "B4": tiled_int8_matvec_unique,
-            "B5": tile_construct_kernel, "B6": tiled_conv_unique}
+            "B5": tile_construct_kernel, "B6": tiled_conv_unique,
+            "B9": seq_attend}
 
 
 def zero_counters():
@@ -1253,6 +1293,17 @@ def tick_totals(results, kname: str, m: int, n_layers: int, with_head: bool,
     return tot
 
 
+def seq_layers(cfg) -> int:
+    """The self-attention layers of ``cfg`` whose ``attn_act`` is "seq":
+    each attends through kernel B9 once a decode or extend tick."""
+    if cfg.attn_act != "seq" or cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        full, rem = divmod(cfg.n_layers, len(cfg.pattern))
+        return full * cfg.pattern.count("attn") + cfg.pattern[:rem].count("attn")
+    return cfg.dec_layers if cfg.family == "encdec" else cfg.n_layers
+
+
 def layer_calls(cfg) -> int:
     """Tiled projections of every layer of one decode tick (the LM head
     apart): an attention layer's q, k, v, o, an RG-LRU layer's in_x,
@@ -1424,6 +1475,11 @@ def serve_run(cfg, s_model, sp, path: str, requests: int = 8,
              f"ticks; need {own} = {need}, B2 "
              f"{'= ' + str(b2) if b2 is not None else '>= ' + str(st['extend_ticks'])}, "
              f"{others} = 0: the main path did not go through the kernels")
+    b9 = seq_layers(cfg) * (st["decode_ticks"] + st["extend_ticks"])
+    if counts["B9"] != b9:
+        fail(f"{label}: B9 launched {counts['B9']} times; {seq_layers(cfg)} \"seq\" "
+             f"layers x {st['decode_ticks'] + st['extend_ticks']} ticks = {b9}: the "
+             f"\"seq\" attention did not go through its kernel")
     print(f"serve [{label}] cold: {requests} requests, {cold['tok']} tokens in "
           f"{cold['ticks']} ticks ({st['extend_ticks']} extend, {st['decode_ticks']} "
           f"decode), {cold['dt']:.3f}s, {cold['tok'] / cold['dt']:.1f} tok/s | TTFT "
@@ -1504,6 +1560,7 @@ def warm_run(cfg, s_model, sp, path: str, prompts, max_tokens: int, cold,
     want = {k: 0 for k in captured}
     want[own] = (WARM_RUNS + 1) * (per_layer + 2 * head)
     want["B2"] = (WARM_RUNS + 1) * (per_layer + encode_calls(cfg))
+    want["B9"] = (WARM_RUNS + 1) * 2 * seq_layers(cfg)   # decode and extend ticks
     if captured != want or not eng.aot_warm:
         fail(f"{label}: warmup launched {captured}, expected {want} "
              f"({WARM_RUNS} warm-up runs and one capture of each tick)")
@@ -1566,6 +1623,7 @@ def phase_serve(cfg):
                 device="cuda", compute_path=path))
         counts = serve_run(cfg, s_model, sp, path)
         launches[PATH_KERNEL[path]] = counts[PATH_KERNEL[path]]
+        launches["B9"] = launches.get("B9", 0) + counts["B9"]
         if path == "float":
             launches["B2"] = counts["B2"]
     return sp, launches
@@ -1990,7 +2048,7 @@ def phase_serve_paths(cfg, phase: str, cold_profile: bool = True,
 
     t0 = time.perf_counter()
     s_model, sp, _ = build_on_card(cfg)
-    launches = dict.fromkeys(("B1", "B2", "B3", "B4"), 0)
+    launches = dict.fromkeys(("B1", "B2", "B3", "B4", "B9"), 0)
     for path in PATH_KERNEL:
         if path != "float":
             s_model = build_model(cfg, ModelContext(
@@ -1998,7 +2056,7 @@ def phase_serve_paths(cfg, phase: str, cold_profile: bool = True,
                 device="cuda", compute_path=path))
         counts = serve_run(cfg, s_model, sp, path, requests=requests,
                            profile_ticks=1, wide=False, cold_profile=cold_profile)
-        for k in (PATH_KERNEL[path], "B2"):
+        for k in (PATH_KERNEL[path], "B2", "B9"):
             launches[k] += counts[k]
     print(f"phase {phase} ({cfg.name} serve): {time.perf_counter() - t0:.1f}s",
           flush=True)
@@ -3003,6 +3061,164 @@ def b5_per_step(n_layers: int):
             for name, _, _, per in B5_SHAPES}
 
 
+def seq_attend_inputs(arch: str, s: int, t: int, kind: str, gen):
+    """B9's operands at ``arch``'s attention shapes: N_SLOTS slots of ``s``
+    bf16 queries at the end of their ``t``-row views (lengths spread over
+    the view; the last slot's last row attends no key), and the view's K/V
+    in bf16 or as int8 codes with f32 scales; the mask from the keys'
+    absolute positions (``nn/attention.make_mask``: causal and, on the
+    ring, the window)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn.attention import make_mask
+
+    cfg = get_config(arch)
+    b, kh, hd = N_SLOTS, cfg.n_kv, cfg.head_dim or cfg.d_model // cfg.n_heads
+    g = cfg.n_heads // kh
+    dev = "cuda"
+    q = torch.randn((b, s, kh, g, hd), generator=gen, device=dev).bfloat16()
+    if kind == "int8":
+        k = torch.randint(-127, 128, (b, t, kh, hd), generator=gen, device=dev,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, (b, t, kh, hd), generator=gen, device=dev,
+                          dtype=torch.int8)
+        ks = torch.rand((b, t, kh), generator=gen, device=dev) * 0.02 + 1e-3
+        vs = torch.rand((b, t, kh), generator=gen, device=dev) * 0.02 + 1e-3
+    else:
+        k = torch.randn((b, t, kh, hd), generator=gen, device=dev).bfloat16()
+        v = torch.randn((b, t, kh, hd), generator=gen, device=dev).bfloat16()
+        ks = vs = None
+    lengths = torch.tensor([t - 1, (3 * t) // 4, t // 2, s + 3], device=dev)
+    q_pos = lengths[:, None] - s + 1 + torch.arange(s, device=dev)[None, :]
+    mask = make_mask(q_pos, torch.arange(t, device=dev).expand(b, t), causal=True,
+                     window=cfg.window)
+    mask[-1, -1] = False
+    return (q, k, v, ks, vs, mask), 1.0 / math.sqrt(hd)
+
+
+def b9_parent(q, k, v, ks, vs, mask, scale):
+    """The one-card attend the parent of B9 ran for a "seq" layer
+    (``_attend_core`` on bf16 K/V; ``_attend_quant``'s bf16 order on int8
+    codes): timed beside B9, never on the path."""
+    import torch
+
+    from repro_torch.nn.attention import NEG_INF, _attend_core
+
+    if ks is None:
+        return _attend_core(q, k, v, mask, scale)
+    scores = torch.einsum("bskgh,btkh->bkgst", q, k.to(q.dtype)).float()
+    scores = scores * ks.permute(0, 2, 1)[:, :, None, None, :] * scale
+    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    pv = probs * vs.permute(0, 2, 1)[:, :, None, None, :].to(q.dtype)
+    return torch.einsum("bkgst,btkh->bskgh", pv, v.to(q.dtype))
+
+
+def phase_seq_attend(card: str) -> dict:
+    """Phase 2c: kernel B9 against its plain version at SEQ_ATTEND_CASES,
+    one part (rounded once in bf16, the one card's call) and two parts of
+    interleaved keys merged in f64 (a (1, 2) mesh's); each timed (one part)
+    beside the plain version, the bound (``kernel_terms`` with the case's
+    mask: the pairs it lets through and the keys read), the parent's
+    one-card attend and, as a yardstick never on the path, the same
+    attention through ``F.scaled_dot_product_attention`` in bf16. Returns
+    {case: measurements}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.distributed.sharding import merge_softmax_parts
+    from repro_torch.kernels.seq_attend import (
+        near_rounding_boundary,
+        seq_attend,
+        seq_attend_plain,
+    )
+    from repro_torch.roofline import hw
+    from repro_torch.roofline.analysis import kernel_terms
+
+    t0 = time.perf_counter()
+    peaks = hw.card(card)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    out = {}
+    for name, arch, s, t, kind in SEQ_ATTEND_CASES:
+        ins, scale = seq_attend_inputs(arch, s, t, kind, gen)
+        q, k, v, ks, vs, mask = ins
+        before = seq_attend.launches
+        got = seq_attend(*ins, scale)
+        one = seq_attend(*ins, scale, torch.bfloat16)[0]
+        torch.cuda.synchronize()
+        if seq_attend.launches != before + 2:
+            fail(f"B9 {name}: seq_attend did not count its launches")
+        want = seq_attend_plain(*ins, scale)
+        live = mask.any(-1)
+        err = 0.0
+        abs_err = float((got[0] - want[0]).abs().max())
+        for what, g, w in zip("oml", got, want):
+            if what == "m":
+                if not torch.equal(g[~live], w[~live]):
+                    fail(f"B9 {name}: m of rows with no valid key is not NEG_INF")
+                g, w = g[live], w[live]
+            e = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-300)
+            err = max(err, e)
+            if e > SEQ_ATTEND_TOL:
+                fail(f"B9 {name}: {what} within {e:.3e} x max|{what}| of the plain "
+                     f"version, over {SEQ_ATTEND_TOL}")
+        ratio = merge_softmax_parts(torch.cat(
+            [want[0], want[1][..., None], want[2][..., None]], -1)[None])
+        plain_one = ratio.to(torch.bfloat16)
+        near = near_rounding_boundary(ratio, torch.bfloat16,
+                                      SEQ_ATTEND_TOL * float(ratio.abs().max()))
+        apart = one != plain_one
+        if bool((apart & ~near).any()):
+            fail(f"B9 {name}: {int((apart & ~near).sum())} rounded outputs differ "
+                 f"from the plain version's away from a rounding boundary")
+        parts = []
+        for r in range(2):
+            sl = slice(r, None, 2)
+            o, m, l = seq_attend(q, k[:, sl].contiguous(), v[:, sl].contiguous(),
+                                 None if ks is None else ks[:, sl].contiguous(),
+                                 None if vs is None else vs[:, sl].contiguous(),
+                                 mask[..., sl], scale)
+            parts.append(torch.cat([o, m[..., None], l[..., None]], -1))
+        merged = merge_softmax_parts(torch.stack(parts))
+        e2 = float((merged - ratio).abs().max()) / float(ratio.abs().max())
+        if e2 > SEQ_ATTEND_TOL:
+            fail(f"B9 {name}: two parts merged within {e2:.3e} of the one part")
+        work = kernel_terms("B9", q.shape, k.shape, q.dtype, kv_dtype=k.dtype,
+                            out_dtype=torch.bfloat16, mask=mask)
+        t_bytes, t_ops = work.times_ms(peaks)
+        res = dict(err=max(err, e2), abs_err=abs_err, near=int(near.sum()),
+                   apart=int(apart.sum()),
+                   bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
+                   arch=arch, s=s, t=t, kind=kind)
+        timed(res, "ms", lambda: seq_attend(*ins, scale, torch.bfloat16))
+        res["plain_ms"] = time_ms(lambda: seq_attend_plain(*ins, scale, torch.bfloat16))
+        res["parent_ms"] = time_ms(lambda: b9_parent(*ins, scale))
+        kd = k.to(torch.bfloat16) if ks is None else (k.float() * ks[..., None]).bfloat16()
+        vd = v.to(torch.bfloat16) if vs is None else (v.float() * vs[..., None]).bfloat16()
+        b, _, kh, g, hd = q.shape
+        qs = q.reshape(b, s, kh * g, hd).transpose(1, 2)
+        ksd, vsd = kd.transpose(1, 2), vd.transpose(1, 2)
+        am = mask[:, None]
+        res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ksd, vsd, attn_mask=am, scale=scale, enable_gqa=g > 1))
+        out[name] = res
+        print(f"B9 {name} (B={b} S={s} K={kh} G={g} hd={hd} T={t}, {kind} K/V; "
+              f"{card}): f64 o/m/l within {err:.2e} and two parts merged within "
+              f"{e2:.2e} x max of the plain version; one part rounded to bf16: "
+              f"{res['apart']} values apart, {res['near']} within "
+              f"{SEQ_ATTEND_TOL:g} of a rounding boundary; {res['ms']:.4f} ms "
+              f"(min {res['ms_lo']:.4f} max {res['ms_hi']:.4f}), bound "
+              f"{res['bound_ms']:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}: "
+              f"{work.ops / 1e6:.1f} M f64 ops, {work.bytes / 1e6:.3f} MB), plain "
+              f"{res['plain_ms']:.4f} ms, the parent's one-card attend "
+              f"{res['parent_ms']:.4f} ms, SDPA bf16 (yardstick) "
+              f"{res['library_ms']:.4f} ms", flush=True)
+    print(f"phase 2c (B9): {time.perf_counter() - t0:.1f}s", flush=True)
+    return out
+
+
 def phase_b5(card: str):
     """Phase 2, B5: kernel vs plain at the full-width shapes. Returns
     {(shape, source): measurements}."""
@@ -3642,7 +3858,7 @@ def phase_resnet34():
     x = torch.randn((R34_BATCH, 224, 224, 3), generator=gen, device="cuda")
     r34_forwards(sm, sp, x, 1)                              # warm-up
     y, times, counts = r34_forwards(sm, sp, x, R34_TIMED)
-    need = dict(B1=0, B2=R34_TIMED, B3=0, B4=0, B5=0, B6=18 * R34_TIMED)
+    need = dict(B1=0, B2=R34_TIMED, B3=0, B4=0, B5=0, B6=18 * R34_TIMED, B9=0)
     if counts != need:
         fail(f"resnet34 N={R34_BATCH}: launch counters {counts}, need {need}")
     if y.shape != (R34_BATCH, 1000) or not torch.isfinite(y).all():
@@ -3778,31 +3994,6 @@ def counting_plain(counts: dict):
             setattr(m, n, fn)
 
 
-@contextlib.contextmanager
-def one_part_seq():
-    """Within the block, every "seq" layer on one card reads its caches
-    whole as the one part of a ``SeqBlock`` over no axes: the mesh's f64
-    partial softmax and merge, where one card otherwise attends in
-    ``_attend_core`` (f32). A mesh's tokens are held exactly to a single
-    card run so; its logits also to the single card's own path, within
-    TP_LOGIT_RTOL."""
-    from repro_torch.distributed.sharding import SeqBlock
-    from repro_torch.nn.attention import Attention
-
-    plain = Attention.seq_block
-
-    def seq_block(self, length):
-        if self.act_mode == "seq" and not self.cross:
-            return SeqBlock(None, (), 1, 0)
-        return plain(self, length)
-
-    Attention.seq_block = seq_block
-    try:
-        yield
-    finally:
-        Attention.seq_block = plain
-
-
 def tp_models(cfg, n_layers: int, dtype, paths=tuple(PATH_KERNEL)):
     """{path: SERVE model} of ``cfg`` cut to ``n_layers`` on cuda:0."""
     from repro_torch.configs import build_model
@@ -3876,6 +4067,20 @@ def kv_bytes(eng) -> int:
 
     return int(tree_bytes([v for path, v in mod.walk(dict(enumerate(eng.caches)))
                            if path[-1] in ("k", "v", "ks", "vs")]))
+
+
+def slot_bytes(model, sp, mesh=None) -> "tuple[int, int]":
+    """(window-ring bytes, recurrent-carry bytes) an engine of phase 3's
+    shape holds on this rank (under ``mesh``: its slots' rows, and of a
+    "seq" ring its time rows): its ``k`` / ``v`` and ``h`` / ``conv``
+    leaves, built and not run."""
+    from repro_torch.launch.cells import tree_bytes
+    from repro_torch.nn import module as mod
+
+    eng = tp_engine(model, sp, mesh)
+    leaves = list(mod.walk(dict(enumerate(eng.caches))))
+    return (int(tree_bytes([v for p, v in leaves if p[-1] in ("k", "v")])),
+            int(tree_bytes([v for p, v in leaves if p[-1] in ("h", "conv")])))
 
 
 def attn_split(cfg, tp: int, rows: int = 16):
@@ -4092,16 +4297,20 @@ def tp_rank_main(job_dir: str) -> None:
 
     granite = get_config("granite-8b")
     full = tp_load("granite")
-    model = tp_models(granite, granite.n_layers, torch.float32, ("float",))["float"]
-    placed = place_params(full, mod.logical_axes(model.specs()), mesh)
-    lap("load")
-    out["tile_bytes"] = per_device_tile_bytes(placed, mesh)
-    out["shard_checks"] = tp_shard_kernels(placed, label)
-    out["logits"] = tp_logits(model, placed, mesh)
+    if "granite" in job["parts"]:
+        model = tp_models(granite, granite.n_layers, torch.float32, ("float",))["float"]
+        placed = place_params(full, mod.logical_axes(model.specs()), mesh)
+        lap("load")
+        out["tile_bytes"] = per_device_tile_bytes(placed, mesh)
+        out["shard_checks"] = tp_shard_kernels(placed, label)
+        out["logits"] = tp_logits(model, placed, mesh)
+        del placed, model
+        lap("checks")
     sp = tp_cut(full, TP_LAYERS)
-    del full, placed, model
-    lap("checks")
-    models = tp_models(granite, TP_LAYERS, torch.float32)
+    del full
+    # the data-split job ("dp") serves granite-8b on the float path alone
+    models = tp_models(granite, TP_LAYERS, torch.float32,
+                       tuple(PATH_KERNEL) if "granite" in job["parts"] else ("float",))
     for path, model in models.items():
         tokens, steps, counts, plain, kv = tp_drain(model, sp, granite, job["prompts"],
                                                     TP_MAX_TOKENS, mesh)
@@ -4161,12 +4370,15 @@ def tp_rank_main(job_dir: str) -> None:
         lap("qwen")
     if "rgemma" in job["parts"]:
         rg = get_config(RECGEMMA)
+        rsp = tp_load("rgemma")
         model = tp_models(rg, TP_RG_LAYERS, torch.float32, ("float",))["float"]
-        tokens, steps, counts, plain, kv = tp_drain(model, tp_load("rgemma"), rg,
-                                                    job["prompts"], TP_MAX_TOKENS, mesh)
+        tokens, steps, counts, plain, kv = tp_drain(model, rsp, rg, job["prompts"],
+                                                    TP_MAX_TOKENS, mesh)
         out["rgemma"] = dict(tokens=tokens, steps=steps, counts=counts, plain=plain,
                              kv=kv)
-        del model
+        out["rgemma_slot_bytes"] = slot_bytes(
+            tp_models(rg, TP_RG_LAYERS, torch.bfloat16, ("float",))["float"], rsp, mesh)
+        del model, rsp
         release()
         lap("rgemma")
     if "r34" in job["parts"]:
@@ -4236,18 +4448,6 @@ def tp_close(label: str, got, want, tol: float) -> float:
     return worst
 
 
-def tp_token_faults(label: str, got: dict, want: dict, rank: int) -> list:
-    """The requests whose greedy tokens a "seq" mesh rank gave apart from
-    the single card's own path (f32 attention, where the mesh merges f64
-    partials): ["label rank r request i from token j", ...]."""
-    out = []
-    for i, (g, w) in enumerate(zip(got["tokens"], want["tokens"], strict=True)):
-        if g != w:
-            j = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
-            out.append(f"{label} rank {rank} request {i} from token {j}")
-    return out
-
-
 def tp_mesh_cli_start():
     """Start the serve CLI under torch.distributed.run, 2 ranks on the card:
     ``--arch granite-8b --reduced --mesh 1x2``."""
@@ -4296,15 +4496,23 @@ def partial_gathers(sequence) -> int:
                if kind == "all_gather" and len(shape) == 6)
 
 
+def data_gathers(sequence) -> int:
+    """The collectives over "data" among a tick's recorded ones: under a
+    slot split, each layer's gather of its new K/V rows before the pool
+    write (a tiled layer gathers over "model" alone)."""
+    return sum(1 for _, axis, _, _ in sequence if axis == "data")
+
+
 def tp_check_warm(who: str, warm: dict, cold: dict, one: dict, own: str,
-                  first: dict, heads: int, partials: int = 0) -> None:
+                  first: dict, heads: int, partials: int = 0, datas: int = 0) -> None:
     """Phase 4s on a rank: its warm drain gives the cold meshed engine's and
     the single card's tokens at the same ticks, with no launch through a
     wrapper, no plain version, no TRACE_COUNTS move and no eager tick; the
     capture launched ``own`` and B2 on the rank's shards; each tick holds
     one graph more than it has collectives, as many as the first rank's,
-    ``heads`` of them the layers' attention outputs gathered by heads and
-    ``partials`` of them the layers' partial softmaxes."""
+    ``heads`` of them the layers' attention outputs gathered by heads,
+    ``partials`` of them the layers' partial softmaxes and ``datas`` of them
+    over "data" (a slot split's K/V rows)."""
     if (warm["tokens"], warm["steps"]) != (cold["tokens"], cold["steps"]) or (
             warm["tokens"], warm["steps"]) != (one["tokens"], one["steps"]):
         fail(f"{who} warm: tokens {warm['tokens'][:2]} vs cold meshed "
@@ -4329,6 +4537,9 @@ def tp_check_warm(who: str, warm: dict, cold: dict, one: dict, own: str,
             fail(f"{who} warm: {name} gathers "
                  f"{partial_gathers(warm['sequence'][name])} partial softmaxes; "
                  f"want {partials}")
+        if data_gathers(warm["sequence"][name]) != datas:
+            fail(f"{who} warm: {name} runs {data_gathers(warm['sequence'][name])} "
+                 f"collectives over \"data\"; want {datas}, a layer's K/V rows each")
 
 
 def tp_check_kv(who: str, got: int, one: int, cfg, tp: int, rows: int = 16) -> None:
@@ -4504,23 +4715,18 @@ def phase_tp(card: str, sp34, http_ref: dict):
     ref["moe"] = dict(zip(("tokens", "steps", "counts", "plain", "kv"), tp_drain(
         model, msp, moe, prompts, TP_MAX_TOKENS)))
     del msp, model
-    # the "seq" architectures on one card twice: its own path ("qwen_*",
-    # "rgemma") and as the mesh's one part ("qwen1_*", "rgemma1")
+    # the "seq" architectures on one card: its own path, a "seq" layer
+    # attending through B9 as the mesh's one part
     qwen, rg = get_config(QWEN), get_config(RECGEMMA)
     fields = ("tokens", "steps", "counts", "plain", "kv")
     qsp = tp_load("qwen")
     model = tp_models(qwen, QWEN_SERVE_LAYERS, torch.float32, ("float",))["float"]
     ref["qwen_logits"] = tp_logits(model, qsp)
-    with one_part_seq():
-        ref["qwen1_logits"] = tp_logits(model, qsp)
     qsp = tp_cut(qsp, TP_LAYERS)
     del model
     for path, model in tp_models(qwen, TP_LAYERS, torch.float32).items():
         ref[f"qwen_{path}"] = dict(zip(fields, tp_drain(model, qsp, qwen, prompts,
                                                         TP_MAX_TOKENS)))
-        with one_part_seq():
-            ref[f"qwen1_{path}"] = dict(zip(fields, tp_drain(model, qsp, qwen, prompts,
-                                                             TP_MAX_TOKENS)))
         if ref[f"qwen_{path}"]["kv"] != QWEN_KV_ONE:
             fail(f"phase 4r {QWEN} {path}: one card's K/V pools "
                  f"{ref[f'qwen_{path}']['kv']} B, want {QWEN_KV_ONE}")
@@ -4528,9 +4734,8 @@ def phase_tp(card: str, sp34, http_ref: dict):
     model = tp_models(rg, TP_RG_LAYERS, torch.float32, ("float",))["float"]
     rsp = tp_load("rgemma")
     ref["rgemma"] = dict(zip(fields, tp_drain(model, rsp, rg, prompts, TP_MAX_TOKENS)))
-    with one_part_seq():
-        ref["rgemma1"] = dict(zip(fields, tp_drain(model, rsp, rg, prompts,
-                                                   TP_MAX_TOKENS)))
+    ref["rgemma_slot_bytes"] = slot_bytes(
+        tp_models(rg, TP_RG_LAYERS, torch.bfloat16, ("float",))["float"], rsp)
     del model, rsp
     _, sms, _, _ = resnet34_models(torch.float32)
     gen = torch.Generator(device="cuda")
@@ -4549,20 +4754,25 @@ def phase_tp(card: str, sp34, http_ref: dict):
           f"L={TP_RG_LAYERS}; f32; resnet34 N=2): {t_ref:.1f}s", flush=True)
 
     cli = serving = None
-    kv_rank, qwen_kv_rank, own_path = {}, {}, []
-    for dims, parts in ((TP_MESHES[0], ("bf16", "moe", "r34", "qwen", "rgemma")),
-                        (TP_MESHES[1], ("qwen",))):
-        if "bf16" not in parts:     # the CLIs start beside the job that times nothing
+    kv_rank, qwen_kv_rank, slot_rank = {}, {}, {}
+    for dims, parts in ((TP_MESHES[0], ("granite", "bf16", "moe", "r34", "qwen",
+                                        "rgemma")),
+                        (TP_MESHES[1], ("granite", "qwen", "rgemma")),
+                        (DP_MESH, ("dp", "rgemma"))):
+        if dims == TP_MESHES[1]:    # the CLIs start beside the job that times nothing
             cli = tp_mesh_cli_start()
             serving = mesh_serve_start()
         ranks, dt = tp_job(dims, parts, prompts)
-        tp = dims[1]
+        dp, tp = dims
+        # a slot split: 4 slots over "data", each layer's K/V rows gathered
+        datas = TP_LAYERS if dp > 1 and N_SLOTS % dp == 0 else 0
         label = f"mesh {dims} ({len(ranks)} ranks sharing one card, {card})"
         for r, res in enumerate(ranks):
             who = f"{label} rank {r}"
-            worst = tp_close(f"{who} granite-8b L={granite.n_layers} f32", res["logits"],
-                             ref["logits"], TP_LOGIT_RTOL)
-            for path in PATH_KERNEL:
+            if "granite" in parts:
+                worst = tp_close(f"{who} granite-8b L={granite.n_layers} f32",
+                                 res["logits"], ref["logits"], TP_LOGIT_RTOL)
+            for path in PATH_KERNEL if "granite" in parts else ("float",):
                 got, want = res[path], ref[path]
                 if (got["tokens"], got["steps"]) != (want["tokens"], want["steps"]):
                     fail(f"{who} {path}: engine tokens differ from the single card's: "
@@ -4573,14 +4783,16 @@ def phase_tp(card: str, sp34, http_ref: dict):
                 tp_check_kv(f"{who} {path}", got["kv"], want["kv"], granite, tp)
                 tp_check_warm(f"{who} {path}", res[f"warm_{path}"], got, want,
                               PATH_KERNEL[path], ranks[0][f"warm_{path}"],
-                              TP_LAYERS if attn_split(granite, tp) == "heads" else 0)
+                              TP_LAYERS if tp > 1 and attn_split(granite, tp) == "heads"
+                              else 0, datas=datas)
             if "bf16" in parts:
                 tp_check_kv(f"{who} bf16", res["bf16_kv"], ref["bf16_kv"], granite, tp)
-            per_rank = res["tile_bytes"]
-            if len(per_rank) != len(ranks) or any(
-                    v * tp != total_tile for v in per_rank.values()):
-                fail(f"{who}: tile bytes per rank {per_rank} x TP={tp} != "
-                     f"{total_tile}")
+            if "granite" in parts:
+                per_rank = res["tile_bytes"]
+                if len(per_rank) != len(ranks) or any(
+                        v * tp != total_tile for v in per_rank.values()):
+                    fail(f"{who}: tile bytes per rank {per_rank} x TP={tp} != "
+                         f"{total_tile}")
             if dims == (1, 2):
                 tile_rank = per_rank
                 kv_rank[r] = res["bf16_kv"]
@@ -4604,41 +4816,44 @@ def phase_tp(card: str, sp34, http_ref: dict):
                     fail(f"{who} {MOE} warm: no expert-parallel sum among the "
                          f"decode tick's collectives")
             if "qwen" in parts:
-                qw1 = tp_close(f"{who} {QWEN} L={QWEN_SERVE_LAYERS} f32, int8 K/V, one "
-                               f"part", res["qwen_logits"], ref["qwen1_logits"],
-                               TP_LOGIT_RTOL)
+                # one card attends as the mesh's one part (B9): exactly its values
                 qw = tp_close(f"{who} {QWEN} L={QWEN_SERVE_LAYERS} f32, int8 K/V",
-                              res["qwen_logits"], ref["qwen_logits"], math.inf)
-                if qw > TP_LOGIT_RTOL:
-                    own_path.append(f"{dims} {QWEN} rank {r} logits {qw:.3e} x "
-                                    f"max|logit|")
+                              res["qwen_logits"], ref["qwen_logits"], 0.0)
                 for path in PATH_KERNEL:
-                    got, want = res[f"qwen_{path}"], ref[f"qwen1_{path}"]
+                    got, want = res[f"qwen_{path}"], ref[f"qwen_{path}"]
                     if (got["tokens"], got["steps"]) != (want["tokens"], want["steps"]):
                         fail(f"{who} {QWEN} {path}: engine tokens differ from the "
-                             f"single card's as one part: {got['tokens'][:2]} vs "
+                             f"single card's: {got['tokens'][:2]} vs "
                              f"{want['tokens'][:2]}")
-                    own_path += tp_token_faults(f"{dims} {QWEN} {path}", got,
-                                                ref[f"qwen_{path}"], r)
                     if got["counts"] != want["counts"] or got["plain"]:
                         fail(f"{who} {QWEN} {path}: launches {got['counts']} (single "
                              f"card {want['counts']}), plain versions run {got['plain']}")
                     tp_check_kv(f"{who} {QWEN} {path}", got["kv"], want["kv"], qwen, tp)
                     tp_check_warm(f"{who} {QWEN} {path}", res[f"qwen_warm_{path}"], got,
                                   want, PATH_KERNEL[path], ranks[0][f"qwen_warm_{path}"],
-                                  0, TP_LAYERS if attn_split(qwen, tp) == "seq" else 0)
+                                  0, TP_LAYERS if attn_split(qwen, tp) == "seq" else 0,
+                                  datas=datas)
                 if dims == (1, 2):
                     qwen_kv_rank[r] = res["qwen_float"]["kv"]
             if "rgemma" in parts:
-                got, want = res["rgemma"], ref["rgemma1"]
-                own_path += tp_token_faults(f"{dims} {RECGEMMA}", got, ref["rgemma"], r)
+                got, want = res["rgemma"], ref["rgemma"]
                 if ((got["tokens"], got["steps"]) != (want["tokens"], want["steps"])
                         or got["counts"] != want["counts"] or got["plain"]):
                     fail(f"{who} {RECGEMMA} L={TP_RG_LAYERS}: tokens {got['tokens'][:2]} "
                          f"vs {want['tokens'][:2]}, launches {got['counts']} vs "
                          f"{want['counts']}, plain {got['plain']}")
-                # the window ring of 128 rows (max_len < window)
-                tp_check_kv(f"{who} {RECGEMMA} ring", got["kv"], want["kv"], rg, tp, 128)
+                # the per-slot caches (bf16 engines): the window ring of 128
+                # rows (max_len < window), 1/TP of its rows ("seq") of the
+                # rank's slots, and the recurrent carries of its slots
+                held, k = kv_share(rg, tp, 128)
+                (ring, carry), (ring1, carry1) = (res["rgemma_slot_bytes"],
+                                                  ref["rgemma_slot_bytes"])
+                if ring * k * dp != ring1 * held or carry * dp != carry1:
+                    fail(f"{who} {RECGEMMA}: per-slot bytes a rank ring {ring}, carries "
+                         f"{carry}; one card's {ring1} x {held}/{k} / {dp}, {carry1} / "
+                         f"{dp}")
+                if dims == DP_MESH:
+                    slot_rank[r] = ring + carry
             if "r34" in parts:
                 y, counts = res["r34"]["logits"], res["r34"]["counts"]
                 err = r34_err = float((y - ref["r34"]).abs().max())
@@ -4648,6 +4863,22 @@ def phase_tp(card: str, sp34, http_ref: dict):
                     fail(f"{who} resnet34 N=2: logits max|diff| {err:.3e}, "
                          f"launches {counts}")
         res = ranks[0]
+        if "dp" in parts:
+            ring, carry = res["rgemma_slot_bytes"]
+            print(f"phase 4r [{label}, slots over \"data\": a rank runs and holds "
+                  f"{N_SLOTS // dp} of {N_SLOTS} slots]: granite-8b (full width, "
+                  f"L={TP_LAYERS}, f32) engine tokens (8 x {TP_MAX_TOKENS} greedy) equal "
+                  f"the single card's on the float path with each rank's launches equal "
+                  f"to its ({ref['float']['counts']['B1']} B1), no plain version; its "
+                  f"pool whole on every rank ({res['float']['kv']} B); warm: "
+                  + tp_warm_line(res["warm_float"])
+                  + f", {data_gathers(res['warm_float']['sequence']['decode_tick'])} "
+                  f"gathers over \"data\" a decode tick (a layer's K/V rows); "
+                  f"{RECGEMMA} (L={TP_RG_LAYERS}) tokens equal one card's, per-slot "
+                  f"bytes a rank (bf16 engine) ring {ring} + carries {carry} = one "
+                  f"card's {ref['rgemma_slot_bytes'][0]} + {ref['rgemma_slot_bytes'][1]} "
+                  f"/ {dp} exactly; job {dt:.1f}s", flush=True)
+            continue
         print(f"phase 4r [{label}]: {res['shard_checks']} per-shard kernel checks "
               f"a rank (B1/B2 at rtol=1e-4, B3/B4 equal); granite-8b (full width, "
               f"L={granite.n_layers}, f32) prefill + {TP_DECODE_STEPS} decode logits "
@@ -4712,12 +4943,13 @@ def phase_tp(card: str, sp34, http_ref: dict):
                   "launch or TRACE_COUNTS move in the warm drain", flush=True)
         if "qwen" in parts:
             print(f"phase 4r [{label}]: {QWEN} (full width, \"seq\": each rank holds "
-                  f"the positions = its index mod {tp}) prefill + {TP_DECODE_STEPS} "
-                  f"decode logits at L={QWEN_SERVE_LAYERS}, f32, int8 K/V, within {qw1:.2e} "
-                  f"x max|logit| of the single card attending as the mesh's one part "
-                  f"(f64 partial softmaxes; {qw:.2e} of its own f32 attention); "
-                  f"engines (L={TP_LAYERS}, int8 K/V, 8 x "
-                  f"{TP_MAX_TOKENS} greedy) equal the single card's as one part under "
+                  f"the positions = its index mod {tp}"
+                  + (f"; slots over \"data\", {N_SLOTS // dp} a rank" if datas else "")
+                  + f") prefill + {TP_DECODE_STEPS} decode logits at L={QWEN_SERVE_LAYERS}, "
+                  f"f32, int8 K/V, max|diff| {qw:.2e} x max|logit| against the single "
+                  f"card's own path (B9: one card attends as the mesh's one part, "
+                  f"the mesh merges f64 partials); engines (L={TP_LAYERS}, int8 K/V, 8 x "
+                  f"{TP_MAX_TOKENS} greedy) equal the single card's under "
                   f"float / xnor / int8 with each rank's launches equal to the single "
                   f"card's ("
                   + ", ".join(f"{p} {ref[f'qwen_{p}']['counts'][k]} {k}"
@@ -4726,23 +4958,19 @@ def phase_tp(card: str, sp34, http_ref: dict):
                   f"rank against one card's {ref['qwen_float']['kv']} B = x "
                   f"{'/'.join(map(str, kv_share(qwen, tp)))} (exact on every rank)"
                   + (f"; {RECGEMMA} (full width, L={TP_RG_LAYERS}: rec, rec, attn, "
-                     f"f32) tokens equal one card's as one part, window ring {res['rgemma']['kv']} "
+                     f"f32) tokens equal one card's, window ring {res['rgemma']['kv']} "
                      f"B a rank against {ref['rgemma']['kv']} B (x "
-                     f"{'/'.join(map(str, kv_share(rg, tp, 128)))}), recurrent "
-                     f"carries whole" if "rgemma" in parts else ""), flush=True)
+                     f"{'/'.join(map(str, kv_share(rg, tp, 128)))}"
+                     + (f" / {dp}" if dp > 1 else "") + "), recurrent carries whole"
+                     + (f" over \"model\" (/ {dp} over \"data\")" if dp > 1 else "")
+                     if "rgemma" in parts else ""), flush=True)
             print(f"phase 4s [{label}]: {QWEN} (full width, L={TP_LAYERS}, int8 K/V, "
                   f"f32) warm rank 0: " + tp_warm_line(res["qwen_warm_float"])
                   + f"; partial softmaxes gathered a tick: "
                   f"{partial_gathers(res['qwen_warm_float']['sequence']['decode_tick'])}"
                   f"; warm tokens under float / xnor / int8 equal the cold meshed "
-                  f"engine's and one card's as one part; no launch, no plain version, no "
+                  f"engine's and one card's; no launch, no plain version, no "
                   f"TRACE_COUNTS move, 0 eager ticks in the warm drains", flush=True)
-    print(f"phase 4r [\"seq\" meshes against the single card's own f32 attention "
-          f"(ROADMAP C4: reported, held to the one-part single card instead)]: "
-          + ("logits within TP_LOGIT_RTOL and every request's tokens equal"
-             if not own_path else f"{len(own_path)} apart (logits over "
-             f"{TP_LOGIT_RTOL} x max|logit|; requests from their first differing "
-             f"token): " + "; ".join(own_path)), flush=True)
     tp_mesh_cli_finish(cli, card)
     print(f"phase 4r (TP/EP serving, ranks sharing one card, 4s's warm drains "
           f"included): {time.perf_counter() - t0:.1f}s", flush=True)
@@ -4750,7 +4978,7 @@ def phase_tp(card: str, sp34, http_ref: dict):
     mesh_serve_finish(serving, card, http_ref, prompts)
     print(f"phase 4s (the meshed HTTP shell after the jobs): "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    return tile_rank, kv_rank, qwen_kv_rank
+    return tile_rank, kv_rank, qwen_kv_rank, slot_rank
 
 
 # ---------------------------------------------------------------------------
@@ -5500,7 +5728,7 @@ def meta_grad_peak(cfg, batch: int, seq: int):
 
 
 def phase_dryrun(card: str, remat: dict, tile_rank: dict, kv_rank: dict,
-                 qwen_kv_rank: dict, mesh_results: dict) -> None:
+                 qwen_kv_rank: dict, mesh_results: dict, slot_rank: dict) -> None:
     """Phase 11 (last): the dry run's counts (``launch.dryrun.count_cell``:
     the cell built for one rank on ``meta`` tensors under a fake process
     group of the mesh's size, its step run once under
@@ -5509,7 +5737,9 @@ def phase_dryrun(card: str, remat: dict, tile_rank: dict, kv_rank: dict,
     granite-8b serving at (1, 2) (phase 4r) and the K/V pool bytes a rank
     of 4r's bf16 engine (its cell: TP_LAYERS layers, N_SLOTS slots of 128
     tokens on 16-token pages) and of 4r's qwen1.5-32b engine (int8 K/V,
-    "seq": half of each page's rows a rank), granite-8b's K/V a rank at full width and
+    "seq": half of each page's rows a rank) and the per-slot bytes a rank
+    of 4r's recurrentgemma-2b bf16 engine at (2, 1) (slots over "data": its
+    2 slots' window rings and carries), granite-8b's K/V a rank at full width and
     depth, 32 slots x 32 768 tokens, at (1, 1), (1, 2), (1, 4) (exact, the
     counted peak a rank printed), the collectives a train step
     and their kinds of granite-8b at (1, 2), (2, 1), (2, 2) and of
@@ -5555,6 +5785,16 @@ def phase_dryrun(card: str, remat: dict, tile_rank: dict, kv_rank: dict,
           f"card's ranks) = one card's {QWEN_KV_ONE} / 2; all-gathers of a decode step "
           f"{qwen_pooled['coll_calls'].get('all-gather', 0)} (one a layer of the "
           f"partial softmaxes among them)", flush=True)
+    rg_cell = count_cell(dataclasses.replace(get_config(RECGEMMA), n_layers=TP_RG_LAYERS),
+                         ShapeCell("4r", 128, N_SLOTS, "decode"), DP_MESH)
+    if set(slot_rank.values()) != {rg_cell["cache_bytes"]}:
+        fail(f"phase 11: the dry run's per-slot bytes a rank of 4r's {RECGEMMA} "
+             f"engine at {DP_MESH} {rg_cell['cache_bytes']} vs phase 4r's {slot_rank}")
+    print(f"phase 11 [dry run vs phase 4r, {card}]: 4r's {RECGEMMA} bf16 engine "
+          f"(L={TP_RG_LAYERS}, {N_SLOTS} slots x 128 tokens) at {DP_MESH}: its 2 "
+          f"slots' window rings and carries {rg_cell['cache_bytes']} B a rank "
+          f"(counted on meta) = {sorted(set(slot_rank.values()))} (held on the card's "
+          f"ranks)", flush=True)
     line = []
     for dims, want in (((1, 1), KV_32K_BYTES), ((1, 2), KV_32K_BYTES // 2),
                        ((1, 4), KV_32K_BYTES // 4)):
@@ -5659,6 +5899,7 @@ def main() -> None:
     check_tensor_core_sass(_build)
     results = phase_kernels(card)
     phase_family_kernels(card, results)
+    b9 = phase_seq_attend(card)
     b5 = phase_b5(card)
     cfg = get_config("granite-8b")
     sp, launches = phase_serve(cfg)
@@ -5726,10 +5967,10 @@ def main() -> None:
     conv = phase_conv(card)
     sp34, r34 = phase_resnet34()
     phase_resnet34_card_vs_cpu(sp34)
-    tile_rank, kv_rank, qwen_kv_rank = phase_tp(card, sp34, http_ref)
+    tile_rank, kv_rank, qwen_kv_rank, slot_rank = phase_tp(card, sp34, http_ref)
     del sp34
     mesh_results = phase_train_mesh(card)
-    phase_dryrun(card, remat, tile_rank, kv_rank, qwen_kv_rank, mesh_results)
+    phase_dryrun(card, remat, tile_rank, kv_rank, qwen_kv_rank, mesh_results, slot_rank)
 
     entries = []
     for kname, fname, m, head, dtype, replaces in (
@@ -5785,6 +6026,26 @@ def main() -> None:
         "bound_by": "operations" if b6_tot["ops_ms"] >= b6_tot["bytes_ms"] else "bytes",
         "library_ms": b6_tot["library_ms"],
         "per": f"one ResNet-34 ImageNet forward at N={R34_BATCH}, bf16 (18 calls)",
+    })
+    qd, sd = b9["qwen decode int8"], b9["starcoder2 decode bf16"]
+    q_layers, s_layers = seq_layers(qwen), seq_layers(get_config("starcoder2-7b"))
+    entries.append({
+        "name": "seq_attend", "route": "cuda",
+        "source": "src/repro_torch/csrc/seq_attend.cu",
+        "replaces": "none: the port's own kernel (a \"seq\" layer's f64 partial "
+                    "softmax; no TPU kernel computes it)",
+        "launches": launches["B9"],
+        "max_abs_err": max(v["abs_err"] for v in b9.values()),
+        "ms": qd["ms"] * q_layers, "plain_ms": qd["plain_ms"] * q_layers,
+        "bound_ms": qd["bound_ms"] * q_layers,
+        "bound_by": "operations" if qd["ops_ms"] >= qd["bytes_ms"] else "bytes",
+        "library_ms": None,
+        "per": f"one {QWEN} decode tick at L={q_layers} ({N_SLOTS} slots, 128-row "
+               f"views, int8 K/V): {q_layers} calls; library: no PyTorch call gives "
+               f"f64 partials",
+        "at_starcoder2": {"ms": sd["ms"] * s_layers, "bound_ms": sd["bound_ms"] * s_layers,
+                          "calls": s_layers},
+        "sdpa_bf16_ms": qd["library_ms"] * q_layers,
     })
     print(f"chip_smoke: {time.perf_counter() - t_run:.1f}s, the build and every "
           f"phase", flush=True)

@@ -18,11 +18,12 @@ There is no GSPMD in PyTorch, so the port realises the placement itself:
   weights) by expert. The router stays whole (routing is replicated), as
   does every other leaf: alphas of plain layers, embeddings, norms, float
   and BWNN heads.
-* A tiled layer runs its kernel on the rank's r/TP rows (and its block of
-  the batch over "data" where that axis divides m) and ``all_gather``s its
-  unique rows (``gather_blocks``) before it replicates them with the whole
-  alpha into the whole output; ``kernels/ops.py`` and ``nn/moe.py`` hold
-  the per-shard branches.
+* A tiled layer runs its kernel on the rank's r/TP rows (and on its block
+  of the batch over "data": the rank's slots, or where the slots are whole
+  its block of m where that axis divides m) and ``all_gather``s its unique
+  rows (``gather_blocks``) before it replicates them with the whole alpha
+  into the whole output; ``kernels/ops.py`` and ``nn/moe.py`` hold the
+  per-shard branches.
 * Serving attention of an architecture whose ``attn_act`` is "heads"
   runs on the rank's block of the heads (``head_sharding``: the
   "act_kv_heads" rule's longest dividing prefix of n_kv, where its extent
@@ -39,7 +40,15 @@ There is no GSPMD in PyTorch, so the port realises the placement itself:
   in f64), and one ``gather_blocks`` a layer brings every rank's parts,
   which each rank merges in rank order (``merge_partials``). A cache whose length the
   rule does not divide stays whole, as does its attention.
-  The residual stream and every other activation are replicated.
+* A serving batch's slots split over the "act_batch" rule's axes (the
+  data axes, ``slot_sharding``) where they divide the slot count: data
+  rank d runs and holds slots [d n / DP, (d + 1) n / DP), the model's
+  entry points taking its rows inside ``slot_rows``. Its per-slot caches
+  hold those slots; the paged pools stay whole on every rank, each tick's
+  new K/V rows gathered over the data axes before they are written. Where
+  the rule does not divide, every rank runs every slot.
+  The residual stream and every other activation are replicated over
+  "model".
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with dim names
 ("data", "model"); its per-dim process groups carry the collectives.
@@ -114,6 +123,7 @@ class _Active(threading.local):
     def __init__(self):
         self.mesh: Optional[Mesh] = None
         self.rules: Optional[Dict[str, AxisVal]] = None
+        self.slots: Optional["SlotBlock"] = None
 
 
 _ACTIVE = _Active()
@@ -368,6 +378,86 @@ def merge_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
     if seq.axes:
         packed = gather_blocks(packed, seq.mesh, seq.axes, 0)
     return merge_softmax_parts(packed)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotBlock:
+    """A rank's block of a serving batch's slots (the "act_batch" rule,
+    the reference's activation rows over ("pod", "data")): ``extent``
+    blocks of consecutive slots over the mesh ``axes``; this rank holds
+    block ``index``, slots [index n / extent, (index + 1) n / extent) of
+    n."""
+
+    mesh: Any
+    axes: Tuple[str, ...]
+    extent: int
+    index: int
+
+    def local(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The rank's rows of a whole per-slot tensor along ``dim`` (a
+        view)."""
+        return local_block(t, self.mesh, self.axes, dim)
+
+    def gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's rows along ``dim``, in slot order (one
+        ``gather_blocks``)."""
+        return gather_blocks(t, self.mesh, self.axes, dim)
+
+
+def slot_sharding(n_slots: int) -> Optional[SlotBlock]:
+    """The rank's ``SlotBlock`` of a batch of ``n_slots`` slots, or None:
+    no active rules, or the "act_batch" rule's longest dividing prefix of
+    ``n_slots`` has extent 1 (the dividing rule of ``head_sharding``: a
+    batch its axes do not divide stays whole on every rank)."""
+    hit = _rule_sharding("act_batch", n_slots)
+    if hit is None:
+        return None
+    mesh, axes, extent = hit
+    return SlotBlock(mesh, axes, extent, shard_index(mesh, axes))
+
+
+@contextlib.contextmanager
+def slot_rows(block: Optional[SlotBlock]):
+    """Within the block the activations of this thread are the rank's
+    rows of ``block`` (a model's serving entry point under the rules):
+    ``kernels/ops.tiled_dense_infer`` then plans each product for the whole
+    batch and splits and gathers no rows itself, and the attention's pool
+    writes gather the new rows of every rank. None: the rows are whole."""
+    prev = _ACTIVE.slots
+    _ACTIVE.slots = block
+    try:
+        yield block
+    finally:
+        _ACTIVE.slots = prev
+
+
+def active_slots() -> Optional[SlotBlock]:
+    """The ``SlotBlock`` whose rows this thread's activations are (inside
+    ``slot_rows``), or None."""
+    return _ACTIVE.slots
+
+
+def slots_local(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The active ``SlotBlock``'s rows of a whole per-slot tensor, or the
+    tensor itself where the rows are whole."""
+    block = _ACTIVE.slots
+    return t if block is None else block.local(t, dim)
+
+
+def slots_matmul(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
+    """``x @ w_t`` for activations whose leading dim holds the active
+    ``SlotBlock``'s rows (``slot_rows``): the product runs over every slot's
+    rows, the other ranks' zero, and the rank's rows are cut out, so the
+    host's BLAS or the card's cuBLAS, whose order of summation follows the
+    call's shape, sums each element as one device's whole-batch call does.
+    A plain product where the rows are whole."""
+    block = _ACTIVE.slots
+    if block is None:
+        return x @ w_t
+    n = x.shape[0]
+    whole = x.new_zeros((n * block.extent, *x.shape[1:]))
+    whole[block.index * n:(block.index + 1) * n] = x
+    return (whole @ w_t)[block.index * n:(block.index + 1) * n]
 
 
 def batch_shard_axes(exclude: Sequence[str], dim: int) -> Tuple[str, ...]:

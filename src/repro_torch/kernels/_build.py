@@ -30,7 +30,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("tiled_matvec", "tiled_matmul", "tiled_xnor", "tiled_int8",
-           "tile_construct", "tiled_conv")
+           "tile_construct", "tiled_conv", "seq_attend")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

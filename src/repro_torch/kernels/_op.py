@@ -1,6 +1,7 @@
 """The kernels as dispatcher operators (``torch.library.custom_op``).
 
-Each of B1-B6 is registered as ``repro_torch::<name>``: its CUDA
+Each of B1-B6 and B9 (seven operators) is registered as
+``repro_torch::<name>``: its CUDA
 implementation launches the kernel, its CPU implementation runs the plain
 PyTorch version, and its fake implementation gives the output's shape and
 dtype without running anything (the ``meta`` device of the dry run,

@@ -16,10 +16,16 @@ runs the same kernel on its r/TP rows (and its block of the batch over
 "data" where that axis divides it) and all_gathers its block of unique
 rows (over "model" along the rows, then over "data" along the batch);
 every rank then replicates the whole rows with the whole alpha, so a
-gather carries 1/p of the layer's output. Flat tiles never engage it. A rank dispatches on the whole batch's m and its float kernels
-plan for the whole (m, r), so it runs the kernel, the compute path and the
-summation order that one card would: its block equals that card's rows bit
-for bit. B6 likewise plans for the whole call's pixels and filters.
+gather carries 1/p of the layer's output. Flat tiles never engage it.
+Inside a model's serving entry point whose slots split over "data"
+(``sharding.slot_rows``) x is already the rank's rows: the dense op then
+splits and gathers no rows (the tile rows alone are gathered over
+"model"), which saves a tiled layer its data-axis gather. A rank
+dispatches on the whole batch's m and its float kernels plan for the
+whole (m, r), their plain versions placing the rank's block at its
+offset, so it runs the kernel, the compute path and the summation order
+that one card would: its block equals that card's rows bit for bit. B6
+likewise plans for the whole call's pixels and filters.
 
 ``tbn_dense_train`` is the fused training forward: ``tile_construct``
 (kernel B5) builds the packed tile and alpha from the masters, then
@@ -65,11 +71,13 @@ from repro_torch.core.tiling import (
 )
 from repro_torch.distributed.sharding import (
     _mesh_extent,
+    active_slots,
     batch_shard_axes,
     copy_to_shards,
     gather_blocks,
     gather_shards,
     local_block,
+    shard_index,
     sum_over,
     sum_shards,
     tile_sharding,
@@ -118,12 +126,15 @@ def _dense_unique_int_local(xm: torch.Tensor, packed_rows: torch.Tensor,
 
 def _dense_unique_local(xm: torch.Tensor, packed_rows: torch.Tensor,
                         compute_path: str = "float",
-                        whole: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                        whole: Optional[Tuple[int, int, int, int]] = None
+                        ) -> torch.Tensor:
     """u = x @ T^T (m, r) float32 against a row-packed tile. m <=
     MATVEC_MAX_M takes the integer path when ``compute_path`` asks for one,
-    else B1; larger m takes B2. ``whole`` (m, r) is the call a rank holds a
-    block of: the dispatch reads its m and the float kernels plan for it,
-    so the rank's elements equal one card's bit for bit. For the float
+    else B1; larger m takes B2. ``whole`` (M, R, row0, col0) is the call a
+    rank holds the block at (row0, col0) of: the dispatch reads its M, the
+    float kernels plan for (M, R) and their plain versions place the block
+    at its offset, so the rank's elements equal one card's bit for bit
+    (the integer paths are exact whatever the block). For the float
     kernels x is padded with zero columns to words*32 (pad bits unpack to
     -1 but only ever meet those zero columns). The kernels take contiguous
     rows, whatever strides x came with (an einsum's output may be
@@ -175,13 +186,25 @@ def tiled_dense_infer(x: torch.Tensor, packed: torch.Tensor,
     lead = x.shape[:-1]
     xm = x.reshape(-1, n_in)
     tp = tile_sharding(r) if packed.ndim == 2 else None
-    if tp is not None:
-        mesh, ax, extent = tp
-        _check_shard_rows(packed.shape[0], r, extent, "the tile")
-        m_ax = batch_shard_axes(ax, xm.shape[0])
-        u = _dense_unique_local(local_block(xm, mesh, m_ax, 0), packed,
-                                compute_path, whole=(xm.shape[0], r))
-        u = gather_blocks(gather_blocks(u, mesh, ax, 1), mesh, m_ax, 0)
+    slots = active_slots() if packed.ndim == 2 else None
+    if tp is not None or slots is not None:
+        m = xm.shape[0]
+        ax, col0 = (), 0
+        if tp is not None:
+            mesh, ax, extent = tp
+            _check_shard_rows(packed.shape[0], r, extent, "the tile")
+            col0 = shard_index(mesh, ax) * packed.shape[0]
+        if slots is not None:
+            # x is already the rank's slots' rows: plan for every slot's
+            m_ax, xl = (), xm
+            whole = (m * slots.extent, r, slots.index * m, col0)
+        else:
+            m_ax = batch_shard_axes(ax, m)
+            xl = local_block(xm, mesh, m_ax, 0)
+            whole = (m, r, shard_index(mesh, m_ax) * xl.shape[0], col0)
+        u = _dense_unique_local(xl, packed, compute_path, whole=whole)
+        if tp is not None:
+            u = gather_blocks(gather_blocks(u, mesh, ax, 1), mesh, m_ax, 0)
     else:
         if packed.ndim != 2:
             if x.device.type == "cpu":
@@ -438,8 +461,9 @@ class _TbnDenseTrainRows(torch.autograd.Function):
         alpha = sum_over(alpha, mesh, rows) / _mesh_extent(mesh, rows)
         n_in, r = local.shape[1], spec.rows_per_tile
         xm = x.reshape(-1, n_in)
-        u = _dense_unique_local(xm, packed.reshape(-1, n_in // LANE_BITS),
-                                whole=(xm.shape[0], r))
+        rows_local = packed.reshape(-1, n_in // LANE_BITS)
+        u = _dense_unique_local(xm, rows_local, whole=(
+            xm.shape[0], r, 0, shard_index(mesh, rows) * rows_local.shape[0]))
         u = gather_blocks(u, mesh, rows, 1)
         ctx.spec, ctx.mesh, ctx.rows = spec, mesh, rows
         ctx.save_for_backward(x, w, a)

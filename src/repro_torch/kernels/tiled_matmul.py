@@ -73,9 +73,31 @@ def unpack_rows(packed: torch.Tensor) -> torch.Tensor:
     return unpack_bits(packed, packed.shape[1] * LANE_BITS, dtype=torch.float32)
 
 
-def tiled_matmul_plain(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of B2: unpack to ±1, then x.float() @ t.T."""
-    return x.float() @ unpack_rows(packed).T
+def plain_product(x: torch.Tensor, packed: torch.Tensor, plan_shape=None
+                  ) -> torch.Tensor:
+    """x.float() @ T^T (m, r) against the ±1 rows of ``packed``: the plain
+    versions of B1 and B2. With ``plan_shape`` (M, R, row0, col0), a
+    rank's block at (row0, col0) of an (M, R) call, the product runs over
+    the whole (M, R) with the block at its offset and zeros around it, so
+    the host's BLAS sums each of the block's elements as it sums the whole
+    call's: bit for bit one device's."""
+    t = unpack_rows(packed)
+    m, r = x.shape[0], t.shape[0]
+    if plan_shape is None or len(plan_shape) < 4 or tuple(plan_shape[:2]) == (m, r):
+        return x.float() @ t.T
+    pm, pr, row0, col0 = plan_shape
+    xw = x.new_zeros((pm, x.shape[1]), dtype=torch.float32)
+    xw[row0:row0 + m] = x.float()
+    tw = t.new_zeros((pr, t.shape[1]))
+    tw[col0:col0 + r] = t
+    return (xw @ tw.T)[row0:row0 + m, col0:col0 + r].contiguous()
+
+
+def tiled_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
+                       plan_shape=None) -> torch.Tensor:
+    """The plain PyTorch version of B2: unpack to ±1, then x.float() @ t.T
+    (``plain_product``: a block of a larger call at its offset in it)."""
+    return plain_product(x, packed, plan_shape)
 
 
 TILE_M = TILE_N = 64      # the f32 FMA body's output tile
@@ -215,9 +237,11 @@ def tiled_matmul_unique(x: torch.Tensor, packed: torch.Tensor,
                         plan_shape=None) -> torch.Tensor:
     """u = x @ T^T for a row-packed tile: x (m, words*32) bf16/f32, packed
     (r, words) int32 -> (m, r) float32. Launches kernel B2 for CUDA tensors
-    as :func:`plan_matmul` plans it for (m, r), or for ``plan_shape`` (M, R)
-    >= (m, r) (a rank's block of a larger call, summed in the order one card
-    would sum the whole); CPU tensors take the plain version."""
+    as :func:`plan_matmul` plans it for (m, r), or for ``plan_shape`` (M, R,
+    row0, col0): a rank's (m, r) block at (row0, col0) of an (M, R) call,
+    summed in the order one card would sum the whole. CPU tensors take the
+    plain version, which places the block at its offset for the same
+    reason (``plain_product``)."""
     check_operands(x, packed, "tiled_matmul_unique")
     return _matmul_op(x, packed, None if plan_shape is None else list(plan_shape))
 
@@ -239,7 +263,7 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, body,
     out, stream = cuda_args(x, packed, "tiled_matmul_unique")
     m, (r, words) = x.shape[0], packed.shape
     bf16 = x.dtype == torch.bfloat16
-    pm, pr = plan_shape or (m, r)
+    pm, pr = plan_shape[:2] if plan_shape else (m, r)
     plan = plan_matmul(pm, pr, words, _sm_count(out.device.index), bf16, body)
     work = (torch.empty((plan.splits, m, r), dtype=torch.float32,
                         device=x.device) if plan.splits > 1 else None)
@@ -260,6 +284,6 @@ def u_shape(x: torch.Tensor, packed: torch.Tensor, dtype=torch.float32):
 _matmul_op = kernel_op(
     "tiled_matmul_unique", "(Tensor x, Tensor packed, int[]? plan_shape) -> Tensor",
     lambda x, packed, plan_shape: _launch(x, packed, None, plan_shape),
-    lambda x, packed, plan_shape: tiled_matmul_plain(x, packed),
+    lambda x, packed, plan_shape: tiled_matmul_plain(x, packed, plan_shape),
     lambda x, packed, plan_shape: u_shape(x, packed))
 tiled_matmul_unique.launches = 0

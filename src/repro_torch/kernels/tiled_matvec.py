@@ -35,17 +35,20 @@ from repro_torch.kernels.tiled_matmul import (
     _sm_count,
     check_operands,
     cuda_args,
+    plain_product,
     u_shape,
-    unpack_rows,
 )
 
 # Dispatch threshold: batches at or under this m take the decode kernel.
 MATVEC_MAX_M = 32
 
 
-def tiled_matvec_plain(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of B1: unpack to ±1, then x.float() @ t.T."""
-    return x.float() @ unpack_rows(packed).T
+def tiled_matvec_plain(x: torch.Tensor, packed: torch.Tensor,
+                       plan_shape=None) -> torch.Tensor:
+    """The plain PyTorch version of B1: unpack to ±1, then x.float() @ t.T
+    (``tiled_matmul.plain_product``: a block of a larger call at its
+    offset in it)."""
+    return plain_product(x, packed, plan_shape)
 
 
 # ----------------------------------------------------------------- planner
@@ -244,10 +247,12 @@ def tiled_matvec_unique(x: torch.Tensor, packed: torch.Tensor,
                         plan_shape=None) -> torch.Tensor:
     """u = x @ T^T at decode-sized m: x (m <= 32, words*32) bf16/f32, packed
     (r, words) int32 -> (m, r) float32. Launches kernel B1 for CUDA tensors
-    as :func:`plan_matvec` plans it for (m, r), or for ``plan_shape`` (M, R)
-    >= (m, r): a rank of a mesh that holds a block of a larger call plans
-    as one card would for the whole, so its elements are summed in that
-    card's order, bit for bit. CPU tensors take the plain version."""
+    as :func:`plan_matvec` plans it for (m, r), or for ``plan_shape`` (M, R,
+    row0, col0): a rank of a mesh that holds the (m, r) block at (row0,
+    col0) of an (M, R) call plans as one card would for the whole, so its
+    elements are summed in that card's order, bit for bit. CPU tensors
+    take the plain version, which places the block at its offset for the
+    same reason."""
     check_operands(x, packed, "tiled_matvec_unique")
     _check_m(x, "tiled_matvec_unique")
     return _matvec_op(x, packed, None if plan_shape is None else list(plan_shape))
@@ -273,7 +278,7 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, body,
     out, stream = cuda_args(x, packed, "tiled_matvec_unique")
     m, (r, words) = x.shape[0], packed.shape
     bf16 = x.dtype == torch.bfloat16
-    pm, pr = plan_shape or (m, r)
+    pm, pr = plan_shape[:2] if plan_shape else (m, r)
     plan = plan_matvec(pm, pr, words, _sm_count(out.device.index), bf16, body)
     work = (torch.empty((plan.splits, m, r), dtype=torch.float32,
                         device=x.device) if plan.splits > 1 else None)
@@ -289,6 +294,6 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, body,
 _matvec_op = kernel_op(
     "tiled_matvec_unique", "(Tensor x, Tensor packed, int[]? plan_shape) -> Tensor",
     lambda x, packed, plan_shape: _launch(x, packed, None, plan_shape),
-    lambda x, packed, plan_shape: tiled_matvec_plain(x, packed),
+    lambda x, packed, plan_shape: tiled_matvec_plain(x, packed, plan_shape),
     lambda x, packed, plan_shape: u_shape(x, packed))
 tiled_matvec_unique.launches = 0

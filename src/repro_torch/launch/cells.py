@@ -45,6 +45,7 @@ from repro_torch.distributed.sharding import (
     mesh_extents,
     place_params,
     place_train_params,
+    slot_sharding,
     train_shards,
 )
 from repro_torch.nn import module as mod
@@ -163,15 +164,19 @@ def train_batch_specs(cfg: ArchConfig, cell: ShapeCell, mesh):
 
 def cache_shardings(mesh, caches, batch_size: int):
     """The reference's placement of each cache leaf, by key name and rank:
-    K/V shard the time axis over "model", recurrent state its widest dim.
-    The port's ranks hold their block of the K/V heads where the model
-    axis divides them ("heads" architectures), or of a "seq" architecture
-    1/TP of the time rows where the model axis divides their length
-    (interleaved: position p on the rank of index p mod TP, where the
-    reference splits time in contiguous blocks; the bytes a rank holds are
-    the same), and every recurrent carry whole; the dry run reports this
-    layout beside the bytes a rank holds (``cache_bytes``) and the time
-    rows it holds (``cache_time_rows``)."""
+    the batch dim over ("pod", "data"), K/V's time axis over "model",
+    recurrent state its widest dim. The port's ranks hold their block of
+    the slots where the data axes divide them (``sharding.slot_sharding``:
+    the cells build a rank's b/DP slots' caches, and a decode or prefill
+    step runs its rows), of the K/V heads where the model axis divides
+    them ("heads" architectures), or of a "seq" architecture 1/TP of the
+    time rows where the model axis divides their length (interleaved:
+    position p on the rank of index p mod TP, where the reference splits
+    time in contiguous blocks; the bytes a rank holds are the same), and
+    every recurrent carry whole over "model"; a paged pool (the engine's
+    ``page_tokens`` cell) holds every slot's pages. The dry run reports
+    this layout beside the bytes a rank holds (``cache_bytes``) and the
+    time rows it holds (``cache_time_rows``)."""
     ba = batch_axes(mesh)
 
     def leaf(key, t):
@@ -267,6 +272,10 @@ def _serve_params(cfg: ArchConfig, model, mesh):
 
 
 def build_prefill_cell(cfg: ArchConfig, cell: ShapeCell, mesh):
+    """One rank's prefill of ``cell.global_batch`` prompts of
+    ``cell.seq_len`` tokens: the step takes the whole batch and runs the
+    rank's b/DP rows where the data axes divide b, its caches (the
+    output) those rows'."""
     model = _serve_model(cfg)
     params = _serve_params(cfg, model, mesh)
     b, s = cell.global_batch, cell.seq_len
@@ -307,9 +316,11 @@ def build_decode_cell(cfg: ArchConfig, cell: ShapeCell, mesh,
     ``page_tokens`` the engine's paged pool (b * ceil(s / page_tokens)
     pages and the scratch page, read through a page table; decoder LMs).
     The caches are built under the cell's rules, so they hold what the
-    rank holds: ``memory.cache_bytes`` its bytes and
-    ``memory.cache_time_rows`` the time rows of each K/V leaf (a "seq"
-    architecture's 1/TP of them where the model axis divides them)."""
+    rank holds: its b/DP slots where the data axes divide b (the step takes
+    every slot's tokens and runs the rank's rows), ``memory.cache_bytes``
+    its bytes and ``memory.cache_time_rows`` the time rows of each K/V leaf
+    (a "seq" architecture's 1/TP of them where the model axis divides
+    them)."""
     model = _serve_model(cfg)
     params = _serve_params(cfg, model, mesh)
     b, s = cell.global_batch, cell.seq_len
@@ -352,10 +363,13 @@ def build_decode_cell(cfg: ArchConfig, cell: ShapeCell, mesh,
 
 def _encdec_caches(model, cfg: ArchConfig, b: int, s: int):
     """Decoder self-cache (len s) + cross K/V over an encoder memory of len
-    s: the dense anchor's rows, the rank's block of the K/V heads under a
-    head block (call under the cell's rules)."""
+    s: the dense anchor's rows, the rank's slots' under a slot split and
+    the rank's block of the K/V heads under a head block (call under the
+    cell's rules)."""
     attn = model.dec_block.self_attn
-    shape = (cfg.dec_layers, b, s, attn.kv_heads(), attn.hd)
+    block = slot_sharding(b)
+    rows = b if block is None else b // block.extent
+    shape = (cfg.dec_layers, rows, s, attn.kv_heads(), attn.hd)
     return {k: _meta(shape, torch.bfloat16) for k in ("k", "v", "ck", "cv")}
 
 

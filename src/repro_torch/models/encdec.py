@@ -25,7 +25,11 @@ ENCODE phase: padded frames are masked out as keys, so the rows of the
 real frames equal an unpadded ``encode``. Under a mesh whose model axis
 divides the heads (``attn_act`` "heads") both pools, and the dense
 anchor's rows, hold the rank's block of the K/V heads; the encoder runs
-every head.
+every head. Where the data axes divide the batch's slots
+(``distributed.sharding.slot_sharding``), a rank runs its slots' rows
+through the decoder (``slot_rows``, as ``models/lm.py`` does), the dense
+anchor's rows are its slots', and both pools stay whole; the ENCODE
+phase's one request runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -36,7 +40,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import remat
+from repro_torch.distributed.sharding import (
+    remat,
+    slot_rows,
+    slot_sharding,
+    slots_local,
+)
 from repro_torch.models.lm import ce_sum, nll_sum
 from repro_torch.nn import module as mod
 from repro_torch.nn.attention import Attention, _attend_core, scatter_pages
@@ -247,9 +256,18 @@ class EncDecModel:
         logits (B, vocab), dense caches {"k", "v": (L, B, max_len, K, hd),
         "ck", "cv": (L, B, S_enc, K, hd)}, lengths); under a head block K
         is the rank's block of the K/V heads."""
+        b, s = batch["tokens"].shape
+        block = slot_sharding(b)
+        with slot_rows(block):
+            logits, caches = self._prefill_rows(
+                params, {k: slots_local(v) for k, v in batch.items()}, max_len)
+        return logits, caches, torch.full((b,), s, dtype=torch.int32,
+                                          device=self.device)
+
+    def _prefill_rows(self, params, batch, max_len: int):
         memory = self.encode(params, batch["frames"])
         tokens = batch["tokens"].to(self.device).long()
-        b, s = tokens.shape
+        s = tokens.shape[1]
         x = self.embed(params["embed"], tokens)
         blk, per_layer = self.dec_block, []
         for pl in _layers(params["dec"], self.cfg.dec_layers):
@@ -266,8 +284,7 @@ class EncDecModel:
                               "ck": ck, "cv": cv})
         caches = {n: torch.stack([c[n] for c in per_layer]) for n in per_layer[0]}
         h = self.dec_norm(params["dec_norm"], x[:, -1:])
-        lengths = torch.full((b,), s, dtype=torch.int32, device=self.device)
-        return self.head(params["head"], h)[:, 0], caches, lengths
+        return self.head(params["head"], h)[:, 0], caches
 
     def decode_step(self, params, tokens, caches, lengths, page_table=None,
                     active=None, cross_page_table=None, enc_lens=None):
@@ -276,20 +293,25 @@ class EncDecModel:
         ``page_table`` both families are pools: self-attention K/V scatter
         through ``page_table`` (inactive slots drop their write, in place)
         and the read-only cross K/V are read through ``cross_page_table``,
-        masked by ``enc_lens``."""
-        if page_table is None:
-            return self._decode_step_dense(params, tokens, caches, lengths)
-        x = self.embed(params["embed"], tokens)
-        x = self._walk_dec_paged(
-            params, x, caches,
-            lambda blk, pl, a, kl, vl: blk.self_attn.decode_step(
-                pl["self_attn"], a, kl, vl, lengths, page_table, active=active),
-            cross_page_table, enc_lens)
-        h = self.dec_norm(params["dec_norm"], x)
-        return self.head(params["head"], h)[:, 0], caches, lengths + 1
+        masked by ``enc_lens``. Under a slot split the logits (and the
+        dense rows) are the rank's slots'."""
+        with slot_rows(slot_sharding(tokens.shape[0])):
+            if page_table is None:
+                logits, caches = self._decode_step_dense(params, tokens, caches,
+                                                         lengths)
+                return logits, caches, lengths + 1
+            x = self.embed(params["embed"], slots_local(tokens))
+            x = self._walk_dec_paged(
+                params, x, caches,
+                lambda blk, pl, a, kl, vl: blk.self_attn.decode_step(
+                    pl["self_attn"], a, kl, vl, lengths, page_table, active=active),
+                cross_page_table, enc_lens)
+            h = self.dec_norm(params["dec_norm"], x)
+            logits = self.head(params["head"], h)[:, 0]
+        return logits, caches, lengths + 1
 
     def _decode_step_dense(self, params, tokens, caches, lengths):
-        x = self.embed(params["embed"], tokens)
+        x = self.embed(params["embed"], slots_local(tokens))
         per_layer = []
         for pl, cl in zip(_layers(params["dec"], self.cfg.dec_layers),
                           _layers(caches, self.cfg.dec_layers)):
@@ -297,7 +319,7 @@ class EncDecModel:
             per_layer.append(c2)
         caches = {n: torch.stack([c[n] for c in per_layer]) for n in per_layer[0]}
         h = self.dec_norm(params["dec_norm"], x)
-        return self.head(params["head"], h)[:, 0], caches, lengths + 1
+        return self.head(params["head"], h)[:, 0], caches
 
     # ------------------------------------------------------------------
     # serving: the paged path (ServableModel)
@@ -380,26 +402,29 @@ class EncDecModel:
         cols = torch.arange(c, device=tokens.device)[None, :]
         positions = lengths[:, None] + cols
         valid = cols < n_new[:, None]
-        x = self.embed(params["embed"], tokens)
-        x = self._walk_dec_paged(
-            params, x, caches,
-            lambda blk, pl, a, kl, vl: blk.self_attn.extend(
-                pl["self_attn"], a, kl, vl, positions, valid, page_table),
-            cross_page_table, enc_lens)
-        idx = (n_new.long() - 1).clamp(0, c - 1)
-        h_last = torch.gather(x, 1, idx[:, None, None].expand(b, 1, x.shape[-1]))
-        h = self.dec_norm(params["dec_norm"], h_last)
-        return self.head(params["head"], h)[:, 0], caches, lengths + n_new
+        with slot_rows(slot_sharding(b)):
+            x = self.embed(params["embed"], slots_local(tokens))
+            x = self._walk_dec_paged(
+                params, x, caches,
+                lambda blk, pl, a, kl, vl: blk.self_attn.extend(
+                    pl["self_attn"], a, kl, vl, positions, valid, page_table),
+                cross_page_table, enc_lens)
+            idx = (slots_local(n_new).long() - 1).clamp(0, c - 1)
+            h_last = torch.gather(x, 1, idx[:, None, None].expand(
+                x.shape[0], 1, x.shape[-1]))
+            h = self.dec_norm(params["dec_norm"], h_last)
+            logits = self.head(params["head"], h)[:, 0]
+        return logits, caches, lengths + n_new
 
     # ---- per-slot walkers: everything is paged, so they pass through ----
     def merge_caches(self, old, new, keep, paged: bool = False):
         return new      # pool writes were confined by ``active``
 
-    def reset_slot_caches(self, caches, slot, paged: bool = False):
+    def reset_slot_caches(self, caches, slot, paged: bool = False, n_slots=None):
         return caches   # stale pool rows are position-masked
 
-    def snapshot_slot_caches(self, caches, slot):
+    def snapshot_slot_caches(self, caches, slot, n_slots=None):
         return None     # no per-slot family to pin
 
-    def restore_slot_caches(self, caches, slot, snaps):
+    def restore_slot_caches(self, caches, slot, snaps, n_slots=None):
         return caches

@@ -36,7 +36,18 @@ axis divides their length (``Block.cache_seq``: position p on the rank of
 index p mod TP; ring row j, which holds the positions = j mod t, on rank
 j mod TP at local row j // TP), attends on them and merges every rank's
 partial softmax; the serving entry points take the layout's
-``page_tokens`` and ``max_len`` for that. Recurrent carries stay whole.
+``page_tokens`` and ``max_len`` for that. Recurrent carries stay whole
+over "model". Where the "act_batch" rule's data axes divide the batch's
+slots (``distributed.sharding.slot_sharding``), data rank d runs and
+holds slots [d n / DP, (d + 1) n / DP): the embedding, every block, the
+final norm and the head take its rows (``slot_rows``), the logits are its
+rows, and every per-slot cache (dense rows, window rings, SSM and RG-LRU
+carries) holds its slots; the paged pools stay whole, each layer's new
+K/V rows gathered over the data axes before they are written. The entry
+points take every slot's tokens, lengths, page table and ``active``; the
+slot operations (reset, snapshot, restore) take a global slot index and
+the engine's ``n_slots`` (a snapshot is gathered over the data axes, so
+every rank holds it and the slot's owner writes it back).
 
 Entry points: ``train_forward`` (next-token cross-entropy; each block is
 checkpointed under ``cfg.remat == "full"``, and under "dots" selectively:
@@ -54,9 +65,16 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import dots_policy, remat
+from repro_torch.distributed.sharding import (
+    dots_policy,
+    remat,
+    slot_rows,
+    slot_sharding,
+    slots_local,
+)
 from repro_torch.nn import module as mod
 from repro_torch.nn.attention import Attention, make_mask, quantize_kv
 from repro_torch.nn.context import ModelContext
@@ -145,6 +163,22 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
+def _gather_snapshot(snap, block, owner: torch.Tensor):
+    """A one-slot snapshot tree read by every rank of a slot split (the
+    owner's rows real, the others' clamped stand-ins) -> the owner's, on
+    every rank: the leaves of each dtype flattened into one buffer, one
+    gather over the block's axes a dtype, the owner's part cut out."""
+    leaves, spec = tree_flatten(snap)
+    held = [i for i, v in enumerate(leaves) if isinstance(v, torch.Tensor)]
+    for dtype in sorted({leaves[i].dtype for i in held}, key=str):
+        group = [i for i in held if leaves[i].dtype == dtype]
+        buf = torch.cat([leaves[i].reshape(-1) for i in group])
+        mine = block.gather(buf[None], 0).index_select(0, owner.reshape(1))[0]
+        for i, part in zip(group, mine.split([leaves[i].numel() for i in group])):
+            leaves[i] = part.view(leaves[i].shape)
+    return tree_unflatten(leaves, spec)
+
+
 @dataclasses.dataclass
 class Block:
     """One pre-norm residual block: (attn | rec | ssm) + (MLP | MoE); a
@@ -212,7 +246,12 @@ class Block:
         their f32 (h, conv) carries. Under a mesh the pool and the dense
         rows hold the rank's block of the K heads (``Attention.heads``),
         or under the "seq" recipe every cache (pool pages, dense rows, the
-        ring) the rank's 1/TP of its time rows (``cache_seq``)."""
+        ring) the rank's 1/TP of its time rows (``cache_seq``); under a slot
+        split (``slot_sharding(batch)``) every per-slot cache holds the
+        rank's slots only, the pool every slot's pages."""
+        slots = slot_sharding(batch)
+        if slots is not None:
+            batch //= slots.extent
         if self.kind != "attn":
             return self.mixer.init_state(batch, device=device)
         window = self.cfg.window
@@ -320,7 +359,8 @@ class Block:
         if self.kind != "attn":
             h, cache = self.mixer.decode_step(params["mixer"], h, cache)
         elif self.cfg.window:
-            h, cache = self._windowed_decode(params["mixer"], h, cache, lengths, sb)
+            h, cache = self._windowed_decode(params["mixer"], h, cache,
+                                             slots_local(lengths), sb)
         elif "ks" in cache:
             h, cache = self.mixer.decode_step_quant(
                 params["mixer"], h, cache, lengths, page_table, active=active,
@@ -342,10 +382,11 @@ class Block:
         h = self.norm1(params["norm1"], x)
         sb = self.cache_seq(page_table, page_tokens, max_len)
         if self.kind != "attn":
-            h, cache = self.mixer.extend(params["mixer"], h, cache, valid)
+            h, cache = self.mixer.extend(params["mixer"], h, cache, slots_local(valid))
         elif self.cfg.window:
             h, cache = self._windowed_extend(params["mixer"], h, cache,
-                                             positions, valid, sb)
+                                             slots_local(positions),
+                                             slots_local(valid), sb)
         elif "ks" in cache:
             h, cache = self.mixer.extend_quant(
                 params["mixer"], h, cache, positions, valid, page_table, seq=sb)
@@ -699,14 +740,28 @@ class DecoderLM:
                 caches[i], *(o[i] for o in others)))
         return out
 
-    def reset_slot_caches(self, caches, slot, paged: bool = False):
+    @staticmethod
+    def _slot_here(slot, n_slots: Optional[int]):
+        """(the slot block of ``n_slots`` slots under the active rules, or
+        None; ``slot`` as an index into this rank's per-slot rows: outside
+        them where another rank holds the slot)."""
+        block = None if n_slots is None else slot_sharding(n_slots)
+        if block is None:
+            return None, slot
+        return block, slot - block.index * (n_slots // block.extent)
+
+    def reset_slot_caches(self, caches, slot, paged: bool = False,
+                          n_slots: Optional[int] = None):
         """Zero one slot's rows of the per-slot families, in place: SSM and
         RG-LRU carries must restart from zeros (extend continues from the
         slot's carry); windowed rings are cleared too. With ``paged`` the
         pool leaves are left alone: their pages are about to be remapped
         and stale rows are position-masked. ``slot`` is an int or a 0-d
         index tensor (the engine's captured reset reads one); a slot outside
-        [0, n_slots) zeroes nothing."""
+        [0, n_slots) zeroes nothing. Under a slot split (``n_slots``, the
+        engine's) only the rank that holds the slot zeroes it."""
+        _, slot = self._slot_here(slot, n_slots)
+
         def per_block(blk, ct, ax):
             if paged and _paged_attn(blk):
                 return ct
@@ -719,23 +774,40 @@ class DecoderLM:
         self._per_slot(caches, per_block)
         return caches
 
-    def snapshot_slot_caches(self, caches, slot: int):
+    def snapshot_slot_caches(self, caches, slot: int, n_slots: Optional[int] = None):
         """One slot's per-slot cache state as a standalone tree: SSM and
         RG-LRU carries (the mixers' ``snapshot_state``) and windowed ring
         rows; full-attention entries are None (their prefix lives in pool
-        pages)."""
+        pages). Under a slot split (``n_slots``, the engine's) the rank
+        that holds the slot reads it and the snapshot is gathered over the
+        data axes (one gather a dtype), so every rank holds it."""
+        block, local = self._slot_here(slot, n_slots)
+        if block is not None and not isinstance(local, torch.Tensor):
+            local = torch.tensor(local, device=self.device)
+
         def per_block(blk, ct, ax):
             if blk.kind in ("rec", "ssm"):
-                return blk.mixer.snapshot_state(ct, slot, axis=ax)
+                return blk.mixer.snapshot_state(ct, local, axis=ax)
             if blk.kind == "attn" and blk.cfg.window:
-                return mod.slice_slot_rows(ct, slot, ax)
+                return mod.slice_slot_rows(ct, local, ax)
             return None
 
-        return self._per_slot(caches, per_block)
+        snap = self._per_slot(caches, per_block)
+        if block is None:
+            return snap
+        owner = torch.div(torch.as_tensor(slot, device=self.device),
+                          n_slots // block.extent, rounding_mode="floor")
+        return _gather_snapshot(snap, block, owner.clamp(0, block.extent - 1))
 
-    def restore_slot_caches(self, caches, slot: int, snaps):
+    def restore_slot_caches(self, caches, slot: int, snaps,
+                            n_slots: Optional[int] = None):
         """Write a snapshot back into a slot's rows, in place; None entries
-        (full attention) pass through."""
+        (full attention) pass through. Under a slot split (``n_slots``)
+        only the rank that holds the slot writes it."""
+        block, slot = self._slot_here(slot, n_slots)
+        if block is not None and not isinstance(slot, torch.Tensor):
+            slot = torch.tensor(slot, device=self.device)
+
         def per_block(blk, ct, st, ax):
             if st is None:
                 return ct
@@ -750,7 +822,13 @@ class DecoderLM:
         where ``keep`` (B,) is True take ``new``, the others keep ``old``.
         With ``paged`` a paged pool is taken wholesale (its writes were
         confined in place by ``active``). A leaf that ``new`` shares with
-        ``old`` (an entry point already wrote it) is left as it is."""
+        ``old`` (an entry point already wrote it) is left as it is. Under a
+        slot split ``keep`` is every slot's and the per-slot rows the
+        rank's."""
+        block = slot_sharding(keep.shape[0])
+        if block is not None:
+            keep = block.local(keep)
+
         def per_block(blk, ot, nt, ax):
             if paged and _paged_attn(blk):
                 _store(ot, nt)
@@ -768,21 +846,26 @@ class DecoderLM:
         padded to ``max_len`` (the dense form ``decode_step`` takes with
         ``page_table`` None), rings laid out so row j holds position p = j
         (mod t), and the recurrent carries."""
-        tokens = batch["tokens"].to(self.device).long()
-        b, s = tokens.shape
-        positions = torch.arange(s, device=self.device).expand(b, s)
-        x = self._embed_inputs(params, batch)
-        caches = []
-        for i, seg in enumerate(self.segments):
-            per_layer = []
-            for pl in seg.layers(params[f"seg{i}"]):
-                x, cl = seg.block.prefill(pl, x, positions=positions)
-                per_layer.append(cl)
-            cache = _stack(per_layer) if seg.scanned else per_layer[0]
-            caches.append(self._pad_cache(seg, cache, max_len, s))
-        h = self.final_norm(params["final_norm"], x[:, -1:])
+        b, s = batch["tokens"].shape
+        block = slot_sharding(b)
+        if block is not None:
+            batch = {k: block.local(v) for k, v in batch.items()}
+        with slot_rows(block):
+            n = batch["tokens"].shape[0]
+            positions = torch.arange(s, device=self.device).expand(n, s)
+            x = self._embed_inputs(params, batch)
+            caches = []
+            for i, seg in enumerate(self.segments):
+                per_layer = []
+                for pl in seg.layers(params[f"seg{i}"]):
+                    x, cl = seg.block.prefill(pl, x, positions=positions)
+                    per_layer.append(cl)
+                cache = _stack(per_layer) if seg.scanned else per_layer[0]
+                caches.append(self._pad_cache(seg, cache, max_len, s))
+            h = self.final_norm(params["final_norm"], x[:, -1:])
+            logits = self.logits(params, h)[:, 0]
         lengths = torch.full((b,), s, dtype=torch.int32, device=self.device)
-        return self.logits(params, h)[:, 0], caches, lengths
+        return logits, caches, lengths
 
     def _pad_cache(self, seg, cache, max_len: int, prompt_len: int):
         """Grow attention caches to serving size: zero rows up to max_len,
@@ -837,16 +920,20 @@ class DecoderLM:
         were (the reference leaves the latter to ``merge_caches``).
         ``page_tokens`` and ``max_len``, the layout ``init_caches`` /
         ``prefill`` built, tell a "seq" layer under a mesh the rows a rank
-        holds (``Block.cache_seq``)."""
-        x = self.embed(params["embed"], tokens)
-        x, caches = self._walk_segments(
-            params, x, caches,
-            lambda blk, pl, h, cl: blk.decode_step(
-                pl, h, cl, lengths=lengths, page_table=page_table,
-                active=active, page_tokens=page_tokens, max_len=max_len),
-            keep=active)
-        h = self.final_norm(params["final_norm"], x)
-        return self.logits(params, h)[:, 0], caches, lengths + 1
+        holds (``Block.cache_seq``). Under a slot split the logits are the
+        rank's slots' rows."""
+        block = slot_sharding(tokens.shape[0])
+        with slot_rows(block):
+            x = self.embed(params["embed"], slots_local(tokens))
+            x, caches = self._walk_segments(
+                params, x, caches,
+                lambda blk, pl, h, cl: blk.decode_step(
+                    pl, h, cl, lengths=lengths, page_table=page_table,
+                    active=active, page_tokens=page_tokens, max_len=max_len),
+                keep=None if active is None else slots_local(active))
+            h = self.final_norm(params["final_norm"], x)
+            logits = self.logits(params, h)[:, 0]
+        return logits, caches, lengths + 1
 
     def extend(self, params, tokens, caches, lengths, n_new, page_table=None,
                page_tokens=None, max_len=None):
@@ -860,14 +947,18 @@ class DecoderLM:
         cols = torch.arange(c, device=tokens.device)[None, :]
         positions = lengths[:, None] + cols
         valid = cols < n_new[:, None]
-        x = self.embed(params["embed"], tokens)
-        x, caches = self._walk_segments(
-            params, x, caches,
-            lambda blk, pl, h, cl: blk.extend(
-                pl, h, cl, positions=positions, valid=valid,
-                page_table=page_table, page_tokens=page_tokens,
-                max_len=max_len))
-        idx = (n_new.long() - 1).clamp(0, c - 1)
-        h_last = torch.gather(x, 1, idx[:, None, None].expand(b, 1, x.shape[-1]))
-        h = self.final_norm(params["final_norm"], h_last)
-        return self.logits(params, h)[:, 0], caches, lengths + n_new
+        block = slot_sharding(b)
+        with slot_rows(block):
+            x = self.embed(params["embed"], slots_local(tokens))
+            x, caches = self._walk_segments(
+                params, x, caches,
+                lambda blk, pl, h, cl: blk.extend(
+                    pl, h, cl, positions=positions, valid=valid,
+                    page_table=page_table, page_tokens=page_tokens,
+                    max_len=max_len))
+            idx = (slots_local(n_new).long() - 1).clamp(0, c - 1)
+            h_last = torch.gather(x, 1, idx[:, None, None].expand(
+                x.shape[0], 1, x.shape[-1]))
+            h = self.final_norm(params["final_norm"], h_last)
+            logits = self.logits(params, h)[:, 0]
+        return logits, caches, lengths + n_new

@@ -30,15 +30,27 @@ ring of t rows (``models/lm.py``). The rank that owns a new row writes
 it; the others drop the write to scratch. Every rank projects every head
 of every query, attends its queries against its own rows
 (``_partial_core``: the row maximum, the sum of exponentials and the
-unnormalised output, in f64) and merges every rank's parts after one
-gather a layer (``sharding.merge_partials``), rounding once. On one
-device a "seq" layer attends as every other does (``_attend_core``). The
-monolithic prefill and the training call attend whole; the prefill's
+unnormalised output, in f64: kernel B9, ``kernels/seq_attend.py``, on
+the card; its plain version on the host) and merges every rank's parts
+after one gather a layer (``sharding.merge_partials``), rounding once. On
+one card a "seq" serving layer attends through B9 too, as the merge's one
+part (the kernel divides and rounds once), so one card and every mesh
+give the same values. On one host device it attends as every other layer
+does (``_attend_core``, in the reference's CPU orders). The monolithic
+prefill and the training call attend whole; the prefill's
 caches keep the rank's rows (``models/lm.py``). The caller that lays out
 or reads a cache knows its whole length (the engine's page_tokens and
 max_len, a window ring's length) and passes the entry points its
 ``SeqBlock`` (``Attention.seq_block``); a cache the rule does not divide
 stays whole, and so does its attention.
+
+Where a model's serving entry point runs the rank's block of the slots
+(``sharding.slot_rows``, the data axes' split of the batch), x holds the
+rank's rows while the per-slot vectors the entry points take (lengths,
+positions, valid, active, page tables) stay whole: a layer reads its
+rows of them, writes the pool (whole on every rank) at every slot's
+positions after one gather of the new K/V rows over the data axes, and
+attends its own slots' pages.
 
 The softmax core is written in plain torch ops, as the reference writes it
 in jnp, so the parity tests compare like with like. A masked key gets
@@ -70,18 +82,19 @@ from repro_torch.distributed.sharding import (
     HeadBlock,
     SeqBlock,
     active_mesh,
+    active_slots,
     gather_blocks,
     head_sharding,
     merge_partials,
     seq_sharding,
+    slots_local,
 )
+from repro_torch.kernels.seq_attend import NEG_INF, seq_attend
 from repro_torch.nn import module as mod
 from repro_torch.nn.context import ModelContext
 from repro_torch.nn.linear import Dense
 from repro_torch.nn.norms import RMSNorm
 from repro_torch.nn.rotary import apply_rope
-
-NEG_INF = -1e30
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -166,30 +179,30 @@ def _attend_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bkgst,btkh->bskgh", probs, v)
 
 
-def _partial_softmax(scores: torch.Tensor, mask_b: torch.Tensor):
-    """f64 scores (B, K, G, S, T) over a rank's keys -> (e, m, l): e =
-    exp(s - m) at the valid keys and exactly 0 at the others (a masked
-    score is NEG_INF, not -inf, so a row with no valid key here would
-    otherwise weigh every key exp(0) = 1), m the row's largest score
-    (NEG_INF without a valid key) and l = sum e, both (B, S, K, G)."""
-    scores = torch.where(mask_b, scores, NEG_INF)
-    m = scores.amax(-1, keepdim=True)
-    e = torch.where(mask_b, torch.exp(scores - m), 0.0)
-    return e, m[..., 0].permute(0, 3, 1, 2), e.sum(-1).permute(0, 3, 1, 2)
-
-
 def _partial_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  mask: torch.Tensor, scale: float):
-    """``_attend_core``'s arguments over a rank's keys -> its partial
-    softmax (o (B, S, K, G, hd), m, l (B, S, K, G)) in f64: o = sum e v
-    (``_partial_softmax``), unnormalised; ``sharding.merge_partials``
-    combines every rank's. In f64 the result rounds to the same f32 or
-    bf16 value however the keys are split over ranks (but for a value
-    within ~1e-15 of a rounding boundary)."""
-    mask_b = mask[None, None, None] if mask.ndim == 2 else mask[:, None, None]
-    scores = torch.einsum("bskgh,btkh->bkgst", q.double(), k.double()) * scale
-    e, m, l = _partial_softmax(scores, mask_b)
-    return torch.einsum("bkgst,btkh->bskgh", e, v.double()), m, l
+                  mask: torch.Tensor, scale: float, ks=None, vs=None):
+    """``_attend_core``'s arguments over a rank's keys (int8 codes with
+    their scales ``ks`` / ``vs``, in ``_attend_quant``'s order) -> its
+    partial softmax (o (B, S, K, G, hd), m, l (B, S, K, G)) in f64: o = sum
+    e v, unnormalised, e = exp(s - m) at valid keys and exactly 0 at the
+    others; ``sharding.merge_partials`` combines every rank's. Kernel B9
+    (``kernels/seq_attend.py``) on the card, its plain version on the
+    host. In f64 the result rounds to the same f32 or bf16 value however
+    the keys are split over ranks (but for a value within ~1e-15 of a
+    rounding boundary)."""
+    return seq_attend(q, k, v, ks, vs, mask, scale)
+
+
+def _pool_rows(k: torch.Tensor, v: torch.Tensor):
+    """A tick's new K/V rows (B, C, K, hd) of the rank's slots -> every
+    slot's, for a pool every rank holds whole: one gather of k and v
+    together over the active slot block's axes (``sharding.slot_rows``);
+    as given where the rows are whole."""
+    block = active_slots()
+    if block is None:
+        return k, v
+    kv = block.gather(torch.cat([k, v], dim=-1), 0)
+    return kv[..., :k.shape[-1]], kv[..., k.shape[-1]:]
 
 
 def make_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool = True,
@@ -438,16 +451,31 @@ class Attention:
                else sb.positions(t, device))
         return pos.expand(b, t)
 
+    def _one_part(self, q: torch.Tensor) -> bool:
+        """A "seq" serving layer on a card attends as the mesh's one part
+        (kernel B9, rounded once), where no ``SeqBlock`` splits its rows."""
+        return self.act_mode == "seq" and not self.cross and q.device.type == "cuda"
+
+    def _attend_seq(self, q, views, mask, sb: Optional[SeqBlock]) -> torch.Tensor:
+        """B9 (its plain version on the host) over this rank's keys
+        ``views`` (k, v, and the scales of int8 codes) -> (B, S, K, G, hd)
+        in q's dtype: one part rounded once in the kernel without a
+        ``SeqBlock`` (one card), else merged with every other rank's parts
+        (one gather) and rounded once."""
+        k, v, ks, vs = (*views, None, None)[:4]
+        qg, scale = self._group(q).contiguous(), 1.0 / math.sqrt(self.hd)
+        if sb is None:
+            return seq_attend(qg, k, v, ks, vs, mask, scale, q.dtype)[0]
+        o, m, l = _partial_core(qg, k, v, mask, scale, ks, vs)
+        return merge_partials(o, m, l, sb).to(q.dtype)
+
     def _attend(self, q, k, v, mask, sb: Optional[SeqBlock]) -> torch.Tensor:
         """The attention of q (B, S, heads, hd) over k, v (B, T, K, hd) under
-        ``mask`` -> (B, S, K, G, hd): ``_attend_core``, or under a
-        ``SeqBlock`` this rank's f64 partial softmax merged with every other
-        rank's (one gather), rounded once to q's dtype."""
-        scale = 1.0 / math.sqrt(self.hd)
-        if sb is None:
-            return _attend_core(self._group(q), k, v, mask, scale)
-        o, m, l = _partial_core(self._group(q), k, v, mask, scale)
-        return merge_partials(o, m, l, sb).to(q.dtype)
+        ``mask`` -> (B, S, K, G, hd): ``_attend_core``, or B9 under a
+        ``SeqBlock`` or on a card (``_attend_seq``)."""
+        if sb is None and not self._one_part(q):
+            return _attend_core(self._group(q), k, v, mask, 1.0 / math.sqrt(self.hd))
+        return self._attend_seq(q, (k, v), mask, sb)
 
     def _attend_paged(self, params, q, cache_k, cache_v, page_table, positions,
                       hb, lengths=None, sb=None):
@@ -473,22 +501,24 @@ class Attention:
         ``page_table`` None the caches are dense (B, T, K, hd) slot rows (a
         monolithic prefill's): every slot writes its row into new tensors,
         which are returned. Under ``seq`` (``seq_block``) the caches hold
-        the rank's time rows."""
-        b = x.shape[0]
-        positions = lengths[:, None]
+        the rank's time rows; under a slot block the rank's slots (x, the
+        dense caches), ``lengths`` / ``page_table`` / ``active`` whole."""
+        lengths_l = slots_local(lengths)
+        positions = lengths_l[:, None]
         hb = self.heads()
         q, k, v = self._qkv(params, x, positions, heads=hb)
         if page_table is None:
             y, new = self._decode_dense(params, q, {"k": cache_k, "v": cache_v},
-                                        lengths, {"k": k[:, 0], "v": v[:, 0]}, hb,
-                                        seq)
+                                        lengths_l, {"k": k[:, 0], "v": v[:, 0]},
+                                        hb, seq)
             return y, new["k"], new["v"]
-        ok = (torch.ones((b,), dtype=torch.bool, device=x.device)
+        ok = (torch.ones((page_table.shape[0],), dtype=torch.bool, device=x.device)
               if active is None else active)[:, None]
-        scatter_pages(cache_k, page_table, positions, k, ok, seq)
-        scatter_pages(cache_v, page_table, positions, v, ok, seq)
-        y = self._attend_paged(params, q, cache_k, cache_v, page_table,
-                               positions, hb, lengths, seq)
+        k, v = _pool_rows(k, v)
+        scatter_pages(cache_k, page_table, lengths[:, None], k, ok, seq)
+        scatter_pages(cache_v, page_table, lengths[:, None], v, ok, seq)
+        y = self._attend_paged(params, q, cache_k, cache_v, slots_local(page_table),
+                               positions, hb, lengths_l, seq)
         return y, cache_k, cache_v
 
     def extend(self, params: dict, x: torch.Tensor, cache_k: torch.Tensor,
@@ -499,13 +529,16 @@ class Attention:
         """Chunked-prefill step: column j of row b carries the token at
         ``positions[b, j]``; padding columns (valid False) never write.
         Queries attend causally over the just-updated cache (the rank's
-        time rows under ``seq``)."""
+        time rows under ``seq``; under a slot block its slots' rows, with
+        ``positions`` / ``valid`` / ``page_table`` whole)."""
         hb = self.heads()
-        q, k, v = self._qkv(params, x, positions, heads=hb)
+        positions_l = slots_local(positions)
+        q, k, v = self._qkv(params, x, positions_l, heads=hb)
+        k, v = _pool_rows(k, v)
         scatter_pages(cache_k, page_table, positions, k, valid, seq)
         scatter_pages(cache_v, page_table, positions, v, valid, seq)
-        y = self._attend_paged(params, q, cache_k, cache_v, page_table,
-                               positions, hb, sb=seq)
+        y = self._attend_paged(params, q, cache_k, cache_v, slots_local(page_table),
+                               positions_l, hb, sb=seq)
         return y, cache_k, cache_v
 
     # ------------------------------------------------------------------
@@ -535,8 +568,12 @@ class Attention:
         pool, gathered per slot; rows past ``kv_lens`` (the last page's
         tail, stale rows) get exactly 0 weight, so the result is that of
         attending the unpadded memory. Under a head block the queries and
-        the caches are the rank's heads."""
+        the caches are the rank's heads; under a slot block x holds the
+        rank's slots, ``kv_lens`` and ``page_table`` every slot's."""
         b, s, _ = x.shape
+        kv_lens = slots_local(kv_lens)
+        if page_table is not None:
+            page_table = slots_local(page_table)
         hb = self.heads()
         q = self._proj("wq", params, x, self.n_heads, hb)
         if self.qk_norm:
@@ -559,14 +596,16 @@ class Attention:
     def _write_quant(self, cache: dict, page_table, positions, k, v, valid,
                      sb: Optional[SeqBlock] = None):
         """Quantize the new K/V rows and scatter codes and scales through
-        the one page table (the rank's rows under ``sb``); returns the
-        per-slot views of all four pools."""
+        the one page table (the rank's rows under ``sb``; every slot's,
+        gathered first, under a slot block); returns the per-slot views of
+        all four pools (the rank's slots')."""
+        k, v = _pool_rows(k, v)
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)
         for name, rows in (("k", kq), ("v", vq), ("ks", ks), ("vs", vs)):
             scatter_pages(cache[name], page_table, positions, rows, valid, sb)
-        return [gather_pages(cache[name], page_table)
-                for name in ("k", "v", "ks", "vs")]
+        table = slots_local(page_table)
+        return [gather_pages(cache[name], table) for name in ("k", "v", "ks", "vs")]
 
     def _attend_quant(self, params, q, views, mask, cd, hb, sb=None):
         """The reference's scale-factored attend, in its order of operations:
@@ -574,20 +613,14 @@ class Attention:
         and no dequantized (B, T, K, hd) cache is built. Scores in f32,
         times ks, times 1/sqrt(hd), masked, softmax, cast to ``cd``; the
         probabilities times vs, then the product with the codes in ``cd``.
-        Under a ``SeqBlock`` (the rank's codes and scales) the same order
-        in f64 gives this rank's partial softmax (exp(s - m) times vs, then
-        the product with the codes), merged with the other ranks' and
-        rounded once to ``cd``."""
+        Under a ``SeqBlock`` (the rank's codes and scales), or for a "seq"
+        layer on a card, the same order in f64 (B9, ``_attend_seq``: exp(s
+        - m) times vs, then the product with the codes) gives the rank's
+        partial softmax, merged with the other ranks' and rounded once to
+        q's dtype, ``cd``."""
         vk, vv, vks, vvs = views
-        if sb is not None:
-            scores = torch.einsum("bskgh,btkh->bkgst", self._group(q).double(),
-                                  vk.double())
-            scores = scores * vks.double().permute(0, 2, 1)[:, :, None, None, :]
-            e, m, l = _partial_softmax(scores * (1.0 / math.sqrt(self.hd)),
-                                       mask[:, None, None])
-            pv = e * vvs.double().permute(0, 2, 1)[:, :, None, None, :]
-            o = torch.einsum("bkgst,btkh->bskgh", pv, vv.double())
-            return self._out(params, merge_partials(o, m, l, sb).to(cd), hb)
+        if sb is not None or self._one_part(q):
+            return self._out(params, self._attend_seq(q, views, mask, sb), hb)
         scores = torch.einsum("bskgh,btkh->bkgst", self._group(q),
                               vk.to(cd)).float()
         scores = scores * vks.permute(0, 2, 1)[:, :, None, None, :]
@@ -606,10 +639,11 @@ class Attention:
         quantized per token and head (as a monolithic prefill would), padding
         columns never write, and the queries attend causally."""
         hb = self.heads()
-        q, k, v = self._qkv(params, x, positions, heads=hb)
+        positions_l = slots_local(positions)
+        q, k, v = self._qkv(params, x, positions_l, heads=hb)
         views = self._write_quant(cache, page_table, positions, k, v, valid, seq)
         k_pos = self._key_positions(views[0].shape[1], x.shape[0], seq, x.device)
-        mask = make_mask(positions, k_pos, causal=True, window=self.window)
+        mask = make_mask(positions_l, k_pos, causal=True, window=self.window)
         return self._attend_quant(params, q, views, mask, v.dtype, hb, seq), cache
 
     def decode_step_quant(self, params: dict, x: torch.Tensor, cache: dict,
@@ -623,18 +657,19 @@ class Attention:
         the codes and scales are dense (B, T, ...) slot rows, as in
         ``decode_step``."""
         b = x.shape[0]
-        positions = lengths[:, None]
+        lengths_l = slots_local(lengths)
+        positions = lengths_l[:, None]
         hb = self.heads()
         q, k, v = self._qkv(params, x, positions, heads=hb)
         if page_table is None:
             kq, ks = quantize_kv(k[:, 0])
             vq, vs = quantize_kv(v[:, 0])
-            return self._decode_dense(params, q, cache, lengths,
+            return self._decode_dense(params, q, cache, lengths_l,
                                       {"k": kq, "v": vq, "ks": ks, "vs": vs}, hb, seq)
-        ok = (torch.ones((b,), dtype=torch.bool, device=x.device)
+        ok = (torch.ones((page_table.shape[0],), dtype=torch.bool, device=x.device)
               if active is None else active)[:, None]
-        views = self._write_quant(cache, page_table, positions, k, v, ok, seq)
+        views = self._write_quant(cache, page_table, lengths[:, None], k, v, ok, seq)
         k_pos = self._key_positions(views[0].shape[1], b, seq, x.device)
         mask = make_mask(positions, k_pos, causal=True, window=self.window,
-                         k_valid=k_pos <= lengths[:, None])
+                         k_valid=k_pos <= lengths_l[:, None])
         return self._attend_quant(params, q, views, mask, v.dtype, hb, seq), cache

@@ -6,6 +6,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed.sharding import slots_matmul
 from repro_torch.nn import module as mod
 from repro_torch.nn.context import ModelContext
 
@@ -32,5 +33,6 @@ class Embedding:
         return params["table"][ids].to(self.ctx.compute_dtype)
 
     def attend(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        """Tied logits head: x @ table^T."""
-        return x @ params["table"].to(self.ctx.compute_dtype).T
+        """Tied logits head: x @ table^T (over every slot's rows under a slot
+        split, ``sharding.slots_matmul``)."""
+        return slots_matmul(x, params["table"].to(self.ctx.compute_dtype).T)

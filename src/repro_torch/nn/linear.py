@@ -43,6 +43,7 @@ from repro_torch.distributed.sharding import (
     _mesh_extent,
     dense_train_shards,
     fsdp_gather,
+    slots_matmul,
 )
 from repro_torch.kernels.ops import (
     Padding,
@@ -197,11 +198,11 @@ class Dense:
         if self.spec is not None:  # unaligned: documented dense fallback
             t = unpack_bits(params["tile"], self.spec.q, dtype=cd)
             w = reconstruct_from_tile(t, params["alpha"], self.spec, dtype=cd)
-            return x @ w.reshape(self.n_out, self.n_in).T
+            return slots_matmul(x, w.reshape(self.n_out, self.n_in).T)
         if "wbits" in params:
             w = unpack_bits(params["wbits"], self.n_in, dtype=cd)
-            return x @ (w * params["alpha"].to(cd)).T
-        return x @ params["w"].to(cd).T
+            return slots_matmul(x, (w * params["alpha"].to(cd)).T)
+        return slots_matmul(x, params["w"].to(cd).T)
 
 
 @dataclasses.dataclass

@@ -67,6 +67,7 @@ from repro_torch.distributed.sharding import (
     gather_blocks,
     reduce_shards,
     shard_index,
+    slots_matmul,
     sum_over,
     sum_shards,
     tile_sharding,
@@ -221,7 +222,7 @@ class MoE:
         """f32 router over the last axis of xg (..., d) -> (probs (..., E),
         gates (..., k) renormalised to sum 1, expert ids (..., k))."""
         with full_f32_matmul():
-            logits = xg.float() @ router.T
+            logits = slots_matmul(xg.float(), router.T)
         probs = torch.softmax(logits, dim=-1)
         gate_vals, top_idx = top_k_lower_first(probs, self.top_k)
         gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)

@@ -159,7 +159,7 @@ def model_flops(cfg, cell, n_params_active: int) -> float:
 @dataclasses.dataclass(frozen=True)
 class KernelWork:
     """One kernel call's work: ``ops`` at the rate of ``peak`` ("bf16",
-    "f32" or "int8") and ``bytes`` moved (each input read once, each output
+    "f32", "f64" or "int8") and ``bytes`` moved (each input read once, each output
     written once)."""
 
     ops: float
@@ -182,8 +182,9 @@ def _float_peak(dtype: torch.dtype) -> str:
 
 
 def kernel_terms(name: str, x_shape, packed_shape=None, dtype=torch.bfloat16,
-                 *, out_hw=None, with_a: bool = False) -> KernelWork:
-    """B1-B6's operations and bytes for one call on these operands:
+                 *, out_hw=None, with_a: bool = False, kv_dtype=None,
+                 out_dtype=None, mask=None) -> KernelWork:
+    """B1-B6's and B9's operations and bytes for one call on these operands:
 
     * "B1" / "B2": x (m, K) of ``dtype``, packed (r, K/32) int32 -> (m, r)
       f32: 2 m K r float ops;
@@ -195,6 +196,14 @@ def kernel_terms(name: str, x_shape, packed_shape=None, dtype=torch.bfloat16,
       sums and |A| sums);
     * "B6": x (N, Hp, Wp, C) of ``dtype``, packed (kh kw, r, C/32) ->
       (N, OH, OW, r) f32 at ``out_hw``: 2 N OH OW kh kw C r.
+    * "B9": q (B, S, K, G, hd) of ``dtype``, k and v ``packed_shape`` (B,
+      T, K, hd) of ``kv_dtype`` (int8 codes bring (B, T, K) f32 scales
+      each), the (B, S, T) mask -> o in ``out_dtype`` (None: f64 partials)
+      and f64 m, l: 4 hd f64 ops a (row, key) pair (the score's and the
+      output's multiply-adds). Every key and pair by default; with the
+      bool ``mask`` the pairs it lets through and the keys of a (slot,
+      K/V head) that any of them reads, which is what the kernel reads
+      and computes (it skips a tile of 64 keys with no valid pair).
     """
     numel = lambda shape: float(torch.Size(shape).numel())
     if name in ("B1", "B2", "B3", "B4"):
@@ -217,6 +226,20 @@ def kernel_terms(name: str, x_shape, packed_shape=None, dtype=torch.bfloat16,
         read = numel(x_shape) * dtype.itemsize + taps * r * words * 4
         return KernelWork(2.0 * m * taps * c * r, read + m * r * 4,
                           _float_peak(dtype))
+    if name == "B9":
+        b, s, kh, g, hd = x_shape
+        t = packed_shape[1]
+        kv = kv_dtype or dtype
+        if mask is None:
+            pairs, keys = float(b * s * t), float(b * t)
+        else:
+            m3 = mask.expand(b, s, t)
+            pairs, keys = float(m3.sum()), float(m3.any(1).sum())
+        kv_bytes = 2 * kh * hd * kv.itemsize + (2 * kh * 4 if kv == torch.int8 else 0)
+        rows = b * s * kh * g
+        o_bytes = rows * hd * (out_dtype.itemsize if out_dtype is not None else 8)
+        read = numel(x_shape) * dtype.itemsize + keys * kv_bytes + b * s * t
+        return KernelWork(4.0 * hd * kh * g * pairs, read + o_bytes + rows * 16, "f64")
     raise ValueError(f"kernel_terms: unknown kernel {name!r}")
 
 
@@ -236,6 +259,9 @@ KERNEL_OPS = {
     "tiled_conv_unique": ("B6", lambda x, packed, kernel, stride, out_hw, *_:
                           kernel_terms("B6", x.shape, packed.shape, x.dtype,
                                        out_hw=out_hw)),
+    "seq_attend": ("B9", lambda q, k, v, ks, vs, mask, scale, out_dtype=None:
+                   kernel_terms("B9", q.shape, k.shape, q.dtype, kv_dtype=k.dtype,
+                                out_dtype=out_dtype)),
 }
 
 # c10d operator -> the reference's collective kind

@@ -3,7 +3,7 @@
 Data-sheet figures (dense, no sparsity), for the SXM card at its 700 W
 limit and the PCIe and NVL cards at theirs; a card set below its limit
 runs slower under load. Rates are per card: HBM bytes/s, bf16 and int8
-tensor-core op/s, and f32 op/s outside the tensor cores.
+tensor-core op/s, and f32 and f64 op/s outside the tensor cores.
 """
 from __future__ import annotations
 
@@ -19,16 +19,18 @@ class Card:
     bf16: float            # bf16 tensor-core flop/s
     f32: float             # f32 flop/s outside the tensor cores
     int8: float            # int8 tensor-core op/s
+    f64: float             # f64 flop/s outside the tensor cores
 
     def peak(self, kind: str) -> float:
-        """The op rate of ``kind``: "bf16", "f32" or "int8"."""
-        return {"bf16": self.bf16, "f32": self.f32, "int8": self.int8}[kind]
+        """The op rate of ``kind``: "bf16", "f32", "f64" or "int8"."""
+        return {"bf16": self.bf16, "f32": self.f32, "f64": self.f64,
+                "int8": self.int8}[kind]
 
 
 CARDS = {
-    "SXM": Card("H100 SXM", 3.35e12, 989e12, 67e12, 1979e12),
-    "PCIe": Card("H100 PCIe", 2.0e12, 756e12, 51e12, 1513e12),
-    "NVL": Card("H100 NVL", 3.9e12, 835e12, 60e12, 1671e12),
+    "SXM": Card("H100 SXM", 3.35e12, 989e12, 67e12, 1979e12, 34e12),
+    "PCIe": Card("H100 PCIe", 2.0e12, 756e12, 51e12, 1513e12, 26e12),
+    "NVL": Card("H100 NVL", 3.9e12, 835e12, 60e12, 1671e12, 30e12),
 }
 
 

@@ -80,8 +80,16 @@ preempt-and-resume, and telemetry (port of ``repro/serve/engine.py``).
   (built under the rules too) holding that block of the K/V heads; one
   whose ``attn_act`` is "seq" holds the rank's rows of each page (the
   positions = its index mod TP) and of each window ring, and merges the
-  ranks' partial softmaxes. Page ids and page tables are global and equal
-  on every rank; only what each page holds differs. Every rank runs the same tick bodies. The mesh's first rank
+  ranks' partial softmaxes. Where the data axes divide ``n_slots``
+  (``distributed.sharding.slot_sharding``, the reference's "act_batch"),
+  data rank d runs slots [d n / DP, (d + 1) n / DP): the model's entry
+  points take its rows, its per-slot caches hold its slots, it samples its
+  rows and the tick's ids are gathered over the data axes; the pools stay
+  whole on every rank (a trie hit or a resume may cross data blocks), each
+  layer's new K/V rows gathered before they are written, and a slot's
+  snapshot is gathered so that any data rank can restore it. Page ids and
+  page tables are global and equal on every rank; only what each page
+  holds differs. Every rank runs the same tick bodies. The mesh's first rank
   alone takes ``submit`` / ``abort`` / ``abort_all`` and mirrors them to
   the other ranks at the start of each ``step()``; those ranks run
   ``follow()`` until ``stop_followers()`` (the tick control,
@@ -111,6 +119,7 @@ from repro_torch.distributed.sharding import (
     axis_rules,
     broadcast_from_first,
     place_params,
+    slot_sharding,
 )
 from repro_torch.kernels.ops import check_compute_path
 from repro_torch.nn import module as mod
@@ -459,6 +468,8 @@ class BatchedEngine:
                                             model.ctx.compute_dtype,
                                             page_tokens=self.pt, n_pages=n_pages,
                                             **cache_kw)
+            # the rank's block of the slots (None: every slot)
+            self._slots = slot_sharding(cfg.n_slots)
         self._stateful = model.has_recurrent_state
         # captured boundary snapshots per slot, and the boundaries of its
         # prompt that still need one (computed at admission)
@@ -1115,11 +1126,21 @@ class BatchedEngine:
             budget -= take
         return takes
 
+    def _rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's slots' rows of a per-slot tensor (every row without a
+        slot split)."""
+        return t if self._slots is None else self._slots.local(t)
+
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        """The ids sampled from a tick's logits: every slot's, or under a
+        slot split the rank's slots' (its rows of the logits)."""
+        n = logits.shape[0]
+        first = 0 if self._slots is None else self._slots.index * n
+        rows = range(first, first + n)
         seeds = [row_seed(self._streams[s], int(self._counts[s]))
-                 if self._temps[s] > 0 else None
-                 for s in range(self.cfg.n_slots)]
-        return sample_logits_batch(logits, self._temps, self._topks, seeds)
+                 if self._temps[s] > 0 else None for s in rows]
+        return sample_logits_batch(logits, self._temps[first:first + n],
+                                   self._topks[first:first + n], seeds)
 
     def _mesh_ctx(self):
         """The sharding rules' context for a tick; a no-op without a mesh."""
@@ -1128,11 +1149,14 @@ class BatchedEngine:
         return axis_rules(self.mesh)
 
     def _agree(self, ids: torch.Tensor) -> torch.Tensor:
-        """A tick's sampled ids, as the mesh's first rank drew them (one
-        broadcast a tick), so every rank emits the same tokens and keeps
-        the same schedule; ``ids`` as given without a mesh."""
+        """A tick's sampled ids of every slot, as the mesh's first rank holds
+        them: a rank's rows gathered over the data axes under a slot split,
+        then one broadcast a tick, so every rank emits the same tokens and
+        keeps the same schedule; ``ids`` as given without a mesh."""
         if self.mesh is None:
             return ids
+        if self._slots is not None:
+            ids = self._slots.gather(ids, 0)
         return broadcast_from_first(ids.contiguous(), self.mesh)
 
     def _emit(self, slot: int, req: Request, tok: int):
@@ -1194,20 +1218,23 @@ class BatchedEngine:
         pools are left alone. A slot index of n_slots zeroes nothing."""
         TRACE_COUNTS["reset_slot"] += 1
         _check_in_place(self.caches, self.model.reset_slot_caches(
-            self.caches, self._slot_t, paged=True), "reset_slot")
+            self.caches, self._slot_t, paged=True, n_slots=self.cfg.n_slots),
+            "reset_slot")
 
     def _snapshot_slot(self):
         """Slot ``_slot_t``'s per-slot rows as a tree of new tensors (a
         graph's static output once captured: the caller clones it)."""
         TRACE_COUNTS["snapshot_slot"] += 1
-        return self.model.snapshot_slot_caches(self.caches, self._slot_t)
+        return self.model.snapshot_slot_caches(self.caches, self._slot_t,
+                                               n_slots=self.cfg.n_slots)
 
     def _restore_slot(self) -> None:
         """Write ``_snap_in`` into slot ``_slot_t``'s per-slot rows, in
         place; a slot index of n_slots writes nothing."""
         TRACE_COUNTS["restore_slot"] += 1
         _check_in_place(self.caches, self.model.restore_slot_caches(
-            self.caches, self._slot_t, self._snap_in), "restore_slot")
+            self.caches, self._slot_t, self._snap_in, n_slots=self.cfg.n_slots),
+            "restore_slot")
 
     def _encode_tick(self) -> None:
         """The ENCODE phase of one request: the padded (1, enc_tokens)
@@ -1450,8 +1477,8 @@ class BatchedEngine:
         self._ptab_t.copy_(torch.from_numpy(self._ptab))
         self._copy_cross_inputs()
         logits = self._tick("decode_tick")
-        nxt = self._agree(torch.where(self._active_t, self._sample(logits),
-                                      self.tokens[:, 0]))
+        nxt = self._agree(torch.where(self._rows(self._active_t), self._sample(logits),
+                                      self._rows(self.tokens[:, 0])))
         self.tokens.copy_(nxt[:, None])
         nxt_host = nxt.tolist()
         t_host = time.perf_counter()

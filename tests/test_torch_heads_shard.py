@@ -307,10 +307,8 @@ def test_meshed_engine_on_head_blocks_equals_the_jax_engine(job, path, kv):
 
 @pytest.mark.parametrize("path", PATHS)
 def test_int8_codes_and_scales_are_the_single_engines_head_slice(job, path):
-    """Exact on the integer paths. On the float path the CPU's plain B1 / B2
-    on a rank's r/TP tile rows may round a K/V element apart from the whole
-    call's (the card's kernels plan for the whole call and do not), so the
-    scales there agree to 1e-6 and a code by at most one step."""
+    """Exact on every path: a rank's B1 / B2 (their plain versions here)
+    sum each element of its r/TP tile rows as the whole call does."""
     one = _single(path, "int8")[1][0]
     for rank, r in enumerate(job[0][f"engine/{path}/int8"]):
         held = r["caches"][0]
@@ -318,12 +316,7 @@ def test_int8_codes_and_scales_are_the_single_engines_head_slice(job, path):
             codes = name in ("k", "v")
             want = one[name].narrow(held[name].ndim - (2 if codes else 1), rank, 1)
             assert held[name].dtype == (torch.int8 if codes else torch.float32)
-            if path != "float":
-                assert torch.equal(held[name], want), name
-            elif codes:
-                assert int((held[name].int() - want.int()).abs().max()) <= 1, name
-            else:
-                torch.testing.assert_close(held[name], want, rtol=1e-6, atol=0)
+            assert torch.equal(held[name], want), name
 
 
 def test_warm_ticks_gather_each_layers_attention_by_heads(job):
